@@ -1,8 +1,8 @@
 """Carry weights across from the JAX package.
 
-The JAX package keeps LightGCN's trainable state as the pytree
-``{"user_emb": (U, d), "item_emb": (I, d)}``; arrays arrive here as numpy,
-so this module needs no JAX.
+The JAX package keeps the trainable state of LightGCN, SGL and SimGCL as
+the pytree ``{"user_emb": (U, d), "item_emb": (I, d)}``; arrays arrive here
+as numpy, so this module needs no JAX.
 """
 
 from __future__ import annotations
@@ -13,10 +13,15 @@ import numpy as np
 import torch
 
 
-def lightgcn_params_from_jax(params: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
-    """The port's LightGCN ``state_dict`` from the JAX parameter dict:
-    ``model.load_state_dict(lightgcn_params_from_jax(p, device))``."""
+def embedding_params_from_jax(params: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
+    """The port's ``state_dict`` of an embedding graph model (LightGCN, SGL,
+    SimGCL) from the JAX parameter dict:
+    ``model.load_state_dict(embedding_params_from_jax(p, device))``."""
     return {
         name: torch.tensor(np.asarray(params[name], dtype=np.float32), device=device)
         for name in ("user_emb", "item_emb")
     }
+
+
+# the name of slice 1, when LightGCN was the only such model
+lightgcn_params_from_jax = embedding_params_from_jax

@@ -4,8 +4,9 @@ base/graphRecommender.py).
 
 A model is an ``nn.Module`` on an explicit device. It implements
 ``build() -> TrainSpec``; the inherited ``fit()`` trains with fixed-LR Adam
-(runtime/trainer.py) and ``finalize`` leaves the final user and item
-factors in ``self.U`` / ``self.V`` for the full-catalog ranker.
+(runtime/trainer.py), with a per-epoch quick evaluation and best-epoch
+selection when the spec asks for it, and ``finalize`` leaves the final user
+and item factors in ``self.U`` / ``self.V`` for the full-catalog ranker.
 """
 
 from __future__ import annotations
@@ -21,6 +22,8 @@ from ..config import ModelConf, OptionConf
 from ..data.dataset import Interactions
 from ..errors import ConfigError
 from ..ops import sampling
+from ..ops.metrics import device_ranking_metrics
+from ..ops.topk import CatalogRanker
 from ..runtime import trainer as T
 
 DEFAULT_SEED = 2026
@@ -28,8 +31,9 @@ DEFAULT_SEED = 2026
 
 class TrainSpec:
     """A single-phase training problem: the parameters to train, the
-    per-batch loss, the epoch sampler, and the map from trained parameters
-    to the final (user, item) factors."""
+    per-batch loss ``loss_fn(batch, generator)``, the epoch sampler, the map
+    from trained parameters to the final (user, item) factors, and whether
+    to evaluate every epoch and keep the best epoch's parameters."""
 
     def __init__(
         self,
@@ -37,11 +41,13 @@ class TrainSpec:
         loss_fn: Callable,
         sampler: Callable,
         score_params_fn: Callable,
+        track_best: bool = False,
     ):
         self.params = list(params)
         self.loss_fn = loss_fn
         self.sampler = sampler
         self.score_params_fn = score_params_fn
+        self.track_best = track_best
 
 
 class Recommender(nn.Module):
@@ -58,6 +64,7 @@ class Recommender(nn.Module):
         self.device = torch.device(device)
         self.model_name = conf["model.name"]
         self.eval_settings = conf.options("evaluation.setup")
+        self.ranking = conf.options("item.ranking")
         self.num_users, self.num_items, self.train_size = data.trainingSize()
         self.seed = conf.get_int("seed", DEFAULT_SEED)
         self.U: Optional[torch.Tensor] = None
@@ -190,27 +197,71 @@ class IterativeRecommender(Recommender):
         self.U = users.contiguous()
         self.V = items.contiguous()
 
-    def _emit(self, epoch: int, loss: float, wall: float) -> None:
-        """Epoch line (iterativeRecommender.py:88-94)."""
+    # -- quick eval -------------------------------------------------------
+    def _quick_ranker(self) -> Optional[CatalogRanker]:
+        """The top-N ranker of the per-epoch evaluation, N = max(-topN) (10
+        outside 1..100); None without ranking or test users."""
+        if not self.ranking.isMainOn() or len(self.data.test_set_u) == 0:
+            return None
+        if not hasattr(self, "_ranker"):
+            n = max(self.ranking.get_ints("-topN"))
+            if n > 100 or n < 1:
+                n = 10
+            self._top_n = n
+            self._ranker = CatalogRanker(
+                self.data, k=n, device=self.device, batch_size=self.eval_batch_size
+            )
+        return self._ranker
+
+    def quick_eval(self, spec: TrainSpec) -> dict:
+        """Precision/Recall/F1/NDCG at the top N of the current parameters,
+        ranked and measured on the device; one host copy of four numbers."""
+        ranker = self._quick_ranker()
+        with torch.no_grad():
+            users, items = spec.score_params_fn()
+        ids, _ = ranker.topk_device(users.contiguous(), items, self.rated_bitmask)
+        dev = device_ranking_metrics(ids, ranker.test_ids, ranker.test_counts, [self._top_n])
+        return {k: float(v) for k, v in dev[self._top_n].items()}
+
+    def _emit(self, epoch: int, loss: float, wall: float, metrics: Optional[dict] = None) -> None:
+        """Epoch line (iterativeRecommender.py:88-94), with the quick
+        evaluation's measures when there is one."""
         eps = self.train_size / wall if wall > 0 else 0.0
+        extra = "" if metrics is None else " " + " ".join(f"{k}:{v:.5f}" for k, v in metrics.items())
         print(
             f"{self.model_name} {self.fold} epoch {epoch + 1}: "
-            f"loss = {loss:.4f} learning_rate = {self.lrate:.5f} "
+            f"loss = {loss:.4f} learning_rate = {self.lrate:.5f}{extra} "
             f"[{wall * 1e3:.1f} ms, {eps:,.0f} ex/s]"
         )
 
     def fit(self, epoch_batches: Optional[Sequence] = None) -> List[float]:
         """Train for ``num.max.epoch`` epochs and finalize. ``epoch_batches``
         injects one (users, pos, neg, weight) tuple of arrays per epoch in
-        place of the sampler. Returns the per-epoch losses."""
+        place of the sampler. When the spec tracks the best epoch, the
+        parameters of the epoch that won the vote are restored before
+        finalizing (base/iterativeRecommender.py:132-169). Returns the
+        per-epoch losses."""
         spec = self.build()
         gen = torch.Generator(device=self.device).manual_seed(self.seed + 1)
+        tracker = None
+        if spec.track_best and self._quick_ranker() is not None:
+            tracker = T.BestTracker()
+        self.tracker = tracker
         self.epoch_losses, self.timer = T.train(
             spec.params, spec.loss_fn, spec.sampler,
             max_epoch=self.max_epoch, lr=self.lrate, device=self.device,
             generator=gen, examples_per_epoch=self.train_size,
             emit=self._emit, epoch_batches=epoch_batches,
+            quick_eval=lambda: self.quick_eval(spec), tracker=tracker,
         )
+        if tracker is not None and tracker.best_params is not None:
+            print(
+                f"{self.model_name} {self.fold} best epoch {tracker.best_epoch}: "
+                + " | ".join(f"{k}:{v:.5f}" for k, v in tracker.best_metrics.items())
+            )
+            with torch.no_grad():
+                for p, best in zip(spec.params, tracker.best_params):
+                    p.copy_(best)
         self.finalize(spec)
         return self.epoch_losses
 
@@ -221,8 +272,9 @@ def check_graph_settings(conf: ModelConf) -> None:
     backend = conf.get("graph.backend", "auto")
     if backend not in ("auto", "dense"):
         raise ConfigError(
-            f"graph.backend={backend} is not ported yet (ROADMAP.md Queue 2: "
-            "weighted_segment_matmul and the sparse COO paths); use auto|dense"
+            f"graph.backend={backend} is not ported yet (ROADMAP.md Queue 2 item 3: "
+            "weighted_segment_matmul; Queue 1 items 5 and 9: the sparse COO paths "
+            "and SGL's non-dense views); use auto|dense"
         )
     quant = conf.get("graph.dense.quant", "auto")
     if quant not in ("auto", "factored"):

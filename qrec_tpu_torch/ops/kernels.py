@@ -7,6 +7,10 @@ launch counters and the build step (counterpart of the JAX package's
 * :func:`masked_catalog_scores` — ``U_block @ Vᵀ`` with rated items set to
   ``mask_value`` from a packed bitmask (``csrc/masked_scores.cu``; replaces
   ``_score_kernel``).
+* :func:`infonce_fwd` / :func:`infonce_bwd` — the masked InfoNCE loss over
+  normalized views and its two cotangents, never writing the B x B logits
+  (``csrc/infonce.cu``; replace ``_infonce_kernel`` and
+  ``_infonce_bwd_kernel``).
 
 Dispatch rule: a CPU tensor goes to the plain version; a CUDA tensor goes
 to the kernel, which raises if it cannot be built or launched. There is no
@@ -29,7 +33,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -45,14 +49,17 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
 class Kernel:
-    """One CUDA source: its C entry point's signature, its loaded library
-    and a plain count of launches on CUDA tensors."""
+    """One kernel of a CUDA source: its C entry point's signature, the
+    signatures of the source's int-returning queries it needs (``queries``),
+    its loaded library and a plain count of launches on CUDA tensors."""
 
-    def __init__(self, name: str, source: str, symbol: str, argtypes: Sequence):
+    def __init__(self, name: str, source: str, symbol: str, argtypes: Sequence,
+                 queries: Optional[Dict[str, Sequence]] = None):
         self.name = name
         self.source = CSRC / source
         self.symbol = symbol
         self.argtypes = list(argtypes)
+        self.queries = dict(queries or {})
         self.launches = 0
         self._lib = None
 
@@ -66,9 +73,10 @@ class Kernel:
             if not path.exists():
                 build([self])
             lib = ctypes.CDLL(str(path))
-            fn = getattr(lib, self.symbol)
-            fn.argtypes = self.argtypes
-            fn.restype = _I
+            for symbol, argtypes in [(self.symbol, self.argtypes), *self.queries.items()]:
+                fn = getattr(lib, symbol)
+                fn.argtypes = list(argtypes)
+                fn.restype = _I
             self._lib = lib
         return self._lib
 
@@ -88,7 +96,17 @@ SCORES = Kernel(
     "masked_catalog_scores", "masked_scores.cu", "qrec_masked_scores",
     [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
 )
-KERNELS: Tuple[Kernel, ...] = (DUAL, SCORES)
+INFONCE_FWD = Kernel(
+    "infonce_fwd", "infonce.cu", "qrec_infonce_fwd",
+    [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _P],
+    queries={"qrec_infonce_fwd_scratch": [_I, _I, _I]},
+)
+INFONCE_BWD = Kernel(
+    "infonce_bwd", "infonce.cu", "qrec_infonce_bwd",
+    [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _P],
+    queries={"qrec_infonce_bwd_scratch": [_I, _I, _I, _I]},
+)
+KERNELS: Tuple[Kernel, ...] = (DUAL, SCORES, INFONCE_FWD, INFONCE_BWD)
 
 _build_lock = threading.Lock()
 
@@ -104,17 +122,17 @@ def nvcc_path() -> str:
 
 
 def build(kernels: Sequence[Kernel] = KERNELS) -> Dict[str, Path]:
-    """Compile every kernel whose library is missing, one ``nvcc`` process per
+    """Compile every source whose library is missing, one ``nvcc`` process per
     source, all started together. Each writes a temporary file that is
     renamed into place, so a concurrent build never loads half a library."""
     with _build_lock:
-        todo = [k for k in kernels if not k.library_path().exists()]
+        # kernels of one source share its library
+        todo = {k.library_path(): k for k in kernels if not k.library_path().exists()}
         if todo:
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             nvcc = nvcc_path()
             procs = []
-            for k in todo:
-                out = k.library_path()
+            for out, k in todo.items():
                 tmp = out.with_suffix(f".{os.getpid()}.tmp")
                 cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(k.source)]
                 procs.append((k, out, tmp, subprocess.Popen(
@@ -284,3 +302,125 @@ def masked_catalog_scores(
         torch.cuda.current_stream(u_block.device).cuda_stream,
     )
     return out
+
+
+# ---------------------------------------------------------------------------
+# masked InfoNCE, forward and backward
+# ---------------------------------------------------------------------------
+
+INFONCE_MAX_D = 256
+# the finite value of a masked logit, as the JAX package fills it
+INFONCE_MASKED = -1e30
+
+
+@functools.lru_cache(maxsize=None)
+def _num_sms(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _infonce_logits(v1, v2, cmask, temperature: float, row_offset: int):
+    """(masked logits (b_loc, B), diagonal (b_loc, B) bool)."""
+    logits = (v1 @ v2.T) / temperature
+    logits = torch.where(cmask[None, :] > 0, logits, torch.full_like(logits, INFONCE_MASKED))
+    rows = torch.arange(v1.shape[0], device=v1.device)[:, None] + row_offset
+    diag = rows == torch.arange(v2.shape[0], device=v1.device)[None, :]
+    return logits, diag
+
+
+def infonce_fwd_plain(v1, v2, cmask, rmask, temperature: float, row_offset: int = 0):
+    """Plain version of :func:`infonce_fwd`: the (b_loc, B) logits written
+    out, ``pos`` read after masking."""
+    logits, diag = _infonce_logits(v1, v2, cmask, temperature, row_offset)
+    pos = torch.where(diag, logits, torch.zeros_like(logits)).sum(dim=1)
+    lse = torch.logsumexp(logits, dim=1)
+    return (rmask * (lse - pos)).sum(), lse
+
+
+def infonce_bwd_plain(v1, v2, cmask, rmask, lse, temperature: float, row_offset: int = 0):
+    """Plain version of :func:`infonce_bwd`: the explicit formula, not
+    autograd, on the (b_loc, B) matrices written out."""
+    logits, diag = _infonce_logits(v1, v2, cmask, temperature, row_offset)
+    p = torch.exp(logits - lse[:, None])
+    dlog = rmask[:, None] * (p - diag.float()) / temperature
+    return dlog @ v2, dlog.T @ v1
+
+
+def _check_infonce(v1, v2, cmask, rmask, lse=None) -> Tuple[int, int, int]:
+    _check(v1, "v1", (torch.float32,), 2)
+    _check(v2, "v2", (torch.float32,), 2)
+    _check(cmask, "cmask", (torch.float32,), 1)
+    _check(rmask, "rmask", (torch.float32,), 1)
+    if lse is not None:
+        _check(lse, "lse", (torch.float32,), 1)
+    b_loc, d = v1.shape
+    b = v2.shape[0]
+    if (v2.shape[1] != d or cmask.shape != (b,) or rmask.shape != (b_loc,)
+            or (lse is not None and lse.shape != (b_loc,))):
+        raise ValueError(
+            f"shape mismatch: v1 {tuple(v1.shape)}, v2 {tuple(v2.shape)}, cmask "
+            f"{tuple(cmask.shape)}, rmask {tuple(rmask.shape)}"
+            + ("" if lse is None else f", lse {tuple(lse.shape)}")
+        )
+    if b_loc < 1 or b < 1 or not 0 < d <= INFONCE_MAX_D:
+        raise ValueError(f"need b_loc >= 1, B >= 1 and 1 <= d <= {INFONCE_MAX_D}; "
+                         f"got {b_loc}, {b}, {d}")
+    return b_loc, b, d
+
+
+def infonce_fwd(
+    v1: torch.Tensor,
+    v2: torch.Tensor,
+    cmask: torch.Tensor,
+    rmask: torch.Tensor,
+    temperature: float,
+    row_offset: int = 0,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(loss, lse)``: the scalar ``Σ_r rmask[r] · (lse[r] − pos[r])`` and the
+    per-row logsumexp over the masked logits ``v1 @ v2ᵀ / T``.
+
+    ``v1`` (b_loc, d) and ``v2`` (B, d) f32, already L2-normalized; ``cmask``
+    (B,) masks logit columns (a masked column enters as -1e30), ``rmask``
+    (b_loc,) rows; the positive of row r is column ``r + row_offset``. Any
+    b_loc, B >= 1 and d <= 256."""
+    b_loc, b, d = _check_infonce(v1, v2, cmask, rmask)
+    if _route(v1, v2, cmask, rmask) == "cpu":
+        return infonce_fwd_plain(v1, v2, cmask, rmask, temperature, row_offset)
+    num_sms = _num_sms(v1.device)
+    scratch = INFONCE_FWD.load().qrec_infonce_fwd_scratch(b_loc, b, num_sms)
+    part = torch.empty(scratch, dtype=torch.float32, device=v1.device)
+    lse = torch.empty(b_loc, dtype=torch.float32, device=v1.device)
+    out = torch.empty((), dtype=torch.float32, device=v1.device)
+    INFONCE_FWD.call(
+        v1.data_ptr(), v2.data_ptr(), cmask.data_ptr(), rmask.data_ptr(), part.data_ptr(),
+        lse.data_ptr(), out.data_ptr(), b_loc, b, d, float(temperature), int(row_offset),
+        num_sms, torch.cuda.current_stream(v1.device).cuda_stream,
+    )
+    return out, lse
+
+
+def infonce_bwd(
+    v1: torch.Tensor,
+    v2: torch.Tensor,
+    cmask: torch.Tensor,
+    rmask: torch.Tensor,
+    lse: torch.Tensor,
+    temperature: float,
+    row_offset: int = 0,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(dv1 (b_loc, d), dv2 (B, d))``: the loss of :func:`infonce_fwd`
+    differentiated with respect to the normalized views, from its ``lse``:
+    ``dlog = rmask · (softmax − diag) / T``, ``dv1 = dlog @ v2``,
+    ``dv2 = dlogᵀ @ v1``."""
+    b_loc, b, d = _check_infonce(v1, v2, cmask, rmask, lse)
+    if _route(v1, v2, cmask, rmask, lse) == "cpu":
+        return infonce_bwd_plain(v1, v2, cmask, rmask, lse, temperature, row_offset)
+    num_sms = _num_sms(v1.device)
+    scratch = INFONCE_BWD.load().qrec_infonce_bwd_scratch(b_loc, b, d, num_sms)
+    part = torch.empty(max(scratch, 1), dtype=torch.float32, device=v1.device)
+    out = torch.empty((b_loc + b, d), dtype=torch.float32, device=v1.device)
+    INFONCE_BWD.call(
+        v1.data_ptr(), v2.data_ptr(), cmask.data_ptr(), rmask.data_ptr(), lse.data_ptr(),
+        part.data_ptr(), out.data_ptr(), b_loc, b, d, float(temperature), int(row_offset),
+        num_sms, torch.cuda.current_stream(v1.device).cuda_stream,
+    )
+    return out[:b_loc], out[b_loc:]

@@ -1,17 +1,20 @@
-"""Ranking metrics, host side (counterpart of the JAX package's
-``ops/metrics.py``).
+"""Ranking metrics (counterpart of the JAX package's ``ops/metrics.py``).
 
 ``ranking_measure`` operates on the same dict structures as the reference
 (util/measure.py) and produces identical output strings. The reference's
 NDCG idiosyncrasies are kept (util/measure.py:69-82): binary relevance,
 natural-log discount ``1/ln(n+2)``, and IDCG summed over the first
-``min(|test_u|, N)`` positions.
+``min(|test_u|, N)`` positions. ``device_ranking_metrics`` computes the
+same measures on tensors for the per-epoch quick evaluation.
 """
 
 from __future__ import annotations
 
 import math
 from typing import Dict, List, Sequence
+
+import numpy as np
+import torch
 
 from ..errors import EvaluationError
 
@@ -92,3 +95,40 @@ def parse_measure(measure: List[str]) -> Dict[str, Dict[str, float]]:
             k, v = line.split(":", 1)
             out.setdefault(current, {})[k] = float(v)
     return out
+
+
+def idcg_table(max_n: int) -> np.ndarray:
+    """``idcg_table[t] = sum_{n=0}^{t-1} 1/ln(n+2)`` for t in [0, max_n]."""
+    terms = 1.0 / np.log(np.arange(max_n) + 2.0)
+    return np.concatenate([[0.0], np.cumsum(terms)]).astype(np.float32)
+
+
+def device_ranking_metrics(
+    pred_ids: torch.Tensor,  # (B, N) top-N item ids per test user
+    test_ids: torch.Tensor,  # (B, T) test items, -1 = pad/unseen
+    test_counts: torch.Tensor,  # (B,) |test items| incl. unseen
+    top_ns: Sequence[int],
+) -> Dict[int, Dict[str, torch.Tensor]]:
+    """Precision/Recall/F1/NDCG@{top_ns} as 0-d f32 tensors on the inputs'
+    device, with the reference's formulas: precision is the global hit sum
+    over ``B*n`` (util/measure.py:52-54), recall the per-user mean of
+    ``hits/|test|`` (util/measure.py:105-109), NDCG as above."""
+    n_max = int(pred_ids.shape[1])
+    device = pred_ids.device
+    hit_at_pos = (
+        (pred_ids[:, :, None] == test_ids[:, None, :]) & (test_ids[:, None, :] >= 0)
+    ).any(dim=-1)  # (B, N)
+    discounts = 1.0 / torch.log(torch.arange(n_max, dtype=torch.float32, device=device) + 2.0)
+    table = torch.from_numpy(idcg_table(n_max)).to(device)
+    b = pred_ids.shape[0]
+    results = {}
+    for n in top_ns:
+        hits_n = hit_at_pos[:, :n].sum(dim=1)
+        prec = hits_n.sum() / (b * n)
+        rec = (hits_n / torch.clamp_min(test_counts, 1)).mean()
+        f1_val = torch.where(prec + rec > 0, 2 * prec * rec / (prec + rec), torch.zeros_like(prec))
+        dcg = (hit_at_pos[:, :n] * discounts[:n]).sum(dim=1)
+        idcg = table[torch.clamp_max(test_counts, n).long()]
+        ndcg_val = (dcg / torch.clamp_min(idcg, 1e-12)).mean()
+        results[n] = {"Precision": prec, "Recall": rec, "F1": f1_val, "NDCG": ndcg_val}
+    return results

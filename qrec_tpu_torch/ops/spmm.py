@@ -7,11 +7,17 @@ binary interaction matrix in int8 and ``su = deg_u^-1/2``,
 ``si = deg_i^-1/2``. Every application runs through the dual kernel
 (:func:`~qrec_tpu_torch.ops.kernels.bipartite_dual_matmul`), which reads R
 in both orientations from one copy: no transposed R is stored.
+
+SGL's augmented views (``factored_edge_drop_view``,
+``factored_node_drop_view``) are ``DenseJoint``s too, with a masked table
+or renormalized scales, so :func:`joint_matmul` on a view is the JAX
+package's ``factored_view_matmul``. Their random inputs come in as tensors
+that the caller draws.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -89,3 +95,71 @@ def lightgcn_propagate(adj: DenseJoint, embeddings: torch.Tensor, num_layers: in
         e = joint_matmul(adj, e)
         acc = acc + e
     return acc / (num_layers + 1)
+
+
+_M32 = 0xFFFFFFFF
+
+
+def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
+    """``(x * c) mod 2**32`` for int64 ``x`` in [0, 2**32) and a 32-bit
+    constant, in 16-bit halves of ``c`` so no product leaves int64."""
+    lo, hi = c & 0xFFFF, c >> 16
+    return (x * lo + (((x * hi) & 0xFFFF) << 16)) & _M32
+
+
+def pair_hash_keep(ru: torch.Tensor, ci: torch.Tensor, drop_rate: float) -> torch.Tensor:
+    """Bernoulli(1-p) keep flags from a position-independent pair hash:
+    murmur3's finalizer on the wraparound sum of two per-axis uint32 draws
+    (the JAX package's ``_pair_hash_keep``, ``ops/spmm.py:345-361``).
+    ``ru`` and ``ci`` are int64 tensors holding uint32 values that
+    broadcast against each other; the uint32 arithmetic is done in int64
+    and masked to 32 bits after each step."""
+    x = (ru + ci) & _M32
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x85EBCA6B)
+    x = x ^ (x >> 13)
+    x = _mul32(x, 0xC2B2AE35)
+    x = x ^ (x >> 16)
+    return x >= min(2**32 - 1, int(drop_rate * 2**32))
+
+
+def _renormalize(deg: torch.Tensor) -> torch.Tensor:
+    """deg^-1/2 where deg > 0, else 0."""
+    return torch.where(deg > 0, torch.rsqrt(torch.clamp_min(deg, 1e-12)), torch.zeros_like(deg))
+
+
+def factored_edge_drop_view(
+    adj: DenseJoint,
+    edges: Tuple[torch.Tensor, torch.Tensor],
+    ru: torch.Tensor,
+    ci: torch.Tensor,
+    drop_rate: float,
+) -> DenseJoint:
+    """Edge-dropout view (SGL.py:128-141, aug types 1/2): ``R · keep(ru, ci)``
+    in R's layout, one int8 table, renormalized by the kept degrees, which
+    are exact f32 row and column sums of it. ``edges`` holds the (rows,
+    cols) of R's nonzeros; the hash is evaluated there only, since the
+    product is 0 elsewhere whatever the hash says."""
+    rows, cols = edges
+    keep = pair_hash_keep(ru[rows], ci[cols], drop_rate)
+    r = torch.zeros_like(adj.r)
+    r[rows, cols] = keep.to(torch.int8)
+    deg_u = r.sum(dim=1, dtype=torch.float32)
+    deg_i = r.sum(dim=0, dtype=torch.float32)
+    return DenseJoint(r, _renormalize(deg_u), _renormalize(deg_i))
+
+
+def factored_node_drop_view(adj: DenseJoint, keep_u: torch.Tensor, keep_i: torch.Tensor) -> DenseJoint:
+    """Node-dropout view (SGL.py:113-126, aug type 0): R stays unmasked; a
+    dropped node's scale is 0, which removes its edges. The kept degrees
+    are the binary matvecs ``R @ keep_i`` and ``Rᵀ @ keep_u`` (one dual
+    product at width 1, exact: 0/1 operands, f32 sums), masked by the
+    node's own keep flag."""
+    ku = keep_u.to(torch.bfloat16)[:, None].contiguous()
+    ki = keep_i.to(torch.bfloat16)[:, None].contiguous()
+    deg_u, deg_i = bipartite_dual_matmul(adj.r, ku, ki)
+    return DenseJoint(
+        adj.r,
+        _renormalize(deg_u[:, 0] * keep_u),
+        _renormalize(deg_i[:, 0] * keep_i),
+    )

@@ -35,25 +35,34 @@ class CatalogRanker:
         ev = data.test_eval_arrays()
         self.names = ev["names"]
         self.uids = ev["uids"]
+        # test items (-1 = pad/unseen) and counts for device_ranking_metrics
+        self.test_ids = torch.as_tensor(ev["test_ids"], dtype=torch.int64, device=self.device)
+        self.test_counts = torch.as_tensor(ev["test_counts"], dtype=torch.int64, device=self.device)
+        self._uids = torch.as_tensor(self.uids, dtype=torch.int64, device=self.device)
         # float32 like the JAX ranker's global-mean constant
         self.global_mean = float(np.float32(data.global_mean))
 
     def topk(
         self, user_emb: torch.Tensor, item_emb: torch.Tensor, bitmask: torch.Tensor
     ) -> Tuple[np.ndarray, np.ndarray]:
-        """(ids, scores) numpy arrays of shape (num_test_users, k).
+        """(ids int32, scores f32) numpy arrays of shape (num_test_users, k)."""
+        ids, scores = self.topk_device(user_emb, item_emb, bitmask)
+        return ids.cpu().numpy().astype(np.int32), scores.cpu().numpy()
+
+    def topk_device(
+        self, user_emb: torch.Tensor, item_emb: torch.Tensor, bitmask: torch.Tensor
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(ids int64, scores f32) tensors of shape (num_test_users, k) on
+        ``self.device``, with no host copy.
 
         ``user_emb`` (U, d), ``item_emb`` (I, d) f32 and ``bitmask``
         (U, ceil(I/32)) int32 on ``self.device``."""
         b = len(self.names)
         k = min(self.k, item_emb.shape[0])
-        ids_out = np.empty((b, k), dtype=np.int32)
-        scores_out = np.empty((b, k), dtype=np.float32)
         item_emb = item_emb.contiguous()
-        uids_all = torch.as_tensor(self.uids, dtype=torch.int64, device=self.device)
+        ids_out, scores_out = [], []
         for start in range(0, b, self.batch_size):
-            end = min(start + self.batch_size, b)
-            uids = uids_all[start:end]
+            uids = self._uids[start : start + self.batch_size]
             safe = torch.clamp(uids, min=0)
             scores = masked_catalog_scores(
                 user_emb[safe].contiguous(),
@@ -68,6 +77,10 @@ class CatalogRanker:
                 scores,
             )
             top_scores, top_ids = torch.sort(scores, dim=1, descending=True, stable=True)
-            ids_out[start:end] = top_ids[:, :k].cpu().numpy()
-            scores_out[start:end] = top_scores[:, :k].cpu().numpy()
-        return ids_out, scores_out
+            # copies, so the (batch, I) sort outputs are freed
+            ids_out.append(top_ids[:, :k].clone())
+            scores_out.append(top_scores[:, :k].clone())
+        if not ids_out:
+            return (torch.empty((0, k), dtype=torch.int64, device=self.device),
+                    torch.empty((0, k), dtype=torch.float32, device=self.device))
+        return torch.cat(ids_out), torch.cat(scores_out)

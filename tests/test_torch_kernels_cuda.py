@@ -104,5 +104,117 @@ def test_qrec_learns_planted_blocks_on_card(cuda_device, tmp_path):
     before = K.launch_counts()
     recall = parse_measure(QRec(conf, seed=3).execute())["Top 10"]["Recall"]
     after = K.launch_counts()
+    # LightGCN's path: K1 and K2, never the InfoNCE kernels
+    assert after["bipartite_dual_matmul"] > before["bipartite_dual_matmul"]
+    assert after["masked_catalog_scores"] > before["masked_catalog_scores"]
+    assert after["infonce_fwd"] == before["infonce_fwd"]
+    assert after["infonce_bwd"] == before["infonce_bwd"]
+    assert recall > 0.5
+
+
+def _infonce_inputs(device, b, d, masked=(), zero_row=None, seed=0):
+    g = torch.Generator(device=device).manual_seed(seed)
+    x1 = torch.randn((b, d), generator=g, device=device)
+    x2 = x1 + 0.5 * torch.randn((b, d), generator=g, device=device)
+    if zero_row is not None:
+        x1[zero_row] = 0.0
+    v1, v2 = (x * torch.rsqrt(torch.clamp_min((x * x).sum(1, keepdim=True), 1e-12)) for x in (x1, x2))
+    mask = torch.ones(b, device=device)
+    mask[list(masked)] = 0.0
+    return v1.contiguous(), v2.contiguous(), mask
+
+
+# logits of unit vectors / 0.2 lie in [-5, 5]; the kernels sum d products
+# and B exponentials in another order than the plain versions (cuBLAS f32,
+# logsumexp): allow 1e-5 relative on the loss and lse, and on the
+# cotangents 1e-4 relative plus 1e-5 of the largest
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [16, 50, 64])
+@pytest.mark.parametrize("b", [1, 300, 2000, 4000])
+def test_infonce_kernels_match_plain(cuda_device, b, d):
+    masked = tuple(range(0, b, 9)) if b > 1 else ()
+    v1, v2, m = _infonce_inputs(cuda_device, b, d, masked, zero_row=b // 2 if b > 1 else None)
+    before = K.launch_counts()
+    loss, lse = K.infonce_fwd(v1, v2, m, m, 0.2)
+    d1, d2 = K.infonce_bwd(v1, v2, m, m, lse, 0.2)
+    after = K.launch_counts()
+    assert after["infonce_fwd"] == before["infonce_fwd"] + 1
+    assert after["infonce_bwd"] == before["infonce_bwd"] + 1
+    ploss, plse = K.infonce_fwd_plain(v1, v2, m, m, 0.2)
+    p1, p2 = K.infonce_bwd_plain(v1, v2, m, m, plse, 0.2)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(loss, ploss, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(lse, plse, rtol=1e-5, atol=1e-5)
+    for got, want in ((d1, p1), (d2, p2)):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5 * float(want.abs().max()))
+    # no atomics: a second call repeats bit for bit
+    loss2, lse2 = K.infonce_fwd(v1, v2, m, m, 0.2)
+    e1, e2 = K.infonce_bwd(v1, v2, m, m, lse, 0.2)
+    assert torch.equal(loss, loss2) and torch.equal(lse, lse2)
+    assert torch.equal(d1, e1) and torch.equal(d2, e2)
+
+
+@pytest.mark.cuda
+def test_infonce_kernels_row_offset_and_full_mask(cuda_device):
+    v1, v2, m = _infonce_inputs(cuda_device, 700, 50, masked=(650, 699), zero_row=400, seed=1)
+    rows = slice(300, 700)  # the second block of rows of a 700-row batch
+    a, rm = v1[rows].contiguous(), m[rows].contiguous()
+    loss, lse = K.infonce_fwd(a, v2, m, rm, 0.2, row_offset=300)
+    d1, d2 = K.infonce_bwd(a, v2, m, rm, lse, 0.2, row_offset=300)
+    ploss, plse = K.infonce_fwd_plain(a, v2, m, rm, 0.2, row_offset=300)
+    p1, p2 = K.infonce_bwd_plain(a, v2, m, rm, plse, 0.2, row_offset=300)
+    torch.testing.assert_close(loss, ploss, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(d1, p1, rtol=1e-4, atol=1e-5 * float(p1.abs().max()))
+    torch.testing.assert_close(d2, p2, rtol=1e-4, atol=1e-5 * float(p2.abs().max()))
+    zeros = torch.zeros_like(m)
+    loss, lse = K.infonce_fwd(v1, v2, zeros, zeros, 0.2)
+    d1, d2 = K.infonce_bwd(v1, v2, zeros, zeros, lse, 0.2)
+    assert float(loss) == 0.0 and bool((d1 == 0).all()) and bool((d2 == 0).all())
+
+
+@pytest.mark.cuda
+def test_infonce_loss_gradients_on_card_match_cpu(cuda_device):
+    from qrec_tpu_torch.ops.losses import infonce_dispatch
+
+    g = np.random.RandomState(2)
+    x1 = g.randn(2000, 50).astype(np.float32)
+    x2 = (x1 + 0.3 * g.randn(2000, 50)).astype(np.float32)
+    x1[7] = 0.0
+    mask = (g.rand(2000) > 0.1).astype(np.float32)
+    outs = []
+    for dev in ("cpu", cuda_device):
+        t1 = torch.tensor(x1, device=dev, requires_grad=True)
+        t2 = torch.tensor(x2, device=dev, requires_grad=True)
+        loss = infonce_dispatch(t1, t2, torch.tensor(mask, device=dev), 0.2)
+        loss.backward()
+        outs.append((loss.detach().cpu(), t1.grad.cpu(), t2.grad.cpu()))
+    for got, want in zip(outs[1], outs[0]):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5 * float(want.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "name,args",
+    [("SimGCL", "-n_layer 2 -lambda 0.05 -eps 0.1"),
+     ("SGL", "-n_layer 2 -lambda 0.05 -droprate 0.2 -augtype 1 -temp 0.2")],
+)
+def test_ssl_models_learn_planted_blocks_on_card(cuda_device, tmp_path, name, args):
+    rng = np.random.RandomState(0)
+    path = tmp_path / "ratings.txt"
+    path.write_text("".join(
+        f"u{u} i{i} 1\n"
+        for u in range(40)
+        for i in rng.choice(15, size=10, replace=False) + (0 if u < 20 else 15)
+    ))
+    conf = ModelConf({
+        "ratings": str(path), "ratings.setup": "-columns 0 1 2", "model.name": name,
+        "evaluation.setup": "-ap 0.2", "item.ranking": "on -topN 10", "num.factors": "16",
+        "num.max.epoch": "30", "batch_size": "64", "learnRate": "-init 0.05 -max 1",
+        "reg.lambda": "-u 0.001 -i 0.001 -b 0.1 -s 0.1", name: args,
+        "output.setup": "off -dir ./results/", "seed": "7",
+    })
+    before = K.launch_counts()
+    recall = parse_measure(QRec(conf, seed=3).execute())["Top 10"]["Recall"]
+    after = K.launch_counts()
     assert all(after[k] > before[k] for k in after)
     assert recall > 0.5
