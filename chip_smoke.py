@@ -25,8 +25,18 @@ Phases, each of which exits non-zero on failure:
    then timed; one more SimGCL epoch under ``torch.profiler``;
 6. SGL path: ``config/SGL.conf`` at full width, 2 epochs, its launch
    counts, and K3/K4 on its first step's merged views (B=4000);
-7. planted-block runs of LightGCN and SimGCL that must learn their blocks;
-8. the ``kernels`` JSON line, the card line, and the final status line.
+7. the sparse joint adjacency (K5, the segment SpMM): ``config/SGL.conf``
+   with ``graph.backend=pallas``, 2 epochs; ``config/NGCF.conf`` as
+   published (dense, K1), 3 epochs; LightGCN with ``graph.backend=pallas``
+   at the yelp2018 shape and widths of ``bench.build_yelp_scale`` (d=64,
+   batch 2048, 2 layers, top-20, reg 1e-4), 2 epochs; each with its launch
+   counts (K1 = 0 on the K5 paths); then K5 on the yelp path's own CSR and
+   first-layer input against its plain version (and bit for bit against
+   itself) and against K1 on the same graph, timed, and one more yelp
+   epoch under ``torch.profiler``;
+8. planted-block runs that must learn their blocks: LightGCN and SimGCL on
+   the dense adjacency, LightGCN and SGL on the sparse one, and NGCF;
+9. the ``kernels`` JSON line, the card line, and the final status line.
 """
 
 from __future__ import annotations
@@ -39,6 +49,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 import numpy as np
 
@@ -284,6 +295,84 @@ def infonce_phase(torch, K, timer, label, view1, view2, mask, timed=True):
     return k3, k4
 
 
+def write_yelp_file(path: str) -> None:
+    """The :func:`yelp_matrix` interactions as a rating file."""
+    rows, cols, _, _ = yelp_matrix()
+    with open(path, "w") as f:
+        f.writelines(f"{a} {b} 1\n" for a, b in zip(rows, cols))
+
+
+def segment_phase(torch, K, timer, model):
+    """K5 on ``model``'s sparse adjacency (its own CSR) and first-layer input
+    (the embedding tables, rounded to bf16 as the propagation rounds them):
+    against its plain version, bit for bit against itself, and against K1
+    on the factored dense form of the same graph; then timed beside its
+    plain version, ``torch.sparse.mm`` and the bound."""
+    from qrec_tpu_torch.ops.spmm import DenseJoint, factored_call
+
+    adj = model.joint_adj
+    with torch.no_grad():
+        x = torch.cat([model.user_emb, model.item_emb]).bfloat16().contiguous()
+    n, d = x.shape
+    e = adj.cols.shape[0]
+    deg = adj.indptr.diff()
+    csr = (adj.indptr, adj.cols, adj.vals)
+    out = K.weighted_segment_matmul(x, *csr, adj.schedule)
+    again = K.weighted_segment_matmul(x, *csr, adj.schedule)
+    plain = K.weighted_segment_matmul_plain(x, *csr)
+    # Σ_e |bf16(v_e) x_e| per element: the scale of every bound below
+    absum = K.weighted_segment_matmul_plain(x.abs(), adj.indptr, adj.cols, adj.vals.abs())
+    torch.cuda.synchronize()
+    err = (out - plain).abs().max().item()
+    # the same exact products summed in two f32 orders (per-chunk partials
+    # against index_add_'s atomics): each sum of n terms is within
+    # (n-1) 2^-24 sum|terms| of the exact one, so the two within twice that
+    order_bound = 2.0 * deg.float()[:, None] * 2.0**-24 * absum
+    worst = ((out - plain).abs() / order_bound.clamp_min(1e-30)).max().item()
+    ok = bool(((out - plain).abs() <= order_bound).all())
+    repeat = torch.equal(out, again)
+    print(f"[K5 yelp2018] N={n} E={e} d={d} "
+          f"rows_over_one_chunk={int(adj.schedule.long_rows.numel())} "
+          f"max_degree={int(deg.max())} mean_degree={e / n:.2f} max_abs_err={err:.3e} "
+          f"(tolerance 2 deg 2^-24 sum|v*x| per element; worst share of it {worst:.4f}) "
+          f"{'ok' if ok else 'MISMATCH'}; repeat bit-identical={repeat}", flush=True)
+    if not ok:
+        fail("weighted_segment_matmul disagrees with its plain version")
+    if not repeat:
+        fail("weighted_segment_matmul did not repeat bit for bit")
+    # K1 computes su * (R @ bf16(si * x)), K5 bf16(su * si) * x: each term
+    # carries one bf16 rounding on each side, so an element may differ by
+    # two; over a row's features the gap stays within 2^-8 of sum|v*x|
+    dense = DenseJoint.from_interactions(model.data, x.device)
+    k1 = factored_call(dense, x.float())
+    gap, allowed = (out - k1).abs().sum(1), 2.0**-8 * absum.sum(1)
+    ratio = (gap / allowed.clamp_min(1e-30)).max().item()
+    print(f"[K5 vs K1 yelp2018] max |K5-K1| {(out - k1).abs().max().item():.3e}; worst row "
+          f"sum|K5-K1| / (2^-8 sum|v*x|) = {ratio:.4f} {'ok' if ratio <= 1 else 'MISMATCH'}",
+          flush=True)
+    if not ratio <= 1:
+        fail("weighted_segment_matmul and bipartite_dual_matmul disagree past the bf16 bound")
+    del dense, k1, again, plain, absum, order_bound
+    ms = timer.ms(lambda: K.weighted_segment_matmul(x, *csr, adj.schedule))
+    warm_ms = timer.ms(lambda: K.weighted_segment_matmul(x, *csr, adj.schedule), flush=False)
+    plain_ms = timer.ms(lambda: K.weighted_segment_matmul_plain(x, *csr), iters=5)
+    with warnings.catch_warnings():  # sparse CSR tensors are "beta" in PyTorch
+        warnings.simplefilter("ignore")
+        library = torch.sparse_csr_tensor(adj.indptr, adj.cols, adj.vals.bfloat16().float(),
+                                          size=(n, n))
+    xf = x.float()
+    library_ms = timer.ms(lambda: torch.sparse.mm(library, xf))
+    moved = e * 8 + (n + 1) * 4 + n * d * 2 + n * d * 4
+    bound_ms, bound_by = bound(moved, 2 * e * d, PEAK_F32)
+    print(f"[K5 yelp2018] ms={ms:.4f} (L2 flushed) warm_ms={warm_ms:.4f} plain_ms={plain_ms:.4f} "
+          f"library_ms={library_ms:.4f} (torch.sparse.mm, CSR with bf16-rounded values, f32 x) "
+          f"bound_ms={bound_ms:.4f} by {bound_by} ({moved / 1e6:.1f} MB, "
+          f"{2 * e * d / 1e9:.3f} GFLOP) "
+          f"max_degree={int(deg.max())}", flush=True)
+    return dict(max_abs_err=err, ms=ms, warm_ms=warm_ms, plain_ms=plain_ms,
+                library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
+
+
 def first_step_views(torch, model):
     """The contrastive operands of the first training step of ``model``'s
     run, rebuilt: a fresh model of the same config and data has the run's
@@ -310,30 +399,38 @@ def first_step_views(torch, model):
 
 
 def expected_launches(model):
-    """Launches of K1-K4 in one ``QRec(conf).execute()``, from the code.
+    """Launches of K1-K5 in one ``QRec(conf).execute()``, from the code.
     S steps per epoch, E epochs, n layers, evals = K2 launches per ranking
-    (ceil(test users / 1024)). Every propagation is one K1 launch forward
-    and one backward. LightGCN: 2n per step, n for the final factors.
+    (ceil(test users / 1024)). Every propagation is one launch forward and
+    one backward, of K1 on the dense adjacency and of K5 on the sparse one
+    (K1 then 0). LightGCN and NGCF: 2n per step, n for the final factors.
     SimGCL: the shared first layer and the fused (N, 3d) layers, 2n per
-    step; SGL: the main graph and two views, 6n per step (+2 degree matvecs
-    for node drop, aug type 0); both evaluate after every epoch (n K1 +
-    evals K2) and once more at the end; K3 = K4 = 2 per SimGCL step (users,
-    items), 1 per SGL step (merged)."""
+    step; SGL: the main graph and two views, 6n per step (+2 K1 degree
+    matvecs for node drop, aug type 0, on the dense adjacency); both
+    evaluate after every epoch (n propagations + evals K2) and once more at
+    the end; K3 = K4 = 2 per SimGCL step (users, items), 1 per SGL step
+    (merged)."""
+    from qrec_tpu_torch.ops.spmm import SparseJoint
+
     steps = math.ceil(model.train_size / model.batch_size)
     n, e = model.n_layers, model.max_epoch
     evals = math.ceil(len(model.data.test_set_u) / model.eval_batch_size)
     name = model.model_name
-    if name == "LightGCN":
+    sparse = isinstance(model.joint_adj, SparseJoint)
+    if name in ("LightGCN", "NGCF"):
         per_step, ssl, rankings = 2 * n, 0, 1
     elif name == "SimGCL":
         per_step, ssl, rankings = 2 * n, 2, e + 1
     else:
-        per_step, ssl, rankings = 6 * n + (2 if model.aug_type == 0 else 0), 1, e + 1
+        degrees = 2 if model.aug_type == 0 and not sparse else 0
+        per_step, ssl, rankings = 6 * n + degrees, 1, e + 1
+    propagations = per_step * steps * e + n * rankings
     return {
-        "bipartite_dual_matmul": per_step * steps * e + n * rankings,
+        "bipartite_dual_matmul": 0 if sparse else propagations,
         "masked_catalog_scores": evals * rankings,
         "infonce_fwd": ssl * steps * e,
         "infonce_bwd": ssl * steps * e,
+        "weighted_segment_matmul": propagations if sparse else 0,
     }
 
 
@@ -353,7 +450,8 @@ def drive(torch, K, QRec, conf, label):
     model = rec.model
     losses = model.epoch_losses
     summary = model.timer.summary()
-    parsed = parse_measure(measure)["Top 10"]
+    top, parsed = next((k, v) for k, v in parse_measure(measure).items() if k.startswith("Top "))
+    at = top.split()[1]
     expect = expected_launches(model)
     print(f"[{label}] users={model.num_users} items={model.num_items} train={model.train_size} "
           f"test_users={len(model.data.test_set_u)} d={model.emb_size} layers={model.n_layers} "
@@ -363,8 +461,8 @@ def drive(torch, K, QRec, conf, label):
           f"{summary['epoch_seconds'] * 1e3:.3f} (mean after epoch 1) examples_per_s="
           f"{summary['examples_per_second']:.0f} median_epoch_ms_3_to_end="
           f"{np.median(model.timer.times[2:] or model.timer.times) * 1e3:.3f}", flush=True)
-    print(f"[{label}] rank_ms={model.rank_seconds * 1e3:.3f} Precision@10={parsed['Precision']} "
-          f"Recall@10={parsed['Recall']} NDCG@10={parsed['NDCG']}", flush=True)
+    print(f"[{label}] rank_ms={model.rank_seconds * 1e3:.3f} Precision@{at}={parsed['Precision']} "
+          f"Recall@{at}={parsed['Recall']} NDCG@{at}={parsed['NDCG']}", flush=True)
     if model.tracker is not None:
         print(f"[{label}] best epoch {model.tracker.best_epoch}: {model.tracker.best_metrics}",
               flush=True)
@@ -382,14 +480,15 @@ def drive(torch, K, QRec, conf, label):
             fail(f"{label}: {name} launched {n} times, expected {expect[name]}")
     if not all(math.isfinite(v) and 0 <= v <= 1 for v in parsed.values()):
         fail(f"{label}: bad measures {parsed}")
-    if (model.tracker is None) != (model.model_name == "LightGCN"):
+    if (model.tracker is not None) != model.track_best:
         fail(f"{label}: best-epoch tracking is {'off' if model.tracker is None else 'on'}")
     return model, counts, parsed
 
 
-def planted_check(torch, tmp, ModelConf, QRec, parse_measure, name, args):
+def planted_check(torch, tmp, ModelConf, QRec, parse_measure, name, args, extra=None):
     """The repo's planted-block quality floor (tests/test_graph_models.py),
-    on the card: Recall@10 > 0.5 where random ranking gives about 0.33."""
+    on the card: Recall@10 > 0.5 where random ranking gives about 0.33.
+    ``extra`` adds config keys (``graph.backend``)."""
     rng = np.random.RandomState(0)
     path = os.path.join(tmp, "planted.txt")
     with open(path, "w") as f:
@@ -401,10 +500,11 @@ def planted_check(torch, tmp, ModelConf, QRec, parse_measure, name, args):
         "evaluation.setup": "-ap 0.2", "item.ranking": "on -topN 10", "num.factors": "16",
         "num.max.epoch": "30", "batch_size": "64", "learnRate": "-init 0.05 -max 1",
         "reg.lambda": "-u 0.001 -i 0.001 -b 0.1 -s 0.1", name: args,
-        "output.setup": "off -dir ./results/", "seed": "7",
+        "output.setup": "off -dir ./results/", "seed": "7", **(extra or {}),
     })
     recall = parse_measure(QRec(conf, seed=3).execute())["Top 10"]["Recall"]
-    print(f"[planted {name}] Recall@10={recall}", flush=True)
+    label = " ".join([name, *(f"{k}={v}" for k, v in (extra or {}).items())])
+    print(f"[planted {label}] Recall@10={recall}", flush=True)
     if not recall > 0.5:
         fail(f"planted-block {name} run reached Recall@10={recall} <= 0.5")
 
@@ -534,16 +634,47 @@ def main() -> None:
         k3s, k4s = infonce_phase(torch, K, timer, "sgl merged", *first_step_views(torch, sgl))
         for k, extra in ((k3, k3s), (k4, k4s)):
             k["max_abs_err"] = max(k["max_abs_err"], extra["max_abs_err"])
-        del sgl, timer
+        del sgl
 
-        # 7. planted blocks
+        # 7. the sparse joint adjacency (K5): SGL's per-edge views, NGCF
+        # (dense, K1), LightGCN at the yelp2018 shape; K5 on the yelp path
+        conf = conf_of("SGL", 2)
+        conf["graph.backend"] = "pallas"
+        sgl_sparse, _, _ = drive(torch, K, QRec, conf, "sgl-pallas")
+        del sgl_sparse
+        ngcf, _, _ = drive(torch, K, QRec, conf_of("NGCF", 3), "ngcf")
+        if ngcf.U.shape[1] != 3 * ngcf.emb_size:
+            fail(f"ngcf: scoring tables of width {ngcf.U.shape[1]}, expected 3d")
+        del ngcf
+        yelp_ratings = os.path.join(tmp, "yelp_like.txt")
+        write_yelp_file(yelp_ratings)
+        conf = conf_of("LightGCN", 2)
+        conf["ratings"] = yelp_ratings
+        for key, value in (("num.factors", "64"), ("batch_size", "2048"),
+                           ("item.ranking", "on -topN 20"), ("graph.backend", "pallas"),
+                           ("reg.lambda", "-u 0.0001 -i 0.0001 -b 0.2 -s 0.2")):
+            conf[key] = value
+        yelp, yelp_counts, _ = drive(torch, K, QRec, conf, "yelp-pallas")
+        k5 = segment_phase(torch, K, timer, yelp)
+        profile_epoch(torch, yelp, "LightGCN yelp2018 pallas")
+        del yelp, timer
+
+        # 8. planted blocks
         planted_check(torch, tmp, ModelConf, QRec, parse_measure, "LightGCN", "-n_layer 2")
         planted_check(torch, tmp, ModelConf, QRec, parse_measure, "SimGCL",
                       "-n_layer 2 -lambda 0.05 -eps 0.1")
+        pallas = {"graph.backend": "pallas"}
+        planted_check(torch, tmp, ModelConf, QRec, parse_measure, "LightGCN", "-n_layer 2", pallas)
+        planted_check(torch, tmp, ModelConf, QRec, parse_measure, "SGL",
+                      "-n_layer 2 -lambda 0.05 -droprate 0.2 -augtype 1 -temp 0.2", pallas)
+        planted_check(torch, tmp, ModelConf, QRec, parse_measure, "NGCF", "")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
-    # 8. results
+    # 9. results
+    print(f"[K5 yelp2018] launches {yelp_counts['weighted_segment_matmul']} ms={k5['ms']:.4f} "
+          f"plain_ms={k5['plain_ms']:.4f} library_ms={k5['library_ms']:.4f} "
+          f"bound_ms={k5['bound_ms']:.4f}", flush=True)
     print(f"[K1 yelp2018] ms={k1y['ms']:.4f} plain_ms={k1y['plain_ms']:.4f} "
           f"library_ms={k1y['library_ms']:.4f} bound_ms={k1y['bound_ms']:.4f}", flush=True)
     print(f"[sgl] launches {json.dumps(sgl_counts)}; K3 at B=4000 ms={k3s['ms']:.4f} "
@@ -565,6 +696,8 @@ def main() -> None:
             "qrec_tpu/ops/pallas_kernels.py:155", sim_counts["infonce_fwd"], k3),
         row("infonce_bwd", "qrec_tpu_torch/csrc/infonce.cu",
             "qrec_tpu/ops/pallas_kernels.py:242", sim_counts["infonce_bwd"], k4),
+        row("weighted_segment_matmul", "qrec_tpu_torch/csrc/segment_matmul.cu",
+            "qrec_tpu/ops/pallas_kernels.py:478", yelp_counts["weighted_segment_matmul"], k5),
     ]
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -4,16 +4,16 @@
 from __future__ import annotations
 
 from ..errors import ModelNotFoundError
-from .graph import SGL, LightGCN, SimGCL
+from .graph import NGCF, SGL, LightGCN, SimGCL
 
-MODELS = {"LightGCN": LightGCN, "SGL": SGL, "SimGCL": SimGCL}
+MODELS = {"LightGCN": LightGCN, "NGCF": NGCF, "SGL": SGL, "SimGCL": SimGCL}
 
 
 def get_model(name: str):
     if name not in MODELS:
         raise ModelNotFoundError(
             f"model {name!r} is not ported yet (ROADMAP.md Queue 1 names its "
-            "slice: NGCF item 8, SGL's non-dense views item 9, MF/deep/GAN slice 3, "
-            f"social slice 4, ALS/classical/walks slice 5); available: {sorted(MODELS)}"
+            "slice: MF/deep/GAN slice 3, social slice 4, ALS/classical/walks slice 5); "
+            f"available: {sorted(MODELS)}"
         )
     return MODELS[name]

@@ -268,14 +268,15 @@ class IterativeRecommender(Recommender):
 
 def check_graph_settings(conf: ModelConf) -> None:
     """Raise ConfigError for adjacency settings this port does not run: it
-    has only the factored dense joint adjacency."""
+    has the factored dense joint adjacency and the sparse one."""
     backend = conf.get("graph.backend", "auto")
-    if backend not in ("auto", "dense"):
+    if backend == "coo":
         raise ConfigError(
-            f"graph.backend={backend} is not ported yet (ROADMAP.md Queue 2 item 3: "
-            "weighted_segment_matmul; Queue 1 items 5 and 9: the sparse COO paths "
-            "and SGL's non-dense views); use auto|dense"
+            "graph.backend=coo (DeviceCOO: f32 gather and segment_sum) is not ported "
+            "yet (ROADMAP.md Queue 1 item 5); use auto|dense|pallas"
         )
+    if backend not in ("auto", "dense", "pallas"):
+        raise ConfigError(f"unknown graph.backend {backend!r} (expected auto|dense|coo|pallas)")
     quant = conf.get("graph.dense.quant", "auto")
     if quant not in ("auto", "factored"):
         raise ConfigError(
@@ -288,15 +289,23 @@ def check_graph_settings(conf: ModelConf) -> None:
 
 
 class GraphRecommender(IterativeRecommender):
-    """Adds the factored joint adjacency on the device
-    (base/graphRecommender.py:10-39). Every propagation runs through the
-    dual kernel whatever ``graph.dense.dual`` says: the factored function is
-    the one the JAX package computes, and the port has no other path."""
+    """Adds the joint adjacency on the device (base/graphRecommender.py:10-39;
+    the JAX package's ``GraphRecommender.joint_adj``, ``models/base.py:866-1034``).
+
+    ``graph.backend=dense``, or ``auto`` while ``num_users x num_items``
+    fits ``graph.dense.limit``, builds the factored dense adjacency, which
+    every propagation runs through on the dual kernel whatever
+    ``graph.dense.dual`` says: the factored function is the one the JAX
+    package computes, and the port has no other dense path.
+    ``graph.backend=pallas``, or ``auto`` past the limit, builds the sparse
+    one on the segment kernel: the JAX package's single-device choice on a
+    TPU (off a TPU its ``auto`` gives ``DeviceCOO``, which is not ported)."""
 
     @property
     def joint_adj(self):
         if not hasattr(self, "_joint_adj"):
-            from ..ops.spmm import DENSE_JOINT_LIMIT, DenseJoint
+            from ..data.graph import joint_normalized_adjacency
+            from ..ops.spmm import DENSE_JOINT_LIMIT, DenseJoint, SparseJoint
 
             check_graph_settings(self.config)
             try:
@@ -307,12 +316,16 @@ class GraphRecommender(IterativeRecommender):
                     f"{self.config.get('graph.dense.limit')!r}"
                 ) from None
             backend = self.config.get("graph.backend", "auto")
-            if backend == "auto" and self.num_users * self.num_items > limit:
-                raise ConfigError(
-                    f"{self.num_users}x{self.num_items} exceeds the dense budget "
-                    f"{limit}; the sparse path is not ported yet (ROADMAP.md "
-                    "Queue 2: weighted_segment_matmul)"
+            dense = backend == "dense" or (
+                backend == "auto" and self.num_users * self.num_items <= limit
+            )
+            if dense:
+                self._joint_adj = DenseJoint.from_interactions(self.data, self.device)
+                built = "DenseJoint factored int8, dual kernel"
+            else:
+                self._joint_adj = SparseJoint.from_host(
+                    joint_normalized_adjacency(self.data), self.device, check_symmetric=False
                 )
-            self._joint_adj = DenseJoint.from_interactions(self.data, self.device)
-            print("Graph backend: DenseJoint factored int8, dual kernel")
+                built = "SparseJoint CSR, segment kernel"
+            print(f"Graph backend: {built} (graph.backend={backend})")
         return self._joint_adj

@@ -1,13 +1,14 @@
-"""Graph CF family: LightGCN, SGL and SimGCL (reference
-model/ranking/LightGCN.py, SGL.py, SimGCL.py; the JAX package's
+"""Graph CF family: LightGCN, NGCF, SGL and SimGCL (reference
+model/ranking/LightGCN.py, NGCF.py, SGL.py, SimGCL.py; the JAX package's
 ``models/graph.py``).
 
 Every propagation, of the main graph and of SGL's augmented views, runs
-through the joint operator on the dual kernel (``ops/spmm.joint_matmul``);
-the contrastive losses run on the InfoNCE kernels
-(``ops/losses.infonce_dispatch``). As in the JAX package, SGL's views and
-SimGCL's noise are drawn afresh for every step, from the trainer's
-generator.
+through ``ops/spmm.spmm``: on the dual kernel over the factored dense
+adjacency, or on the segment kernel over the sparse one
+(``GraphRecommender.joint_adj`` picks); the contrastive losses run on the
+InfoNCE kernels (``ops/losses.infonce_dispatch``). As in the JAX package,
+SGL's views, SimGCL's noise and NGCF's message dropout are drawn afresh for
+every step, from the trainer's generator.
 """
 
 from __future__ import annotations
@@ -15,14 +16,19 @@ from __future__ import annotations
 from typing import List, Optional, Sequence, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
+from ..data.graph import joint_bipartite_coo
 from ..ops.losses import bpr_loss, check_ssl_backend, infonce_dispatch, unique_padded
 from ..ops.spmm import (
+    DenseJoint,
     factored_edge_drop_view,
     factored_node_drop_view,
-    joint_matmul,
     lightgcn_propagate,
+    spmm,
+    subgraph_vals,
+    view_adjacency,
 )
 from .base import GraphRecommender, TrainSpec
 
@@ -79,9 +85,15 @@ class LightGCN(GraphRecommender):
     def loss(self, batch, gen: Optional[torch.Generator] = None) -> torch.Tensor:
         return self.rec_loss(*self(), batch)
 
+    def prepare_graph(self) -> None:
+        """Build the adjacency on the host and the device before training,
+        as the JAX package's ``build`` does: set-up, not epoch 1's time."""
+        self.joint_adj
+
     def build(self) -> TrainSpec:
+        self.prepare_graph()
         return TrainSpec(
-            [self.user_emb, self.item_emb],
+            list(self.parameters()),
             self.loss,
             self.pairwise_sampler(),
             score_params_fn=self.forward,
@@ -89,15 +101,77 @@ class LightGCN(GraphRecommender):
         )
 
 
+class NGCF(LightGCN):
+    """Graph CF with W1/W2 transforms, bi-interaction, message dropout and
+    an L2-normalized layer concat (NGCF.py:9-63): layer k computes
+    ``side = Â e``, ``e ← leaky_relu((side + e) W_k_1 + (e ⊙ side) W_k_2)``
+    (slope 0.01), drops messages with keep 0.9 (inverted dropout, while
+    training only) and appends ``e / ‖e‖``; the un-normalized, dropped-out
+    ``e`` feeds the next layer. Scoring tables are (U, 3d) and (I, 3d).
+    Parameters: ``user_emb``, ``item_emb`` and the (d, d) glorot
+    ``W_{k}_1``, ``W_{k}_2``; the two transforms are plain products."""
+
+    keep_prob = 0.9  # message dropout keep (NGCF.py:37)
+
+    def __init__(self, conf, data, fold: str = "[1]", device="cpu"):
+        super().__init__(conf, data, fold=fold, device=device)
+        gen = torch.Generator().manual_seed(self.seed + 17)
+        d = self.emb_size
+        for k in range(self.n_layers):
+            for j in (1, 2):
+                w = torch.empty((d, d), dtype=torch.float32)
+                nn.init.xavier_uniform_(w, generator=gen)
+                setattr(self, f"W_{k}_{j}", nn.Parameter(w.to(self.device)))
+
+    def read_configuration(self) -> None:
+        super().read_configuration()
+        self.n_layers = 2  # fixed in the reference (NGCF.py:19)
+
+    def encode(self, masks: Optional[Sequence[torch.Tensor]] = None):
+        """(users (U, 3d), items (I, 3d)); ``masks`` holds one (N, d) bool
+        keep mask per layer, None for no dropout (scoring)."""
+        ego = torch.cat([self.user_emb, self.item_emb])
+        layers = [ego]
+        for k in range(self.n_layers):
+            side = spmm(self.joint_adj, ego)
+            summed = (side + ego) @ getattr(self, f"W_{k}_1")
+            bi = (ego * side) @ getattr(self, f"W_{k}_2")
+            ego = F.leaky_relu(summed + bi, negative_slope=0.01)
+            if masks is not None:
+                ego = torch.where(masks[k], ego / self.keep_prob, torch.zeros_like(ego))
+            layers.append(ego / (torch.linalg.vector_norm(ego, dim=1, keepdim=True) + 1e-12))
+        out = torch.cat(layers, dim=1)
+        return out[: self.num_users], out[self.num_users :]
+
+    def forward(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        return self.encode(None)
+
+    def draw(self, gen: torch.Generator) -> List[torch.Tensor]:
+        """The step's random inputs: a Bernoulli(keep) (N, d) mask per layer."""
+        shape = (self.num_users + self.num_items, self.emb_size)
+        return [torch.rand(shape, generator=gen, device=self.device) < self.keep_prob
+                for _ in range(self.n_layers)]
+
+    def step_loss(self, batch, masks) -> torch.Tensor:
+        return self.rec_loss(*self.encode(masks), batch)
+
+    def loss(self, batch, gen: Optional[torch.Generator] = None) -> torch.Tensor:
+        return self.step_loss(batch, self.draw(gen))
+
+
 class SGL(LightGCN):
     """Self-supervised graph learning: LightGCN + two node- or edge-dropped
-    views of the graph + merged-batch InfoNCE (SGL.py), on the factored
-    dense adjacency only (the JAX package's ``dense_views`` branch).
+    views of the graph + merged-batch InfoNCE (SGL.py).
 
-    A view keeps the binary R and changes its scales (node drop, aug type
-    0) or masks R's edges with a pair hash (edge drop, aug type 1; aug type
-    2 draws a fresh edge view per layer), then propagates through the dual
-    kernel like the main graph (``ops/spmm.factored_*_view``)."""
+    On the factored dense adjacency (the JAX package's ``dense_views``
+    branch) a view keeps the binary R and changes its scales (node drop,
+    aug type 0) or masks R's edges with a pair hash (edge drop, aug type 1;
+    aug type 2 draws a fresh edge view per layer), then propagates through
+    the dual kernel like the main graph (``ops/spmm.factored_*_view``). On
+    the sparse adjacency a view is a vector of renormalized edge values
+    over the joint structure of ``joint_bipartite_coo`` (node keeps, or one
+    keep flag per interaction, ``ops/spmm.subgraph_vals``) and propagates
+    through the segment kernel."""
 
     track_best = True
 
@@ -111,23 +185,53 @@ class SGL(LightGCN):
         self.n_layers = args.get_int("-n_layer")
         check_ssl_backend(self.config)
 
+    def prepare_graph(self) -> None:
+        super().prepare_graph()
+        if self.dense_views:
+            self.edges
+        else:
+            self.view_structure
+
+    @property
+    def dense_views(self) -> bool:
+        return isinstance(self.joint_adj, DenseJoint)
+
     @property
     def edges(self) -> Tuple[torch.Tensor, torch.Tensor]:
-        """(rows, cols) of R's nonzeros, row-major."""
+        """Dense views: (rows, cols) of R's nonzeros, row-major."""
         if not hasattr(self, "_edges"):
             self._edges = torch.nonzero(self.joint_adj.r, as_tuple=True)
         return self._edges
 
-    def draw_view(self, gen: torch.Generator) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+    @property
+    def view_structure(self):
+        """Sparse views: the joint structure of ``joint_bipartite_coo`` on the
+        segment kernel, the interaction id of every edge and the number of
+        interactions. Built from the host's CSR: never the (U, I) R."""
+        if not hasattr(self, "_view_structure"):
+            rows, cols, edge_ids, n = joint_bipartite_coo(self.data)
+            self._view_structure = (
+                view_adjacency(rows, cols, n, self.device),
+                torch.as_tensor(edge_ids, device=self.device),
+                len(self.data.csr_sel),
+            )
+        return self._view_structure
+
+    def draw_view(self, gen: torch.Generator):
         """One view's random inputs: (keep_u, keep_i) bool node draws for
-        aug type 0; uniform 32-bit (ru, ci) hash inputs, held in int64, for
-        edge drop, one pair per layer for aug type 2."""
+        aug type 0; for edge drop, one draw per layer for aug type 2 and one
+        for the view otherwise: uniform 32-bit (ru, ci) hash inputs, held
+        in int64, on the dense adjacency; a bool keep flag per interaction
+        on the sparse one."""
         u, i, dev = self.num_users, self.num_items, self.device
+        keep = 1.0 - self.drop_rate
         if self.aug_type == 0:
-            keep = 1.0 - self.drop_rate
             return [(torch.rand(u, generator=gen, device=dev) < keep,
                      torch.rand(i, generator=gen, device=dev) < keep)]
         draws = self.n_layers if self.aug_type == 2 else 1
+        if not self.dense_views:
+            e = self.view_structure[2]
+            return [torch.rand(e, generator=gen, device=dev) < keep for _ in range(draws)]
         return [
             (torch.randint(0, 2**32, (u,), generator=gen, device=dev, dtype=torch.int64),
              torch.randint(0, 2**32, (i,), generator=gen, device=dev, dtype=torch.int64))
@@ -138,18 +242,27 @@ class SGL(LightGCN):
         """The step's random inputs: both views'."""
         return self.draw_view(gen), self.draw_view(gen)
 
-    def encode_view(self, bits) -> Tuple[torch.Tensor, torch.Tensor]:
-        adj = self.joint_adj
-        if self.aug_type == 0:
-            views = [factored_node_drop_view(adj, *bits[0])] * self.n_layers
+    def view_layers(self, bits) -> List[Tuple[object, Optional[torch.Tensor]]]:
+        """(adjacency, edge values or None) of every layer of one view."""
+        if self.dense_views:
+            adj = self.joint_adj
+            if self.aug_type == 0:
+                layers = [(factored_node_drop_view(adj, *bits[0]), None)]
+            else:
+                layers = [(factored_edge_drop_view(adj, self.edges, ru, ci, self.drop_rate), None)
+                          for ru, ci in bits]
         else:
-            views = [factored_edge_drop_view(adj, self.edges, ru, ci, self.drop_rate)
-                     for ru, ci in bits]
-            views = views * (self.n_layers // len(views))
+            adj, edge_ids, _ = self.view_structure
+            n, aug = adj.num_rows, self.aug_type
+            layers = [(adj, subgraph_vals(adj.rows, adj.cols, edge_ids, n, aug, keep))
+                      for keep in bits]
+        return layers * (self.n_layers // len(layers))
+
+    def encode_view(self, bits) -> Tuple[torch.Tensor, torch.Tensor]:
         e = torch.cat([self.user_emb, self.item_emb])
         acc = e
-        for view in views:
-            e = joint_matmul(view, e)
+        for adj, vals in self.view_layers(bits):
+            e = spmm(adj, e, vals)
             acc = acc + e
         out = acc / (self.n_layers + 1)
         return out[: self.num_users], out[self.num_users :]
@@ -176,8 +289,8 @@ class SimGCL(LightGCN):
 
     The readout averages the K propagated layers WITHOUT the ego layer
     (SimGCL.py:22-28). The main encoder and both perturbed ones share the
-    first propagation and then run as one (N, 3d) stream, one dual-kernel
-    call per layer (the JAX package's ``encode_all``)."""
+    first propagation and then run as one (N, 3d) stream, one kernel call
+    per layer (the JAX package's ``encode_all``)."""
 
     cl_temp = 0.2  # hard-coded in the reference (SimGCL.py:74-77)
     track_best = True
@@ -206,7 +319,7 @@ class SimGCL(LightGCN):
         e = torch.cat([self.user_emb, self.item_emb])
         acc = None
         for _ in range(self.n_layers):
-            e = joint_matmul(self.joint_adj, e)
+            e = spmm(self.joint_adj, e)
             acc = e if acc is None else acc + e
         out = acc / self.n_layers
         return out[: self.num_users], out[self.num_users :]
@@ -228,11 +341,11 @@ class SimGCL(LightGCN):
     def encode_all(self, noise: Sequence[Tuple[torch.Tensor, torch.Tensor]]):
         """[(users, items)] of the main encoder and the two perturbed ones."""
         d = self.emb_size
-        z = joint_matmul(self.joint_adj, torch.cat([self.user_emb, self.item_emb]))
+        z = spmm(self.joint_adj, torch.cat([self.user_emb, self.item_emb]))
         states = [z, self._perturb(z, noise[0][0]), self._perturb(z, noise[0][1])]
         accs = list(states)
         for k in range(1, self.n_layers):
-            zs = joint_matmul(self.joint_adj, torch.cat(states, dim=1)).split(d, dim=1)
+            zs = spmm(self.joint_adj, torch.cat(states, dim=1)).split(d, dim=1)
             states = [zs[0], self._perturb(zs[1], noise[k][0]), self._perturb(zs[2], noise[k][1])]
             accs = [a + s for a, s in zip(accs, states)]
         nu = self.num_users

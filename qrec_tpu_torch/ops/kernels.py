@@ -11,6 +11,9 @@ launch counters and the build step (counterpart of the JAX package's
   normalized views and its two cotangents, never writing the B x B logits
   (``csrc/infonce.cu``; replace ``_infonce_kernel`` and
   ``_infonce_bwd_kernel``).
+* :func:`weighted_segment_matmul` — a CSR SpMM with bf16-rounded edge
+  values and the gather of x fused (``csrc/segment_matmul.cu``; replaces
+  ``_segmm_kernel``).
 
 Dispatch rule: a CPU tensor goes to the plain version; a CUDA tensor goes
 to the kernel, which raises if it cannot be built or launched. There is no
@@ -33,8 +36,9 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 _PKG = Path(__file__).resolve().parents[1]
@@ -106,7 +110,11 @@ INFONCE_BWD = Kernel(
     [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _P],
     queries={"qrec_infonce_bwd_scratch": [_I, _I, _I, _I]},
 )
-KERNELS: Tuple[Kernel, ...] = (DUAL, SCORES, INFONCE_FWD, INFONCE_BWD)
+SEGMM = Kernel(
+    "weighted_segment_matmul", "segment_matmul.cu", "qrec_segment_matmul",
+    [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
+)
+KERNELS: Tuple[Kernel, ...] = (DUAL, SCORES, INFONCE_FWD, INFONCE_BWD, SEGMM)
 
 _build_lock = threading.Lock()
 
@@ -424,3 +432,103 @@ def infonce_bwd(
         num_sms, torch.cuda.current_stream(v1.device).cuda_stream,
     )
     return out[:b_loc], out[b_loc:]
+
+
+# ---------------------------------------------------------------------------
+# weighted segment SpMM
+# ---------------------------------------------------------------------------
+
+SEGMM_MAX_D = 256
+# edges per chunk of a row; the kernel gives one warp to each chunk
+SEGMM_CHUNK = 64
+
+
+class SegmentSchedule(NamedTuple):
+    """The split of a CSR matrix's rows into chunks of ``SEGMM_CHUNK`` edges
+    that the segment kernel runs one warp each: ``chunk_ptr`` (N+1,) the
+    first chunk of every row (an empty row has one empty chunk),
+    ``chunk_row`` (T,) the row of every chunk, ``long_rows`` (L,) the rows
+    of more than one chunk, whose partial rows a second pass sums; all
+    int32."""
+
+    chunk_ptr: torch.Tensor
+    chunk_row: torch.Tensor
+    long_rows: torch.Tensor
+
+
+def segment_schedule(indptr, device=None) -> SegmentSchedule:
+    """The schedule of a CSR matrix from its row pointers (numpy or a
+    tensor), computed on the host once per matrix; its tensors go to
+    ``device`` (default: ``indptr``'s)."""
+    if isinstance(indptr, torch.Tensor):
+        device = indptr.device if device is None else device
+        indptr = indptr.cpu().numpy()
+    deg = np.diff(np.asarray(indptr, dtype=np.int64))
+    chunks = np.maximum(-(-deg // SEGMM_CHUNK), 1)
+    chunk_ptr = np.zeros(len(deg) + 1, dtype=np.int64)
+    np.cumsum(chunks, out=chunk_ptr[1:])
+    as_int32 = lambda a: torch.as_tensor(a.astype(np.int32), device=device)  # noqa: E731
+    return SegmentSchedule(
+        as_int32(chunk_ptr),
+        as_int32(np.repeat(np.arange(len(deg)), chunks)),
+        as_int32(np.flatnonzero(chunks > 1)),
+    )
+
+
+def weighted_segment_matmul_plain(x, indptr, cols, vals):
+    """Plain version with the Pallas kernel's semantics: bf16 x and
+    bf16-rounded values, whose f32 products are exact, summed per row in
+    f32 by ``index_add_`` (in edge order on the CPU)."""
+    n = indptr.shape[0] - 1
+    rows = torch.repeat_interleave(torch.arange(n, device=x.device), indptr.diff().long())
+    prod = vals.to(torch.bfloat16).float()[:, None] * x.float()[cols.long()]
+    out = torch.zeros((n, x.shape[1]), dtype=torch.float32, device=x.device)
+    return out.index_add_(0, rows, prod)
+
+
+def weighted_segment_matmul(
+    x: torch.Tensor,
+    indptr: torch.Tensor,
+    cols: torch.Tensor,
+    vals: torch.Tensor,
+    schedule: Optional[SegmentSchedule] = None,
+) -> torch.Tensor:
+    """(N, d) f32 ``out[r] = Σ_{e in row r} f32(bf16(vals[e])) · f32(x[cols[e]])``
+    over a row-sorted CSR matrix, every row written (an empty one as 0).
+
+    ``x`` (N, d) bf16, any 1 <= d <= 256; ``indptr`` (N+1,) and ``cols``
+    (E,) int32; ``vals`` (E,) f32. ``schedule`` is
+    :func:`segment_schedule` of ``indptr``, which a caller that applies one
+    matrix many times keeps; it is computed here when None."""
+    _check(x, "x", (torch.bfloat16,), 2)
+    _check(indptr, "indptr", (torch.int32,), 1)
+    _check(cols, "cols", (torch.int32,), 1)
+    _check(vals, "vals", (torch.float32,), 1)
+    n, d = x.shape
+    if indptr.shape != (n + 1,) or vals.shape != cols.shape:
+        raise ValueError(
+            f"shape mismatch: x {tuple(x.shape)}, indptr {tuple(indptr.shape)}, "
+            f"cols {tuple(cols.shape)}, vals {tuple(vals.shape)}"
+        )
+    if n < 1 or not 0 < d <= SEGMM_MAX_D:
+        raise ValueError(f"need N >= 1 and 1 <= d <= {SEGMM_MAX_D}; got {n}, {d}")
+    if _route(x, indptr, cols, vals) == "cpu":
+        return weighted_segment_matmul_plain(x, indptr, cols, vals)
+    if schedule is None:
+        schedule = segment_schedule(indptr)
+    _route(x, schedule.chunk_ptr, schedule.chunk_row, schedule.long_rows)
+    if schedule.chunk_ptr.shape != (n + 1,):
+        raise ValueError(f"schedule of {schedule.chunk_ptr.shape[0] - 1} rows for {n} rows")
+    if d % 2 == 0 and x.data_ptr() % 4:
+        raise ValueError("x must be 4-byte aligned for an even d (bf16 pair loads)")
+    num_chunks = schedule.chunk_row.shape[0]
+    num_long = schedule.long_rows.shape[0]
+    part = torch.empty((num_chunks if num_long else 1, d), dtype=torch.float32, device=x.device)
+    out = torch.empty((n, d), dtype=torch.float32, device=x.device)
+    SEGMM.call(
+        x.data_ptr(), indptr.data_ptr(), cols.data_ptr(), vals.data_ptr(),
+        schedule.chunk_ptr.data_ptr(), schedule.chunk_row.data_ptr(),
+        schedule.long_rows.data_ptr(), n, d, num_chunks, num_long, SEGMM_CHUNK,
+        part.data_ptr(), out.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    return out

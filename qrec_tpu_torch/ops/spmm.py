@@ -1,28 +1,42 @@
-"""Joint LightGCN propagation over the factored dense adjacency.
+"""Joint LightGCN propagation on one device, over either form of the
+normalized joint adjacency ``[[0, Ŝ], [Ŝᵀ, 0]]`` (counterpart of the JAX
+package's ``ops/spmm.py``):
 
-Counterpart of the JAX package's ``ops/spmm.py`` restricted to the
-``graph.dense.quant=factored`` form of ``DenseJoint``: the normalized joint
-adjacency ``[[0, Ŝ], [Ŝᵀ, 0]]`` with ``Ŝ = diag(su) · R · diag(si)``, R the
-binary interaction matrix in int8 and ``su = deg_u^-1/2``,
-``si = deg_i^-1/2``. Every application runs through the dual kernel
-(:func:`~qrec_tpu_torch.ops.kernels.bipartite_dual_matmul`), which reads R
-in both orientations from one copy: no transposed R is stored.
+* :class:`DenseJoint` — the ``graph.dense.quant=factored`` form:
+  ``Ŝ = diag(su) · R · diag(si)`` with R the binary interaction matrix in
+  int8 and ``su = deg_u^-1/2``, ``si = deg_i^-1/2``. Every application runs
+  through the dual kernel
+  (:func:`~qrec_tpu_torch.ops.kernels.bipartite_dual_matmul`), which reads R
+  in both orientations from one copy: no transposed R is stored.
+* :class:`SparseJoint` — the whole (U+I) x (U+I) matrix as a row-sorted
+  CSR, the counterpart of ``PaddedCOO``; every application runs through the
+  segment kernel
+  (:func:`~qrec_tpu_torch.ops.kernels.weighted_segment_matmul`), with
+  per-edge values that a caller may replace (SGL's views).
 
-SGL's augmented views (``factored_edge_drop_view``,
-``factored_node_drop_view``) are ``DenseJoint``s too, with a masked table
-or renormalized scales, so :func:`joint_matmul` on a view is the JAX
-package's ``factored_view_matmul``. Their random inputs come in as tensors
-that the caller draws.
+:func:`spmm` dispatches on the form. SGL's augmented views of the dense
+form (``factored_edge_drop_view``, ``factored_node_drop_view``) are
+``DenseJoint``s too, with a masked table or renormalized scales, so
+:func:`joint_matmul` on a view is the JAX package's
+``factored_view_matmul``; views of the sparse form are edge values
+(:func:`subgraph_vals`). Their random inputs come in as tensors that the
+caller draws.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
-from ..data.graph import factored_adjacency
-from .kernels import bipartite_dual_matmul
+from ..data.graph import COO, factored_adjacency
+from .kernels import (
+    SegmentSchedule,
+    bipartite_dual_matmul,
+    segment_schedule,
+    weighted_segment_matmul,
+)
 
 # entry budget for the dense-bipartite path (same value as the JAX package)
 DENSE_JOINT_LIMIT = 600_000_000
@@ -86,15 +100,159 @@ def joint_matmul(adj: DenseJoint, x: torch.Tensor) -> torch.Tensor:
     return JointMatmul.apply(x, adj.r, adj.row_scale, adj.col_scale)
 
 
-def lightgcn_propagate(adj: DenseJoint, embeddings: torch.Tensor, num_layers: int) -> torch.Tensor:
+class SparseJoint(NamedTuple):
+    """Symmetric joint adjacency as a row-sorted CSR on one device: the
+    port's counterpart of the JAX package's ``PaddedCOO``
+    (``ops/spmm.py:555-659``).
+
+    ``PaddedCOO`` groups edges by 512-row output block and pads every block
+    to whole 2048-edge tiles for the TPU's one-hot matrix product, with a
+    ``perm`` that moves per-edge values into that layout. The segment kernel
+    reads the CSR as it is (``indptr``, ``cols``, ``vals`` in the COO's
+    lexsorted order), so there is no padding and no ``perm``: the values of
+    a view arrive in that same order from ``joint_bipartite_coo``. The
+    symmetry is what lets the backward be the same kernel on the cotangent
+    (:class:`SegmentMatmul`)."""
+
+    indptr: torch.Tensor  # (N+1,) int32
+    cols: torch.Tensor  # (E,) int32
+    vals: torch.Tensor  # (E,) f32
+    rows: torch.Tensor  # (E,) int32, the row of every edge
+    schedule: SegmentSchedule  # the kernel's split of the rows into chunks
+
+    @property
+    def num_rows(self) -> int:
+        return self.indptr.shape[0] - 1
+
+    @classmethod
+    def from_host(cls, coo: COO, device, check_symmetric: bool = True) -> "SparseJoint":
+        rows = np.asarray(coo.rows)
+        cols = np.asarray(coo.cols)
+        vals = np.asarray(coo.vals, dtype=np.float32)
+        n_rows, n_cols = int(coo.shape[0]), int(coo.shape[1])
+        assert n_rows == n_cols, "SparseJoint requires a square (symmetric) matrix"
+        # the CSR below assumes row-sorted edges; O(E) host check once per graph
+        assert np.all(np.diff(rows) >= 0), "SparseJoint requires row-sorted edges"
+        if check_symmetric:
+            m = coo.to_scipy()
+            if (m != m.T).nnz:
+                raise ValueError("SparseJoint requires a symmetric matrix")
+        indptr = np.zeros(n_rows + 1, dtype=np.int64)
+        np.cumsum(np.bincount(rows, minlength=n_rows), out=indptr[1:])
+        as_int32 = lambda a: torch.as_tensor(a.astype(np.int32), device=device)  # noqa: E731
+        return cls(
+            as_int32(indptr),
+            as_int32(cols),
+            torch.as_tensor(vals, device=device),
+            as_int32(rows),
+            segment_schedule(indptr, device=device),
+        )
+
+
+def _segment_call(adj: SparseJoint, x: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
+    """``A @ x`` on bf16 x, as the JAX package's ``_padded_spmm_fwd_impl``."""
+    xb = x.to(torch.bfloat16).contiguous()
+    return weighted_segment_matmul(xb, adj.indptr, adj.cols, vals, adj.schedule)
+
+
+class SegmentMatmul(torch.autograd.Function):
+    """``y = A @ x`` for the symmetric sparse joint adjacency with edge
+    values ``vals`` (the ``_padded_spmm`` custom VJP,
+    ``ops/spmm.py:662-702``): one segment-kernel launch forward, and
+    ``dx = Aᵀ @ dy = A @ dy`` as one more launch on the bf16-cast
+    cotangent. ``dvals[e] = Σ_d dy[row_e] · x[col_e]`` (f32 x, as the JAX
+    package's) is plain PyTorch, computed only when ``vals`` needs a
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, x, vals, adj):
+        ctx.adj = adj
+        ctx.save_for_backward(x, vals)
+        return _segment_call(adj, x, vals)
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, vals = ctx.saved_tensors
+        adj = ctx.adj
+        dx = _segment_call(adj, grad, vals) if ctx.needs_input_grad[0] else None
+        dvals = None
+        if ctx.needs_input_grad[1]:
+            dvals = (grad[adj.rows] * x[adj.cols]).sum(dim=1)
+        return dx, dvals, None
+
+
+def spmm(adj, x: torch.Tensor, vals: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``A @ x`` for either form of the joint adjacency (the JAX package's
+    ``spmm``, ``ops/spmm.py:419-457``): the factored :class:`DenseJoint`
+    through the dual kernel, the :class:`SparseJoint` through the segment
+    kernel. ``vals`` replaces the stored edge values (SGL's views) and
+    needs the sparse form."""
+    if isinstance(adj, DenseJoint):
+        if vals is not None:
+            raise ValueError("per-edge values need the sparse adjacency")
+        return joint_matmul(adj, x)
+    return SegmentMatmul.apply(x, adj.vals if vals is None else vals, adj)
+
+
+def lightgcn_propagate(
+    adj, embeddings: torch.Tensor, num_layers: int, vals: Optional[torch.Tensor] = None
+) -> torch.Tensor:
     """K-layer linear propagation ``E ← ÂE`` with layer-mean readout
     (model/ranking/LightGCN.py:17-33)."""
     acc = embeddings
     e = embeddings
     for _ in range(num_layers):
-        e = joint_matmul(adj, e)
+        e = spmm(adj, e, vals)
         acc = acc + e
     return acc / (num_layers + 1)
+
+
+def renormalize_vals(
+    rows: torch.Tensor, cols: torch.Tensor, keep: torch.Tensor, num_nodes: int
+) -> torch.Tensor:
+    """Symmetric normalization ``D^-1/2 A D^-1/2`` of a kept subgraph, on
+    the device (the JAX package's ``renormalize_vals``): degrees are sums of
+    the 0/1 keep flags, exact in any order, so ``index_add_``'s atomics on
+    the card cannot change them."""
+    deg = torch.zeros(num_nodes, dtype=keep.dtype, device=keep.device).index_add_(0, rows, keep)
+    d_inv = _renormalize(deg)
+    return keep * d_inv[rows] * d_inv[cols]
+
+
+def subgraph_vals(
+    rows: torch.Tensor,
+    cols: torch.Tensor,
+    edge_ids: torch.Tensor,
+    num_nodes: int,
+    aug_type: int,
+    keep,
+) -> torch.Tensor:
+    """Renormalized edge values of an augmented-view subgraph (SGL.py:113-141;
+    the JAX package's ``subgraph_vals``). ``keep`` holds the draws: for aug
+    type 0 (node dropout) the bool ``(keep_u (U,), keep_i (I,))``, an edge
+    kept when both its ends are; for aug types 1 and 2 (edge dropout) one
+    bool flag per interaction, read through ``edge_ids`` so that both
+    directions of an edge go together. Type 2 calls this once per layer."""
+    if aug_type == 0:
+        keep_node = torch.cat(keep)
+        kept = keep_node[rows] & keep_node[cols]
+    else:
+        kept = keep[edge_ids]
+    return renormalize_vals(rows, cols, kept.float(), num_nodes)
+
+
+def view_adjacency(rows, cols, n_nodes: int, device) -> SparseJoint:
+    """Adjacency of per-edge-value views (SGL's dropout subgraphs): the
+    structure is fixed and the values change every step, so the stored
+    values are placeholders and callers pass ``vals`` to :func:`spmm`. The
+    single-device part of the JAX package's ``view_adjacency``
+    (``ops/spmm.py:931-978``) under ``graph.backend=pallas``: the port's
+    views of a sparse joint adjacency always ride the segment kernel.
+    ``rows``/``cols`` describe a symmetric structure in lexsorted order, as
+    ``joint_bipartite_coo`` returns it."""
+    ones = np.ones(len(rows), dtype=np.float32)
+    coo = COO(np.asarray(rows, np.int32), np.asarray(cols, np.int32), ones, (n_nodes, n_nodes))
+    return SparseJoint.from_host(coo, device, check_symmetric=False)
 
 
 _M32 = 0xFFFFFFFF

@@ -13,7 +13,7 @@ import torch
 from qrec_tpu_torch import ModelConf, QRec
 from qrec_tpu_torch.ops import kernels as K
 from qrec_tpu_torch.ops.metrics import parse_measure
-from qrec_tpu_torch.ops.spmm import DenseJoint, lightgcn_propagate
+from qrec_tpu_torch.ops.spmm import DenseJoint, SparseJoint, lightgcn_propagate, spmm
 
 
 @pytest.fixture
@@ -216,5 +216,159 @@ def test_ssl_models_learn_planted_blocks_on_card(cuda_device, tmp_path, name, ar
     before = K.launch_counts()
     recall = parse_measure(QRec(conf, seed=3).execute())["Top 10"]["Recall"]
     after = K.launch_counts()
-    assert all(after[k] > before[k] for k in after)
+    # the dense path: every kernel but the segment SpMM
+    dense = [k for k in after if k != "weighted_segment_matmul"]
+    assert all(after[k] > before[k] for k in dense)
+    assert after["weighted_segment_matmul"] == before["weighted_segment_matmul"]
+    assert recall > 0.5
+
+
+def _skewed_csr(n, mean_deg, heavy=(), empty=(), seed=0):
+    """A symmetric CSR graph on n nodes with about ``mean_deg`` edges a row,
+    rows ``heavy`` joined to (up to) every other node and rows ``empty``
+    without edges; values in (0, 1]. Returns (rows, cols, vals) numpy,
+    lexsorted."""
+    rng = np.random.RandomState(seed)
+    a = rng.randint(0, n, size=n * mean_deg // 2)
+    b = rng.randint(0, n, size=len(a))
+    for h in heavy:
+        others = np.arange(n)
+        a, b = np.r_[a, np.full(n, h)], np.r_[b, others]
+    keep = (a != b) & ~np.isin(a, empty) & ~np.isin(b, empty)
+    key = np.unique(np.minimum(a, b)[keep].astype(np.int64) * n + np.maximum(a, b)[keep])
+    u, v = key // n, key % n
+    rows, cols = np.r_[u, v], np.r_[v, u]
+    vals = np.r_[rng.rand(len(u)), rng.rand(len(u))].astype(np.float32) + 1e-3
+    vals[len(u):] = vals[: len(u)]
+    order = np.lexsort((cols, rows))
+    return rows[order].astype(np.int32), cols[order].astype(np.int32), vals[order]
+
+
+def _csr_tensors(rows, cols, vals, n, device):
+    indptr = np.zeros(n + 1, np.int64)
+    np.cumsum(np.bincount(rows, minlength=n), out=indptr[1:])
+    t = lambda a, dt: torch.as_tensor(a, dtype=dt, device=device)  # noqa: E731
+    return t(indptr, torch.int32), t(cols, torch.int32), t(vals, torch.float32)
+
+
+def _order_bound(indptr, x, cols, vals):
+    """Twice (deg - 1) 2^-24 of every element's sum of absolute terms: the
+    most two f32 sums of the same deg exact products, taken in different
+    orders, can differ (each is within (deg - 1) 2^-24 of the exact sum)."""
+    indptr, x, cols, vals = (t.cpu() for t in (indptr, x, cols, vals))
+    absum = K.weighted_segment_matmul_plain(x.abs(), indptr, cols, vals.abs())
+    return 2.0 * indptr.diff().float()[:, None] * 2.0**-24 * absum
+
+
+# Rows of one chunk (at most K.SEGMM_CHUNK edges) sum their exact bf16
+# products in edge order, as the CPU plain version does: bit for bit. Longer
+# rows add per-chunk partials: another f32 order (_order_bound).
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [1, 8, 50, 64, 150])
+def test_segment_kernel_matches_plain(cuda_device, d):
+    n = 3000
+    rows, cols, vals = _skewed_csr(n, 12, heavy=(7, 1500), empty=(0, 1, 2999), seed=d)
+    indptr, c, v = _csr_tensors(rows, cols, vals, n, cuda_device)
+    g = torch.Generator(device=cuda_device).manual_seed(d)
+    x = torch.randn((n, d), generator=g, device=cuda_device).bfloat16()
+    before = K.SEGMM.launches
+    out = K.weighted_segment_matmul(x, indptr, c, v)
+    assert K.SEGMM.launches == before + 1
+    torch.cuda.synchronize()
+    want = K.weighted_segment_matmul_plain(x.cpu(), indptr.cpu(), c.cpu(), v.cpu())
+    deg = np.diff(indptr.cpu().numpy())
+    short = torch.from_numpy(deg <= K.SEGMM_CHUNK)
+    got = out.cpu()
+    assert torch.equal(got[short], want[short])
+    assert (got[[0, 1, n - 1]] == 0).all()
+    bound = _order_bound(indptr, x, c, v)
+    assert ((got - want).abs() <= bound).all()
+    # on the card the plain version sums with atomics: the same bound
+    plain = K.weighted_segment_matmul_plain(x, indptr, c, v).cpu()
+    assert ((got - plain).abs() <= bound).all()
+    # no atomics: a second call repeats bit for bit
+    assert torch.equal(K.weighted_segment_matmul(x, indptr, c, v), out)
+
+
+@pytest.mark.cuda
+def test_segment_kernel_long_row_and_zero_values(cuda_device):
+    n = 12000
+    rows, cols, vals = _skewed_csr(n, 4, heavy=(5,), empty=(9, 10), seed=3)
+    indptr, c, v = _csr_tensors(rows, cols, vals, n, cuda_device)
+    assert int(indptr[6] - indptr[5]) > 10000  # one 10,000-edge row
+    x = torch.randn((n, 64), device=cuda_device).bfloat16()
+    out = K.weighted_segment_matmul(x, indptr, c, v)
+    want = K.weighted_segment_matmul_plain(x.cpu(), indptr.cpu(), c.cpu(), v.cpu())
+    assert ((out.cpu() - want).abs() <= _order_bound(indptr, x, c, v)).all()
+    assert (out[9:11] == 0).all()
+    zeros = K.weighted_segment_matmul(x, indptr, c, torch.zeros_like(v))
+    assert (zeros == 0).all()
+    # values that round to bf16: 1 + 2^-9 rounds to 1 (ties to even)
+    ones = torch.full_like(v, 1.0 + 2.0**-9)
+    torch.testing.assert_close(
+        K.weighted_segment_matmul(x, indptr, c, ones),
+        K.weighted_segment_matmul(x, indptr, c, torch.ones_like(v)), rtol=0, atol=0,
+    )
+
+
+@pytest.mark.cuda
+def test_segment_autograd_on_card_matches_cpu(cuda_device):
+    from qrec_tpu_torch.data.graph import COO
+
+    n, d = 2000, 50
+    rows, cols, vals = _skewed_csr(n, 10, heavy=(3,), seed=5)
+    coo = COO(rows, cols, vals, (n, n))
+    g = np.random.RandomState(1)
+    x = g.randn(n, d).astype(np.float32)
+    w = g.randn(n, d).astype(np.float32)
+    outs = []
+    for dev in ("cpu", cuda_device):
+        adj = SparseJoint.from_host(coo, dev)
+        xt = torch.tensor(x, device=dev, requires_grad=True)
+        vt = adj.vals.clone().requires_grad_(True)
+        before = K.SEGMM.launches
+        out = spmm(adj, spmm(adj, xt, vt), vt)
+        (out * torch.from_numpy(w).to(dev)).sum().backward()
+        if dev != "cpu":
+            assert K.SEGMM.launches == before + 4  # two forward, two backward
+        outs.append((out.detach().cpu(), xt.grad.cpu(), vt.grad.cpu()))
+    # the second layer re-rounds its input to bf16, so a sum-order
+    # difference can flip one rounding: the bf16 bound of the dense test
+    for got, want in zip(outs[1], outs[0]):
+        torch.testing.assert_close(got, want, rtol=5e-3, atol=5e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "name,args,extra",
+    [("LightGCN", "-n_layer 2", {"graph.backend": "pallas"}),
+     ("SGL", "-n_layer 2 -lambda 0.05 -droprate 0.2 -augtype 1 -temp 0.2",
+      {"graph.backend": "pallas"}),
+     ("NGCF", None, {})],
+)
+def test_sparse_and_ngcf_paths_learn_planted_blocks_on_card(
+    cuda_device, tmp_path, name, args, extra
+):
+    rng = np.random.RandomState(0)
+    path = tmp_path / "ratings.txt"
+    path.write_text("".join(
+        f"u{u} i{i} 1\n"
+        for u in range(40)
+        for i in rng.choice(15, size=10, replace=False) + (0 if u < 20 else 15)
+    ))
+    conf = {
+        "ratings": str(path), "ratings.setup": "-columns 0 1 2", "model.name": name,
+        "evaluation.setup": "-ap 0.2", "item.ranking": "on -topN 10", "num.factors": "16",
+        "num.max.epoch": "30", "batch_size": "64", "learnRate": "-init 0.05 -max 1",
+        "reg.lambda": "-u 0.001 -i 0.001 -b 0.1 -s 0.1",
+        "output.setup": "off -dir ./results/", "seed": "7", **extra,
+    }
+    if args:
+        conf[name] = args
+    before = K.launch_counts()
+    recall = parse_measure(QRec(ModelConf(conf), seed=3).execute())["Top 10"]["Recall"]
+    after = K.launch_counts()
+    sparse = bool(extra)
+    assert (after["weighted_segment_matmul"] > before["weighted_segment_matmul"]) == sparse
+    assert (after["bipartite_dual_matmul"] > before["bipartite_dual_matmul"]) == (not sparse)
     assert recall > 0.5

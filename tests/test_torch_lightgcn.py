@@ -236,7 +236,7 @@ def test_qrec_without_a_card_raises(tmp_path):
         {"checkpoint.setup": "on -dir ckpt"},
         {"model.setup": "-load model.npz"},
         {"graph.backend": "coo"},
-        {"graph.backend": "pallas"},
+        {"graph.backend": "pallas", "parallel.setup": "on"},  # the sharded segment kernel
         {"graph.dense.quant": "int8"},
         {"graph.dense.quant": "off"},
     ],

@@ -382,12 +382,19 @@ def test_ssl_backend_is_checked_and_selects_nothing(tmp_path):
 
 @pytest.mark.parametrize("backend", ["coo", "pallas"])
 def test_sgl_sparse_views_name_the_roadmap(tmp_path, backend):
+    """``coo`` (DeviceCOO) is still refused with its ROADMAP item; under
+    ``pallas`` SGL trains on the sparse adjacency with per-edge views."""
     conf = _planted(tmp_path, "SGL", MODEL_ARGS["SGL"], 2)
-    with pytest.raises(ConfigError, match="SGL's non-dense views"):
-        QRec(ModelConf({**conf, "graph.backend": backend}), device="cpu")
+    if backend == "coo":
+        with pytest.raises(ConfigError, match=r"ROADMAP.md Queue 1 item 5"):
+            QRec(ModelConf({**conf, "graph.backend": backend}), device="cpu")
+        return
+    rec = QRec(ModelConf({**conf, "graph.backend": backend}), seed=3, device="cpu")
+    rec.execute()
+    assert not rec.model.dense_views and len(rec.model.epoch_losses) == 2
 
 
 def test_unported_model_names_its_roadmap_item(tmp_path):
-    conf = _planted(tmp_path, "NGCF", "-n_layer 2", 2)
-    with pytest.raises(ModelNotFoundError, match="NGCF item 8"):
+    conf = _planted(tmp_path, "BPR", "", 2)
+    with pytest.raises(ModelNotFoundError, match="MF/deep/GAN slice 3"):
         QRec(ModelConf(conf), device="cpu").execute()
