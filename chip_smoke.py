@@ -12,11 +12,14 @@ Phases, each of which exits non-zero on failure:
    path ran through K1 and K2 (and not K3/K4), and the final ranking is
    held against the plain versions on the CPU;
 4. K1 and K2 against their plain PyTorch versions on the card, on the main
-   path's own operands (R and the first layer's inputs for K1, the first
-   batch of test users for K2), K1 also at the yelp2018 shape; then
-   CUDA-event timings of the kernel, its plain version and a PyTorch
-   yardstick, with the L2 cache flushed before each timed launch, and the
-   bound; then one more LightGCN epoch under ``torch.profiler``;
+   path's own operands (R and the first layer's inputs for K1, at d=50,
+   150 and 1, the first batch of test users for K2), K1 also at the
+   yelp2018 shape; K1's factored entry against its plain version and the
+   unfused sequence, with its kernels per application; K5 on the lastfm
+   graph's CSR beside K1; CUDA-event timings of each kernel, its plain
+   version and a PyTorch yardstick, with the L2 cache flushed before each
+   timed launch, and the bound; then one more LightGCN epoch under
+   ``torch.profiler``;
 5. SimGCL main path: ``config/SimGCL.conf`` at full width on the same file,
    3 epochs, with the per-epoch quick evaluation and best-epoch selection;
    launch counts of K1-K4 against the code's expectations; K3 and K4
@@ -143,22 +146,29 @@ def yelp_matrix():
     return key // I_N, key % I_N, U_N, I_N
 
 
-def yelp_inputs(torch):
+def yelp_inputs(torch, K):
     """K1's operands at the yelp2018 shape: binary int8 R from
-    :func:`yelp_matrix` and bf16 layer inputs, d=64."""
+    :func:`yelp_matrix` in the padded layout of ``DenseJoint``, bf16 layer
+    inputs at d=64 (xi with zero rows for the padding's columns), and I."""
     rows, cols, U, I = yelp_matrix()
     g = torch.Generator(device="cuda").manual_seed(2)
-    a = torch.zeros((U, I), dtype=torch.int8, device="cuda")
+    a = torch.zeros((U, K.aligned_width(I)), dtype=torch.int8, device="cuda")
     a[torch.as_tensor(rows, device="cuda"), torch.as_tensor(cols, device="cuda")] = 1
     xu = (torch.randn((U, 64), generator=g, device="cuda") * 0.1).bfloat16()
-    xi = (torch.randn((I, 64), generator=g, device="cuda") * 0.1).bfloat16()
-    return a, xu, xi
+    xi = torch.zeros((a.shape[1], 64), dtype=torch.bfloat16, device="cuda")
+    xi[:I] = (torch.randn((I, 64), generator=g, device="cuda") * 0.1).bfloat16()
+    return a, xu, xi, I
 
 
-def dual_phase(torch, K, timer, label, a, xu, xi):
-    U, I = a.shape
+def dual_phase(torch, K, timer, label, a, xu, xi, items, library=True):
+    """K1 on a padded (U, ld) R whose first ``items`` columns are the
+    graph's: against its plain version and bit for bit against itself,
+    then timed beside its plain version, two bf16 ``torch.matmul`` calls and
+    the bound of the function on the logical (U, items) R."""
+    U, ld = a.shape
     d = xu.shape[1]
     ou, oi = K.bipartite_dual_matmul(a, xu, xi)
+    again = K.bipartite_dual_matmul(a, xu, xi)
     pu, pi = K.bipartite_dual_matmul_plain(a, xu, xi)
     torch.cuda.synchronize()
     err = max((ou - pu).abs().max().item(), (oi - pi).abs().max().item())
@@ -167,24 +177,110 @@ def dual_phase(torch, K, timer, label, a, xu, xi):
     scale = max(pu.abs().max().item(), pi.abs().max().item())
     rtol, atol = 1e-5, 1e-5 * scale
     ok = torch.allclose(ou, pu, rtol=rtol, atol=atol) and torch.allclose(oi, pi, rtol=rtol, atol=atol)
-    print(f"[K1 {label}] U={U} I={I} d={d} nnz={int((a != 0).sum())} max_abs_err={err:.3e} "
-          f"(tolerance rtol {rtol} atol {atol:.3e}) {'ok' if ok else 'MISMATCH'}", flush=True)
+    repeat = torch.equal(ou, again[0]) and torch.equal(oi, again[1])
+    print(f"[K1 {label}] U={U} I={items} (stored {ld}) d={d} nnz={int((a != 0).sum())} "
+          f"max_abs_err={err:.3e} (tolerance rtol {rtol} atol {atol:.3e}) "
+          f"{'ok' if ok else 'MISMATCH'}; repeat bit-identical={repeat}", flush=True)
     if not ok:
         fail(f"bipartite_dual_matmul disagrees with its plain version at {label}")
+    if not repeat:
+        fail(f"bipartite_dual_matmul did not repeat bit for bit at {label}")
+    del again, pu, pi, ou, oi
     ms = timer.ms(lambda: K.bipartite_dual_matmul(a, xu, xi))
     warm_ms = timer.ms(lambda: K.bipartite_dual_matmul(a, xu, xi), flush=False)
     plain_ms = timer.ms(lambda: K.bipartite_dual_matmul_plain(a, xu, xi), iters=5)
-    rb = a.to(torch.bfloat16)
-    library_ms = timer.ms(lambda: (torch.matmul(rb, xi), torch.matmul(rb.T, xu)))
-    del rb
-    moved = U * I * 1 + (U + I) * d * 2 + (U + I) * d * 4
-    bound_ms, bound_by = bound(moved, 2 * 2 * U * I * d, PEAK_BF16)
+    library_ms = None
+    if library:
+        rb = a[:, :items].to(torch.bfloat16)
+        xb = xi[:items]
+        library_ms = timer.ms(lambda: (torch.matmul(rb, xb), torch.matmul(rb.T, xu)))
+        del rb
+    moved = U * items * 1 + (U + items) * d * 2 + (U + items) * d * 4
+    bound_ms, bound_by = bound(moved, 2 * 2 * U * items * d, PEAK_BF16)
+    lib = "not timed" if library_ms is None else f"{library_ms:.4f}"
     print(f"[K1 {label}] ms={ms:.4f} (L2 flushed) warm_ms={warm_ms:.4f} plain_ms={plain_ms:.4f} "
-          f"library_ms={library_ms:.4f} (2x torch.matmul on a bf16 copy of R) "
+          f"library_ms={lib} (2x torch.matmul on a bf16 copy of R) "
           f"bound_ms={bound_ms:.4f} by {bound_by} ({moved / 1e6:.1f} MB, "
-          f"{4 * U * I * d / 1e9:.2f} GFLOP)", flush=True)
+          f"{4 * U * items * d / 1e9:.2f} GFLOP)", flush=True)
     return dict(max_abs_err=err, ms=ms, warm_ms=warm_ms, plain_ms=plain_ms,
                 library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
+
+
+def kernels_per_call(torch, fn) -> int:
+    """CUDA kernels one call of ``fn`` launches, from torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and not e.is_user_annotation)
+
+
+def factored_phase(torch, K, timer, adj, x):
+    """The factored entry (one application of the joint adjacency, scales
+    fused) on the main path's R and first-layer input: against its plain
+    version, bit for bit against the unfused sequence on the card (scale,
+    cast, the unscaled kernel, scale: the same sums), its launches per
+    application and its time beside the unfused sequence's."""
+    U, ld = adj.r.shape
+    I, d = adj.num_items, x.shape[1]
+    su, si = adj.row_scale[:, None], adj.col_scale[:, None]
+
+    def unfused():
+        xi = torch.zeros((ld, d), dtype=torch.bfloat16, device=x.device)
+        xi[:I] = (x[U:] * si).bfloat16()
+        ou, oi = K.bipartite_dual_matmul(adj.r, (x[:U] * su).bfloat16(), xi)
+        return torch.cat([ou * su, oi[:I] * si])
+
+    fused = lambda: K.factored_dual_matmul(adj.r, x, adj.row_scale, adj.col_scale)  # noqa: E731
+    y = fused()
+    plain = K.factored_dual_matmul_plain(adj.r, x, adj.row_scale, adj.col_scale)
+    torch.cuda.synchronize()
+    err = (y - plain).abs().max().item()
+    atol = 1e-5 * plain.abs().max().item()
+    ok = torch.allclose(y, plain, rtol=1e-5, atol=atol)
+    same = torch.equal(y, unfused())
+    before = K.DUAL.launches
+    fused()
+    counted = K.DUAL.launches - before
+    kernels = kernels_per_call(torch, fused)
+    unfused_kernels = kernels_per_call(torch, unfused)
+    ms = timer.ms(fused)
+    unfused_ms = timer.ms(unfused)
+    print(f"[K1 factored] U={U} I={I} d={d} max_abs_err vs plain={err:.3e} (rtol 1e-5 atol "
+          f"{atol:.3e}) {'ok' if ok else 'MISMATCH'}; bit-identical to the unfused sequence="
+          f"{same}; counted launches per application={counted}; CUDA kernels per application="
+          f"{kernels} (unfused sequence {unfused_kernels}); ms={ms:.4f} unfused_ms="
+          f"{unfused_ms:.4f} (L2 flushed)", flush=True)
+    if not ok:
+        fail("factored_dual_matmul disagrees with its plain version")
+    if not same:
+        fail("factored_dual_matmul differs from the unfused sequence")
+    if counted != 1 or kernels > 2:
+        fail(f"one factored application took {counted} counted calls and {kernels} kernels")
+    return dict(max_abs_err=err, ms=ms, unfused_ms=unfused_ms, kernels=kernels,
+                unfused_kernels=unfused_kernels)
+
+
+def lastfm_segment_line(torch, K, timer, model, k1_ms):
+    """K5 on the lastfm graph's CSR (the main path's training graph) at the
+    main path's width, timed beside K1's time on the same graph: where the
+    dense path should stop. Changes no default."""
+    from qrec_tpu_torch.data.graph import joint_normalized_adjacency
+    from qrec_tpu_torch.ops.spmm import SparseJoint
+
+    adj = SparseJoint.from_host(joint_normalized_adjacency(model.data), "cuda",
+                                check_symmetric=False)
+    with torch.no_grad():
+        x = torch.cat([model.user_emb, model.item_emb]).bfloat16().contiguous()
+    ms = timer.ms(lambda: K.weighted_segment_matmul(x, adj.indptr, adj.cols, adj.vals,
+                                                     adj.schedule))
+    print(f"[K5 lastfm] N={adj.num_rows} E={adj.cols.shape[0]} d={x.shape[1]} ms={ms:.4f} "
+          f"(L2 flushed) beside K1 lastfm ms={k1_ms:.4f}", flush=True)
+    return ms
 
 
 def scores_phase(torch, K, timer, u, items, bm):
@@ -600,19 +696,30 @@ def main() -> None:
         # operands: R with the first layer's inputs (K1), the first batch of
         # test users (K2); then K1 at the yelp2018 shape
         adj = model.joint_adj
+        n_items = adj.num_items
         with torch.no_grad():
+            x = torch.cat([model.user_emb, model.item_emb]).contiguous()
             xu = (model.user_emb * adj.row_scale[:, None]).bfloat16()
-            xi = (model.item_emb * adj.col_scale[:, None]).bfloat16()
+            xi = torch.zeros((adj.r.shape[1], x.shape[1]), dtype=torch.bfloat16, device="cuda")
+            xi[:n_items] = (model.item_emb * adj.col_scale[:, None]).bfloat16()
         uids = torch.as_tensor(ranker.uids[: model.eval_batch_size], device="cuda").long().clamp(min=0)
         timer = Timer(torch)
-        k1 = dual_phase(torch, K, timer, "lastfm", adj.r, xu, xi)
+        k1 = dual_phase(torch, K, timer, "lastfm", adj.r, xu, xi, n_items)
+        # SimGCL's fused three views (d=150) and SGL's node-drop degrees
+        # (d=1) on the same R
+        k1w = dual_phase(torch, K, timer, "lastfm d=150", adj.r, xu.repeat(1, 3),
+                         xi.repeat(1, 3), n_items)
+        k1d = dual_phase(torch, K, timer, "lastfm d=1", adj.r, xu[:, :1].contiguous(),
+                         xi[:, :1].contiguous(), n_items, library=False)
+        kf = factored_phase(torch, K, timer, adj, x)
+        k5_lastfm_ms = lastfm_segment_line(torch, K, timer, model, k1["ms"])
         k2 = scores_phase(torch, K, timer, model.U[uids], model.V, model.rated_bitmask[uids])
-        k1y = dual_phase(torch, K, timer, "yelp2018", *yelp_inputs(torch))
+        k1y = dual_phase(torch, K, timer, "yelp2018", *yelp_inputs(torch, K))
         epoch_ms = model.timer.summary()["epoch_seconds"] * 1e3
         share = k1["warm_ms"] * counts["bipartite_dual_matmul"] / model.max_epoch / epoch_ms
         print(f"[main] K1 share of a steady epoch, estimated from the warm kernel time: {share:.3f}")
         profile_epoch(torch, model, "LightGCN")
-        del model, adj, xu, xi
+        del model, adj, x, xu, xi
 
         # 5. SimGCL main path, then K3 and K4 on its first step's views
         simgcl, sim_counts, _ = drive(torch, K, QRec, conf_of("SimGCL", 3), "simgcl")
@@ -675,8 +782,14 @@ def main() -> None:
     print(f"[K5 yelp2018] launches {yelp_counts['weighted_segment_matmul']} ms={k5['ms']:.4f} "
           f"plain_ms={k5['plain_ms']:.4f} library_ms={k5['library_ms']:.4f} "
           f"bound_ms={k5['bound_ms']:.4f}", flush=True)
-    print(f"[K1 yelp2018] ms={k1y['ms']:.4f} plain_ms={k1y['plain_ms']:.4f} "
-          f"library_ms={k1y['library_ms']:.4f} bound_ms={k1y['bound_ms']:.4f}", flush=True)
+    for label, k in (("lastfm", k1), ("lastfm d=150", k1w), ("lastfm d=1", k1d),
+                     ("yelp2018", k1y)):
+        lib = "null" if k["library_ms"] is None else f"{k['library_ms']:.4f}"
+        print(f"[K1 {label}] ms={k['ms']:.4f} plain_ms={k['plain_ms']:.4f} library_ms={lib} "
+              f"bound_ms={k['bound_ms']:.4f}", flush=True)
+    print(f"[K1 factored] kernels per application {kf['kernels']} (unfused "
+          f"{kf['unfused_kernels']}) ms={kf['ms']:.4f} unfused_ms={kf['unfused_ms']:.4f}; "
+          f"K5 lastfm ms={k5_lastfm_ms:.4f}", flush=True)
     print(f"[sgl] launches {json.dumps(sgl_counts)}; K3 at B=4000 ms={k3s['ms']:.4f} "
           f"K4 ms={k4s['ms']:.4f}", flush=True)
 
@@ -686,7 +799,7 @@ def main() -> None:
                 "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
                 "bound_by": k["bound_by"], "library_ms": k["library_ms"]}
 
-    k1["max_abs_err"] = max(k1["max_abs_err"], k1y["max_abs_err"])
+    k1["max_abs_err"] = max(k["max_abs_err"] for k in (k1, k1w, k1d, k1y))
     kernels = [
         row("bipartite_dual_matmul", "qrec_tpu_torch/csrc/dual_matmul.cu",
             "qrec_tpu/ops/pallas_kernels.py:563", counts["bipartite_dual_matmul"], k1),

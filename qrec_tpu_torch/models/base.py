@@ -2,7 +2,8 @@
 reference base/recommender.py, base/iterativeRecommender.py,
 base/graphRecommender.py).
 
-A model is an ``nn.Module`` on an explicit device. It implements
+A model is an ``nn.Module`` on one device: the CUDA device unless the
+caller passes ``device="cpu"`` (``device.resolve_device``). It implements
 ``build() -> TrainSpec``; the inherited ``fit()`` trains with fixed-LR Adam
 (runtime/trainer.py), with a per-epoch quick evaluation and best-epoch
 selection when the spec asks for it, and ``finalize`` leaves the final user
@@ -20,6 +21,7 @@ from torch import nn
 
 from ..config import ModelConf, OptionConf
 from ..data.dataset import Interactions
+from ..device import resolve_device
 from ..errors import ConfigError
 from ..ops import sampling
 from ..ops.metrics import device_ranking_metrics
@@ -56,12 +58,12 @@ class Recommender(nn.Module):
     # full-catalog scoring batch (users per masked-scorer launch)
     eval_batch_size = 1024
 
-    def __init__(self, conf: ModelConf, data: Interactions, fold: str = "[1]", device="cpu"):
+    def __init__(self, conf: ModelConf, data: Interactions, fold: str = "[1]", device=None):
         super().__init__()
         self.config = conf
         self.data = data
         self.fold = fold
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.model_name = conf["model.name"]
         self.eval_settings = conf.options("evaluation.setup")
         self.ranking = conf.options("item.ranking")

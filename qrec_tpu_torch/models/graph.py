@@ -56,7 +56,7 @@ class LightGCN(GraphRecommender):
 
     track_best = False
 
-    def __init__(self, conf, data, fold: str = "[1]", device="cpu"):
+    def __init__(self, conf, data, fold: str = "[1]", device=None):
         super().__init__(conf, data, fold=fold, device=device)
         init = self.init_embeddings()
         self.user_emb = nn.Parameter(init["user_emb"])
@@ -113,7 +113,7 @@ class NGCF(LightGCN):
 
     keep_prob = 0.9  # message dropout keep (NGCF.py:37)
 
-    def __init__(self, conf, data, fold: str = "[1]", device="cpu"):
+    def __init__(self, conf, data, fold: str = "[1]", device=None):
         super().__init__(conf, data, fold=fold, device=device)
         gen = torch.Generator().manual_seed(self.seed + 17)
         d = self.emb_size

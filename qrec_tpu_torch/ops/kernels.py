@@ -2,8 +2,10 @@
 launch counters and the build step (counterpart of the JAX package's
 ``ops/pallas_kernels.py``).
 
-* :func:`bipartite_dual_matmul` — ``(A @ xi, Aᵀ @ xu)`` in one pass over A
-  (``csrc/dual_matmul.cu``; replaces ``_dual_kernel``).
+* :func:`bipartite_dual_matmul` — ``(A @ xi, Aᵀ @ xu)`` in one pass over A,
+  and :func:`factored_dual_matmul`, one application of the factored joint
+  adjacency with the scales fused (``csrc/dual_matmul.cu``; replaces
+  ``_dual_kernel``).
 * :func:`masked_catalog_scores` — ``U_block @ Vᵀ`` with rated items set to
   ``mask_value`` from a packed bitmask (``csrc/masked_scores.cu``; replaces
   ``_score_kernel``).
@@ -49,7 +51,7 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC",
 )
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 
 
 class Kernel:
@@ -94,7 +96,8 @@ class Kernel:
 
 DUAL = Kernel(
     "bipartite_dual_matmul", "dual_matmul.cu", "qrec_dual_matmul",
-    [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    [_P, _I, _LL, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    queries={"qrec_dual_max_cols": [_I, _I], "qrec_dual_tile_rows": [_I, _I]},
 )
 SCORES = Kernel(
     "masked_catalog_scores", "masked_scores.cu", "qrec_masked_scores",
@@ -192,6 +195,13 @@ def _route(*tensors: torch.Tensor) -> str:
 # ---------------------------------------------------------------------------
 
 DUAL_MAX_D = 256
+# R's row stride, in elements, is a multiple of this (16-byte copies)
+DUAL_ALIGN = 16
+
+
+def aligned_width(i: int) -> int:
+    """The padded row length of an R with ``i`` columns."""
+    return _cdiv(i, DUAL_ALIGN) * DUAL_ALIGN
 
 
 def bipartite_dual_matmul_plain(a, xu, xi):
@@ -203,35 +213,112 @@ def bipartite_dual_matmul_plain(a, xu, xi):
     return af @ xi.float(), af.T @ xu.float()
 
 
+def factored_dual_matmul_plain(r, x, row_scale, col_scale):
+    """Plain version of :func:`factored_dual_matmul`, the steps of the JAX
+    package's ``_int8_call``: scale, cast to bf16, the dual product, scale
+    the f32 sums."""
+    nu, ni = r.shape[0], col_scale.shape[0]
+    su, si = row_scale[:, None], col_scale[:, None]
+    xu = (x[:nu] * su).to(torch.bfloat16)
+    xi = (x[nu:] * si).to(torch.bfloat16)
+    ou, oi = bipartite_dual_matmul_plain(r[:, :ni], xu, xi)
+    return torch.cat([ou * su, oi * si])
+
+
 def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def _dual_strip_rows(u: int, chunks: int, slices: int, slots: int, tile: int) -> int:
-    # as many row strips as fill the card's resident block slots in one wave
-    # (more strips only add oi partials), each a whole number of row tiles
-    strips = max(1, min(_cdiv(u, tile), slots // (chunks * slices)))
-    return _cdiv(_cdiv(u, strips), tile) * tile
+# the plan's cost model (H100 figures; they pick a plan, they are no
+# measurement): R bytes a block turns into partials per second, device
+# memory bytes per second for the partials' round trip
+_DUAL_SM_RATE = 12e9
+_DUAL_HBM_RATE = 3.0e12
 
 
 @functools.lru_cache(maxsize=None)
-def _dual_geometry(device: torch.device) -> Tuple[int, int, int, int, int]:
-    """(chunk, tile, slice, resident block slots, SMs) of the dual kernel on
-    ``device``."""
+def _dual_plan(u: int, ld: int, d: int, bn_max: int, sms: int, tm: int = 64) -> Tuple[int, int]:
+    """Region sides ``(bm, bn)`` of the dual kernel for a (u, ld) R at width
+    d: ``bm`` rows, a multiple of the kernel's tile rows ``tm``, and ``bn <=
+    bn_max`` columns, a multiple of 64.
+    Every block writes ``(rows + cols) · N · 4`` bytes of partials (N = d
+    rounded up to 8), which the second launch reads back; more regions fill
+    the SMs, larger ones write fewer partials. Among the plans whose
+    partials stay within R's bytes (if any do), the one with the least
+    estimated time: waves of regions at ``_DUAL_SM_RATE`` plus the
+    partials' round trip."""
+    n = _cdiv(d, 8) * 8
+    best = None
+    for n_cs in range(_cdiv(ld, bn_max), _cdiv(ld, 64) + 1):
+        bn = _cdiv(_cdiv(ld, n_cs), 64) * 64
+        if _cdiv(ld, bn) != n_cs:
+            continue
+        for n_rs in range(1, _cdiv(u, tm) + 1):
+            bm = _cdiv(_cdiv(u, n_rs), tm) * tm
+            if _cdiv(u, bm) != n_rs:
+                continue
+            partial = (n_cs * u + n_rs * ld) * n * 4
+            waves = _cdiv(n_rs * n_cs, sms)
+            cost = waves * bm * bn / _DUAL_SM_RATE + 2 * partial / _DUAL_HBM_RATE
+            key = (partial > u * ld, cost)
+            if best is None or key < best[0]:
+                best = (key, bm, bn)
+    return best[1], best[2]
+
+
+@functools.lru_cache(maxsize=None)
+def _dual_limits(device: torch.device, d: int, a_int8: bool) -> Tuple[int, int, int]:
+    """(the most columns a region can have, the tile's rows, SMs) of the
+    dual kernel on ``device`` at width d; the same for both entries, so
+    that they sum in the same order."""
     lib = DUAL.load()
-    num_sms = torch.cuda.get_device_properties(device).multi_processor_count
-    per_sm = lib.qrec_dual_blocks_per_sm()
-    if per_sm <= 0:
-        raise RuntimeError("bipartite_dual_matmul: the occupancy query failed")
-    return (lib.qrec_dual_chunk(), lib.qrec_dual_tile(), lib.qrec_dual_slice(),
-            per_sm * num_sms, num_sms)
+    bn_max = lib.qrec_dual_max_cols(d, int(a_int8))
+    if bn_max <= 0:
+        raise RuntimeError(f"bipartite_dual_matmul: no region fits shared memory at d={d}")
+    return bn_max, lib.qrec_dual_tile_rows(d, int(a_int8)), _num_sms(device)
+
+
+_dual_scratch: Dict[Tuple[torch.device, int], torch.Tensor] = {}
+
+
+def _scratch(device: torch.device, numel: int) -> torch.Tensor:
+    """A grow-only f32 buffer for the partials, one per device and stream:
+    kept across calls instead of allocated on every one."""
+    key = (device, torch.cuda.current_stream(device).cuda_stream)
+    buf = _dual_scratch.get(key)
+    if buf is None or buf.numel() < numel:
+        buf = torch.empty(numel, dtype=torch.float32, device=device)
+        _dual_scratch[key] = buf
+    return buf
+
+
+def _dual_launch(a, xu, xi, x, su, si, u: int, i: int, d: int) -> torch.Tensor:
+    """One call of the dual kernel: (u+i, d) f32, ou then oi."""
+    a_int8 = a.dtype == torch.int8
+    bn_max, tm, sms = _dual_limits(a.device, d, a_int8)
+    ld = a.shape[1]
+    bm, bn = _dual_plan(u, ld, d, bn_max, sms, tm)
+    n = _cdiv(d, 8) * 8
+    n_rs, n_cs = _cdiv(u, bm), _cdiv(ld, bn)
+    ou_numel = n_cs * u * n
+    part = _scratch(a.device, ou_numel + n_rs * i * n)
+    out = torch.empty((u + i, d), dtype=torch.float32, device=a.device)
+    ptr = lambda t: 0 if t is None else t.data_ptr()  # noqa: E731
+    DUAL.call(
+        a.data_ptr(), int(a_int8), ld, ptr(xu), ptr(xi), ptr(x), ptr(su), ptr(si),
+        part.data_ptr(), part.data_ptr() + 4 * ou_numel, out.data_ptr(),
+        u, i, d, bm, bn, torch.cuda.current_stream(a.device).cuda_stream,
+    )
+    return out
 
 
 def bipartite_dual_matmul(a: torch.Tensor, xu: torch.Tensor, xi: torch.Tensor):
     """``(a @ xi, aᵀ @ xu)`` as f32 ``(U, d)`` and ``(I, d)``.
 
     ``a``: (U, I) int8 or bf16, row-major; ``xu`` (U, d) and ``xi`` (I, d)
-    bf16, any U, I and d <= 256."""
+    bf16, any U, I and d <= 256. The kernel reads rows whose length is a
+    multiple of 16: an ``a`` of another width is copied once into a
+    zero-padded table first (``DenseJoint`` stores R padded)."""
     _check(a, "a", (torch.int8, torch.bfloat16), 2)
     _check(xu, "xu", (torch.bfloat16,), 2)
     _check(xi, "xi", (torch.bfloat16,), 2)
@@ -245,20 +332,48 @@ def bipartite_dual_matmul(a: torch.Tensor, xu: torch.Tensor, xi: torch.Tensor):
         raise ValueError(f"d={d} outside 1..{DUAL_MAX_D}")
     if _route(a, xu, xi) == "cpu":
         return bipartite_dual_matmul_plain(a, xu, xi)
-    chunk, tile, dk, slots, num_sms = _dual_geometry(a.device)
-    chunks, slices = _cdiv(i, chunk), _cdiv(d, dk)
-    strip_rows = _dual_strip_rows(u, chunks, slices, slots, tile)
-    strips = _cdiv(u, strip_rows)
-    ou_part = torch.empty((chunks, u, d), dtype=torch.float32, device=a.device)
-    oi_part = torch.empty((strips, i, d), dtype=torch.float32, device=a.device)
-    ou = torch.empty((u, d), dtype=torch.float32, device=a.device)
-    oi = torch.empty((i, d), dtype=torch.float32, device=a.device)
-    DUAL.call(
-        a.data_ptr(), int(a.dtype == torch.int8), xu.data_ptr(), xi.data_ptr(),
-        ou_part.data_ptr(), oi_part.data_ptr(), ou.data_ptr(), oi.data_ptr(),
-        u, i, d, strip_rows, num_sms, torch.cuda.current_stream(a.device).cuda_stream,
-    )
-    return ou, oi
+    if xu.data_ptr() % 4 or xi.data_ptr() % 4:
+        raise ValueError("xu and xi must be 4-byte aligned (4-byte copies)")
+    if i % DUAL_ALIGN:
+        padded = torch.zeros((u, aligned_width(i)), dtype=a.dtype, device=a.device)
+        padded[:, :i] = a
+        a = padded
+    out = _dual_launch(a, xu, xi, None, None, None, u, i, d)
+    return out[:u], out[u:]
+
+
+def factored_dual_matmul(
+    r: torch.Tensor, x: torch.Tensor, row_scale: torch.Tensor, col_scale: torch.Tensor
+) -> torch.Tensor:
+    """``[[0, Ŝ], [Ŝᵀ, 0]] @ x`` as one (U+I, d) f32 tensor, with
+    ``Ŝ = diag(row_scale) · R · diag(col_scale)``: ``ou = su · (R @
+    bf16(si · x_i))``, ``oi = si · (Rᵀ @ bf16(su · x_u))``, the arithmetic
+    of the JAX package's ``_int8_call``. One kernel call: the scaling and
+    the casts happen as the kernel loads x, the scales of the result as it
+    writes it.
+
+    ``r``: (U, ld) int8 with I = ``col_scale``'s length <= ld; on a card ld
+    is a multiple of 16 and the columns past I are zero (``DenseJoint``'s
+    layout). ``x`` (U+I, d) f32, any d <= 256; the scales f32."""
+    _check(r, "r", (torch.int8,), 2)
+    _check(x, "x", (torch.float32,), 2)
+    _check(row_scale, "row_scale", (torch.float32,), 1)
+    _check(col_scale, "col_scale", (torch.float32,), 1)
+    u, ld = r.shape
+    i = col_scale.shape[0]
+    d = x.shape[1]
+    if row_scale.shape != (u,) or x.shape[0] != u + i or i > ld:
+        raise ValueError(
+            f"shape mismatch: r {tuple(r.shape)}, x {tuple(x.shape)}, row_scale "
+            f"{tuple(row_scale.shape)}, col_scale {tuple(col_scale.shape)}"
+        )
+    if not 0 < d <= DUAL_MAX_D:
+        raise ValueError(f"d={d} outside 1..{DUAL_MAX_D}")
+    if _route(r, x, row_scale, col_scale) == "cpu":
+        return factored_dual_matmul_plain(r, x, row_scale, col_scale)
+    if ld % DUAL_ALIGN:
+        raise ValueError(f"r's rows must be padded to a multiple of {DUAL_ALIGN}, got {ld}")
+    return _dual_launch(r, None, None, x, row_scale, col_scale, u, i, d)
 
 
 # ---------------------------------------------------------------------------

@@ -4,10 +4,11 @@ package's ``ops/spmm.py``):
 
 * :class:`DenseJoint` — the ``graph.dense.quant=factored`` form:
   ``Ŝ = diag(su) · R · diag(si)`` with R the binary interaction matrix in
-  int8 and ``su = deg_u^-1/2``, ``si = deg_i^-1/2``. Every application runs
-  through the dual kernel
-  (:func:`~qrec_tpu_torch.ops.kernels.bipartite_dual_matmul`), which reads R
-  in both orientations from one copy: no transposed R is stored.
+  int8 and ``su = deg_u^-1/2``, ``si = deg_i^-1/2``. Every application is
+  one call of the dual kernel's factored entry
+  (:func:`~qrec_tpu_torch.ops.kernels.factored_dual_matmul`), which reads R
+  in both orientations from one copy (no transposed R is stored) and
+  applies the scales as it loads x and writes the result.
 * :class:`SparseJoint` — the whole (U+I) x (U+I) matrix as a row-sorted
   CSR, the counterpart of ``PaddedCOO``; every application runs through the
   segment kernel
@@ -33,7 +34,9 @@ import torch
 from ..data.graph import COO, factored_adjacency
 from .kernels import (
     SegmentSchedule,
+    aligned_width,
     bipartite_dual_matmul,
+    factored_dual_matmul,
     segment_schedule,
     weighted_segment_matmul,
 )
@@ -42,10 +45,26 @@ from .kernels import (
 DENSE_JOINT_LIMIT = 600_000_000
 
 
-class DenseJoint(NamedTuple):
-    """Factored dense joint adjacency on one device."""
+def pad_table(r: torch.Tensor) -> torch.Tensor:
+    """(U, I) R as the dual kernel reads it: (U, ld) with ld = I rounded up
+    to a multiple of 16 and the extra columns zero (``r`` itself when I
+    already is one)."""
+    u, i = r.shape
+    ld = aligned_width(i)
+    if ld == i:
+        return r
+    out = torch.zeros((u, ld), dtype=r.dtype, device=r.device)
+    out[:, :i] = r
+    return out
 
-    r: torch.Tensor  # (U, I) int8, binary
+
+class DenseJoint(NamedTuple):
+    """Factored dense joint adjacency on one device. ``r`` is stored with
+    its rows padded by zero columns (:func:`pad_table`): the item count I is
+    ``col_scale``'s length, and zero columns meet zero rows of x, so no
+    result changes."""
+
+    r: torch.Tensor  # (U, ld) int8, binary; columns I..ld zero
     row_scale: torch.Tensor  # (U,) f32, deg_u^-1/2
     col_scale: torch.Tensor  # (I,) f32, deg_i^-1/2
 
@@ -54,13 +73,22 @@ class DenseJoint(NamedTuple):
         return self.r.shape[0]
 
     @property
+    def num_items(self) -> int:
+        return self.col_scale.shape[0]
+
+    @property
     def num_rows(self) -> int:
-        return self.r.shape[0] + self.r.shape[1]
+        return self.num_users + self.num_items
+
+    @classmethod
+    def from_tables(cls, r, row_scale, col_scale) -> "DenseJoint":
+        """From an unpadded (U, I) R."""
+        return cls(pad_table(r), row_scale, col_scale)
 
     @classmethod
     def from_interactions(cls, data, device) -> "DenseJoint":
         rb, su, si = factored_adjacency(data)
-        return cls(
+        return cls.from_tables(
             torch.from_numpy(rb).to(device),
             torch.from_numpy(su).to(device),
             torch.from_numpy(si).to(device),
@@ -69,21 +97,14 @@ class DenseJoint(NamedTuple):
 
 def factored_call(adj: DenseJoint, x: torch.Tensor) -> torch.Tensor:
     """``[[0, Ŝ], [Ŝᵀ, 0]] @ x`` for x (U+I, d) f32, as the JAX package's
-    ``_int8_call``: scale, cast to bf16, one dual-kernel pass, scale the f32
-    results."""
-    nu = adj.num_users
-    su = adj.row_scale[:, None]
-    si = adj.col_scale[:, None]
-    xu = (x[:nu] * su).to(torch.bfloat16).contiguous()
-    xi = (x[nu:] * si).to(torch.bfloat16).contiguous()
-    ou, oi = bipartite_dual_matmul(adj.r, xu, xi)
-    return torch.cat([ou * su, oi * si])
+    ``_int8_call``: one call of the dual kernel's factored entry."""
+    return factored_dual_matmul(adj.r, x.contiguous(), adj.row_scale, adj.col_scale)
 
 
 class JointMatmul(torch.autograd.Function):
     """``y = M @ x`` with M the symmetric joint adjacency. The gradient is
-    ``dx = M @ dy``: the backward is the same dual-kernel call on the
-    cotangent, never autograd through a transpose of R."""
+    ``dx = M @ dy``: the backward is the same factored dual-kernel call on
+    the cotangent, never autograd through a transpose of R."""
 
     @staticmethod
     def forward(ctx, x, r, row_scale, col_scale):
@@ -93,7 +114,7 @@ class JointMatmul(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad):
-        return factored_call(ctx.adj, grad.contiguous()), None, None, None
+        return factored_call(ctx.adj, grad), None, None, None
 
 
 def joint_matmul(adj: DenseJoint, x: torch.Tensor) -> torch.Tensor:
@@ -294,16 +315,17 @@ def factored_edge_drop_view(
     drop_rate: float,
 ) -> DenseJoint:
     """Edge-dropout view (SGL.py:128-141, aug types 1/2): ``R · keep(ru, ci)``
-    in R's layout, one int8 table, renormalized by the kept degrees, which
-    are exact f32 row and column sums of it. ``edges`` holds the (rows,
-    cols) of R's nonzeros; the hash is evaluated there only, since the
-    product is 0 elsewhere whatever the hash says."""
+    in R's padded layout, one int8 table, renormalized by the kept degrees,
+    which are exact f32 row and column sums of it. ``edges`` holds the
+    (rows, cols) of R's nonzeros; the hash is evaluated there only, since
+    the product is 0 elsewhere whatever the hash says (the padding's
+    columns among them)."""
     rows, cols = edges
     keep = pair_hash_keep(ru[rows], ci[cols], drop_rate)
     r = torch.zeros_like(adj.r)
     r[rows, cols] = keep.to(torch.int8)
     deg_u = r.sum(dim=1, dtype=torch.float32)
-    deg_i = r.sum(dim=0, dtype=torch.float32)
+    deg_i = r[:, : adj.num_items].sum(dim=0, dtype=torch.float32)
     return DenseJoint(r, _renormalize(deg_u), _renormalize(deg_i))
 
 
@@ -311,13 +333,16 @@ def factored_node_drop_view(adj: DenseJoint, keep_u: torch.Tensor, keep_i: torch
     """Node-dropout view (SGL.py:113-126, aug type 0): R stays unmasked; a
     dropped node's scale is 0, which removes its edges. The kept degrees
     are the binary matvecs ``R @ keep_i`` and ``Rᵀ @ keep_u`` (one dual
-    product at width 1, exact: 0/1 operands, f32 sums), masked by the
-    node's own keep flag."""
+    product at width 1 over the padded R, with zero keeps for the padding's
+    columns; exact: 0/1 operands, f32 sums), masked by the node's own keep
+    flag."""
+    ni = adj.num_items
     ku = keep_u.to(torch.bfloat16)[:, None].contiguous()
-    ki = keep_i.to(torch.bfloat16)[:, None].contiguous()
+    ki = torch.zeros((adj.r.shape[1], 1), dtype=torch.bfloat16, device=keep_i.device)
+    ki[:ni, 0] = keep_i.to(torch.bfloat16)
     deg_u, deg_i = bipartite_dual_matmul(adj.r, ku, ki)
     return DenseJoint(
         adj.r,
         _renormalize(deg_u[:, 0] * keep_u),
-        _renormalize(deg_i[:, 0] * keep_i),
+        _renormalize(deg_i[:ni, 0] * keep_i),
     )

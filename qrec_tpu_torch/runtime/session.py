@@ -12,13 +12,12 @@ from __future__ import annotations
 import random as _random
 from typing import List
 
-import torch
-
 from .. import io as qio
 from ..config import ModelConf, OptionConf
 from ..data.dataset import Interactions
 from ..data.split import data_split
-from ..errors import ConfigError, DeviceUnavailableError, EvaluationError
+from ..device import resolve_device
+from ..errors import ConfigError, EvaluationError
 from ..log import Log, timestamp
 from ..models import get_model
 from ..models.base import check_graph_settings
@@ -34,16 +33,6 @@ _NOT_PORTED_PROTOCOLS = {
     "-cv": "Queue 1, slice 1 deferrals: -cv cross-validation",
     "-predict": "Queue 1, slice 1 deferrals: -predict user lists",
 }
-
-
-def resolve_device(device=None) -> torch.device:
-    """``None`` means the CUDA device; a CUDA request with no card raises."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise DeviceUnavailableError(
-            "no CUDA device is available; pass device='cpu' to run on the CPU"
-        )
-    return dev
 
 
 def check_ported(config: ModelConf) -> None:

@@ -24,15 +24,24 @@ def cuda_device():
     return torch.device("cuda")
 
 
+def _dual_operands(device, u, i, d, dtype, seed=0):
+    g = torch.Generator(device=device).manual_seed(seed)
+    mask = torch.rand((u, i), generator=g, device=device) < 0.05
+    a = mask.to(dtype) if dtype == torch.int8 else (mask * torch.rand((u, i), generator=g, device=device)).to(dtype)
+    xu = torch.randn((u, d), generator=g, device=device).bfloat16()
+    xi = torch.randn((i, d), generator=g, device=device).bfloat16()
+    return a, xu, xi
+
+
+# ragged U and I (1, 15, 17 and the lastfm item count) at every width the
+# paths use (d=1 SGL's degrees, 50, 64, 150 SimGCL's fused views) and the
+# bounds of the tensor-core N (8, 256)
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16])
-@pytest.mark.parametrize("u,i,d", [(37, 211, 16), (600, 1100, 50), (300, 700, 130)])
+@pytest.mark.parametrize("d", [1, 8, 16, 50, 64, 130, 150, 256])
+@pytest.mark.parametrize("u,i", [(37, 211), (600, 1100), (1, 15), (15, 17), (17, 1), (64, 16591)])
 def test_dual_kernel_matches_plain(cuda_device, u, i, d, dtype):
-    g = torch.Generator(device=cuda_device).manual_seed(0)
-    mask = torch.rand((u, i), generator=g, device=cuda_device) < 0.05
-    a = mask.to(dtype) if dtype == torch.int8 else (mask * torch.rand((u, i), generator=g, device=cuda_device)).to(dtype)
-    xu = torch.randn((u, d), generator=g, device=cuda_device).bfloat16()
-    xi = torch.randn((i, d), generator=g, device=cuda_device).bfloat16()
+    a, xu, xi = _dual_operands(cuda_device, u, i, d, dtype)
     before = K.DUAL.launches
     ou, oi = K.bipartite_dual_matmul(a, xu, xi)
     assert K.DUAL.launches == before + 1
@@ -42,6 +51,62 @@ def test_dual_kernel_matches_plain(cuda_device, u, i, d, dtype):
     torch.testing.assert_close(oi, pi, rtol=1e-5, atol=1e-4)
     ou2, oi2 = K.bipartite_dual_matmul(a, xu, xi)
     assert torch.equal(ou, ou2) and torch.equal(oi, oi2)  # no atomics: repeats bit for bit
+
+
+def _factored_operands(device, u, i, d, seed=1):
+    rng = np.random.RandomState(seed)
+    rb = (rng.rand(u, i) < 0.05).astype(np.int8)
+    su = (1.0 / np.sqrt(np.maximum(rb.sum(1), 1))).astype(np.float32)
+    si = (1.0 / np.sqrt(np.maximum(rb.sum(0), 1))).astype(np.float32)
+    x = rng.randn(u + i, d).astype(np.float32)
+    adj = DenseJoint.from_tables(*(torch.from_numpy(t).to(device) for t in (rb, su, si)))
+    return adj, torch.from_numpy(x).to(device)
+
+
+# the fused entry sums exactly what the unscaled one does (the same regions,
+# the same order), and scales as the unfused sequence does: bit for bit
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [1, 50, 64, 150])
+@pytest.mark.parametrize("u,i", [(15, 17), (300, 901), (1892, 16591)])
+def test_factored_entry_matches_plain_and_unfused(cuda_device, u, i, d):
+    adj, x = _factored_operands(cuda_device, u, i, d)
+    assert adj.r.shape[1] % 16 == 0 and not adj.r[:, i:].any()
+    before = K.DUAL.launches
+    y = K.factored_dual_matmul(adj.r, x, adj.row_scale, adj.col_scale)
+    assert K.DUAL.launches == before + 1
+    su, si = adj.row_scale[:, None], adj.col_scale[:, None]
+    ou, oi = K.bipartite_dual_matmul(
+        adj.r, (x[:u] * su).bfloat16(),
+        torch.cat([(x[u:] * si).bfloat16(), x.new_zeros((adj.r.shape[1] - i, d)).bfloat16()]),
+    )
+    assert torch.equal(y, torch.cat([ou * su, oi[:i] * si]))
+    plain = K.factored_dual_matmul_plain(adj.r, x, adj.row_scale, adj.col_scale)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y, plain, rtol=1e-5, atol=1e-5 * float(plain.abs().max()))
+    assert torch.equal(K.factored_dual_matmul(adj.r, x, adj.row_scale, adj.col_scale), y)
+
+
+@pytest.mark.cuda
+def test_dual_regions_split_both_sides(cuda_device):
+    # the lastfm shape puts several regions on each side: ou sums several
+    # column partials, oi several row partials
+    u, i, d = 1892, 16591, 50
+    bn_max, tm, sms = K._dual_limits(cuda_device, d, True)
+    bm, bn = K._dual_plan(u, K.aligned_width(i), d, bn_max, sms, tm)
+    assert -(-u // bm) >= 2 and -(-K.aligned_width(i) // bn) >= 2
+    a, xu, xi = _dual_operands(cuda_device, u, i, d, torch.int8, seed=3)
+    ou, oi = K.bipartite_dual_matmul(a, xu, xi)
+    pu, pi = K.bipartite_dual_matmul_plain(a, xu, xi)
+    torch.testing.assert_close(ou, pu, rtol=1e-5, atol=1e-4)
+    torch.testing.assert_close(oi, pi, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_dual_kernel_rejects_unpadded_table(cuda_device):
+    r = torch.zeros((4, 20), dtype=torch.int8, device=cuda_device)
+    x = torch.zeros((24, 3), device=cuda_device)
+    with pytest.raises(ValueError):
+        K.factored_dual_matmul(r, x, torch.ones(4, device=cuda_device), torch.ones(20, device=cuda_device))
 
 
 @pytest.mark.cuda
@@ -74,7 +139,7 @@ def test_propagation_and_gradient_on_card_match_cpu(cuda_device):
     w = g.randn(u + i, d).astype(np.float32)
     outs = []
     for dev in ("cpu", cuda_device):
-        adj = DenseJoint(*(torch.from_numpy(a).to(dev) for a in (rb, su, si)))
+        adj = DenseJoint.from_tables(*(torch.from_numpy(a).to(dev) for a in (rb, su, si)))
         xt = torch.tensor(x, device=dev, requires_grad=True)
         out = lightgcn_propagate(adj, xt, 2)
         (out * torch.from_numpy(w).to(dev)).sum().backward()
