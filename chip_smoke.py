@@ -25,7 +25,9 @@ Phases, each of which exits non-zero on failure:
    launch counts of K1-K4 against the code's expectations; K3 and K4
    against their plain versions on the first step's unique-user views
    (B=2000), with masked rows and a zero row, and repeated bit for bit,
-   then timed; one more SimGCL epoch under ``torch.profiler``;
+   then timed, each kernel in turns with its library call inside one loop
+   (``Timer.paired``), with K4's share of f32 peak and its partial bytes;
+   one more SimGCL epoch under ``torch.profiler``;
 6. SGL path: ``config/SGL.conf`` at full width, 2 epochs, its launch
    counts, and K3/K4 on its first step's merged views (B=4000);
 7. the sparse joint adjacency (K5, the segment SpMM): ``config/SGL.conf``
@@ -85,30 +87,44 @@ def bound(bytes_moved: float, flops: float, peak: float):
 
 
 class Timer:
-    """Median CUDA-event time of ``fn`` over ``iters`` launches, each after
-    writing a 256 MB buffer so the 50 MB L2 starts cold."""
+    """Median CUDA-event times over ``iters`` launches, each after writing a
+    256 MB buffer so the 50 MB L2 starts cold (unless ``flush`` is off)."""
 
     def __init__(self, torch):
         self.torch = torch
         self.scratch = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device="cuda")
 
     def ms(self, fn, iters: int = 15, flush: bool = True) -> float:
+        return self.paired([fn], iters, flush, hold_cycles=0)[0]
+
+    def paired(self, fns, iters: int = 15, flush: bool = True, hold_cycles: int = 4_000_000):
+        """Median CUDA-event times of two or more callables timed in turns
+        inside one loop, each launch after the L2 flush, so that drift of
+        the card or its host between loops cannot favour one of them. A
+        spin kernel of ``hold_cycles`` (about 2 ms) after each flush keeps
+        the card busy while the host enqueues the callable, so that the
+        time between the events is the card's and not the host's enqueue
+        time (an autograd call leaves the card idle behind it)."""
         torch = self.torch
-        for _ in range(3):
-            fn()
+        for fn in fns:
+            for _ in range(3):
+                fn()
         torch.cuda.synchronize()
-        pairs = []
+        pairs = [[] for _ in fns]
         for _ in range(iters):
-            if flush:
-                self.scratch.zero_()
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            fn()
-            end.record()
-            pairs.append((start, end))
+            for fn, got in zip(fns, pairs):
+                if flush:
+                    self.scratch.zero_()
+                if hold_cycles:
+                    torch.cuda._sleep(hold_cycles)
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                fn()
+                end.record()
+                got.append((start, end))
         torch.cuda.synchronize()
-        return float(np.median([s.elapsed_time(e) for s, e in pairs]))
+        return [float(np.median([s.elapsed_time(e) for s, e in got])) for got in pairs]
 
 
 def lastfm_records(seed: int = 0):
@@ -160,7 +176,7 @@ def yelp_inputs(torch, K):
     return a, xu, xi, I
 
 
-def dual_phase(torch, K, timer, label, a, xu, xi, items, library=True):
+def dual_phase(torch, K, timer, label, a, xu, xi, items):
     """K1 on a padded (U, ld) R whose first ``items`` columns are the
     graph's: against its plain version and bit for bit against itself,
     then timed beside its plain version, two bf16 ``torch.matmul`` calls and
@@ -189,17 +205,14 @@ def dual_phase(torch, K, timer, label, a, xu, xi, items, library=True):
     ms = timer.ms(lambda: K.bipartite_dual_matmul(a, xu, xi))
     warm_ms = timer.ms(lambda: K.bipartite_dual_matmul(a, xu, xi), flush=False)
     plain_ms = timer.ms(lambda: K.bipartite_dual_matmul_plain(a, xu, xi), iters=5)
-    library_ms = None
-    if library:
-        rb = a[:, :items].to(torch.bfloat16)
-        xb = xi[:items]
-        library_ms = timer.ms(lambda: (torch.matmul(rb, xb), torch.matmul(rb.T, xu)))
-        del rb
+    rb = a[:, :items].to(torch.bfloat16)
+    xb = xi[:items]
+    library_ms = timer.ms(lambda: (torch.matmul(rb, xb), torch.matmul(rb.T, xu)))
+    del rb
     moved = U * items * 1 + (U + items) * d * 2 + (U + items) * d * 4
     bound_ms, bound_by = bound(moved, 2 * 2 * U * items * d, PEAK_BF16)
-    lib = "not timed" if library_ms is None else f"{library_ms:.4f}"
     print(f"[K1 {label}] ms={ms:.4f} (L2 flushed) warm_ms={warm_ms:.4f} plain_ms={plain_ms:.4f} "
-          f"library_ms={lib} (2x torch.matmul on a bf16 copy of R) "
+          f"library_ms={library_ms:.4f} (2x torch.matmul on a bf16 copy of R) "
           f"bound_ms={bound_ms:.4f} by {bound_by} ({moved / 1e6:.1f} MB, "
           f"{4 * U * items * d / 1e9:.2f} GFLOP)", flush=True)
     return dict(max_abs_err=err, ms=ms, warm_ms=warm_ms, plain_ms=plain_ms,
@@ -368,16 +381,14 @@ def infonce_phase(torch, K, timer, label, view1, view2, mask, timed=True):
 
     a1, a2 = v1.clone().requires_grad_(True), v2.clone().requires_grad_(True)
     lib = library_loss(a1, a2)
-    k3.update(
-        ms=timer.ms(lambda: K.infonce_fwd(v1, v2, m, m, TEMP)),
-        plain_ms=timer.ms(lambda: K.infonce_fwd_plain(v1, v2, m, m, TEMP)),
-        library_ms=timer.ms(lambda: library_loss(v1, v2)),
-    )
-    k4.update(
-        ms=timer.ms(lambda: K.infonce_bwd(v1, v2, m, m, lse, TEMP)),
-        plain_ms=timer.ms(lambda: K.infonce_bwd_plain(v1, v2, m, m, lse, TEMP)),
-        library_ms=timer.ms(lambda: torch.autograd.grad(lib, (a1, a2), retain_graph=True)),
-    )
+    # each kernel and its library call in turns inside one loop
+    k3["ms"], k3["library_ms"] = timer.paired([
+        lambda: K.infonce_fwd(v1, v2, m, m, TEMP), lambda: library_loss(v1, v2)])
+    k4["ms"], k4["library_ms"] = timer.paired([
+        lambda: K.infonce_bwd(v1, v2, m, m, lse, TEMP),
+        lambda: torch.autograd.grad(lib, (a1, a2), retain_graph=True)])
+    k3["plain_ms"] = timer.ms(lambda: K.infonce_fwd_plain(v1, v2, m, m, TEMP))
+    k4["plain_ms"] = timer.ms(lambda: K.infonce_bwd_plain(v1, v2, m, m, lse, TEMP))
     views, masks = 2 * B * d * 4, 2 * B * 4
     k3["bound_ms"], k3["bound_by"] = bound(views + masks + B * 4 + 4, 2 * B * B * d, PEAK_F32)
     k4["bound_ms"], k4["bound_by"] = bound(views + masks + B * 4 + views, 3 * 2 * B * B * d, PEAK_F32)
@@ -385,9 +396,13 @@ def infonce_phase(torch, K, timer, label, view1, view2, mask, timed=True):
         ("K3", k3, 2 * B * B * d / 1e9, "torch.matmul + masked_fill + cross_entropy"),
         ("K4", k4, 6 * B * B * d / 1e9, "autograd backward of those calls"),
     ):
-        print(f"[{name} {label}] ms={k['ms']:.4f} (L2 flushed) plain_ms={k['plain_ms']:.4f} "
-              f"library_ms={k['library_ms']:.4f} ({what}) bound_ms={k['bound_ms']:.4f} by "
-              f"{k['bound_by']} ({gflop:.2f} GFLOP)", flush=True)
+        print(f"[{name} {label}] ms={k['ms']:.4f} library_ms={k['library_ms']:.4f} (L2 flushed, "
+              f"timed in turns in one loop; library: {what}) plain_ms={k['plain_ms']:.4f} "
+              f"bound_ms={k['bound_ms']:.4f} by {k['bound_by']} ({gflop:.2f} GFLOP) "
+              f"share_of_f32_peak={gflop * 1e9 / PEAK_F32 * 1e3 / k['ms']:.3f}", flush=True)
+    partial_floats = K.INFONCE_BWD.load().qrec_infonce_bwd_scratch(B, B, d, K._num_sms(v1.device))
+    print(f"[K4 {label}] partials written and read back: {partial_floats * 4 / 1e6:.2f} MB",
+          flush=True)
     return k3, k4
 
 
@@ -631,10 +646,11 @@ def profile_epoch(torch, model, label):
     busy = {e.key: e.self_device_time_total / 1e3 for e in kernels}  # us -> ms
     total = sum(busy.values())
     infonce = sum(ms for name, ms in busy.items() if "infonce" in name)
+    k4 = sum(ms for name, ms in busy.items() if "infonce_bwd" in name)
     print(f"[profile {label}] one epoch under torch.profiler: wall_ms={wall_ms:.3f} "
           f"device_busy_ms={total:.3f} busy_share={total / wall_ms:.3f} "
-          f"infonce_ms={infonce:.3f} infonce_share_of_device={infonce / max(total, 1e-9):.3f}",
-          flush=True)
+          f"infonce_ms={infonce:.3f} infonce_share_of_device={infonce / max(total, 1e-9):.3f} "
+          f"k4_ms={k4:.3f} k4_share_of_device={k4 / max(total, 1e-9):.3f}", flush=True)
     for name, ms in sorted(busy.items(), key=lambda kv: -kv[1])[:12]:
         print(f"[profile {label}]   {ms:9.3f} ms {ms / wall_ms:6.3f} of wall  {name[:90]}",
               flush=True)
@@ -710,7 +726,7 @@ def main() -> None:
         k1w = dual_phase(torch, K, timer, "lastfm d=150", adj.r, xu.repeat(1, 3),
                          xi.repeat(1, 3), n_items)
         k1d = dual_phase(torch, K, timer, "lastfm d=1", adj.r, xu[:, :1].contiguous(),
-                         xi[:, :1].contiguous(), n_items, library=False)
+                         xi[:, :1].contiguous(), n_items)
         kf = factored_phase(torch, K, timer, adj, x)
         k5_lastfm_ms = lastfm_segment_line(torch, K, timer, model, k1["ms"])
         k2 = scores_phase(torch, K, timer, model.U[uids], model.V, model.rated_bitmask[uids])
@@ -784,8 +800,8 @@ def main() -> None:
           f"bound_ms={k5['bound_ms']:.4f}", flush=True)
     for label, k in (("lastfm", k1), ("lastfm d=150", k1w), ("lastfm d=1", k1d),
                      ("yelp2018", k1y)):
-        lib = "null" if k["library_ms"] is None else f"{k['library_ms']:.4f}"
-        print(f"[K1 {label}] ms={k['ms']:.4f} plain_ms={k['plain_ms']:.4f} library_ms={lib} "
+        print(f"[K1 {label}] ms={k['ms']:.4f} plain_ms={k['plain_ms']:.4f} "
+              f"library_ms={k['library_ms']:.4f} "
               f"bound_ms={k['bound_ms']:.4f}", flush=True)
     print(f"[K1 factored] kernels per application {kf['kernels']} (unfused "
           f"{kf['unfused_kernels']}) ms={kf['ms']:.4f} unfused_ms={kf['unfused_ms']:.4f}; "

@@ -154,6 +154,12 @@ class ModelConf:
 
     def model_options(self) -> Optional[OptionConf]:
         """Model-specific parameter line, e.g. ``LightGCN=-n_layer 2``
-        (reference: base/recommender.py:55-61)."""
+        (reference: base/recommender.py:55-61). Read under the display name,
+        then under its alias (``SVD++`` -> ``SVDPlusPlus``)."""
         name = self["model.name"]
-        return OptionConf(self[name]) if self.contains(name) else None
+        from .models import ALIASES  # local import: the models import this module
+
+        for key in (name, ALIASES.get(name)):
+            if key and self.contains(key):
+                return OptionConf(self[key])
+        return None

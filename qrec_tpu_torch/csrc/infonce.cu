@@ -17,7 +17,10 @@
 // the inputs are 1.6 MB, but the forward is one B x B x d product (1.6
 // GFLOP, 24 us at the 67 TFLOP/s of f32 FMA on the CUDA cores) and the
 // backward three (72 us). They stay in f32 (no TF32, which keeps about
-// three digits), so the tensor cores' f32 path is not used.
+// three digits), so the tensor cores' f32 path is not used. Inside a
+// block the limit is shared memory: an SM delivers 32 floats a clock to
+// 128 FMA lanes, so a loop needs 4 FMAs per float it reads to keep the
+// lanes busy.
 //
 // Design. The TPU kernels walk a sequential grid of row blocks, summing the
 // loss into one SMEM scalar and dv2 into one resident block; on Hopper the
@@ -39,19 +42,24 @@
 //   K3 pass 2 (infonce_fwd_finish, one block): merges the splits of each row
 //     in split order, writes lse (kept for K4) and sums rmask * (lse - pos)
 //     by a fixed tree.
-//   K4 pass 1 (infonce_bwd_partial): blockIdx.y = 0 takes a strip of v1 rows
-//     against a part of v2's rows and sums its rows of dv1; blockIdx.y = 1
-//     takes a strip of v2 rows (columns of the logits) against a part of
-//     v1's rows and sums its rows of dv2. Both recompute their logits tile
-//     with the same fused multiply-adds in the same order as K3, so the
-//     logits match K3's bit for bit, and take p = exp(logit - lse) from K3's
-//     saved lse instead of recomputing the row statistics. The tile's dlog
-//     goes to shared memory and is multiplied into register accumulators (4
-//     strip rows x NK features a thread). The B x B product is recomputed
-//     once per orientation, so K4 does four B x B x d products where the
-//     function needs three.
-//   K4 pass 2 (infonce_bwd_reduce): when the other operand is split into
-//     parts, sums the parts' partial rows in part order.
+//   K4 pass 1 (infonce_bwd_tiles): block (i, g) holds row tile i of v1 (BM
+//     rows, row-major in shared memory) and walks column group g of v2 in
+//     tiles of CT rows. Each (BM x CT) logits tile is computed once, in
+//     register patches (RM rows x 4 columns a thread, both operands read
+//     as float4 along the features), and both cotangents are fed from it:
+//     p = exp(logit - lse) from K3's saved lse (the logits are within a few
+//     f32 roundings of K3's, not bit for bit), dlog formed in registers and
+//     staged once in shared memory (row-major, a stride that keeps both
+//     reads and the writes free of bank conflicts), dv1 += dlog @ tile kept
+//     in registers across the group, and dlogᵀ @ v1 tile written as row
+//     tile i's dv2 partial. Three B x B x d products, as the function
+//     needs. The patches give 2.7 FMAs per float read at d <= 64 (2 in the
+//     dv2 product); 8 x 8 patches need more registers than two blocks an
+//     SM leave, and one block an SM ran slower. Widths are templated on
+//     feature groups NQ (F = 64 NQ staged features): BM = 128 / NQ keeps
+//     the dv1 sums at 32 registers a thread.
+//   K4 pass 2 (infonce_bwd_sum): sums dv1's partials over the groups and
+//     dv2's over the row tiles, each in order, into out.
 
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
@@ -74,9 +82,8 @@ static_assert(CT == 2 * 32, "a row group spans two warps");
 // consecutive rows hit 32 banks.
 __host__ __device__ inline int row_stride(int d) { return d | 1; }
 
-// the strip, two tiles, and for K4 the dlog tile
+// K3: the strip and two tiles
 size_t fwd_smem_bytes(int d) { return sizeof(float) * ((size_t)d * RS + 2 * (size_t)CT * row_stride(d)); }
-size_t bwd_smem_bytes(int d) { return fwd_smem_bytes(d) + sizeof(float) * CT * RS; }
 
 // Staging: warp w copies rows w, w + WARPS, ...; its lanes stride one row's
 // features, so global reads coalesce and no index is divided by d.
@@ -271,95 +278,6 @@ infonce_fwd_finish(const float* __restrict__ part, const float* __restrict__ rma
     if (threadIdx.x == 0) out[0] = red[0];
 }
 
-// out (or, with several parts, part z of the partials): rows [0, b_loc)
-// hold dv1, rows [b_loc, b_loc + B) dv2. NK = ceil(d / CT) features a lane.
-template <int NK>
-__global__ void __launch_bounds__(THREADS)
-infonce_bwd_partial(const float* __restrict__ v1, const float* __restrict__ v2,
-                    const float* __restrict__ cmask, const float* __restrict__ rmask,
-                    const float* __restrict__ lse, int b_loc, int B, int d, float temperature,
-                    int row_offset, int parts, float* __restrict__ out) {
-    const bool cols = blockIdx.y == 1;  // strip rows are logit columns
-    const float* a = cols ? v2 : v1;
-    const float* b = cols ? v1 : v2;
-    const int na = cols ? B : b_loc, nb = cols ? b_loc : B;
-    const int s0 = blockIdx.x * RS;
-    if (s0 >= na) return;
-    const int per = ((nb + CT - 1) / CT + parts - 1) / parts * CT;  // rows of b per part
-    const int t_begin = blockIdx.z * per;
-    const int t_end = min(nb, t_begin + per);
-    float* o = out + ((size_t)blockIdx.z * (b_loc + B) + (cols ? b_loc : 0)) * d;
-
-    extern __shared__ float4 smem_raw[];
-    float* a_t = reinterpret_cast<float*>(smem_raw);
-    float* b_s = a_t + d * RS;
-    float* w_s = b_s + 2 * CT * row_stride(d);  // w_s[t * RS + r]: dlog of (strip row r, tile row t)
-    const int ld = row_stride(d);
-    const int grp = threadIdx.x / CT, lane = threadIdx.x % CT;
-
-    load_strip(a_t, a, s0, na, d);
-    float acc[4][NK];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < NK; ++j) acc[i][j] = 0.f;
-
-    for_each_tile(b_s, b, t_begin, t_end, d, ld, [&](const float* tile, int t0) {
-        float dot[4], w[4];
-        tile_dots(a_t, tile, d, ld, grp, lane, dot);
-        const int t = t0 + lane;
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-            const int s = s0 + grp * 4 + i;
-            w[i] = 0.f;
-            if (s < na && t < t_end) {
-                const int r = cols ? t : s, c = cols ? s : t;
-                const float p = expf(masked_logit(dot[i], cmask[c], temperature) - lse[r]);
-                const float diag = c == r + row_offset ? 1.f : 0.f;
-                w[i] = rmask[r] * (p - diag) / temperature;
-            }
-        }
-        *reinterpret_cast<float4*>(w_s + lane * RS + grp * 4) = make_float4(w[0], w[1], w[2], w[3]);
-        __syncthreads();
-        for (int tt = 0; tt < CT; ++tt) {
-            const float4 wv = *reinterpret_cast<const float4*>(w_s + tt * RS + grp * 4);
-            const float* brow = tile + tt * ld;
-#pragma unroll
-            for (int j = 0; j < NK; ++j) {
-                const int k = lane + CT * j;
-                if (k < d) {
-                    const float bv = brow[k];
-                    acc[0][j] = fmaf(wv.x, bv, acc[0][j]);
-                    acc[1][j] = fmaf(wv.y, bv, acc[1][j]);
-                    acc[2][j] = fmaf(wv.z, bv, acc[2][j]);
-                    acc[3][j] = fmaf(wv.w, bv, acc[3][j]);
-                }
-            }
-        }
-    });
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-        const int s = s0 + grp * 4 + i;
-        if (s >= na) continue;
-#pragma unroll
-        for (int j = 0; j < NK; ++j) {
-            const int k = lane + CT * j;
-            if (k < d) o[(size_t)s * d + k] = acc[i][j];
-        }
-    }
-}
-
-// out[e] = sum over p in order of part[p][e], for e < n
-__global__ void infonce_bwd_reduce(const float* __restrict__ part, float* __restrict__ out,
-                                   long long n, int parts) {
-    for (long long e = blockIdx.x * (long long)blockDim.x + threadIdx.x; e < n;
-         e += (long long)gridDim.x * blockDim.x) {
-        float acc = part[e];
-        for (int p = 1; p < parts; ++p) acc += part[(long long)p * n + e];
-        out[e] = acc;
-    }
-}
-
 // Column splits of K3's pass 1: about BLOCKS_PER_SM (strip, split) blocks
 // on each SM, each split a whole number of tiles, no split empty.
 int fwd_splits(int b_loc, int B, int num_sms, int* cols_per_split) {
@@ -371,33 +289,253 @@ int fwd_splits(int b_loc, int B, int num_sms, int* cols_per_split) {
     return (B + *cols_per_split - 1) / *cols_per_split;
 }
 
-// Parts of K4's pass 1: the other operand's rows are split so that strips x
-// 2 orientations x parts gives each SM about BLOCKS_PER_SM blocks; each
-// part is a whole number of tiles of the shorter operand.
-int bwd_parts(int b_loc, int B, int num_sms) {
-    const int strips = ((b_loc > B ? b_loc : B) + RS - 1) / RS;
-    const int tiles = ((b_loc < B ? b_loc : B) + CT - 1) / CT;
-    const int want = (BLOCKS_PER_SM * num_sms + 2 * strips - 1) / (2 * strips);
-    return want < 1 ? 1 : (want > tiles ? tiles : want);
+// K4 geometry at feature groups NQ (F = 64 NQ staged features, d <= F): a
+// block holds BM rows of v1 and walks tiles of CT rows of v2. A thread
+// (ty, tx) of the 16 x 16 grid owns logits (rows ty + 16 i, i < RM; columns
+// tx + 16 j, j < 4), dv1 rows ty + 16 i at features 4 (tx + 16 q) + e, and
+// dv2 columns 4 ty + j at the same features.
+template <int NQ>
+struct Bwd {
+    static constexpr int F = 64 * NQ;
+    static constexpr int LD = F + 4;  // row stride: 16-byte rows, odd in float4s
+    static constexpr int BM = 128 / NQ;
+    static constexpr int RM = BM / 16;
+    static constexpr int MIN_BLOCKS = NQ == 1 ? 2 : 1;  // blocks an SM holds
+    static_assert(RM * 16 == BM && CT == 64, "16 x 16 threads over BM x CT logits");
+};
+constexpr int WLD = CT + 16;  // dlog row stride: the two rows a warp writes fall in other banks
+
+template <int NQ>
+size_t bwd_smem_bytes() {
+    using G = Bwd<NQ>;
+    return sizeof(float) * ((size_t)G::BM * G::LD + 2 * CT * G::LD + G::BM * WLD + 2 * G::BM);
 }
 
-template <int NK>
+// Column groups of K4's pass 1: about MIN_BLOCKS blocks on each SM, each
+// group a whole number of tiles, no group empty.
+template <int NQ>
+int bwd_groups(int b_loc, int B, int num_sms, int* tiles_per_group) {
+    const int row_tiles = (b_loc + Bwd<NQ>::BM - 1) / Bwd<NQ>::BM;
+    const int tiles = (B + CT - 1) / CT;
+    int want = Bwd<NQ>::MIN_BLOCKS * num_sms / row_tiles;
+    want = want < 1 ? 1 : (want > tiles ? tiles : want);
+    *tiles_per_group = (tiles + want - 1) / want;
+    return (tiles + *tiles_per_group - 1) / *tiles_per_group;
+}
+
+// Pass 1 of K4. Block (i, g) computes each (BM x CT) logits tile of its row
+// tile i and column group g once, forms dlog in registers and stages it in
+// shared memory, then feeds both cotangents from it: dv1 of its rows stays
+// in registers across the group (written once as group g's partial, part1
+// (groups, b_loc, d)); dv2 of the tile's columns is row tile i's partial
+// (part2 (row tiles, B, d)), written per tile.
+template <int NQ>
+__global__ void __launch_bounds__(THREADS, Bwd<NQ>::MIN_BLOCKS)
+infonce_bwd_tiles(const float* __restrict__ v1, const float* __restrict__ v2,
+                  const float* __restrict__ cmask, const float* __restrict__ rmask,
+                  const float* __restrict__ lse, int b_loc, int B, int d, float temperature,
+                  int row_offset, int tiles_per_group, float* __restrict__ part1,
+                  float* __restrict__ part2) {
+    using G = Bwd<NQ>;
+    constexpr int BM = G::BM, RM = G::RM, LD = G::LD, F = G::F;
+    extern __shared__ float4 smem_raw[];
+    float* a_s = reinterpret_cast<float*>(smem_raw);  // a_s[r * LD + k] = v1[r0 + r][k]
+    float* b_s = a_s + BM * LD;                        // two tiles of v2, as a_s
+    float* w_s = b_s + 2 * CT * LD;                    // w_s[r * WLD + c]: dlog
+    float* s_lse = w_s + BM * WLD;
+    float* s_rmt = s_lse + BM;  // rmask / T
+    const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+    const int r0 = blockIdx.x * BM;
+    const int c_begin = blockIdx.y * tiles_per_group * CT;
+    const int c_end = min(B, c_begin + tiles_per_group * CT);
+
+    // v1's rows (zero past b_loc) and the features [d, F) of every staged
+    // row, which the products read as zeros; the cp.async copies of v2 only
+    // write [0, d)
+    for (int r = threadIdx.x / 32; r < BM; r += WARPS) {
+        const bool in = r0 + r < b_loc;
+        const float* src = v1 + (size_t)(r0 + r) * d;
+        for (int k = threadIdx.x % 32; k < F; k += 32) a_s[r * LD + k] = in && k < d ? src[k] : 0.f;
+    }
+    for (int t = threadIdx.x / 32; t < 2 * CT; t += WARPS)
+        for (int k = d + threadIdx.x % 32; k < F; k += 32) b_s[t * LD + k] = 0.f;
+    for (int r = threadIdx.x; r < BM; r += THREADS) {
+        const bool in = r0 + r < b_loc;
+        s_lse[r] = in ? lse[r0 + r] : 0.f;
+        s_rmt[r] = in ? rmask[r0 + r] / temperature : 0.f;
+    }
+    const int k4_end = (d + 3) / 4;
+    const float inv_t = 1.f / temperature;
+
+    float dv1[RM][NQ][4];
+#pragma unroll
+    for (int i = 0; i < RM; ++i)
+#pragma unroll
+        for (int q = 0; q < NQ; ++q) dv1[i][q][0] = dv1[i][q][1] = dv1[i][q][2] = dv1[i][q][3] = 0.f;
+
+    for_each_tile(b_s, v2, c_begin, c_end, d, LD, [&](const float* tile, int t0) {
+        // 1. logits: an RM x 4 register patch, both operands read as float4
+        // along the features
+        float acc[RM][4];
+#pragma unroll
+        for (int i = 0; i < RM; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+        for (int k4 = 0; k4 < k4_end; ++k4) {
+            float4 b[4];
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+                b[j] = *reinterpret_cast<const float4*>(tile + (tx + 16 * j) * LD + 4 * k4);
+#pragma unroll
+            for (int i = 0; i < RM; ++i) {
+                const float4 a = *reinterpret_cast<const float4*>(a_s + (ty + 16 * i) * LD + 4 * k4);
+#pragma unroll
+                for (int j = 0; j < 4; ++j) {
+                    acc[i][j] = fmaf(a.x, b[j].x, acc[i][j]);
+                    acc[i][j] = fmaf(a.y, b[j].y, acc[i][j]);
+                    acc[i][j] = fmaf(a.z, b[j].z, acc[i][j]);
+                    acc[i][j] = fmaf(a.w, b[j].w, acc[i][j]);
+                }
+            }
+        }
+        // 2. dlog = rmask (exp(logit - lse) - diag) / T, 0 outside the batch;
+        // the logit as dot * (1 / T) and exp as __expf: each within a few
+        // f32 roundings of K3's, about 1e-6 of p
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+            const int c = t0 + tx + 16 * j;
+            const bool c_in = c < c_end;
+            const float cm = c_in ? cmask[c] : 0.f;
+#pragma unroll
+            for (int i = 0; i < RM; ++i) {
+                const int rl = ty + 16 * i, r = r0 + rl;
+                float w = 0.f;
+                if (c_in && r < b_loc) {
+                    const float logit = cm > 0.f ? acc[i][j] * inv_t : MASKED;
+                    const float p = __expf(logit - s_lse[rl]);
+                    const float diag = c == r + row_offset ? 1.f : 0.f;
+                    w = s_rmt[rl] * (p - diag);
+                }
+                w_s[rl * WLD + tx + 16 * j] = w;
+            }
+        }
+        __syncthreads();
+        // 3. dv1 += dlog @ tile, summed over the tile's columns in order
+        for (int c4 = 0; c4 < CT / 4; ++c4) {
+            float4 w[RM];
+#pragma unroll
+            for (int i = 0; i < RM; ++i)
+                w[i] = *reinterpret_cast<const float4*>(w_s + (ty + 16 * i) * WLD + 4 * c4);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+#pragma unroll
+                for (int q = 0; q < NQ; ++q) {
+                    const float4 bv =
+                        *reinterpret_cast<const float4*>(tile + (4 * c4 + e) * LD + 4 * (tx + 16 * q));
+#pragma unroll
+                    for (int i = 0; i < RM; ++i) {
+                        const float we = e == 0 ? w[i].x : e == 1 ? w[i].y : e == 2 ? w[i].z : w[i].w;
+                        dv1[i][q][0] = fmaf(we, bv.x, dv1[i][q][0]);
+                        dv1[i][q][1] = fmaf(we, bv.y, dv1[i][q][1]);
+                        dv1[i][q][2] = fmaf(we, bv.z, dv1[i][q][2]);
+                        dv1[i][q][3] = fmaf(we, bv.w, dv1[i][q][3]);
+                    }
+                }
+            }
+        }
+        // 4. the tile's dv2 partial = dlogᵀ @ v1 rows, summed over the rows in order
+        float dv2[4][NQ][4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+            for (int q = 0; q < NQ; ++q) dv2[j][q][0] = dv2[j][q][1] = dv2[j][q][2] = dv2[j][q][3] = 0.f;
+#pragma unroll 4
+        for (int r = 0; r < BM; ++r) {
+            const float4 w = *reinterpret_cast<const float4*>(w_s + r * WLD + 4 * ty);
+            const float wj[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+            for (int q = 0; q < NQ; ++q) {
+                const float4 av = *reinterpret_cast<const float4*>(a_s + r * LD + 4 * (tx + 16 * q));
+#pragma unroll
+                for (int j = 0; j < 4; ++j) {
+                    dv2[j][q][0] = fmaf(wj[j], av.x, dv2[j][q][0]);
+                    dv2[j][q][1] = fmaf(wj[j], av.y, dv2[j][q][1]);
+                    dv2[j][q][2] = fmaf(wj[j], av.z, dv2[j][q][2]);
+                    dv2[j][q][3] = fmaf(wj[j], av.w, dv2[j][q][3]);
+                }
+            }
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+            const int c = t0 + 4 * ty + j;
+            if (c >= c_end) continue;
+            float* o = part2 + ((size_t)blockIdx.x * B + c) * d;
+#pragma unroll
+            for (int q = 0; q < NQ; ++q)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                    const int f = 4 * (tx + 16 * q) + e;
+                    if (f < d) o[f] = dv2[j][q][e];
+                }
+        }
+    });
+#pragma unroll
+    for (int i = 0; i < RM; ++i) {
+        const int r = r0 + ty + 16 * i;
+        if (r >= b_loc) continue;
+        float* o = part1 + ((size_t)blockIdx.y * b_loc + r) * d;
+#pragma unroll
+        for (int q = 0; q < NQ; ++q)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+                const int f = 4 * (tx + 16 * q) + e;
+                if (f < d) o[f] = dv1[i][q][e];
+            }
+    }
+}
+
+// Pass 2 of K4: out[e] = sum over p in order of part1[p][e] (groups1 parts
+// of n1 elements: dv1), then of part2 (groups2 parts of n2 elements: dv2)
+__global__ void infonce_bwd_sum(const float* __restrict__ part1, long long n1, int groups1,
+                                const float* __restrict__ part2, long long n2, int groups2,
+                                float* __restrict__ out) {
+    for (long long e = blockIdx.x * (long long)blockDim.x + threadIdx.x; e < n1 + n2;
+         e += (long long)gridDim.x * blockDim.x) {
+        const bool first = e < n1;
+        const float* p = first ? part1 + e : part2 + (e - n1);
+        const long long n = first ? n1 : n2;
+        const int parts = first ? groups1 : groups2;
+        float acc = p[0];
+        for (int k = 1; k < parts; ++k) acc += p[k * n];
+        out[e] = acc;
+    }
+}
+
+// Floats of K4's partials: groups x b_loc rows of dv1, row tiles x B of dv2
+template <int NQ>
+size_t bwd_scratch(int b_loc, int B, int d, int num_sms) {
+    int tpg = 0;
+    const size_t groups = bwd_groups<NQ>(b_loc, B, num_sms, &tpg);
+    const size_t row_tiles = (b_loc + Bwd<NQ>::BM - 1) / Bwd<NQ>::BM;
+    return (groups * b_loc + row_tiles * B) * d;
+}
+
+template <int NQ>
 int launch_bwd(const float* v1, const float* v2, const float* cmask, const float* rmask,
                const float* lse, float* part, float* out, int b_loc, int B, int d,
-               float temperature, int row_offset, int parts, int num_sms, cudaStream_t st) {
-    const size_t smem = bwd_smem_bytes(d);
-    cudaError_t err = cudaFuncSetAttribute(infonce_bwd_partial<NK>,
+               float temperature, int row_offset, int num_sms, cudaStream_t st) {
+    const size_t smem = bwd_smem_bytes<NQ>();
+    cudaError_t err = cudaFuncSetAttribute(infonce_bwd_tiles<NQ>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
-    const int rows = b_loc > B ? b_loc : B;
-    dim3 grid((rows + RS - 1) / RS, 2, parts);
-    infonce_bwd_partial<NK><<<grid, THREADS, smem, st>>>(v1, v2, cmask, rmask, lse, b_loc, B, d,
-                                                         temperature, row_offset, parts,
-                                                         parts > 1 ? part : out);
+    int tpg = 0;
+    const int groups = bwd_groups<NQ>(b_loc, B, num_sms, &tpg);
+    const int row_tiles = (b_loc + Bwd<NQ>::BM - 1) / Bwd<NQ>::BM;
+    float* part2 = part + (size_t)groups * b_loc * d;
+    infonce_bwd_tiles<NQ><<<dim3(row_tiles, groups), THREADS, smem, st>>>(
+        v1, v2, cmask, rmask, lse, b_loc, B, d, temperature, row_offset, tpg, part, part2);
     err = cudaGetLastError();
-    if (err != cudaSuccess || parts == 1) return (int)err;
-    infonce_bwd_reduce<<<BLOCKS_PER_SM * num_sms, 256, 0, st>>>(part, out, (long long)(b_loc + B) * d,
-                                                               parts);
+    if (err != cudaSuccess) return (int)err;
+    infonce_bwd_sum<<<BLOCKS_PER_SM * num_sms, 256, 0, st>>>(
+        part, (long long)b_loc * d, groups, part2, (long long)B * d, row_tiles, out);
     return (int)cudaGetLastError();
 }
 
@@ -442,11 +580,12 @@ int qrec_infonce_fwd(const void* v1, const void* v2, const void* cmask, const vo
     return (int)cudaGetLastError();
 }
 
-// Floats of scratch that qrec_infonce_bwd needs for these sizes (0 when the
-// other operand is not split).
+// Floats of scratch that qrec_infonce_bwd needs for these sizes: the
+// partials of its first launch.
 int qrec_infonce_bwd_scratch(int b_loc, int B, int d, int num_sms) {
-    const int parts = bwd_parts(b_loc, B, num_sms);
-    return parts > 1 ? parts * (b_loc + B) * d : 0;
+    if (d <= 64) return (int)bwd_scratch<1>(b_loc, B, d, num_sms);
+    if (d <= 128) return (int)bwd_scratch<2>(b_loc, B, d, num_sms);
+    return (int)bwd_scratch<4>(b_loc, B, d, num_sms);
 }
 
 // As qrec_infonce_fwd, with lse (b_loc) from it; part: the scratch above;
@@ -456,7 +595,6 @@ int qrec_infonce_bwd(const void* v1, const void* v2, const void* cmask, const vo
                      const void* lse, void* part, void* out, int b_loc, int B, int d,
                      float temperature, int row_offset, int num_sms, void* stream) {
     if (bad_shape(b_loc, B, d, temperature) || num_sms <= 0) return (int)cudaErrorInvalidValue;
-    const int parts = bwd_parts(b_loc, B, num_sms);
     const float* a = static_cast<const float*>(v1);
     const float* b = static_cast<const float*>(v2);
     const float* cm = static_cast<const float*>(cmask);
@@ -465,12 +603,11 @@ int qrec_infonce_bwd(const void* v1, const void* v2, const void* cmask, const vo
     float* pt = static_cast<float*>(part);
     float* o = static_cast<float*>(out);
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-    if (d <= CT) return launch_bwd<1>(a, b, cm, rm, l, pt, o, b_loc, B, d, temperature, row_offset, parts,
-                                  num_sms, st);
-    if (d <= 2 * CT) return launch_bwd<2>(a, b, cm, rm, l, pt, o, b_loc, B, d, temperature, row_offset, parts,
-                                  num_sms, st);
-    return launch_bwd<MAX_D / CT>(a, b, cm, rm, l, pt, o, b_loc, B, d, temperature, row_offset, parts,
-                                  num_sms, st);
+    if (d <= 64) return launch_bwd<1>(a, b, cm, rm, l, pt, o, b_loc, B, d, temperature, row_offset,
+                                      num_sms, st);
+    if (d <= 128) return launch_bwd<2>(a, b, cm, rm, l, pt, o, b_loc, B, d, temperature, row_offset,
+                                       num_sms, st);
+    return launch_bwd<4>(a, b, cm, rm, l, pt, o, b_loc, B, d, temperature, row_offset, num_sms, st);
 }
 
 }  // extern "C"

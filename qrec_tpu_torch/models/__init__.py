@@ -8,6 +8,13 @@ from .graph import NGCF, SGL, LightGCN, SimGCL
 
 MODELS = {"LightGCN": LightGCN, "NGCF": NGCF, "SGL": SGL, "SimGCL": SimGCL}
 
+# display name -> canonical conf-key name (the reference's conf files key
+# model arguments under the class name: SVD++.conf carries
+# ``SVDPlusPlus=-y 0.01``)
+ALIASES = {
+    "SVD++": "SVDPlusPlus",
+}
+
 
 def get_model(name: str):
     if name not in MODELS:

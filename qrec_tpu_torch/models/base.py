@@ -115,8 +115,11 @@ class IterativeRecommender(Recommender):
         self.max_epoch = self.config.get_int("num.max.epoch")
         lr_conf = self.config.options("learnRate")
         self.lrate = lr_conf.get_float("-init")
+        self.max_lrate = lr_conf.get_float("-max")
         reg = self.config.options("reg.lambda")
         self.reg_u = reg.get_float("-u")
+        self.reg_i = reg.get_float("-i")
+        self.reg_b = reg.get_float("-b", 0.0)
         self.batch_size = self.config.get_int("batch_size", 2000)
 
     # -- init -------------------------------------------------------------

@@ -35,9 +35,22 @@ _NOT_PORTED_PROTOCOLS = {
 }
 
 
+def _asks_for(config: ModelConf, key: str) -> bool:
+    """Whether ``key`` asks for something, as the JAX package reads it: its
+    main switch on for ``parallel.setup`` and ``checkpoint.setup``
+    (``models/base.py`` mesh, ``runtime/checkpoint.from_config``), ``-save``
+    or ``-load`` for ``model.setup`` (``runtime/session.run_fold``)."""
+    if not config.contains(key):
+        return False
+    opts = config.options(key)
+    if key == "model.setup":
+        return opts.contains("-save") or opts.contains("-load")
+    return opts.isMainOn()
+
+
 def check_ported(config: ModelConf) -> None:
     for key, item in _NOT_PORTED_KEYS.items():
-        if config.contains(key):
+        if _asks_for(config, key):
             raise ConfigError(f"{key} is not ported yet (ROADMAP.md {item})")
     evaluation = OptionConf(config["evaluation.setup"])
     for flag, item in _NOT_PORTED_PROTOCOLS.items():

@@ -192,10 +192,12 @@ def _infonce_inputs(device, b, d, masked=(), zero_row=None, seed=0):
 # logits of unit vectors / 0.2 lie in [-5, 5]; the kernels sum d products
 # and B exponentials in another order than the plain versions (cuBLAS f32,
 # logsumexp): allow 1e-5 relative on the loss and lse, and on the
-# cotangents 1e-4 relative plus 1e-5 of the largest
+# cotangents 1e-4 relative plus 1e-5 of the largest. Widths span K4's three
+# feature layouts (<= 64, <= 128, <= 256); batches its ragged row and
+# column tiles (128 and 64 rows at d <= 64) and SGL's merged B=4000
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [16, 50, 64])
-@pytest.mark.parametrize("b", [1, 300, 2000, 4000])
+@pytest.mark.parametrize("d", [1, 16, 50, 64, 150, 256])
+@pytest.mark.parametrize("b", [1, 127, 300, 2000, 4000, 4001])
 def test_infonce_kernels_match_plain(cuda_device, b, d):
     masked = tuple(range(0, b, 9)) if b > 1 else ()
     v1, v2, m = _infonce_inputs(cuda_device, b, d, masked, zero_row=b // 2 if b > 1 else None)
@@ -235,6 +237,26 @@ def test_infonce_kernels_row_offset_and_full_mask(cuda_device):
     loss, lse = K.infonce_fwd(v1, v2, zeros, zeros, 0.2)
     d1, d2 = K.infonce_bwd(v1, v2, zeros, zeros, lse, 0.2)
     assert float(loss) == 0.0 and bool((d1 == 0).all()) and bool((d2 == 0).all())
+
+
+# a row block of a larger batch whose positives lie off the grid's diagonal
+# tiles: local row r meets its positive in column r + row_offset
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [50, 150])
+@pytest.mark.parametrize("b,start,stop", [(700, 300, 700), (2000, 1100, 1700)])
+def test_infonce_bwd_row_block_off_the_grid_diagonal(cuda_device, b, start, stop, d):
+    v1, v2, m = _infonce_inputs(cuda_device, b, d, masked=tuple(range(5, b, 11)), seed=d)
+    a, rm = v1[start:stop].contiguous(), m[start:stop].contiguous()
+    loss, lse = K.infonce_fwd(a, v2, m, rm, 0.2, row_offset=start)
+    d1, d2 = K.infonce_bwd(a, v2, m, rm, lse, 0.2, row_offset=start)
+    _, plse = K.infonce_fwd_plain(a, v2, m, rm, 0.2, row_offset=start)
+    p1, p2 = K.infonce_bwd_plain(a, v2, m, rm, plse, 0.2, row_offset=start)
+    torch.cuda.synchronize()
+    assert d1.shape == (stop - start, d) and d2.shape == (b, d)
+    torch.testing.assert_close(d1, p1, rtol=1e-4, atol=1e-5 * float(p1.abs().max()))
+    torch.testing.assert_close(d2, p2, rtol=1e-4, atol=1e-5 * float(p2.abs().max()))
+    e1, e2 = K.infonce_bwd(a, v2, m, rm, lse, 0.2, row_offset=start)
+    assert torch.equal(d1, e1) and torch.equal(d2, e2)
 
 
 @pytest.mark.cuda

@@ -233,8 +233,11 @@ def test_qrec_without_a_card_raises(tmp_path):
         {"evaluation.setup": "-cv 5"},
         {"evaluation.setup": "-predict users.txt"},
         {"parallel.setup": "on"},
+        {"parallel.setup": "on -model 2"},
         {"checkpoint.setup": "on -dir ckpt"},
         {"model.setup": "-load model.npz"},
+        {"model.setup": "-save model.npz"},
+        {"model.setup": "off -save model.npz"},  # -save asks, whatever the switch
         {"graph.backend": "coo"},
         {"graph.backend": "pallas", "parallel.setup": "on"},  # the sharded segment kernel
         {"graph.dense.quant": "int8"},
