@@ -15,11 +15,13 @@ Phases, each of which exits non-zero on failure:
    path's own operands (R and the first layer's inputs for K1, at d=50,
    150 and 1, the first batch of test users for K2), K1 also at the
    yelp2018 shape; K1's factored entry against its plain version and the
-   unfused sequence, with its kernels per application; K5 on the lastfm
-   graph's CSR beside K1; CUDA-event timings of each kernel, its plain
-   version and a PyTorch yardstick, with the L2 cache flushed before each
-   timed launch, and the bound; then one more LightGCN epoch under
-   ``torch.profiler``;
+   unfused sequence, with its kernels per application; the L2 read rate
+   (a streaming read of an L2-resident buffer); K5 on the lastfm graph's
+   CSR at d=50 (against its plain version, timed in turns with
+   ``torch.sparse.mm``, its CUDA kernels per call, bound and gather floor)
+   beside K1; CUDA-event timings of each kernel, its plain version and a
+   PyTorch yardstick, with the L2 cache flushed before each timed launch,
+   and the bound; then one more LightGCN epoch under ``torch.profiler``;
 5. SimGCL main path: ``config/SimGCL.conf`` at full width on the same file,
    3 epochs, with the per-epoch quick evaluation and best-epoch selection;
    launch counts of K1-K4 against the code's expectations; K3 and K4
@@ -37,8 +39,9 @@ Phases, each of which exits non-zero on failure:
    batch 2048, 2 layers, top-20, reg 1e-4), 2 epochs; each with its launch
    counts (K1 = 0 on the K5 paths); then K5 on the yelp path's own CSR and
    first-layer input against its plain version (and bit for bit against
-   itself) and against K1 on the same graph, timed, and one more yelp
-   epoch under ``torch.profiler``;
+   itself, its split-row counters back at 0) and against K1 on the same
+   graph, timed in turns with ``torch.sparse.mm``, one CUDA kernel a call,
+   the gather floor, and one more yelp epoch under ``torch.profiler``;
 8. planted-block runs that must learn their blocks: LightGCN and SimGCL on
    the dense adjacency, LightGCN and SGL on the sparse one, and NGCF;
 9. the ``kernels`` JSON line, the card line, and the final status line.
@@ -220,16 +223,43 @@ def dual_phase(torch, K, timer, label, a, xu, xi, items):
 
 
 def kernels_per_call(torch, fn) -> int:
-    """CUDA kernels one call of ``fn`` launches, from torch.profiler."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    """CUDA kernels one call of ``fn`` launches: the kernel nodes of the
+    graph that the CUDA runtime's stream capture records from it on a side
+    stream (nothing runs). torch.profiler is not used here: after a
+    profiled epoch it saw none of the ctypes-launched kernels of a call."""
+    import ctypes
 
+    rt = ctypes.CDLL("libcudart.so.12")
+    ptr = ctypes.c_void_p
+
+    def check(err: int, what: str) -> None:
+        if err:
+            fail(f"kernels_per_call: {what} returned CUDA error {err}")
+
+    stream = torch.cuda.Stream()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return sum(e.count for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA and not e.is_user_annotation)
+    graph = ptr()
+    with torch.cuda.stream(stream):
+        # cudaStreamCaptureModeRelaxed (2): the caching allocator may still
+        # call cudaMalloc while the stream captures
+        check(rt.cudaStreamBeginCapture(ptr(stream.cuda_stream), ctypes.c_int(2)),
+              "cudaStreamBeginCapture")
+        try:
+            fn()
+        finally:
+            check(rt.cudaStreamEndCapture(ptr(stream.cuda_stream), ctypes.byref(graph)),
+                  "cudaStreamEndCapture")
+    count = ctypes.c_size_t(0)
+    check(rt.cudaGraphGetNodes(graph, None, ctypes.byref(count)), "cudaGraphGetNodes")
+    nodes = (ptr * count.value)()
+    check(rt.cudaGraphGetNodes(graph, nodes, ctypes.byref(count)), "cudaGraphGetNodes")
+    kind = ctypes.c_int()
+    kernels = 0
+    for node in nodes:
+        check(rt.cudaGraphNodeGetType(ptr(node), ctypes.byref(kind)), "cudaGraphNodeGetType")
+        kernels += kind.value == 0  # cudaGraphNodeTypeKernel
+    check(rt.cudaGraphDestroy(graph), "cudaGraphDestroy")
+    return kernels
 
 
 def factored_phase(torch, K, timer, adj, x):
@@ -278,22 +308,168 @@ def factored_phase(torch, K, timer, adj, x):
                 unfused_kernels=unfused_kernels)
 
 
-def lastfm_segment_line(torch, K, timer, model, k1_ms):
+def build_inline(K, name: str, source: str):
+    """A measurement kernel's CUDA ``source`` built with the port's flags
+    into its build directory (named by the source's hash) and loaded with
+    ctypes; not part of the port."""
+    import ctypes
+    import hashlib
+
+    digest = hashlib.sha256((source + " ".join(K.NVCC_FLAGS)).encode()).hexdigest()[:16]
+    path = K.BUILD_DIR / f"{name}-{digest}.so"
+    if not path.exists():
+        K.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        src = K.BUILD_DIR / f"{name}-{digest}.cu"
+        src.write_text(source)
+        subprocess.run([K.nvcc_path(), *K.NVCC_FLAGS, "-o", str(path), str(src)], check=True,
+                       timeout=300)
+    return ctypes.CDLL(str(path))
+
+
+# a streaming read, built beside the port's kernels: every thread reads
+# 16-byte words, grid-strided, 4 in flight
+L2_READ_SOURCE = r"""
+#include <cuda_runtime.h>
+#include <stdint.h>
+__global__ void stream_read(const uint4* __restrict__ p, long n, unsigned* out) {
+    const long stride = (long)gridDim.x * blockDim.x;
+    unsigned acc = 0;
+    for (long i = blockIdx.x * (long)blockDim.x + threadIdx.x; i < n; i += 4 * stride) {
+        uint4 v[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) v[u] = i + u * stride < n ? __ldcg(p + i + u * stride) : make_uint4(0, 0, 0, 0);
+#pragma unroll
+        for (int u = 0; u < 4; ++u) acc ^= v[u].x ^ v[u].y ^ v[u].z ^ v[u].w;
+    }
+    if (acc == 0x9e3779b9u) *out = acc;  // keeps the loads
+}
+extern "C" int qrec_stream_read(const void* p, long n, void* out, int blocks, void* stream) {
+    stream_read<<<blocks, 256, 0, (cudaStream_t)stream>>>((const uint4*)p, n, (unsigned*)out);
+    return (int)cudaGetLastError();
+}
+"""
+
+
+def l2_read_rate(torch, K, timer, reads: int = 10) -> float:
+    """Bytes per second of a streaming read of an L2-resident buffer: the
+    kernel above over 16 and over 32 MB, ``reads`` reads back to back timed
+    together after the same reads (so the buffer sits in the 50 MB L2 and a
+    launch's own latency is shared), the card held while the host enqueues
+    (``Timer.paired``); the faster of the two sizes."""
+    import ctypes
+
+    lib = build_inline(K, "stream_read", L2_READ_SOURCE)
+    lib.qrec_stream_read.argtypes = [ctypes.c_void_p, ctypes.c_long, ctypes.c_void_p,
+                                     ctypes.c_int, ctypes.c_void_p]
+    sink = torch.zeros(1, dtype=torch.int32, device="cuda")
+    blocks = 8 * K._num_sms(torch.device("cuda"))
+    rates = {}
+    for mbytes in (16, 32):
+        buf = torch.ones(mbytes * 2**20 // 4, dtype=torch.float32, device="cuda")
+
+        def read():
+            err = lib.qrec_stream_read(buf.data_ptr(), buf.numel() // 4, sink.data_ptr(), blocks,
+                                       torch.cuda.current_stream().cuda_stream)
+            if err:
+                fail(f"stream_read failed with CUDA error {err}")
+
+        ms = timer.paired([lambda: [read() for _ in range(reads)]], flush=False)[0] / reads
+        rates[mbytes] = buf.numel() * 4 / (ms / 1e3)
+    print("[L2] streaming read of an L2-resident buffer: " + ", ".join(
+        f"{mb} MB {r / 1e12:.3f} TB/s" for mb, r in rates.items()), flush=True)
+    return max(rates.values())
+
+
+def segment_check(torch, K, label, x, adj):
+    """K5 on ``adj``'s CSR and ``x`` against its plain version (order bound)
+    and bit for bit against itself. Returns (out, max_abs_err, Σ|v·x| per
+    element)."""
+    n, d = x.shape
+    e = adj.cols.shape[0]
+    deg = adj.indptr.diff()
+    csr = (adj.indptr, adj.cols, adj.vals)
+    out = K.weighted_segment_matmul(x, *csr, adj.schedule)
+    again = K.weighted_segment_matmul(x, *csr, adj.schedule)
+    plain = K.weighted_segment_matmul_plain(x, *csr)
+    # Σ_e |bf16(v_e) x_e| per element: the scale of every bound below
+    absum = K.weighted_segment_matmul_plain(x.abs(), adj.indptr, adj.cols, adj.vals.abs())
+    torch.cuda.synchronize()
+    err = (out - plain).abs().max().item()
+    # the same exact products summed in two f32 orders (lane groups, warps
+    # and tiles against index_add_'s atomics): each sum of n terms is within
+    # (n-1) 2^-24 sum|terms| of the exact one, so the two within twice that
+    order_bound = 2.0 * deg.float()[:, None] * 2.0**-24 * absum
+    worst = ((out - plain).abs() / order_bound.clamp_min(1e-30)).max().item()
+    ok = bool(((out - plain).abs() <= order_bound).all())
+    repeat = torch.equal(out, again)
+    counters = int(adj.schedule.counters.abs().sum())
+    print(f"[K5 {label}] N={n} E={e} d={d} (x row stride {x.stride(0)}) tile={adj.schedule.tile} "
+          f"tiles={adj.schedule.num_tiles} split_rows={int(adj.schedule.split_row.numel())} "
+          f"max_degree={int(deg.max())} mean_degree={e / n:.2f} max_abs_err={err:.3e} "
+          f"(tolerance 2 deg 2^-24 sum|v*x| per element; worst share of it {worst:.4f}) "
+          f"{'ok' if ok else 'MISMATCH'}; repeat bit-identical={repeat}; counters after "
+          f"the calls {counters}", flush=True)
+    if not ok:
+        fail(f"weighted_segment_matmul disagrees with its plain version at {label}")
+    if not repeat:
+        fail(f"weighted_segment_matmul did not repeat bit for bit at {label}")
+    if counters:
+        fail(f"weighted_segment_matmul left its split-row counters non-zero at {label}")
+    return out, err, absum
+
+
+def segment_timing(torch, K, timer, label, x, adj, l2_rate, plain=True):
+    """K5 timed in turns with ``torch.sparse.mm`` in one loop
+    (``Timer.paired``), warm (the card held too), and (if ``plain``) its
+    plain version alone;
+    the bound, the gather floor (E·d·2 bytes at the L2 read rate) and the
+    CUDA kernels of one call (which must be 1)."""
+    n, d = x.shape
+    e = adj.cols.shape[0]
+    csr = (adj.indptr, adj.cols, adj.vals)
+    call = lambda: K.weighted_segment_matmul(x, *csr, adj.schedule)  # noqa: E731
+    with warnings.catch_warnings():  # sparse CSR tensors are "beta" in PyTorch
+        warnings.simplefilter("ignore")
+        library = torch.sparse_csr_tensor(adj.indptr, adj.cols, adj.vals.bfloat16().float(),
+                                          size=(n, n))
+    xf = x.float()
+    library_call = lambda: torch.sparse.mm(library, xf)  # noqa: E731
+    kernels = kernels_per_call(torch, call)
+    ms, library_ms = timer.paired([call, library_call])
+    warm_ms = timer.paired([call], flush=False)[0]
+    plain_ms = timer.ms(lambda: K.weighted_segment_matmul_plain(x, *csr), iters=5) if plain else None
+    moved = e * 8 + (n + 1) * 4 + n * d * 2 + n * d * 4
+    bound_ms, bound_by = bound(moved, 2 * e * d, PEAK_F32)
+    floor_ms = e * d * 2 / l2_rate * 1e3
+    print(f"[K5 {label}] ms={ms:.4f} library_ms={library_ms:.4f} (L2 flushed, timed in turns in "
+          f"one loop; library: torch.sparse.mm, CSR with bf16-rounded values, f32 x) "
+          f"warm_ms={warm_ms:.4f} plain_ms={'not timed' if plain_ms is None else f'{plain_ms:.4f}'} "
+          f"bound_ms={bound_ms:.4f} by {bound_by} ({moved / 1e6:.1f} MB, {2 * e * d / 1e9:.3f} "
+          f"GFLOP) gather_floor_ms={floor_ms:.4f} ({e * d * 2 / 1e6:.1f} MB at the L2 read rate "
+          f"{l2_rate / 1e12:.3f} TB/s) CUDA kernels per call={kernels}", flush=True)
+    if kernels != 1:
+        fail(f"one weighted_segment_matmul call at {label} ran {kernels} CUDA kernels, not 1")
+    return dict(ms=ms, warm_ms=warm_ms, plain_ms=plain_ms, library_ms=library_ms,
+                bound_ms=bound_ms, bound_by=bound_by, floor_ms=floor_ms, kernels=kernels)
+
+
+def lastfm_segment_line(torch, K, timer, model, k1_ms, l2_rate):
     """K5 on the lastfm graph's CSR (the main path's training graph) at the
-    main path's width, timed beside K1's time on the same graph: where the
-    dense path should stop. Changes no default."""
+    main path's width, the operand cast as ``SegmentMatmul`` casts it:
+    checked against its plain version, timed beside ``torch.sparse.mm`` and
+    K1's time on the same graph (where the dense path should stop). Changes
+    no default."""
     from qrec_tpu_torch.data.graph import joint_normalized_adjacency
-    from qrec_tpu_torch.ops.spmm import SparseJoint
+    from qrec_tpu_torch.ops.spmm import SparseJoint, segment_operand
 
     adj = SparseJoint.from_host(joint_normalized_adjacency(model.data), "cuda",
                                 check_symmetric=False)
     with torch.no_grad():
-        x = torch.cat([model.user_emb, model.item_emb]).bfloat16().contiguous()
-    ms = timer.ms(lambda: K.weighted_segment_matmul(x, adj.indptr, adj.cols, adj.vals,
-                                                     adj.schedule))
-    print(f"[K5 lastfm] N={adj.num_rows} E={adj.cols.shape[0]} d={x.shape[1]} ms={ms:.4f} "
-          f"(L2 flushed) beside K1 lastfm ms={k1_ms:.4f}", flush=True)
-    return ms
+        x = segment_operand(torch.cat([model.user_emb, model.item_emb]))
+    _, err, _ = segment_check(torch, K, "lastfm", x, adj)
+    k = segment_timing(torch, K, timer, "lastfm", x, adj, l2_rate, plain=False)
+    print(f"[K5 lastfm] beside K1 lastfm ms={k1_ms:.4f}", flush=True)
+    return dict(k, max_abs_err=err)
 
 
 def scores_phase(torch, K, timer, u, items, bm):
@@ -413,44 +589,18 @@ def write_yelp_file(path: str) -> None:
         f.writelines(f"{a} {b} 1\n" for a, b in zip(rows, cols))
 
 
-def segment_phase(torch, K, timer, model):
+def segment_phase(torch, K, timer, model, l2_rate):
     """K5 on ``model``'s sparse adjacency (its own CSR) and first-layer input
-    (the embedding tables, rounded to bf16 as the propagation rounds them):
-    against its plain version, bit for bit against itself, and against K1
-    on the factored dense form of the same graph; then timed beside its
-    plain version, ``torch.sparse.mm`` and the bound."""
-    from qrec_tpu_torch.ops.spmm import DenseJoint, factored_call
+    (the embedding tables, cast as the propagation casts them): against its
+    plain version, bit for bit against itself, and against K1 on the
+    factored dense form of the same graph; then timed beside its plain
+    version, ``torch.sparse.mm``, the bound and the gather floor."""
+    from qrec_tpu_torch.ops.spmm import DenseJoint, factored_call, segment_operand
 
     adj = model.joint_adj
     with torch.no_grad():
-        x = torch.cat([model.user_emb, model.item_emb]).bfloat16().contiguous()
-    n, d = x.shape
-    e = adj.cols.shape[0]
-    deg = adj.indptr.diff()
-    csr = (adj.indptr, adj.cols, adj.vals)
-    out = K.weighted_segment_matmul(x, *csr, adj.schedule)
-    again = K.weighted_segment_matmul(x, *csr, adj.schedule)
-    plain = K.weighted_segment_matmul_plain(x, *csr)
-    # Σ_e |bf16(v_e) x_e| per element: the scale of every bound below
-    absum = K.weighted_segment_matmul_plain(x.abs(), adj.indptr, adj.cols, adj.vals.abs())
-    torch.cuda.synchronize()
-    err = (out - plain).abs().max().item()
-    # the same exact products summed in two f32 orders (per-chunk partials
-    # against index_add_'s atomics): each sum of n terms is within
-    # (n-1) 2^-24 sum|terms| of the exact one, so the two within twice that
-    order_bound = 2.0 * deg.float()[:, None] * 2.0**-24 * absum
-    worst = ((out - plain).abs() / order_bound.clamp_min(1e-30)).max().item()
-    ok = bool(((out - plain).abs() <= order_bound).all())
-    repeat = torch.equal(out, again)
-    print(f"[K5 yelp2018] N={n} E={e} d={d} "
-          f"rows_over_one_chunk={int(adj.schedule.long_rows.numel())} "
-          f"max_degree={int(deg.max())} mean_degree={e / n:.2f} max_abs_err={err:.3e} "
-          f"(tolerance 2 deg 2^-24 sum|v*x| per element; worst share of it {worst:.4f}) "
-          f"{'ok' if ok else 'MISMATCH'}; repeat bit-identical={repeat}", flush=True)
-    if not ok:
-        fail("weighted_segment_matmul disagrees with its plain version")
-    if not repeat:
-        fail("weighted_segment_matmul did not repeat bit for bit")
+        x = segment_operand(torch.cat([model.user_emb, model.item_emb]))
+    out, err, absum = segment_check(torch, K, "yelp2018", x, adj)
     # K1 computes su * (R @ bf16(si * x)), K5 bf16(su * si) * x: each term
     # carries one bf16 rounding on each side, so an element may differ by
     # two; over a row's features the gap stays within 2^-8 of sum|v*x|
@@ -463,25 +613,8 @@ def segment_phase(torch, K, timer, model):
           flush=True)
     if not ratio <= 1:
         fail("weighted_segment_matmul and bipartite_dual_matmul disagree past the bf16 bound")
-    del dense, k1, again, plain, absum, order_bound
-    ms = timer.ms(lambda: K.weighted_segment_matmul(x, *csr, adj.schedule))
-    warm_ms = timer.ms(lambda: K.weighted_segment_matmul(x, *csr, adj.schedule), flush=False)
-    plain_ms = timer.ms(lambda: K.weighted_segment_matmul_plain(x, *csr), iters=5)
-    with warnings.catch_warnings():  # sparse CSR tensors are "beta" in PyTorch
-        warnings.simplefilter("ignore")
-        library = torch.sparse_csr_tensor(adj.indptr, adj.cols, adj.vals.bfloat16().float(),
-                                          size=(n, n))
-    xf = x.float()
-    library_ms = timer.ms(lambda: torch.sparse.mm(library, xf))
-    moved = e * 8 + (n + 1) * 4 + n * d * 2 + n * d * 4
-    bound_ms, bound_by = bound(moved, 2 * e * d, PEAK_F32)
-    print(f"[K5 yelp2018] ms={ms:.4f} (L2 flushed) warm_ms={warm_ms:.4f} plain_ms={plain_ms:.4f} "
-          f"library_ms={library_ms:.4f} (torch.sparse.mm, CSR with bf16-rounded values, f32 x) "
-          f"bound_ms={bound_ms:.4f} by {bound_by} ({moved / 1e6:.1f} MB, "
-          f"{2 * e * d / 1e9:.3f} GFLOP) "
-          f"max_degree={int(deg.max())}", flush=True)
-    return dict(max_abs_err=err, ms=ms, warm_ms=warm_ms, plain_ms=plain_ms,
-                library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
+    del dense, k1, out, absum
+    return dict(segment_timing(torch, K, timer, "yelp2018", x, adj, l2_rate), max_abs_err=err)
 
 
 def first_step_views(torch, model):
@@ -622,8 +755,8 @@ def planted_check(torch, tmp, ModelConf, QRec, parse_measure, name, args, extra=
 
 def profile_epoch(torch, model, label):
     """One more training epoch under torch.profiler: device time by kernel
-    and the device's busy share of the epoch's wall time. Returns the
-    share of device time in the InfoNCE kernels."""
+    and the device's busy share of the epoch's wall time, with the InfoNCE
+    kernels' and K5's device ms."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -647,10 +780,12 @@ def profile_epoch(torch, model, label):
     total = sum(busy.values())
     infonce = sum(ms for name, ms in busy.items() if "infonce" in name)
     k4 = sum(ms for name, ms in busy.items() if "infonce_bwd" in name)
+    k5 = sum(ms for name, ms in busy.items() if "segmm" in name)
     print(f"[profile {label}] one epoch under torch.profiler: wall_ms={wall_ms:.3f} "
           f"device_busy_ms={total:.3f} busy_share={total / wall_ms:.3f} "
           f"infonce_ms={infonce:.3f} infonce_share_of_device={infonce / max(total, 1e-9):.3f} "
-          f"k4_ms={k4:.3f} k4_share_of_device={k4 / max(total, 1e-9):.3f}", flush=True)
+          f"k4_ms={k4:.3f} k4_share_of_device={k4 / max(total, 1e-9):.3f} "
+          f"k5_ms={k5:.3f} k5_share_of_device={k5 / max(total, 1e-9):.3f}", flush=True)
     for name, ms in sorted(busy.items(), key=lambda kv: -kv[1])[:12]:
         print(f"[profile {label}]   {ms:9.3f} ms {ms / wall_ms:6.3f} of wall  {name[:90]}",
               flush=True)
@@ -720,6 +855,7 @@ def main() -> None:
             xi[:n_items] = (model.item_emb * adj.col_scale[:, None]).bfloat16()
         uids = torch.as_tensor(ranker.uids[: model.eval_batch_size], device="cuda").long().clamp(min=0)
         timer = Timer(torch)
+        l2_rate = l2_read_rate(torch, K, timer)
         k1 = dual_phase(torch, K, timer, "lastfm", adj.r, xu, xi, n_items)
         # SimGCL's fused three views (d=150) and SGL's node-drop degrees
         # (d=1) on the same R
@@ -728,7 +864,7 @@ def main() -> None:
         k1d = dual_phase(torch, K, timer, "lastfm d=1", adj.r, xu[:, :1].contiguous(),
                          xi[:, :1].contiguous(), n_items)
         kf = factored_phase(torch, K, timer, adj, x)
-        k5_lastfm_ms = lastfm_segment_line(torch, K, timer, model, k1["ms"])
+        k5l = lastfm_segment_line(torch, K, timer, model, k1["ms"], l2_rate)
         k2 = scores_phase(torch, K, timer, model.U[uids], model.V, model.rated_bitmask[uids])
         k1y = dual_phase(torch, K, timer, "yelp2018", *yelp_inputs(torch, K))
         epoch_ms = model.timer.summary()["epoch_seconds"] * 1e3
@@ -763,7 +899,7 @@ def main() -> None:
         # (dense, K1), LightGCN at the yelp2018 shape; K5 on the yelp path
         conf = conf_of("SGL", 2)
         conf["graph.backend"] = "pallas"
-        sgl_sparse, _, _ = drive(torch, K, QRec, conf, "sgl-pallas")
+        sgl_sparse, sgl_sparse_counts, _ = drive(torch, K, QRec, conf, "sgl-pallas")
         del sgl_sparse
         ngcf, _, _ = drive(torch, K, QRec, conf_of("NGCF", 3), "ngcf")
         if ngcf.U.shape[1] != 3 * ngcf.emb_size:
@@ -778,7 +914,7 @@ def main() -> None:
                            ("reg.lambda", "-u 0.0001 -i 0.0001 -b 0.2 -s 0.2")):
             conf[key] = value
         yelp, yelp_counts, _ = drive(torch, K, QRec, conf, "yelp-pallas")
-        k5 = segment_phase(torch, K, timer, yelp)
+        k5 = segment_phase(torch, K, timer, yelp, l2_rate)
         profile_epoch(torch, yelp, "LightGCN yelp2018 pallas")
         del yelp, timer
 
@@ -797,7 +933,10 @@ def main() -> None:
     # 9. results
     print(f"[K5 yelp2018] launches {yelp_counts['weighted_segment_matmul']} ms={k5['ms']:.4f} "
           f"plain_ms={k5['plain_ms']:.4f} library_ms={k5['library_ms']:.4f} "
-          f"bound_ms={k5['bound_ms']:.4f}", flush=True)
+          f"bound_ms={k5['bound_ms']:.4f} gather_floor_ms={k5['floor_ms']:.4f}", flush=True)
+    print(f"[K5 lastfm] launches {sgl_sparse_counts['weighted_segment_matmul']} (SGL-pallas) "
+          f"ms={k5l['ms']:.4f} library_ms={k5l['library_ms']:.4f} bound_ms={k5l['bound_ms']:.4f} "
+          f"gather_floor_ms={k5l['floor_ms']:.4f}", flush=True)
     for label, k in (("lastfm", k1), ("lastfm d=150", k1w), ("lastfm d=1", k1d),
                      ("yelp2018", k1y)):
         print(f"[K1 {label}] ms={k['ms']:.4f} plain_ms={k['plain_ms']:.4f} "
@@ -805,7 +944,7 @@ def main() -> None:
               f"bound_ms={k['bound_ms']:.4f}", flush=True)
     print(f"[K1 factored] kernels per application {kf['kernels']} (unfused "
           f"{kf['unfused_kernels']}) ms={kf['ms']:.4f} unfused_ms={kf['unfused_ms']:.4f}; "
-          f"K5 lastfm ms={k5_lastfm_ms:.4f}", flush=True)
+          f"K5 lastfm ms={k5l['ms']:.4f}", flush=True)
     print(f"[sgl] launches {json.dumps(sgl_counts)}; K3 at B=4000 ms={k3s['ms']:.4f} "
           f"K4 ms={k4s['ms']:.4f}", flush=True)
 

@@ -24,8 +24,8 @@ fallback from one to the other.
 Build: each ``csrc/*.cu`` compiles with ``nvcc -gencode
 arch=compute_90a,code=sm_90a`` into a shared library with a plain C
 interface under ``build/qrec_tpu_torch/`` at the repository root, named by
-the hash of its source (a changed source builds anew), and loads with
-``ctypes``. Nothing is compiled when this module is imported.
+the hash of its source and flags (a changed source builds anew), and loads
+with ``ctypes``. Nothing is compiled when this module is imported.
 """
 
 from __future__ import annotations
@@ -46,9 +46,12 @@ import torch
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "qrec_tpu_torch"
+# the CUDA runtime linked shared (the one PyTorch has loaded), so that the
+# launches reach the profiler's runtime tracing: with the static runtime,
+# torch.profiler lost some of these kernels
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-shared", "-Xcompiler", "-fPIC", "-cudart", "shared",
 )
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
@@ -70,7 +73,8 @@ class Kernel:
         self._lib = None
 
     def library_path(self) -> Path:
-        digest = hashlib.sha256(self.source.read_bytes()).hexdigest()[:16]
+        digest = hashlib.sha256(self.source.read_bytes() + " ".join(NVCC_FLAGS).encode())
+        digest = digest.hexdigest()[:16]
         return BUILD_DIR / f"{self.source.stem}-{digest}.so"
 
     def load(self) -> ctypes.CDLL:
@@ -115,7 +119,7 @@ INFONCE_BWD = Kernel(
 )
 SEGMM = Kernel(
     "weighted_segment_matmul", "segment_matmul.cu", "qrec_segment_matmul",
-    [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
+    [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P],
 )
 KERNELS: Tuple[Kernel, ...] = (DUAL, SCORES, INFONCE_FWD, INFONCE_BWD, SEGMM)
 
@@ -554,39 +558,106 @@ def infonce_bwd(
 # ---------------------------------------------------------------------------
 
 SEGMM_MAX_D = 256
-# edges per chunk of a row; the kernel gives one warp to each chunk
-SEGMM_CHUNK = 64
+# x's row stride, in elements, that gives 16-byte gathers (8 bf16)
+SEGMM_ALIGN = 8
+
+
+def segment_row_stride(d: int) -> int:
+    """The padded row length of a bf16 x of width d that the segment kernel
+    gathers 16 bytes a lane from (``_segment_call`` casts into it)."""
+    return _cdiv(d, SEGMM_ALIGN) * SEGMM_ALIGN
+
+
+def segment_tile(num_edges: int) -> int:
+    """Edges a tile: a power of two from 512 to 4096, the smallest that
+    keeps the tiles at most 3 per SM of an H100 (132 SMs), so that every
+    block is resident at once. On the card, 512 was fastest at the lastfm
+    CSR (290 tiles) and 2048 at yelp2018 (353 tiles) among 256-4096
+    (``k5_paired.py``)."""
+    tile = 512
+    while tile < 4096 and _cdiv(num_edges, tile) > 3 * 132:
+        tile *= 2
+    return tile
 
 
 class SegmentSchedule(NamedTuple):
-    """The split of a CSR matrix's rows into chunks of ``SEGMM_CHUNK`` edges
-    that the segment kernel runs one warp each: ``chunk_ptr`` (N+1,) the
-    first chunk of every row (an empty row has one empty chunk),
-    ``chunk_row`` (T,) the row of every chunk, ``long_rows`` (L,) the rows
-    of more than one chunk, whose partial rows a second pass sums; all
-    int32."""
+    """The cut of a row-sorted CSR matrix's E edges into tiles of ``tile``
+    edges, ``[t·tile, (t+1)·tile)``, that the segment kernel runs one block
+    each; a tile may cross row boundaries. All tensors int32 but ``carry``:
 
-    chunk_ptr: torch.Tensor
-    chunk_row: torch.Tensor
-    long_rows: torch.Tensor
+    * ``edge_row`` (E,): the row of every edge;
+    * ``tile_row`` (num_tiles + 1,): the row of each tile's first edge, then
+      ``num_rows`` (all ``num_rows`` when there is no edge);
+    * ``tile_split`` (num_tiles, 2): the split row (index into ``split_row``)
+      that the tile starts inside of, and the one it ends inside of, -1
+      where none;
+    * ``split_row`` (S,): the rows whose edges lie in more than one tile,
+      and ``split_ptr`` (S+1,) / ``split_tiles`` (C,): each split row's
+      tiles, in order (slot ``split_ptr[s] + k`` is its k-th tile);
+    * ``carry`` (C, SEGMM_MAX_D) f32: one slot per (split row, tile), where
+      the tile leaves its part of the row;
+    * ``counters`` (S,): each split row's arrival count, 0 between calls
+      (the block that completes a row resets it).
+
+    Scratch lives here, sized once per matrix: a call allocates only its
+    output. Two calls that share a schedule must not run concurrently on
+    different streams."""
+
+    tile: int
+    num_rows: int
+    edge_row: torch.Tensor
+    tile_row: torch.Tensor
+    tile_split: torch.Tensor
+    split_row: torch.Tensor
+    split_ptr: torch.Tensor
+    split_tiles: torch.Tensor
+    carry: torch.Tensor
+    counters: torch.Tensor
+
+    @property
+    def num_tiles(self) -> int:
+        return self.tile_row.shape[0] - 1
 
 
-def segment_schedule(indptr, device=None) -> SegmentSchedule:
+def segment_schedule(indptr, device=None, tile: Optional[int] = None) -> SegmentSchedule:
     """The schedule of a CSR matrix from its row pointers (numpy or a
     tensor), computed on the host once per matrix; its tensors go to
-    ``device`` (default: ``indptr``'s)."""
+    ``device`` (default: ``indptr``'s). ``tile`` (a multiple of 4) defaults
+    to :func:`segment_tile` of the edge count."""
     if isinstance(indptr, torch.Tensor):
         device = indptr.device if device is None else device
         indptr = indptr.cpu().numpy()
-    deg = np.diff(np.asarray(indptr, dtype=np.int64))
-    chunks = np.maximum(-(-deg // SEGMM_CHUNK), 1)
-    chunk_ptr = np.zeros(len(deg) + 1, dtype=np.int64)
-    np.cumsum(chunks, out=chunk_ptr[1:])
+    indptr = np.asarray(indptr, dtype=np.int64)
+    n, e = len(indptr) - 1, int(indptr[-1])
+    tile = segment_tile(e) if tile is None else int(tile)
+    if tile <= 0 or tile % 4:
+        raise ValueError(f"tile={tile}: need a positive multiple of 4")
+    num_tiles = max(1, _cdiv(e, tile))
+    deg = np.diff(indptr)
+    edge_row = np.repeat(np.arange(n), deg)
+    tile_row = np.full(num_tiles + 1, n)
+    tile_row[:-1] = edge_row[np.arange(num_tiles) * tile] if e else n
+    first, last = indptr[:-1] // tile, (indptr[1:] - 1) // tile
+    split_row = np.flatnonzero((deg > 0) & (last > first))
+    per = (last - first + 1)[split_row]
+    split_ptr = np.zeros(len(split_row) + 1, dtype=np.int64)
+    np.cumsum(per, out=split_ptr[1:])
+    owner = np.repeat(np.arange(len(split_row)), per)
+    slot = np.arange(split_ptr[-1])
+    split_tiles = first[split_row][owner] + slot - split_ptr[:-1][owner]
+    tile_split = np.full((num_tiles, 2), -1)
+    # past a split row's first tile the row is where its tile starts;
+    # before its last tile, where its tile ends
+    head = slot != split_ptr[:-1][owner]
+    tail = slot != split_ptr[1:][owner] - 1
+    tile_split[split_tiles[head], 0] = owner[head]
+    tile_split[split_tiles[tail], 1] = owner[tail]
     as_int32 = lambda a: torch.as_tensor(a.astype(np.int32), device=device)  # noqa: E731
     return SegmentSchedule(
-        as_int32(chunk_ptr),
-        as_int32(np.repeat(np.arange(len(deg)), chunks)),
-        as_int32(np.flatnonzero(chunks > 1)),
+        tile, n, as_int32(edge_row), as_int32(tile_row), as_int32(tile_split),
+        as_int32(split_row), as_int32(split_ptr), as_int32(split_tiles),
+        torch.zeros((len(split_tiles), SEGMM_MAX_D), dtype=torch.float32, device=device),
+        torch.zeros(len(split_row), dtype=torch.int32, device=device),
     )
 
 
@@ -611,11 +682,17 @@ def weighted_segment_matmul(
     """(N, d) f32 ``out[r] = Σ_{e in row r} f32(bf16(vals[e])) · f32(x[cols[e]])``
     over a row-sorted CSR matrix, every row written (an empty one as 0).
 
-    ``x`` (N, d) bf16, any 1 <= d <= 256; ``indptr`` (N+1,) and ``cols``
-    (E,) int32; ``vals`` (E,) f32. ``schedule`` is
-    :func:`segment_schedule` of ``indptr``, which a caller that applies one
-    matrix many times keeps; it is computed here when None."""
-    _check(x, "x", (torch.bfloat16,), 2)
+    ``x`` (N, d) bf16, any 1 <= d <= 256, its rows contiguous but their
+    stride free (a view of a table padded to :func:`segment_row_stride`
+    gathers 16 bytes a lane); ``indptr`` (N+1,) and ``cols`` (E,) int32;
+    ``vals`` (E,) f32. ``schedule`` is :func:`segment_schedule` of
+    ``indptr``, which a caller that applies one matrix many times keeps;
+    it is computed here when None. One kernel launch."""
+    if x.dtype != torch.bfloat16:
+        raise TypeError(f"x: dtype {x.dtype} not in {(torch.bfloat16,)}")
+    if x.dim() != 2 or x.stride(-1) != 1 or x.stride(0) < x.shape[1]:
+        raise ValueError(f"x: expected 2 dims with contiguous rows, got shape "
+                         f"{tuple(x.shape)} strides {x.stride()}")
     _check(indptr, "indptr", (torch.int32,), 1)
     _check(cols, "cols", (torch.int32,), 1)
     _check(vals, "vals", (torch.float32,), 1)
@@ -629,21 +706,17 @@ def weighted_segment_matmul(
         raise ValueError(f"need N >= 1 and 1 <= d <= {SEGMM_MAX_D}; got {n}, {d}")
     if _route(x, indptr, cols, vals) == "cpu":
         return weighted_segment_matmul_plain(x, indptr, cols, vals)
-    if schedule is None:
-        schedule = segment_schedule(indptr)
-    _route(x, schedule.chunk_ptr, schedule.chunk_row, schedule.long_rows)
-    if schedule.chunk_ptr.shape != (n + 1,):
-        raise ValueError(f"schedule of {schedule.chunk_ptr.shape[0] - 1} rows for {n} rows")
-    if d % 2 == 0 and x.data_ptr() % 4:
-        raise ValueError("x must be 4-byte aligned for an even d (bf16 pair loads)")
-    num_chunks = schedule.chunk_row.shape[0]
-    num_long = schedule.long_rows.shape[0]
-    part = torch.empty((num_chunks if num_long else 1, d), dtype=torch.float32, device=x.device)
+    s = segment_schedule(indptr) if schedule is None else schedule
+    _route(x, s.edge_row, s.tile_row, s.carry, s.counters)
+    if s.num_rows != n or s.edge_row.shape != cols.shape:
+        raise ValueError(f"schedule of {s.num_rows} rows and {s.edge_row.shape[0]} edges "
+                         f"for {n} rows and {cols.shape[0]} edges")
     out = torch.empty((n, d), dtype=torch.float32, device=x.device)
     SEGMM.call(
-        x.data_ptr(), indptr.data_ptr(), cols.data_ptr(), vals.data_ptr(),
-        schedule.chunk_ptr.data_ptr(), schedule.chunk_row.data_ptr(),
-        schedule.long_rows.data_ptr(), n, d, num_chunks, num_long, SEGMM_CHUNK,
-        part.data_ptr(), out.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream,
+        x.data_ptr(), x.stride(0), cols.data_ptr(), vals.data_ptr(), s.edge_row.data_ptr(),
+        s.tile_row.data_ptr(), s.tile_split.data_ptr(), s.split_ptr.data_ptr(),
+        s.split_tiles.data_ptr(), s.carry.data_ptr(), s.counters.data_ptr(),
+        n, d, cols.shape[0], s.tile, s.num_tiles, out.data_ptr(),
+        torch.cuda.current_stream(x.device).cuda_stream,
     )
     return out

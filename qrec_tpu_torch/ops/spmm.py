@@ -37,6 +37,7 @@ from .kernels import (
     aligned_width,
     bipartite_dual_matmul,
     factored_dual_matmul,
+    segment_row_stride,
     segment_schedule,
     weighted_segment_matmul,
 )
@@ -138,12 +139,16 @@ class SparseJoint(NamedTuple):
     indptr: torch.Tensor  # (N+1,) int32
     cols: torch.Tensor  # (E,) int32
     vals: torch.Tensor  # (E,) f32
-    rows: torch.Tensor  # (E,) int32, the row of every edge
-    schedule: SegmentSchedule  # the kernel's split of the rows into chunks
+    schedule: SegmentSchedule  # the kernel's tiles of edges and their scratch
 
     @property
     def num_rows(self) -> int:
         return self.indptr.shape[0] - 1
+
+    @property
+    def rows(self) -> torch.Tensor:
+        """(E,) int32, the row of every edge (the schedule holds it)."""
+        return self.schedule.edge_row
 
     @classmethod
     def from_host(cls, coo: COO, device, check_symmetric: bool = True) -> "SparseJoint":
@@ -165,15 +170,25 @@ class SparseJoint(NamedTuple):
             as_int32(indptr),
             as_int32(cols),
             torch.as_tensor(vals, device=device),
-            as_int32(rows),
             segment_schedule(indptr, device=device),
         )
 
 
+def segment_operand(x: torch.Tensor) -> torch.Tensor:
+    """x cast to bf16 as the segment kernel reads it: rows padded to
+    :func:`segment_row_stride` (16 bytes), so it gathers 16 bytes a lane at
+    every width (d=50 included); the padding never reaches a result."""
+    n, d = x.shape
+    ld = segment_row_stride(d)
+    if ld == d:
+        return x.to(torch.bfloat16).contiguous()
+    xb = torch.empty((n, ld), dtype=torch.bfloat16, device=x.device)[:, :d]
+    return xb.copy_(x)
+
+
 def _segment_call(adj: SparseJoint, x: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
     """``A @ x`` on bf16 x, as the JAX package's ``_padded_spmm_fwd_impl``."""
-    xb = x.to(torch.bfloat16).contiguous()
-    return weighted_segment_matmul(xb, adj.indptr, adj.cols, vals, adj.schedule)
+    return weighted_segment_matmul(segment_operand(x), adj.indptr, adj.cols, vals, adj.schedule)
 
 
 class SegmentMatmul(torch.autograd.Function):

@@ -347,55 +347,149 @@ def _order_bound(indptr, x, cols, vals):
     return 2.0 * indptr.diff().float()[:, None] * 2.0**-24 * absum
 
 
-# Rows of one chunk (at most K.SEGMM_CHUNK edges) sum their exact bf16
-# products in edge order, as the CPU plain version does: bit for bit. Longer
-# rows add per-chunk partials: another f32 order (_order_bound).
-@pytest.mark.cuda
-@pytest.mark.parametrize("d", [1, 8, 50, 64, 150])
-def test_segment_kernel_matches_plain(cuda_device, d):
-    n = 3000
-    rows, cols, vals = _skewed_csr(n, 12, heavy=(7, 1500), empty=(0, 1, 2999), seed=d)
-    indptr, c, v = _csr_tensors(rows, cols, vals, n, cuda_device)
-    g = torch.Generator(device=cuda_device).manual_seed(d)
-    x = torch.randn((n, d), generator=g, device=cuda_device).bfloat16()
-    before = K.SEGMM.launches
-    out = K.weighted_segment_matmul(x, indptr, c, v)
-    assert K.SEGMM.launches == before + 1
+def _check_segment(out, x, indptr, c, v, schedule=None):
+    """``out`` against the plain version: rows of at most 2 edges bit for
+    bit, every row within the order bound, the schedule's counters back at
+    0. The kernel's lane groups each sum a share of the tile's edges in edge
+    order, and a row that crosses a share's or a tile's edge adds those
+    partial sums in order: for 3 or more edges that can be another f32
+    order than the plain version's sequential sum (_order_bound); 1 or 2
+    products sum the same either way."""
     torch.cuda.synchronize()
     want = K.weighted_segment_matmul_plain(x.cpu(), indptr.cpu(), c.cpu(), v.cpu())
-    deg = np.diff(indptr.cpu().numpy())
-    short = torch.from_numpy(deg <= K.SEGMM_CHUNK)
     got = out.cpu()
+    short = indptr.diff().cpu() <= 2
     assert torch.equal(got[short], want[short])
+    assert ((got - want).abs() <= _order_bound(indptr, x, c, v)).all()
+    if schedule is not None:
+        assert not schedule.counters.any()
+
+
+def _segment_graph(device, n, mean_deg, heavy=(), empty=(), seed=0, tile=None):
+    rows, cols, vals = _skewed_csr(n, mean_deg, heavy=heavy, empty=empty, seed=seed)
+    indptr, c, v = _csr_tensors(rows, cols, vals, n, device)
+    return indptr, c, v, K.segment_schedule(indptr, tile=tile)
+
+
+# every width class of the kernel: 16-byte lanes at 1, 8, 64 and 256 lanes a
+# row of 1 to 32 lanes, the padded rows of d=50 and 150 (as _segment_call
+# casts them) and their unpadded rows (4-byte lanes); tiles of the default
+# size and of 64 edges (rows split over many tiles and warps)
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", [None, 64])
+@pytest.mark.parametrize("padded", [False, True])
+@pytest.mark.parametrize("d", [1, 8, 50, 64, 150, 256])
+def test_segment_kernel_matches_plain(cuda_device, d, padded, tile):
+    n = 3000
+    indptr, c, v, s = _segment_graph(cuda_device, n, 12, heavy=(7, 1500), empty=(0, 1, 2999),
+                                     seed=d, tile=tile)
+    g = torch.Generator(device=cuda_device).manual_seed(d)
+    x = torch.randn((n, d), generator=g, device=cuda_device).bfloat16()
+    if padded:
+        xp = torch.full((n, K.segment_row_stride(d)), float("nan"), device=cuda_device).bfloat16()
+        xp[:, :d] = x
+        x = xp[:, :d]  # NaN in the padding never reaches a result
+    before = K.SEGMM.launches
+    out = K.weighted_segment_matmul(x, indptr, c, v, s)
+    assert K.SEGMM.launches == before + 1
+    _check_segment(out, x, indptr, c, v, s)
+    got = out.cpu()
     assert (got[[0, 1, n - 1]] == 0).all()
-    bound = _order_bound(indptr, x, c, v)
-    assert ((got - want).abs() <= bound).all()
     # on the card the plain version sums with atomics: the same bound
     plain = K.weighted_segment_matmul_plain(x, indptr, c, v).cpu()
-    assert ((got - plain).abs() <= bound).all()
+    assert ((got - plain).abs() <= _order_bound(indptr, x, c, v)).all()
     # no atomics: a second call repeats bit for bit
-    assert torch.equal(K.weighted_segment_matmul(x, indptr, c, v), out)
+    assert torch.equal(K.weighted_segment_matmul(x, indptr, c, v, s), out)
 
 
 @pytest.mark.cuda
 def test_segment_kernel_long_row_and_zero_values(cuda_device):
     n = 12000
-    rows, cols, vals = _skewed_csr(n, 4, heavy=(5,), empty=(9, 10), seed=3)
-    indptr, c, v = _csr_tensors(rows, cols, vals, n, cuda_device)
+    indptr, c, v, s = _segment_graph(cuda_device, n, 4, heavy=(5,), empty=(9, 10), seed=3)
     assert int(indptr[6] - indptr[5]) > 10000  # one 10,000-edge row
+    assert (s.split_row == 5).any() and s.split_tiles.numel() >= 10000 // s.tile  # over many tiles
     x = torch.randn((n, 64), device=cuda_device).bfloat16()
-    out = K.weighted_segment_matmul(x, indptr, c, v)
-    want = K.weighted_segment_matmul_plain(x.cpu(), indptr.cpu(), c.cpu(), v.cpu())
-    assert ((out.cpu() - want).abs() <= _order_bound(indptr, x, c, v)).all()
+    out = K.weighted_segment_matmul(x, indptr, c, v, s)
+    _check_segment(out, x, indptr, c, v, s)
     assert (out[9:11] == 0).all()
-    zeros = K.weighted_segment_matmul(x, indptr, c, torch.zeros_like(v))
+    zeros = K.weighted_segment_matmul(x, indptr, c, torch.zeros_like(v), s)
     assert (zeros == 0).all()
     # values that round to bf16: 1 + 2^-9 rounds to 1 (ties to even)
     ones = torch.full_like(v, 1.0 + 2.0**-9)
     torch.testing.assert_close(
-        K.weighted_segment_matmul(x, indptr, c, ones),
-        K.weighted_segment_matmul(x, indptr, c, torch.ones_like(v)), rtol=0, atol=0,
+        K.weighted_segment_matmul(x, indptr, c, ones, s),
+        K.weighted_segment_matmul(x, indptr, c, torch.ones_like(v), s), rtol=0, atol=0,
     )
+    assert not s.counters.any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("deg,tile", [(5, 4), (3, 4), (9, 8), (700, 512)])
+def test_segment_kernel_every_row_split(cuda_device, deg, tile):
+    # rows of deg edges over tiles of `tile`: every row (or nearly) crosses
+    # a tile edge, and the last block to arrive completes each one
+    n = 4000 if deg < 100 else 300
+    rng = np.random.RandomState(deg)
+    indptr = torch.arange(0, n * deg + 1, deg, dtype=torch.int32, device=cuda_device)
+    c = torch.as_tensor(rng.randint(0, n, size=n * deg).astype(np.int32), device=cuda_device)
+    v = torch.as_tensor(rng.rand(n * deg).astype(np.float32), device=cuda_device)
+    s = K.segment_schedule(indptr, tile=tile)
+    if deg % tile and tile % deg:
+        assert s.split_row.numel() >= n // 2
+    x = torch.randn((n, 64), device=cuda_device).bfloat16()
+    out = K.weighted_segment_matmul(x, indptr, c, v, s)
+    _check_segment(out, x, indptr, c, v, s)
+    assert torch.equal(K.weighted_segment_matmul(x, indptr, c, v, s), out)
+
+
+# x whose base or row stride 16 bytes do not divide: the kernel takes 8-,
+# 4- or 2-byte vectors (a view at an odd element, a row stride of d + 1)
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [8, 50, 64])
+@pytest.mark.parametrize("offset,extra", [(4, 0), (2, 0), (1, 0), (0, 1), (3, 1)])
+def test_segment_kernel_unaligned_x(cuda_device, d, offset, extra):
+    n = 2000
+    indptr, c, v, s = _segment_graph(cuda_device, n, 10, heavy=(3,), seed=d)
+    ld = d + extra
+    flat = torch.randn(offset + n * ld, device=cuda_device).bfloat16()
+    x = flat[offset:].view(n, ld)[:, :d]
+    assert x.data_ptr() % 16 or x.stride(0) % 8
+    out = K.weighted_segment_matmul(x, indptr, c, v, s)
+    _check_segment(out, x, indptr, c, v, s)
+
+
+@pytest.mark.cuda
+def test_segment_kernel_new_values_on_one_schedule(cuda_device):
+    # SGL's views: the values change every call, the schedule stays
+    n = 5000
+    indptr, c, v, s = _segment_graph(cuda_device, n, 8, heavy=(11,), seed=4, tile=256)
+    x = torch.randn((n, 50), device=cuda_device).bfloat16()
+    for seed in (1, 2):
+        vals = torch.rand(v.shape, generator=torch.Generator(device=cuda_device).manual_seed(seed),
+                          device=cuda_device)
+        out = K.weighted_segment_matmul(x, indptr, c, vals, s)
+        _check_segment(out, x, indptr, c, vals, s)
+
+
+@pytest.mark.cuda
+def test_segment_kernel_is_one_cuda_kernel(cuda_device):
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    n = 3000
+    indptr, c, v, s = _segment_graph(cuda_device, n, 12, heavy=(7,), seed=1, tile=128)
+    assert s.split_row.numel() > 0
+    x = torch.randn((n, 64), device=cuda_device).bfloat16()
+    K.weighted_segment_matmul(x, indptr, c, v, s)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        K.weighted_segment_matmul(x, indptr, c, v, s)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+    # the output is torch.empty: no kernel but the segment kernel
+    assert sum(e.count for e in kernels) == 1, [e.key for e in kernels]
+    assert not s.counters.any()
 
 
 @pytest.mark.cuda

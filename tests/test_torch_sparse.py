@@ -220,15 +220,129 @@ def test_segment_gradients_match_jax():
     torch.testing.assert_close(tx2.grad, tx.grad, rtol=0, atol=0)
 
 
-def test_segment_schedule_splits_long_rows():
-    indptr = np.array([0, 0, 3, 3 + 64, 3 + 64 + 65, 3 + 64 + 65 + 200])
-    assert K.SEGMM_CHUNK == 64
-    s = K.segment_schedule(indptr)
-    # rows: empty (1 chunk), 3 edges (1), 64 (1), 65 (2), 200 (4)
-    np.testing.assert_array_equal(s.chunk_ptr.numpy(), [0, 1, 2, 3, 5, 9])
-    np.testing.assert_array_equal(s.chunk_row.numpy(), [0, 1, 2, 3, 3, 4, 4, 4, 4])
-    np.testing.assert_array_equal(s.long_rows.numpy(), [3, 4])
-    assert s.chunk_ptr.dtype == torch.int32
+def _replay_schedule(s, indptr, cols, vals, x):
+    """The segment kernel's schedule played on the host in float64: each
+    tile sums its rows' edges, writes the rows it holds whole and the empty
+    rows up to the next tile's first row, and leaves the part of a split row
+    in that row's slot for the tile; each split row is then the sum of its
+    slots in tile order. Returns (out, rows written, slots written)."""
+    n, d = x.shape
+    e = len(cols)
+    out = np.zeros((n, d))
+    written = np.zeros(n, np.int64)
+    slot_written = np.zeros(s.split_tiles.shape[0], np.int64)
+    carry = np.zeros((s.split_tiles.shape[0], d))
+    edge_row, tile_row = s.edge_row.numpy(), s.tile_row.numpy()
+    tile_split, split_ptr = s.tile_split.numpy(), s.split_ptr.numpy()
+    split_tiles = s.split_tiles.numpy()
+    prod = vals[:, None].astype(np.float64) * x[cols]
+    if e == 0:
+        written[:] += 1
+    if e:
+        written[: edge_row[0]] += 1
+    for t in range(s.num_tiles):
+        lo, hi = t * s.tile, min((t + 1) * s.tile, e)
+        rows = edge_row[lo:hi]
+        for r in np.unique(rows):
+            part = prod[lo:hi][rows == r].sum(0)
+            head, tail = tile_split[t]
+            sid = head if (r == rows[0] and head >= 0) else (tail if r == rows[-1] else -1)
+            if sid < 0:
+                out[r] = part
+                written[r] += 1
+            else:
+                c0 = split_ptr[sid]
+                slot = c0 + t - split_tiles[c0]
+                assert split_ptr[sid] <= slot < split_ptr[sid + 1] and split_tiles[slot] == t
+                carry[slot] = part
+                slot_written[slot] += 1
+        nxt = np.r_[rows[1:], tile_row[t + 1]] if hi > lo else []
+        for r, r2 in zip(rows, nxt):
+            written[r + 1 : r2] += 1
+    for sid, r in enumerate(s.split_row.numpy()):
+        out[r] = carry[split_ptr[sid] : split_ptr[sid + 1]].sum(0)
+        written[r] += 1
+    return out, written, slot_written
+
+
+def _indptr_of(degrees):
+    return np.r_[0, np.cumsum(degrees)].astype(np.int64)
+
+
+# (degrees of the rows, tile): empty rows inside and at both ends, one row
+# over several tiles, every row split, no edge at all, a zipf-skewed graph
+SCHEDULE_CASES = {
+    "empty_rows": ([0, 3, 0, 4, 5, 0], 4),
+    "long_row": ([2, 13, 1], 4),
+    "every_row_split": ([5, 5, 5, 5], 4),
+    "no_edges": ([0, 0], 4),
+    "one_tile": ([1, 2, 0, 3], 512),
+    "zipf": ((np.arange(1, 301) ** -1.1 * 900).astype(np.int64), 64),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SCHEDULE_CASES))
+def test_segment_schedule_splits_long_rows(case):
+    degrees, tile = SCHEDULE_CASES[case]
+    indptr = _indptr_of(degrees)
+    n, e = len(degrees), int(indptr[-1])
+    s = K.segment_schedule(indptr, tile=tile)
+    tensors = (s.edge_row, s.tile_row, s.tile_split, s.split_row, s.split_ptr,
+               s.split_tiles, s.counters)
+    assert all(t.dtype == torch.int32 for t in tensors)
+    assert s.carry.dtype == torch.float32 and s.carry.shape == (s.split_tiles.shape[0], K.SEGMM_MAX_D)
+    assert not s.counters.any()  # counters start at zero
+    assert (s.tile, s.num_rows) == (tile, n)
+    # every edge in exactly one tile: consecutive tiles of `tile` edges
+    assert s.num_tiles == max(1, -(-e // tile))
+    np.testing.assert_array_equal(s.edge_row.numpy(), np.repeat(np.arange(n), degrees))
+    first_edges = np.arange(s.num_tiles) * tile
+    want_rows = s.edge_row.numpy()[first_edges] if e else np.full(s.num_tiles, n)
+    np.testing.assert_array_equal(s.tile_row.numpy(), np.r_[want_rows, n])
+    # split rows are those over a tile edge, each with its tiles in order
+    first, last = indptr[:-1] // tile, (indptr[1:] - 1) // tile
+    split = [r for r in range(n) if degrees[r] and last[r] > first[r]]
+    np.testing.assert_array_equal(s.split_row.numpy(), split)
+    ptr, tiles = s.split_ptr.numpy(), s.split_tiles.numpy()
+    assert ptr[0] == 0 and len(ptr) == len(split) + 1 and s.counters.shape == (len(split),)
+    for k, r in enumerate(split):
+        np.testing.assert_array_equal(tiles[ptr[k]:ptr[k + 1]], np.arange(first[r], last[r] + 1))
+    # a tile's head: the split row it starts inside of; its tail: the one
+    # it ends inside of
+    edge_row = s.edge_row.numpy()
+    for t, (head, tail) in enumerate(s.tile_split.numpy()):
+        lo, hi = t * tile, min((t + 1) * tile, e)
+        if lo >= hi:
+            assert head == tail == -1
+            continue
+        r0, r1 = edge_row[lo], edge_row[hi - 1]
+        assert head == (split.index(r0) if indptr[r0] < lo else -1)
+        assert tail == (split.index(r1) if indptr[r1 + 1] > hi else -1)
+    if case == "every_row_split":
+        assert len(split) == n
+    if case == "long_row":
+        np.testing.assert_array_equal(tiles, [0, 1, 2, 3])
+        np.testing.assert_array_equal(s.tile_split.numpy(), [[-1, 0], [0, 0], [0, 0], [0, -1]])
+    # played on the host, the tiles and their carries give the plain sums,
+    # every row written once and every slot filled once
+    rng = np.random.RandomState(len(case))
+    cols = torch.from_numpy(rng.randint(0, n, size=e).astype(np.int32))
+    vals = torch.from_numpy(rng.rand(e).astype(np.float32))
+    x = torch.from_numpy(rng.randn(n, 3).astype(np.float32)).bfloat16()
+    out, written, slots = _replay_schedule(
+        s, indptr, cols.numpy(), vals.bfloat16().float().numpy(), x.float().numpy())
+    assert (written == 1).all() and (slots == 1).all()
+    want = K.weighted_segment_matmul_plain(x, torch.from_numpy(indptr.astype(np.int32)), cols, vals)
+    np.testing.assert_allclose(out, want.numpy(), rtol=1e-5, atol=1e-5)
+
+
+def test_segment_tile_size():
+    # at most 3 tiles an SM of an H100 where 4096 edges allow, 512 at least
+    assert K.segment_tile(0) == 512 and K.segment_tile(148_210) == 512
+    assert K.segment_tile(721_096) == 2048 and K.segment_tile(10**8) == 4096
+    for e in (1, 10**5, 10**6, 2 * 10**6):
+        tile = K.segment_tile(e)
+        assert tile % 4 == 0 and (-(-e // tile) <= 3 * 132 or tile == 4096)
 
 
 def test_segment_wrapper_rejects_bad_inputs():
