@@ -9,12 +9,16 @@ Phases, each of which exits non-zero on failure:
 3. LightGCN main path: ``QRec(conf).execute()`` with
    ``config/LightGCN.conf`` at full width (d=50, 2 layers, batch 2000) on a
    lastfm-shaped synthetic rating file, 5 epochs; launch counts show the
-   path ran through K1 and K2 (and not K3/K4), and the final ranking is
-   held against the plain versions on the CPU;
+   path ran through K1 and K2's fused top-k (and not K3/K4, nor K2's
+   scores entry), and the final ranking is held against the plain versions
+   on the CPU and, bit for bit, against K2's scores entry followed by a
+   stable sort, with the peak device memory of both rankings;
 4. K1 and K2 against their plain PyTorch versions on the card, on the main
    path's own operands (R and the first layer's inputs for K1, at d=50,
-   150 and 1, the first batch of test users for K2), K1 also at the
-   yelp2018 shape; K1's factored entry against its plain version and the
+   150 and 1, the first batch of test users for K2's scores entry and its
+   fused top-k, the latter timed in turns with the unfused ranking and the
+   library's ``torch.topk``, with its CUDA kernels per call), K1 also at
+   the yelp2018 shape; K1's factored entry against its plain version and the
    unfused sequence, with its kernels per application; the L2 read rate
    (a streaming read of an L2-resident buffer); K5 on the lastfm graph's
    CSR at d=50 (against its plain version, timed in turns with
@@ -38,7 +42,8 @@ Phases, each of which exits non-zero on failure:
    published (dense, K1), 3 epochs; LightGCN with ``graph.backend=pallas``
    at the yelp2018 shape and widths of ``bench.build_yelp_scale`` (d=64,
    batch 2048, 2 layers, top-20, reg 1e-4), 2 epochs; each with its launch
-   counts (K1 = 0 on the K5 paths); then K5 on the yelp path's own CSR and
+   counts (K1 = 0 on the K5 paths); NGCF's (width 150) and the yelp2018
+   top-20 rankings held and timed as the main path's; then K5 on the yelp path's own CSR and
    first-layer input against its plain version (and bit for bit against
    itself, its split-row counters back at 0) and against K1 on the same
    graph, timed in turns with ``torch.sparse.mm``, one CUDA kernel a call,
@@ -477,6 +482,9 @@ def lastfm_segment_line(torch, K, timer, model, k1_ms, l2_rate):
 
 
 def scores_phase(torch, K, timer, u, items, bm):
+    """K2's scores entry on the main path's first batch of test users
+    (their rows gathered): against its plain version, timed beside it and
+    the library's product and mask."""
     B, d = u.shape
     I = items.shape[0]
     out = K.masked_catalog_scores(u, items, bm, 0.0)
@@ -504,6 +512,121 @@ def scores_phase(torch, K, timer, u, items, bm):
           f"{2 * B * I * d / 1e9:.2f} GFLOP)", flush=True)
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                 bound_ms=bound_ms, bound_by=bound_by)
+
+
+def scores_then_sort(torch, scores_fn, user_emb, items, bitmask, uids, global_mean, k):
+    """One batch ranked without the fused top-k, the reference it must
+    equal bit for bit: ``scores_fn`` (K2's scores entry, of this tree or
+    another) on the gathered rows, the unseen rows filled, a stable sort of
+    every row, the first k columns. (ids, scores)."""
+    safe = uids.clamp(min=0)
+    s = scores_fn(user_emb[safe].contiguous(), items, bitmask[safe].contiguous(), 0.0)
+    s = torch.where((uids < 0)[:, None], torch.full_like(s, global_mean), s)
+    vals, ids = torch.sort(s, dim=1, descending=True, stable=True)
+    return ids[:, :k].clone(), vals[:, :k].clone()
+
+
+def unfused_ranking(torch, K, ranker, user_emb, item_emb, bitmask, k):
+    """A ranker's whole ranking by :func:`scores_then_sort`, batch by batch."""
+    out = [scores_then_sort(torch, K.masked_catalog_scores, user_emb, item_emb, bitmask,
+                            ranker._uids[start : start + ranker.batch_size], ranker.global_mean, k)
+           for start in range(0, len(ranker.uids), ranker.batch_size)]
+    return torch.cat([o[0] for o in out]), torch.cat([o[1] for o in out])
+
+
+def peak_mib(torch, fn) -> float:
+    """Device memory that one call of ``fn`` takes at its peak, above what
+    was allocated before it."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    fn()
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated() - base) / 2**20
+
+
+def ranking_phase(torch, K, label, model, k):
+    """K2's fused top-k on a run's own final factors and test users, through
+    the ranker: bit for bit against the unfused ranking (the scores entry
+    then a stable sort), against the plain version on the CPU (ids equal but
+    where near-equal scores swap), its counters back at 0; the peak device
+    memory of both rankings."""
+    from qrec_tpu_torch.ops.topk import CatalogRanker
+
+    ranker = CatalogRanker(model.data, k=k, device="cuda", batch_size=model.eval_batch_size)
+    U, V, bm = model.U, model.V, model.rated_bitmask
+    before = K.TOPK.launches
+    ids, vals = ranker.topk_device(U, V, bm)
+    calls = K.TOPK.launches - before
+    want_ids, want = unfused_ranking(torch, K, ranker, U, V, bm, k)
+    torch.cuda.synchronize()
+    same = torch.equal(ids, want_ids) and torch.equal(vals.view(torch.int32), want.view(torch.int32))
+    cpu = CatalogRanker(model.data, k=k, device="cpu", batch_size=model.eval_batch_size)
+    pids, pvals = cpu.topk_device(U.cpu(), V.cpu(), bm.cpu())
+    rows_equal = (ids.cpu() == pids).all(1)
+    gap = (vals.cpu() - pvals).abs().max(1).values
+    err = gap.max().item()
+    plain_ok = bool((rows_equal | (gap <= 1e-5)).all()) and bool(torch.isfinite(vals).all())
+    counters = int(K.masked_catalog_topk_counters(U.device).abs().sum())
+    fused_mib = peak_mib(torch, lambda: ranker.topk_device(U, V, bm))
+    unfused_mib = peak_mib(torch, lambda: unfused_ranking(torch, K, ranker, U, V, bm, k))
+    print(f"[K2 topk {label}] users={len(ranker.uids)} I={V.shape[0]} d={V.shape[1]} k={k} "
+          f"launches={calls} bit-identical to the scores entry + stable sort={same}; vs the CPU "
+          f"plain version {int(rows_equal.sum())}/{len(rows_equal)} rows identical, max score "
+          f"diff {err:.3e} (rows may differ only at near-ties, 1e-5) "
+          f"{'ok' if plain_ok else 'MISMATCH'}; counters after the calls {counters}; peak "
+          f"device memory of the ranking {fused_mib:.1f} MiB (unfused {unfused_mib:.1f} MiB)",
+          flush=True)
+    if not same:
+        fail(f"masked_catalog_topk differs from the scores entry and a sort at {label}")
+    if not plain_ok:
+        fail(f"masked_catalog_topk disagrees with its plain version at {label}")
+    if counters:
+        fail(f"masked_catalog_topk left its counters non-zero at {label}")
+    return dict(max_abs_err=err, peak_mib=fused_mib, unfused_peak_mib=unfused_mib)
+
+
+def topk_timing(torch, K, timer, model, k, label):
+    """The fused top-k on one batch of the run's test users (the first
+    ``eval_batch_size``), timed in turns (``Timer.paired``) with the
+    unfused path (the scores entry, the unseen rows filled, a stable sort,
+    the slice) and the library (the gathered rows' ``torch.matmul``,
+    ``masked_fill`` with the mask already expanded, ``torch.topk``); its
+    plain version alone; the bound; its CUDA kernels per call."""
+    from qrec_tpu_torch.ops.topk import CatalogRanker
+
+    ranker = CatalogRanker(model.data, k=k, device="cuda", batch_size=model.eval_batch_size)
+    U, V, bm = model.U, model.V, model.rated_bitmask
+    uids = ranker._uids[: ranker.batch_size]
+    gm = ranker.global_mean
+    B, (I, d) = uids.shape[0], V.shape
+    safe = uids.clamp(min=0)
+    rated = K.expand_bitmask(bm[safe].contiguous(), I)
+    ub = U[safe].contiguous()
+
+    def fused():
+        return K.masked_catalog_topk(U, V, bm, uids, gm, k)
+
+    def unfused():
+        return scores_then_sort(torch, K.masked_catalog_scores, U, V, bm, uids, gm, k)
+
+    kernels = kernels_per_call(torch, fused)
+    ms, unfused_ms, library_ms = timer.paired([
+        fused, unfused, lambda: torch.topk(torch.matmul(ub, V.T).masked_fill_(rated, 0.0), k)])
+    plain_ms = timer.ms(lambda: K.masked_catalog_topk_plain(U, V, bm, uids, gm, k))
+    moved = B * d * 4 + I * d * 4 + B * bm.shape[1] * 4 + B * 8 + B * k * 12
+    bound_ms, bound_by = bound(moved, 2 * B * I * d, PEAK_F32)
+    print(f"[K2 topk {label}] B={B} I={I} d={d} k={k} plan={K._masked_catalog_plan(U.device, B, I, d, k)} "
+          f"ms={ms:.4f} unfused_ms={unfused_ms:.4f} library_ms={library_ms:.4f} (L2 flushed, timed "
+          f"in turns in one loop; unfused: the scores entry + where + stable sort + slice; "
+          f"library: torch.matmul + masked_fill + torch.topk) plain_ms={plain_ms:.4f} "
+          f"bound_ms={bound_ms:.4f} by {bound_by} ({moved / 1e6:.2f} MB, "
+          f"{2 * B * I * d / 1e9:.2f} GFLOP) share_of_f32_peak="
+          f"{2 * B * I * d / PEAK_F32 * 1e3 / ms:.3f} CUDA kernels per call={kernels}", flush=True)
+    if kernels != 1:
+        fail(f"one masked_catalog_topk call at {label} ran {kernels} CUDA kernels, not 1")
+    return dict(ms=ms, unfused_ms=unfused_ms, library_ms=library_ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, kernels=kernels)
 
 
 def infonce_phase(torch, K, timer, label, view1, view2, mask, timed=True):
@@ -658,7 +781,8 @@ def first_step_views(torch, model):
 def expected_launches(model):
     """Launches of K1-K5 in one ``QRec(conf).execute()``, from the code.
     S steps per epoch, E epochs, n layers, evals = K2 launches per ranking
-    (ceil(test users / 1024)). Every propagation is one launch forward and
+    (ceil(test users / 1024), all of the fused top-k entry: no path runs
+    K2's scores entry). Every propagation is one launch forward and
     one backward, of K1 on the dense adjacency and of K5 on the sparse one
     (K1 then 0). LightGCN and NGCF: 2n per step, n for the final factors.
     SimGCL: the shared first layer and the fused (N, 3d) layers, 2n per
@@ -684,7 +808,8 @@ def expected_launches(model):
     propagations = per_step * steps * e + n * rankings
     return {
         "bipartite_dual_matmul": 0 if sparse else propagations,
-        "masked_catalog_scores": evals * rankings,
+        "masked_catalog_scores": 0,
+        "masked_catalog_topk": evals * rankings,
         "infonce_fwd": ssl * steps * e,
         "infonce_bwd": ssl * steps * e,
         "weighted_segment_matmul": propagations if sparse else 0,
@@ -855,6 +980,7 @@ def main() -> None:
             fail("GPU ranking disagrees with the CPU plain-version ranking")
         print(f"[main] ranking vs CPU plain versions: {int(same.sum())}/{len(same)} rows identical, "
               f"max score diff {np.abs(scores - rscores).max():.3e}", flush=True)
+        k2r = {"lastfm": ranking_phase(torch, K, "lastfm", model, 10)}
 
         # 4. K1 and K2 against their plain versions on the main path's own
         # operands: R with the first layer's inputs (K1), the first batch of
@@ -879,6 +1005,7 @@ def main() -> None:
         kf = factored_phase(torch, K, timer, adj, x)
         k5l = lastfm_segment_line(torch, K, timer, model, k1["ms"], l2_rate)
         k2 = scores_phase(torch, K, timer, model.U[uids], model.V, model.rated_bitmask[uids])
+        k2t = {"lastfm": topk_timing(torch, K, timer, model, 10, "lastfm")}
         k1y = dual_phase(torch, K, timer, "yelp2018", *yelp_inputs(torch, K))
         epoch_ms = model.timer.summary()["epoch_seconds"] * 1e3
         share = k1["warm_ms"] * counts["bipartite_dual_matmul"] / model.max_epoch / epoch_ms
@@ -917,6 +1044,8 @@ def main() -> None:
         ngcf, _, _ = drive(torch, K, QRec, conf_of("NGCF", 3), "ngcf")
         if ngcf.U.shape[1] != 3 * ngcf.emb_size:
             fail(f"ngcf: scoring tables of width {ngcf.U.shape[1]}, expected 3d")
+        k2r["ngcf d=150"] = ranking_phase(torch, K, "ngcf d=150", ngcf, 10)
+        k2t["ngcf d=150"] = topk_timing(torch, K, timer, ngcf, 10, "ngcf d=150")
         del ngcf
         yelp_ratings = os.path.join(tmp, "yelp_like.txt")
         write_yelp_file(yelp_ratings)
@@ -927,6 +1056,8 @@ def main() -> None:
                            ("reg.lambda", "-u 0.0001 -i 0.0001 -b 0.2 -s 0.2")):
             conf[key] = value
         yelp, yelp_counts, _ = drive(torch, K, QRec, conf, "yelp-pallas")
+        k2r["yelp2018"] = ranking_phase(torch, K, "yelp2018", yelp, 20)
+        k2t["yelp2018"] = topk_timing(torch, K, timer, yelp, 20, "yelp2018")
         k5 = segment_phase(torch, K, timer, yelp, l2_rate)
         profile_epoch(torch, yelp, "LightGCN yelp2018 pallas")
         del yelp, timer
@@ -960,6 +1091,14 @@ def main() -> None:
           f"K5 lastfm ms={k5l['ms']:.4f}", flush=True)
     print(f"[sgl] launches {json.dumps(sgl_counts)}; K3 at B=4000 ms={k3s['ms']:.4f} "
           f"K4 ms={k4s['ms']:.4f}", flush=True)
+    for label, k in k2t.items():
+        print(f"[K2 topk {label}] ms={k['ms']:.4f} unfused_ms={k['unfused_ms']:.4f} "
+              f"library_ms={k['library_ms']:.4f} plain_ms={k['plain_ms']:.4f} "
+              f"bound_ms={k['bound_ms']:.4f} kernels per call {k['kernels']}; ranking peak "
+              f"{k2r[label]['peak_mib']:.1f} MiB (unfused {k2r[label]['unfused_peak_mib']:.1f} MiB)",
+              flush=True)
+    print(f"[K2] scores entry ms={k2['ms']:.4f} (on no path; launches "
+          f"{counts['masked_catalog_scores']})", flush=True)
 
     def row(name, source, replaces, launches, k):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -973,6 +1112,10 @@ def main() -> None:
             "qrec_tpu/ops/pallas_kernels.py:563", counts["bipartite_dual_matmul"], k1),
         row("masked_catalog_scores", "qrec_tpu_torch/csrc/masked_scores.cu",
             "qrec_tpu/ops/pallas_kernels.py:49", counts["masked_catalog_scores"], k2),
+        row("masked_catalog_topk", "qrec_tpu_torch/csrc/masked_scores.cu",
+            "qrec_tpu/ops/pallas_kernels.py:49 + qrec_tpu/ops/topk.py:289",
+            counts["masked_catalog_topk"],
+            dict(k2t["lastfm"], max_abs_err=max(k["max_abs_err"] for k in k2r.values()))),
         row("infonce_fwd", "qrec_tpu_torch/csrc/infonce.cu",
             "qrec_tpu/ops/pallas_kernels.py:155", sim_counts["infonce_fwd"], k3),
         row("infonce_bwd", "qrec_tpu_torch/csrc/infonce.cu",

@@ -32,8 +32,8 @@
 // while the current one is used. Each (BM x CT) logits tile is computed in
 // register patches: thread (ty, tx) of a 16 x 16 grid owns rows ty + 16 i
 // (i < RM) and columns tx + 16 j (j < 4), both operands read as float4
-// along the features, 2.7 FMAs per float read at RM = 8 (`patch_dots`,
-// shared by both kernels).
+// along the features, 2.7 FMAs per float read at RM = 8 (`for_each_tile`
+// and `patch_dots` of tiles.cuh, shared by both kernels and by K2).
 //   K3 (infonce_fwd_tiles, one launch): block (i, g) takes row tile i and
 //     column split g. A patch row's 4 logits update the thread's online
 //     logsumexp once per tile, flash style: one max, one rescale of the
@@ -72,106 +72,14 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "tiles.cuh"
+
 namespace {
 
-constexpr int CT = 64;               // rows of the other operand per tile
-constexpr int THREADS = 256;         // 16 x 16
-constexpr int WARPS = THREADS / 32;
-constexpr int MAX_D = 256;
 constexpr int SUM_BLOCKS_PER_SM = 4; // K4 pass-2 blocks on each SM
 constexpr float MASKED = -1e30f;     // finite, as the TPU kernel's mask value
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr unsigned FULL = 0xffffffffu;
-
-// Staging: warp w copies rows w, w + WARPS, ...; its lanes stride one row's
-// features, V floats a copy, so global reads coalesce and no index is
-// divided by d.
-
-// s[r * ld + k] = x[r0 + r][k] for r < rows, k < width: rows below n are
-// copied asynchronously (no commit), the features [d, width) and the rows
-// from n on are zeroed
-template <int V>
-__device__ __forceinline__ void stage_rows_v(float* s, const float* __restrict__ x, int r0,
-                                             int rows, int n, int d, int ld, int width) {
-    const int lane = threadIdx.x % 32;
-    for (int r = threadIdx.x / 32; r < rows; r += WARPS) {
-        float* dst = s + r * ld;
-        const bool in = r0 + r < n;
-        if (in) {
-            const float* src = x + (size_t)(r0 + r) * d;
-            for (int k = lane * V; k < d; k += 32 * V)
-                __pipeline_memcpy_async(dst + k, src + k, V * sizeof(float));
-        }
-        for (int k = (in ? d : 0) + lane; k < width; k += 32) dst[k] = 0.f;
-    }
-}
-
-// vec: the floats a copy moves (4, 2 or 1), which d and the operands'
-// alignment allow; one branch a call, the same in every thread
-__device__ __forceinline__ void stage_rows(int vec, float* s, const float* __restrict__ x, int r0,
-                                           int rows, int n, int d, int ld, int width) {
-    if (vec == 4) {
-        stage_rows_v<4>(s, x, r0, rows, n, d, ld, width);
-    } else if (vec == 2) {
-        stage_rows_v<2>(s, x, r0, rows, n, d, ld, width);
-    } else {
-        stage_rows_v<1>(s, x, r0, rows, n, d, ld, width);
-    }
-}
-
-// Walks the tiles of rows [begin, end) of y, double-buffered in b_s (two
-// tiles of CT * ld floats, zero past end and in the features [d, width),
-// which are zeroed once): use(tile, t0) sees every row of the tile at t0 in
-// place, for every thread of the block (no barrier follows the last use).
-// Copies staged by the caller before the call land with the first tile.
-// The next tile's copies are issued once the current one has landed and
-// land while it is used: one barrier a tile.
-template <typename Use>
-__device__ __forceinline__ void for_each_tile(float* b_s, const float* __restrict__ y, int begin,
-                                              int end, int d, int ld, int width, int vec, Use use) {
-    const int tile_floats = CT * ld;
-    int cur = 0;
-    for (int t = threadIdx.x / 32; t < 2 * CT; t += WARPS)
-        for (int k = d + threadIdx.x % 32; k < width; k += 32) b_s[t * ld + k] = 0.f;
-    if (begin < end) stage_rows(vec, b_s, y, begin, CT, end, d, ld, d);
-    __pipeline_commit();
-    for (int t0 = begin; t0 < end; t0 += CT, cur ^= 1) {
-        __pipeline_wait_prior(0);  // this thread's copies of the current tile landed
-        __syncthreads();           // ... and every thread's; the other buffer is consumed
-        if (t0 + CT < end) {
-            stage_rows(vec, b_s + (cur ^ 1) * tile_floats, y, t0 + CT, CT, end, d, ld, d);
-            __pipeline_commit();
-        }
-        use(b_s + cur * tile_floats, t0);
-    }
-}
-
-// acc[i][j] = sum over features, in float4 steps in order, of a_s row
-// ty + 16 i times tile row tx + 16 j (both row-major, stride ld, zero from
-// d to 4 k4_end)
-template <int RM>
-__device__ __forceinline__ void patch_dots(const float* a_s, const float* tile, int ld, int k4_end,
-                                           int tx, int ty, float (&acc)[RM][4]) {
-#pragma unroll
-    for (int i = 0; i < RM; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-    for (int k4 = 0; k4 < k4_end; ++k4) {
-        float4 b[4];
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-            b[j] = *reinterpret_cast<const float4*>(tile + (tx + 16 * j) * ld + 4 * k4);
-#pragma unroll
-        for (int i = 0; i < RM; ++i) {
-            const float4 a = *reinterpret_cast<const float4*>(a_s + (ty + 16 * i) * ld + 4 * k4);
-#pragma unroll
-            for (int j = 0; j < 4; ++j) {
-                acc[i][j] = fmaf(a.x, b[j].x, acc[i][j]);
-                acc[i][j] = fmaf(a.y, b[j].y, acc[i][j]);
-                acc[i][j] = fmaf(a.z, b[j].z, acc[i][j]);
-                acc[i][j] = fmaf(a.w, b[j].w, acc[i][j]);
-            }
-        }
-    }
-}
 
 // 2^x on the SFU: relative error about 2^-22, 0 for x below -126
 __device__ __forceinline__ float exp2_fast(float x) {
@@ -197,9 +105,6 @@ __device__ __forceinline__ float warp_sum(float v) {
     return v;
 }
 
-// K3's row stride: d rounded up to float4s, an odd number of them, so the 8
-// lanes of a quarter warp reading one float4 of 8 rows hit 32 banks
-__host__ __device__ inline int fwd_ld(int d) { return 4 * (((d + 3) / 4) | 1); }
 
 size_t fwd_smem_bytes(int bm, int d) { return sizeof(float) * (size_t)(bm + 2 * CT) * fwd_ld(d); }
 
@@ -608,15 +513,6 @@ int launch_bwd(const float* v1, const float* v2, const float* cmask, const float
 
 bool bad_shape(int b_loc, int B, int d, float temperature) {
     return b_loc <= 0 || B <= 0 || d <= 0 || d > MAX_D || !(temperature > 0.f);
-}
-
-// The floats a copy of v1's and v2's rows moves: 4 (16 bytes) where d and
-// both operands' alignment allow, else 2, else 1
-int copy_width(const void* v1, const void* v2, int d) {
-    const uintptr_t a = reinterpret_cast<uintptr_t>(v1) | reinterpret_cast<uintptr_t>(v2);
-    if (d % 4 == 0 && a % 16 == 0) return 4;
-    if (d % 2 == 0 && a % 8 == 0) return 2;
-    return 1;
 }
 
 }  // namespace

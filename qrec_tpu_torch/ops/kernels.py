@@ -7,8 +7,10 @@ launch counters and the build step (counterpart of the JAX package's
   adjacency with the scales fused (``csrc/dual_matmul.cu``; replaces
   ``_dual_kernel``).
 * :func:`masked_catalog_scores` — ``U_block @ Vᵀ`` with rated items set to
-  ``mask_value`` from a packed bitmask (``csrc/masked_scores.cu``; replaces
-  ``_score_kernel``).
+  ``mask_value`` from a packed bitmask, and :func:`masked_catalog_topk`,
+  the best k items of those scores for a batch of users, fused, so the
+  (B, I) block is never written (``csrc/masked_scores.cu``; replace
+  ``_score_kernel`` and the JAX ranker's ``lax.top_k``).
 * :func:`infonce_fwd` / :func:`infonce_bwd` — the masked InfoNCE loss over
   normalized views and its two cotangents, never writing the B x B logits
   (``csrc/infonce.cu``; replace ``_infonce_kernel`` and
@@ -21,11 +23,12 @@ Dispatch rule: a CPU tensor goes to the plain version; a CUDA tensor goes
 to the kernel, which raises if it cannot be built or launched. There is no
 fallback from one to the other.
 
-Build: each ``csrc/*.cu`` compiles with ``nvcc -gencode
-arch=compute_90a,code=sm_90a`` into a shared library with a plain C
-interface under ``build/qrec_tpu_torch/`` at the repository root, named by
-the hash of its source and flags (a changed source builds anew), and loads
-with ``ctypes``. Nothing is compiled when this module is imported.
+Build: each ``csrc/*.cu`` (with the ``csrc/*.cuh`` headers it includes)
+compiles with ``nvcc -gencode arch=compute_90a,code=sm_90a`` into a shared
+library with a plain C interface under ``build/qrec_tpu_torch/`` at the
+repository root, named by the hash of its source, the headers and the
+flags (a changed source or header builds anew), and loads with
+``ctypes``. Nothing is compiled when this module is imported.
 """
 
 from __future__ import annotations
@@ -73,7 +76,9 @@ class Kernel:
         self._lib = None
 
     def library_path(self) -> Path:
-        digest = hashlib.sha256(self.source.read_bytes() + " ".join(NVCC_FLAGS).encode())
+        # the shared headers count as part of every source
+        headers = b"".join(h.read_bytes() for h in sorted(self.source.parent.glob("*.cuh")))
+        digest = hashlib.sha256(self.source.read_bytes() + headers + " ".join(NVCC_FLAGS).encode())
         digest = digest.hexdigest()[:16]
         return BUILD_DIR / f"{self.source.stem}-{digest}.so"
 
@@ -103,9 +108,15 @@ DUAL = Kernel(
     [_P, _I, _LL, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     queries={"qrec_dual_max_cols": [_I, _I], "qrec_dual_tile_rows": [_I, _I]},
 )
+_CATALOG_QUERIES = {"qrec_masked_blocks_per_sm": [_I, _I, _I, _I, _I]}
 SCORES = Kernel(
     "masked_catalog_scores", "masked_scores.cu", "qrec_masked_scores",
-    [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+    [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I, _P], queries=_CATALOG_QUERIES,
+)
+TOPK = Kernel(
+    "masked_catalog_topk", "masked_scores.cu", "qrec_masked_topk",
+    [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _I, _I, _I, _P],
+    queries=_CATALOG_QUERIES,
 )
 INFONCE_FWD = Kernel(
     "infonce_fwd", "infonce.cu", "qrec_infonce_fwd",
@@ -121,7 +132,7 @@ SEGMM = Kernel(
     "weighted_segment_matmul", "segment_matmul.cu", "qrec_segment_matmul",
     [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P],
 )
-KERNELS: Tuple[Kernel, ...] = (DUAL, SCORES, INFONCE_FWD, INFONCE_BWD, SEGMM)
+KERNELS: Tuple[Kernel, ...] = (DUAL, SCORES, TOPK, INFONCE_FWD, INFONCE_BWD, SEGMM)
 
 _build_lock = threading.Lock()
 
@@ -299,6 +310,15 @@ def _scratch(device: torch.device, numel: int, name: str = "dual",
     return buf
 
 
+def _existing_scratch(device, name: str) -> Optional[torch.Tensor]:
+    """The ``name`` scratch buffer of ``device`` and its current stream, or
+    None before the first call that needed it."""
+    device = torch.device(device)
+    if device.index is None:
+        device = torch.device(device.type, torch.cuda.current_device())
+    return _scratch_buffers.get((name, device, torch.cuda.current_stream(device).cuda_stream))
+
+
 def _dual_launch(a, xu, xi, x, su, si, u: int, i: int, d: int) -> torch.Tensor:
     """One call of the dual kernel: (u+i, d) f32, ou then oi."""
     a_int8 = a.dtype == torch.int8
@@ -403,6 +423,75 @@ def masked_catalog_scores_plain(u_block, items, bitmask, mask_value: float = 0.0
     return torch.where(rated, torch.full_like(scores, mask_value), scores)
 
 
+# K2: users a block (the row tile), item rows a tile, the widest d staged
+# whole, features a pass past it, the longest list, the most splits
+CATALOG_BLOCK_ROWS = (128, 64)
+CATALOG_TILE = 64
+CATALOG_MAX_D = 256
+CATALOG_SLICE = 64
+CATALOG_MAX_K = 128
+CATALOG_MAX_SPLITS = 16
+
+
+def masked_catalog_plan(b: int, i: int, d: int, k: int, sms: int,
+                        blocks_per_sm) -> Tuple[int, int, int]:
+    """``(bm, slice, tiles_per_split)`` of K2 for B users, I items, width d
+    and lists of k (0: the scores entry). ``blocks_per_sm(bm, slice,
+    splits)`` is how many such blocks one SM holds. The items are split
+    into whole tiles so that the (row tile, split) blocks fill the SMs once,
+    no split empty; the top-k entry merges its splits with a lane of a
+    half-warp each, so at most 16 (its block's shared memory grows with
+    them for that merge). The block: d staged whole where a block fits
+    (128 or 64 rows), else in slices of 64 features; among those, the one
+    with the most blocks resident at once, then the larger."""
+    tiles = _cdiv(i, CATALOG_TILE)
+    most = min(tiles, CATALOG_MAX_SPLITS) if k else tiles
+    best = None
+    for sl in ([0] if d <= CATALOG_MAX_D else []) + ([CATALOG_SLICE] if d > CATALOG_SLICE else []):
+        for bm in CATALOG_BLOCK_ROWS:
+            rows = _cdiv(b, bm)
+            splits = most
+            while splits > 1 and blocks_per_sm(bm, sl, splits) < 1:
+                splits -= 1
+            per_sm = blocks_per_sm(bm, sl, splits)
+            if per_sm < 1:
+                continue
+            splits = min(splits, max(1, per_sm * sms // rows))
+            per_sm = blocks_per_sm(bm, sl, splits)
+            key = (min(rows * splits, per_sm * sms), bm)
+            if best is None or key > best[0]:
+                best = (key, bm, sl, splits)
+        if best is not None:
+            break
+    if best is None:
+        raise RuntimeError(f"masked catalog kernel: no block fits an SM at d={d}, k={k}")
+    _, bm, sl, splits = best
+    return bm, sl, _cdiv(tiles, splits)
+
+
+@functools.lru_cache(maxsize=None)
+def _masked_catalog_plan(device: torch.device, b: int, i: int, d: int, k: int):
+    lib = SCORES.load()
+    per_sm = functools.lru_cache(maxsize=None)(
+        lambda bm, sl, splits: lib.qrec_masked_blocks_per_sm(bm, d, sl, k, splits))
+    return masked_catalog_plan(b, i, d, k, _num_sms(device), per_sm)
+
+
+def _check_catalog(user_emb, items, bitmask) -> Tuple[int, int]:
+    _check(user_emb, "user_emb", (torch.float32,), 2)
+    _check(items, "items", (torch.float32,), 2)
+    _check(bitmask, "bitmask", (torch.int32,), 2)
+    i, d = items.shape
+    if user_emb.shape[1] != d or bitmask.shape[0] != user_emb.shape[0] or bitmask.shape[1] < _cdiv(i, 32):
+        raise ValueError(
+            f"shape mismatch: user rows {tuple(user_emb.shape)}, items "
+            f"{tuple(items.shape)}, bitmask {tuple(bitmask.shape)}"
+        )
+    if i < 1 or d < 1:
+        raise ValueError(f"need I >= 1 and d >= 1; got {i}, {d}")
+    return i, d
+
+
 def masked_catalog_scores(
     u_block: torch.Tensor,
     items: torch.Tensor,
@@ -410,8 +499,9 @@ def masked_catalog_scores(
     mask_value: float = 0.0,
 ) -> torch.Tensor:
     """(B, I) f32 scores ``u_block @ itemsᵀ`` with rated items set to
-    ``mask_value``. ``u_block`` (B, d) and ``items`` (I, d) f32; ``bitmask``
-    (B, ceil(I/32)) int32 holding the packed uint32 bit pattern."""
+    ``mask_value``. ``u_block`` (B, d) and ``items`` (I, d) f32, any d;
+    ``bitmask`` (B, ceil(I/32)) int32 holding the packed uint32 bit
+    pattern. One kernel launch."""
     _check(u_block, "u_block", (torch.float32,), 2)
     _check(items, "items", (torch.float32,), 2)
     _check(bitmask, "bitmask", (torch.int32,), 2)
@@ -426,12 +516,81 @@ def masked_catalog_scores(
     if _route(u_block, items, bitmask) == "cpu":
         return masked_catalog_scores_plain(u_block, items, bitmask, mask_value)
     out = torch.empty((b, i), dtype=torch.float32, device=u_block.device)
+    if b == 0:
+        return out
+    bm, sl, tps = _masked_catalog_plan(u_block.device, b, i, d, 0)
     SCORES.call(
         u_block.data_ptr(), items.data_ptr(), bitmask.data_ptr(), out.data_ptr(),
-        b, i, d, words, float(mask_value),
+        b, i, d, words, float(mask_value), bm, sl, tps,
         torch.cuda.current_stream(u_block.device).cuda_stream,
     )
     return out
+
+
+def masked_catalog_topk_plain(user_emb, items, bitmask, uids, global_mean: float, k: int,
+                              mask_value: float = 0.0):
+    """Plain version of :func:`masked_catalog_topk`: the masked (B, I)
+    scores of the users' rows, the global mean for unseen users, a stable
+    descending sort, the first k columns."""
+    safe = uids.clamp(min=0)
+    scores = masked_catalog_scores_plain(user_emb[safe], items, bitmask[safe], mask_value)
+    scores = torch.where((uids < 0)[:, None], torch.full_like(scores, global_mean), scores)
+    top_scores, top_ids = torch.sort(scores, dim=1, descending=True, stable=True)
+    # copies, so the (B, I) sort outputs are freed
+    return top_ids[:, :k].clone(), top_scores[:, :k].clone()
+
+
+def masked_catalog_topk_counters(device) -> Optional[torch.Tensor]:
+    """The top-k entry's counters on ``device`` and the current stream (None
+    before the first call there); every call leaves them at zero."""
+    return _existing_scratch(device, "masked_topk_counters")
+
+
+def masked_catalog_topk(
+    user_emb: torch.Tensor,
+    items: torch.Tensor,
+    bitmask: torch.Tensor,
+    uids: torch.Tensor,
+    global_mean: float,
+    k: int,
+    mask_value: float = 0.0,
+    plan: Optional[Tuple[int, int, int]] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(ids (B, k) int64, scores (B, k) f32)``: for each user of the batch
+    ``uids`` (B,) int64 the k best items of the catalog under the scores of
+    :func:`masked_catalog_scores` on its row of ``user_emb`` (U, d) and
+    ``bitmask`` (U, >= ceil(I/32)) int32, in the order of
+    ``torch.sort(descending=True, stable=True)``: score descending, the
+    lower item first on equal scores (-0.0 equal to +0.0, NaN above +inf).
+    Rated items stay candidates at ``mask_value``. A user id of -1 (unseen
+    in training) gets items 0..k-1 at ``global_mean``; its rows are never
+    read. 1 <= k <= min(128, I), any d. One kernel launch; no (B, I) tensor
+    is allocated. ``plan`` (bm, slice, tiles_per_split) replaces
+    :func:`masked_catalog_plan`'s choice."""
+    i, d = _check_catalog(user_emb, items, bitmask)
+    _check(uids, "uids", (torch.int64,), 1)
+    k = int(k)
+    if not 1 <= k <= min(CATALOG_MAX_K, i):
+        raise ValueError(f"k={k} outside 1..min({CATALOG_MAX_K}, I={i})")
+    if _route(user_emb, items, bitmask, uids) == "cpu":
+        return masked_catalog_topk_plain(user_emb, items, bitmask, uids, global_mean, k, mask_value)
+    dev = user_emb.device
+    b = uids.shape[0]
+    ids = torch.empty((b, k), dtype=torch.int64, device=dev)
+    scores = torch.empty((b, k), dtype=torch.float32, device=dev)
+    if b == 0:
+        return ids, scores
+    bm, sl, tps = _masked_catalog_plan(dev, b, i, d, k) if plan is None else plan
+    splits = _cdiv(_cdiv(i, CATALOG_TILE), tps)
+    part = _scratch(dev, splits * b * (k + k % 2), "masked_topk", torch.int64)
+    counters = _scratch(dev, _cdiv(b, bm), "masked_topk_counters", torch.int32)
+    TOPK.call(
+        user_emb.data_ptr(), items.data_ptr(), bitmask.data_ptr(), uids.data_ptr(),
+        part.data_ptr(), counters.data_ptr(), ids.data_ptr(), scores.data_ptr(),
+        b, i, d, bitmask.shape[1], k, float(global_mean), float(mask_value), bm, sl, tps,
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    return ids, scores
 
 
 # ---------------------------------------------------------------------------
@@ -484,11 +643,7 @@ def infonce_fwd_scratch(b_loc: int, b: int, bm: int, tiles_per_split: int) -> Tu
 def infonce_fwd_counters(device) -> Optional[torch.Tensor]:
     """K3's counters on ``device`` and the current stream (None before the
     first call there); every call leaves them at zero."""
-    device = torch.device(device)
-    if device.index is None:
-        device = torch.device(device.type, torch.cuda.current_device())
-    return _scratch_buffers.get(
-        ("infonce_fwd_counters", device, torch.cuda.current_stream(device).cuda_stream))
+    return _existing_scratch(device, "infonce_fwd_counters")
 
 
 def _infonce_logits(v1, v2, cmask, temperature: float, row_offset: int):

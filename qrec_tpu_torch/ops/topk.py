@@ -1,5 +1,6 @@
 """Batched full-catalog top-k ranking (counterpart of the JAX package's
-``ops/topk.py``), on the masked-scorer kernel.
+``ops/topk.py``), on the fused masked top-k kernel: no (batch, I) score
+block and no sort reach device memory.
 
 Semantics kept from the reference (base/recommender.py:143-160,
 base/iterativeRecommender.py:75-80):
@@ -17,7 +18,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from .kernels import masked_catalog_scores
+from .kernels import masked_catalog_topk
 
 # rated items score 0, as the reference zeroes them (base/recommender.py:147-149)
 MASK_VALUE = 0.0
@@ -25,7 +26,7 @@ MASK_VALUE = 0.0
 
 class CatalogRanker:
     """Top-k over the whole catalog for a fixed test-user set, in user
-    batches of ``batch_size`` (one scorer launch per batch)."""
+    batches of ``batch_size`` (one kernel launch per batch)."""
 
     def __init__(self, data, k: int, device, batch_size: int = 1024):
         self.data = data
@@ -59,27 +60,15 @@ class CatalogRanker:
         (U, ceil(I/32)) int32 on ``self.device``."""
         b = len(self.names)
         k = min(self.k, item_emb.shape[0])
-        item_emb = item_emb.contiguous()
+        user_emb, item_emb = user_emb.contiguous(), item_emb.contiguous()
         ids_out, scores_out = [], []
         for start in range(0, b, self.batch_size):
-            uids = self._uids[start : start + self.batch_size]
-            safe = torch.clamp(uids, min=0)
-            scores = masked_catalog_scores(
-                user_emb[safe].contiguous(),
-                item_emb,
-                bitmask[safe].contiguous(),
-                MASK_VALUE,
+            ids, scores = masked_catalog_topk(
+                user_emb, item_emb, bitmask, self._uids[start : start + self.batch_size],
+                self.global_mean, k, MASK_VALUE,
             )
-            # unseen users score the global mean everywhere (no masking)
-            scores = torch.where(
-                (uids < 0)[:, None],
-                torch.full_like(scores, self.global_mean),
-                scores,
-            )
-            top_scores, top_ids = torch.sort(scores, dim=1, descending=True, stable=True)
-            # copies, so the (batch, I) sort outputs are freed
-            ids_out.append(top_ids[:, :k].clone())
-            scores_out.append(top_scores[:, :k].clone())
+            ids_out.append(ids)
+            scores_out.append(scores)
         if not ids_out:
             return (torch.empty((0, k), dtype=torch.int64, device=self.device),
                     torch.empty((0, k), dtype=torch.float32, device=self.device))

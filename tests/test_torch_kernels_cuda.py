@@ -128,6 +128,142 @@ def test_scores_kernel_matches_plain(cuda_device, b, i, d):
     torch.testing.assert_close(s, p, rtol=1e-5, atol=1e-5)
 
 
+def _topk_inputs(device, b, i, d, seed=0):
+    """A user table, items, bitmask and a batch of uids (-1 and repeats)
+    with planted ties (duplicated items, a zero user row: its scores tie
+    with the masked zeros), a user row of NaN, one of +-inf and an item
+    row holding inf."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    u_n = max(b, 64)
+    user = torch.randn((u_n, d), generator=g, device=device)
+    items = torch.randn((i, d), generator=g, device=device)
+    if i > 8:
+        items[i // 2 :: 7] = items[1]  # equal scores: the lower item first
+        items[3] = float("inf")
+    user[5] = 0.0
+    user[6, 0] = float("nan")
+    user[7, d // 2] = float("inf")
+    words = -(-i // 32)
+    bitmask = torch.randint(-(2**31), 2**31 - 1, (u_n, words), generator=g, device=device,
+                            dtype=torch.int64).to(torch.int32)
+    bitmask[::3] &= 0x01010101  # rows with few rated items
+    uids = torch.randint(0, u_n, (b,), generator=g, device=device)
+    uids[: min(b, 8)] = torch.arange(min(b, 8), device=device)  # the planted rows
+    uids[7::11] = -1
+    if b > 20:
+        uids[20] = uids[19]
+    return user, items, bitmask, uids
+
+
+def _scores_then_sort(user, items, bitmask, uids, gm, k):
+    """K2's scores entry on the gathered rows, the unseen rows filled, a
+    stable sort and the first k: what the fused entry must equal."""
+    from chip_smoke import scores_then_sort
+
+    return scores_then_sort(torch, K.masked_catalog_scores, user, items, bitmask, uids, gm, k)
+
+
+def _same_bits(a, b):
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+# the fused top-k bit for bit against the scores entry and a stable sort
+# (NaN, +-inf, -0.0 and ties included), repeated bit for bit, its counters
+# back at 0 and one launch a call
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [3, 16, 50, 64, 150, 300])
+@pytest.mark.parametrize("i", [33, 5000, 16591, 21266])
+@pytest.mark.parametrize("b", [1, 100, 1024, 4001])
+def test_topk_kernel_matches_scores_and_sort(cuda_device, b, i, d):
+    user, items, bitmask, uids = _topk_inputs(cuda_device, b, i, d, seed=b + i + d)
+    gm = 0.125
+    for k in sorted({1, 10, 20, 100, i} & set(range(1, min(100, i) + 1))):
+        before = K.TOPK.launches
+        ids, vals = K.masked_catalog_topk(user, items, bitmask, uids, gm, k)
+        assert K.TOPK.launches == before + 1
+        want_ids, want = _scores_then_sort(user, items, bitmask, uids, gm, k)
+        torch.cuda.synchronize()
+        assert ids.shape == (b, k) and vals.shape == (b, k)
+        bad = (ids != want_ids).any(1).nonzero().flatten()[:3].tolist()
+        assert not bad, (k, bad, ids[bad], want_ids[bad], vals[bad], want[bad])
+        assert _same_bits(vals, want), k
+        again = K.masked_catalog_topk(user, items, bitmask, uids, gm, k)
+        assert torch.equal(again[0], ids) and _same_bits(again[1], vals)
+        assert not K.masked_catalog_topk_counters(cuda_device).any()
+
+
+# other plans than the default: one split, as many as allowed, 64-row
+# tiles, features staged in slices of 64 at a width that fits whole; a plan
+# the kernel cannot run (too many splits, a block too large for an SM)
+# raises
+@pytest.mark.cuda
+@pytest.mark.parametrize("plan", [(128, 0, 1000), (128, 0, 8), (64, 0, 17), (64, 0, 33),
+                                  (64, 0, 1), (128, 64, 17), (64, 64, 33)])
+@pytest.mark.parametrize("k", [1, 20, 100])
+def test_topk_kernel_plans(cuda_device, plan, k):
+    b, i, d = 300, 16591, 150
+    user, items, bitmask, uids = _topk_inputs(cuda_device, b, i, d, seed=k)
+    bm, sl, tps = plan
+    splits = -(-(-(-i // 64)) // tps)
+    fits = K.SCORES.load().qrec_masked_blocks_per_sm(bm, d, sl, k, splits) >= 1
+    if not fits or splits > K.CATALOG_MAX_SPLITS:
+        with pytest.raises(RuntimeError):  # a CUDA tensor never takes the plain version
+            K.masked_catalog_topk(user, items, bitmask, uids, 0.5, k, plan=plan)
+        return
+    ids, vals = K.masked_catalog_topk(user, items, bitmask, uids, 0.5, k, plan=plan)
+    want_ids, want = _scores_then_sort(user, items, bitmask, uids, 0.5, k)
+    torch.cuda.synchronize()
+    assert torch.equal(ids, want_ids) and _same_bits(vals, want)
+    assert not K.masked_catalog_topk_counters(cuda_device).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,i,d,k", [(1024, 16591, 50, 10), (1024, 21266, 64, 20),
+                                     (1024, 16591, 150, 10), (100, 33, 300, 33)])
+def test_topk_kernel_is_one_cuda_kernel(cuda_device, b, i, d, k):
+    from chip_smoke import kernels_per_call
+
+    user, items, bitmask, uids = _topk_inputs(cuda_device, b, i, d)
+    assert kernels_per_call(
+        torch, lambda: K.masked_catalog_topk(user, items, bitmask, uids, 0.0, k)) == 1
+    assert not K.masked_catalog_topk_counters(cuda_device).any()
+
+
+# widths past the old tests' 50, whole and in slices: the same products
+# summed in another order than cuBLAS, each score within d 2^-23 of the sum
+# of its terms' magnitudes
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,i,d", [(1024, 16591, 150), (300, 2000, 256), (64, 1000, 300)])
+def test_scores_kernel_matches_plain_wide(cuda_device, b, i, d):
+    user, items, bitmask, _ = _topk_inputs(cuda_device, b, i, d)
+    user, bitmask = user[:b].clone(), bitmask[:b].clone()
+    user[5:8] = torch.randn((3, d), device=cuda_device)  # finite rows here
+    items[3] = items[4]
+    s = K.masked_catalog_scores(user, items, bitmask, 0.0)
+    p = K.masked_catalog_scores_plain(user, items, bitmask, 0.0)
+    bound = d * 2.0**-23 * (user.abs() @ items.abs().T)
+    rated = K.expand_bitmask(bitmask, i)
+    torch.cuda.synchronize()
+    assert (s[rated] == 0).all()
+    assert ((s - p).abs() <= bound).all()
+
+
+@pytest.mark.cuda
+def test_scores_kernel_same_bits_at_any_plan(cuda_device):
+    # the slices of 64 features sum in the order of the whole width
+    user, items, bitmask, _ = _topk_inputs(cuda_device, 256, 3000, 150)
+    whole = K.masked_catalog_scores(user, items, bitmask, 0.0)
+    lib = K.SCORES.load()
+    for bm, sl, tps in [(64, 64, 3), (128, 64, 47), (64, 0, 1)]:
+        out = torch.empty_like(whole)
+        err = lib.qrec_masked_scores(user.data_ptr(), items.data_ptr(), bitmask.data_ptr(),
+                                     out.data_ptr(), 256, 3000, 150, bitmask.shape[1], 0.0, bm,
+                                     sl, tps, torch.cuda.current_stream().cuda_stream)
+        assert err == 0
+        torch.cuda.synchronize()
+        assert _same_bits(out, whole), (bm, sl, tps)
+
+
 @pytest.mark.cuda
 def test_propagation_and_gradient_on_card_match_cpu(cuda_device):
     g = np.random.RandomState(0)
@@ -169,9 +305,11 @@ def test_qrec_learns_planted_blocks_on_card(cuda_device, tmp_path):
     before = K.launch_counts()
     recall = parse_measure(QRec(conf, seed=3).execute())["Top 10"]["Recall"]
     after = K.launch_counts()
-    # LightGCN's path: K1 and K2, never the InfoNCE kernels
+    # LightGCN's path: K1 and K2's fused top-k, never the InfoNCE kernels
+    # nor the scores entry (the ranker writes no (B, I) block)
     assert after["bipartite_dual_matmul"] > before["bipartite_dual_matmul"]
-    assert after["masked_catalog_scores"] > before["masked_catalog_scores"]
+    assert after["masked_catalog_topk"] > before["masked_catalog_topk"]
+    assert after["masked_catalog_scores"] == before["masked_catalog_scores"]
     assert after["infonce_fwd"] == before["infonce_fwd"]
     assert after["infonce_bwd"] == before["infonce_bwd"]
     assert recall > 0.5
@@ -361,10 +499,11 @@ def test_ssl_models_learn_planted_blocks_on_card(cuda_device, tmp_path, name, ar
     before = K.launch_counts()
     recall = parse_measure(QRec(conf, seed=3).execute())["Top 10"]["Recall"]
     after = K.launch_counts()
-    # the dense path: every kernel but the segment SpMM
-    dense = [k for k in after if k != "weighted_segment_matmul"]
-    assert all(after[k] > before[k] for k in dense)
-    assert after["weighted_segment_matmul"] == before["weighted_segment_matmul"]
+    # the dense path: every kernel but the segment SpMM and K2's scores
+    # entry (the ranker takes the fused top-k)
+    idle = ("weighted_segment_matmul", "masked_catalog_scores")
+    assert all(after[k] > before[k] for k in after if k not in idle)
+    assert all(after[k] == before[k] for k in idle)
     assert recall > 0.5
 
 
