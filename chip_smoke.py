@@ -48,9 +48,19 @@ Phases, each of which exits non-zero on failure:
    itself, its split-row counters back at 0) and against K1 on the same
    graph, timed in turns with ``torch.sparse.mm``, one CUDA kernel a call,
    the gather floor, and one more yelp epoch under ``torch.profiler``;
-8. planted-block runs that must learn their blocks: LightGCN and SimGCL on
+8. the MF slice and the reference's protocols (``mf_phases``):
+   ``config/BPR.conf`` as published, 5 epochs of bold-driver SGD, its
+   ranking held as the main path's; ``config/SVD.conf`` on a
+   FilmTrust-shaped file (1,508 x 2,071 x 35,497 ratings), rating
+   evaluation with its per-epoch MAE/RMSE and result files, then ranked
+   (K2's bias epilogue, bit for bit against the unfused sequence, timed);
+   ``config/MostPopular.conf`` ranked through K2 with its popularity as the
+   item bias; BPR under ``-cv 5`` (five folds, the summary file) and
+   ``-predict`` (a list of 100 users, the list file only); each with its
+   launch counts against ``expected_launches``;
+9. planted-block runs that must learn their blocks: LightGCN and SimGCL on
    the dense adjacency, LightGCN and SGL on the sparse one, and NGCF;
-9. the ``kernels`` JSON line, the card line, and the final status line.
+10. the ``kernels`` JSON line, the card line, and the final status line.
 """
 
 from __future__ import annotations
@@ -427,12 +437,11 @@ def segment_check(torch, K, label, x, adj):
     return out, err, absum
 
 
-def segment_timing(torch, K, timer, label, x, adj, l2_rate, plain=True):
+def segment_timing(torch, K, timer, label, x, adj, l2_rate):
     """K5 timed in turns with ``torch.sparse.mm`` in one loop
-    (``Timer.paired``), warm (the card held too), and (if ``plain``) its
-    plain version alone;
-    the bound, the gather floor (E·d·2 bytes at the L2 read rate) and the
-    CUDA kernels of one call (which must be 1)."""
+    (``Timer.paired``), warm (the card held too), and its plain version
+    alone; the bound, the gather floor (E·d·2 bytes at the L2 read rate)
+    and the CUDA kernels of one call (which must be 1)."""
     n, d = x.shape
     e = adj.cols.shape[0]
     csr = (adj.indptr, adj.cols, adj.vals)
@@ -446,13 +455,13 @@ def segment_timing(torch, K, timer, label, x, adj, l2_rate, plain=True):
     kernels = kernels_per_call(torch, call)
     ms, library_ms = timer.paired([call, library_call])
     warm_ms = timer.paired([call], flush=False)[0]
-    plain_ms = timer.ms(lambda: K.weighted_segment_matmul_plain(x, *csr), iters=5) if plain else None
+    plain_ms = timer.ms(lambda: K.weighted_segment_matmul_plain(x, *csr), iters=5)
     moved = e * 8 + (n + 1) * 4 + n * d * 2 + n * d * 4
     bound_ms, bound_by = bound(moved, 2 * e * d, PEAK_F32)
     floor_ms = e * d * 2 / l2_rate * 1e3
     print(f"[K5 {label}] ms={ms:.4f} library_ms={library_ms:.4f} (L2 flushed, timed in turns in "
           f"one loop; library: torch.sparse.mm, CSR with bf16-rounded values, f32 x) "
-          f"warm_ms={warm_ms:.4f} plain_ms={'not timed' if plain_ms is None else f'{plain_ms:.4f}'} "
+          f"warm_ms={warm_ms:.4f} plain_ms={plain_ms:.4f} "
           f"bound_ms={bound_ms:.4f} by {bound_by} ({moved / 1e6:.1f} MB, {2 * e * d / 1e9:.3f} "
           f"GFLOP) gather_floor_ms={floor_ms:.4f} ({e * d * 2 / 1e6:.1f} MB at the L2 read rate "
           f"{l2_rate / 1e12:.3f} TB/s) CUDA kernels per call={kernels}", flush=True)
@@ -476,7 +485,7 @@ def lastfm_segment_line(torch, K, timer, model, k1_ms, l2_rate):
     with torch.no_grad():
         x = segment_operand(torch.cat([model.user_emb, model.item_emb]))
     _, err, _ = segment_check(torch, K, "lastfm", x, adj)
-    k = segment_timing(torch, K, timer, "lastfm", x, adj, l2_rate, plain=False)
+    k = segment_timing(torch, K, timer, "lastfm", x, adj, l2_rate)
     print(f"[K5 lastfm] beside K1 lastfm ms={k1_ms:.4f}", flush=True)
     return dict(k, max_abs_err=err)
 
@@ -514,22 +523,36 @@ def scores_phase(torch, K, timer, u, items, bm):
                 bound_ms=bound_ms, bound_by=bound_by)
 
 
-def scores_then_sort(torch, scores_fn, user_emb, items, bitmask, uids, global_mean, k):
+def scores_then_sort(torch, scores_fn, user_emb, items, bitmask, uids, global_mean, k,
+                     item_bias=None, user_bias=None, offset=0.0):
     """One batch ranked without the fused top-k, the reference it must
     equal bit for bit: ``scores_fn`` (K2's scores entry, of this tree or
     another) on the gathered rows, the unseen rows filled, a stable sort of
-    every row, the first k columns. (ids, scores)."""
+    every row, the first k columns. (ids, scores). With a bias or an
+    offset (a biased score form): the scores entry with an all-zero mask,
+    the adds in torch in the kernel's order (``kernels.biased_scores``),
+    then the rated mask."""
+    from qrec_tpu_torch.ops import kernels as K
+
     safe = uids.clamp(min=0)
-    s = scores_fn(user_emb[safe].contiguous(), items, bitmask[safe].contiguous(), 0.0)
+    if item_bias is None and user_bias is None and offset == 0:
+        s = scores_fn(user_emb[safe].contiguous(), items, bitmask[safe].contiguous(), 0.0)
+    else:
+        rows = bitmask[safe]
+        s = scores_fn(user_emb[safe].contiguous(), items, torch.zeros_like(rows), 0.0)
+        s = K.biased_scores(s, safe, item_bias, user_bias, offset)
+        s = s.masked_fill(K.expand_bitmask(rows, items.shape[0]), 0.0)
     s = torch.where((uids < 0)[:, None], torch.full_like(s, global_mean), s)
     vals, ids = torch.sort(s, dim=1, descending=True, stable=True)
     return ids[:, :k].clone(), vals[:, :k].clone()
 
 
-def unfused_ranking(torch, K, ranker, user_emb, item_emb, bitmask, k):
-    """A ranker's whole ranking by :func:`scores_then_sort`, batch by batch."""
-    out = [scores_then_sort(torch, K.masked_catalog_scores, user_emb, item_emb, bitmask,
-                            ranker._uids[start : start + ranker.batch_size], ranker.global_mean, k)
+def unfused_ranking(torch, K, ranker, form, k):
+    """A ranker's whole ranking of the score form ``form`` by
+    :func:`scores_then_sort`, batch by batch."""
+    out = [scores_then_sort(torch, K.masked_catalog_scores, form.user_emb, form.item_emb,
+                            ranker.bitmask, ranker._uids[start : start + ranker.batch_size],
+                            ranker.global_mean, k, form.item_bias, form.user_bias, form.offset)
            for start in range(0, len(ranker.uids), ranker.batch_size)]
     return torch.cat([o[0] for o in out]), torch.cat([o[1] for o in out])
 
@@ -546,31 +569,39 @@ def peak_mib(torch, fn) -> float:
 
 
 def ranking_phase(torch, K, label, model, k):
-    """K2's fused top-k on a run's own final factors and test users, through
-    the ranker: bit for bit against the unfused ranking (the scores entry
-    then a stable sort), against the plain version on the CPU (ids equal but
-    where near-equal scores swap), its counters back at 0; the peak device
-    memory of both rankings."""
-    from qrec_tpu_torch.ops.topk import CatalogRanker
+    """K2's fused top-k on a run's own score form (final factors, and the
+    biases of a biased or popularity scorer) and test users, through the
+    ranker: bit for bit against the unfused ranking (the scores entry, the
+    score form's adds, the mask, then a stable sort), against the plain
+    version on the CPU (ids equal but where near-equal scores swap), its
+    counters back at 0; the peak device memory of both rankings."""
+    from qrec_tpu_torch.ops.topk import CatalogRanker, ScoreForm
 
-    ranker = CatalogRanker(model.data, k=k, device="cuda", batch_size=model.eval_batch_size)
-    U, V, bm = model.U, model.V, model.rated_bitmask
+    form = model.score_form()
+    ranker = CatalogRanker(model.data, k=k, device="cuda", bitmask=model.rated_bitmask,
+                           batch_size=model.eval_batch_size)
+    V = form.item_emb
     before = K.TOPK.launches
-    ids, vals = ranker.topk_device(U, V, bm)
+    ids, vals = ranker.topk_device(form)
     calls = K.TOPK.launches - before
-    want_ids, want = unfused_ranking(torch, K, ranker, U, V, bm, k)
+    want_ids, want = unfused_ranking(torch, K, ranker, form, k)
     torch.cuda.synchronize()
     same = torch.equal(ids, want_ids) and torch.equal(vals.view(torch.int32), want.view(torch.int32))
-    cpu = CatalogRanker(model.data, k=k, device="cpu", batch_size=model.eval_batch_size)
-    pids, pvals = cpu.topk_device(U.cpu(), V.cpu(), bm.cpu())
+    cpu = CatalogRanker(model.data, k=k, device="cpu", bitmask=model.rated_bitmask.cpu(),
+                        batch_size=model.eval_batch_size)
+    pids, pvals = cpu.topk_device(
+        ScoreForm(*(t.cpu() if isinstance(t, torch.Tensor) else t for t in form)))
     rows_equal = (ids.cpu() == pids).all(1)
     gap = (vals.cpu() - pvals).abs().max(1).values
     err = gap.max().item()
     plain_ok = bool((rows_equal | (gap <= 1e-5)).all()) and bool(torch.isfinite(vals).all())
-    counters = int(K.masked_catalog_topk_counters(U.device).abs().sum())
-    fused_mib = peak_mib(torch, lambda: ranker.topk_device(U, V, bm))
-    unfused_mib = peak_mib(torch, lambda: unfused_ranking(torch, K, ranker, U, V, bm, k))
+    counters = int(K.masked_catalog_topk_counters(V.device).abs().sum())
+    fused_mib = peak_mib(torch, lambda: ranker.topk_device(form))
+    unfused_mib = peak_mib(torch, lambda: unfused_ranking(torch, K, ranker, form, k))
+    biases = ",".join(n for n, t in (("item_bias", form.item_bias), ("user_bias", form.user_bias),
+                                     ("offset", form.offset or None)) if t is not None) or "none"
     print(f"[K2 topk {label}] users={len(ranker.uids)} I={V.shape[0]} d={V.shape[1]} k={k} "
+          f"biases={biases} "
           f"launches={calls} bit-identical to the scores entry + stable sort={same}; vs the CPU "
           f"plain version {int(rows_equal.sum())}/{len(rows_equal)} rows identical, max score "
           f"diff {err:.3e} (rows may differ only at near-ties, 1e-5) "
@@ -587,16 +618,21 @@ def ranking_phase(torch, K, label, model, k):
 
 
 def topk_timing(torch, K, timer, model, k, label):
-    """The fused top-k on one batch of the run's test users (the first
-    ``eval_batch_size``), timed in turns (``Timer.paired``) with the
-    unfused path (the scores entry, the unseen rows filled, a stable sort,
-    the slice) and the library (the gathered rows' ``torch.matmul``,
-    ``masked_fill`` with the mask already expanded, ``torch.topk``); its
-    plain version alone; the bound; its CUDA kernels per call."""
+    """The fused top-k of the run's score form on one batch of its test
+    users (the first ``eval_batch_size``), timed in turns
+    (``Timer.paired``) with the unfused path (:func:`scores_then_sort`:
+    the scores entry, the form's adds and the mask where it has biases, the
+    unseen rows filled, a stable sort, the slice) and the library (the
+    gathered rows' ``torch.matmul``, the form's adds, ``masked_fill`` with
+    the mask already expanded, ``torch.topk``); its plain version alone;
+    the bound; its CUDA kernels per call."""
     from qrec_tpu_torch.ops.topk import CatalogRanker
 
-    ranker = CatalogRanker(model.data, k=k, device="cuda", batch_size=model.eval_batch_size)
-    U, V, bm = model.U, model.V, model.rated_bitmask
+    form = model.score_form()
+    U, V, bm = form.user_emb, form.item_emb, model.rated_bitmask
+    extra = dict(item_bias=form.item_bias, user_bias=form.user_bias, offset=form.offset)
+    ranker = CatalogRanker(model.data, k=k, device="cuda", bitmask=bm,
+                           batch_size=model.eval_batch_size)
     uids = ranker._uids[: ranker.batch_size]
     gm = ranker.global_mean
     B, (I, d) = uids.shape[0], V.shape
@@ -605,24 +641,33 @@ def topk_timing(torch, K, timer, model, k, label):
     ub = U[safe].contiguous()
 
     def fused():
-        return K.masked_catalog_topk(U, V, bm, uids, gm, k)
+        return K.masked_catalog_topk(U, V, bm, uids, gm, k, **extra)
 
     def unfused():
-        return scores_then_sort(torch, K.masked_catalog_scores, U, V, bm, uids, gm, k)
+        return scores_then_sort(torch, K.masked_catalog_scores, U, V, bm, uids, gm, k, **extra)
+
+    def library():
+        s = K.biased_scores(torch.matmul(ub, V.T), safe, **extra)
+        return torch.topk(s.masked_fill_(rated, 0.0), k)
 
     kernels = kernels_per_call(torch, fused)
-    ms, unfused_ms, library_ms = timer.paired([
-        fused, unfused, lambda: torch.topk(torch.matmul(ub, V.T).masked_fill_(rated, 0.0), k)])
-    plain_ms = timer.ms(lambda: K.masked_catalog_topk_plain(U, V, bm, uids, gm, k))
-    moved = B * d * 4 + I * d * 4 + B * bm.shape[1] * 4 + B * 8 + B * k * 12
-    bound_ms, bound_by = bound(moved, 2 * B * I * d, PEAK_F32)
-    print(f"[K2 topk {label}] B={B} I={I} d={d} k={k} plan={K._masked_catalog_plan(U.device, B, I, d, k)} "
+    ms, unfused_ms, library_ms = timer.paired([fused, unfused, library])
+    plain_ms = timer.ms(lambda: K.masked_catalog_topk_plain(U, V, bm, uids, gm, k, **extra))
+    biased = form.item_bias is not None or form.user_bias is not None or form.offset != 0
+    bias_bytes = (I if form.item_bias is not None else 0) * 4 + (B if form.user_bias is not None else 0) * 4
+    moved = B * d * 4 + I * d * 4 + B * bm.shape[1] * 4 + B * 8 + B * k * 12 + bias_bytes
+    adds = (1 + (form.item_bias is not None) + (form.user_bias is not None)) if biased else 0
+    ops = 2 * B * I * d + adds * B * I
+    bound_ms, bound_by = bound(moved, ops, PEAK_F32)
+    what = " + the score form's adds" if biased else ""
+    plan = K._masked_catalog_plan(U.device, B, I, d, k, biased)
+    print(f"[K2 topk {label}] B={B} I={I} d={d} k={k} plan={plan} "
           f"ms={ms:.4f} unfused_ms={unfused_ms:.4f} library_ms={library_ms:.4f} (L2 flushed, timed "
-          f"in turns in one loop; unfused: the scores entry + where + stable sort + slice; "
-          f"library: torch.matmul + masked_fill + torch.topk) plain_ms={plain_ms:.4f} "
+          f"in turns in one loop; unfused: the scores entry{what} + where + stable sort + slice; "
+          f"library: torch.matmul{what} + masked_fill + torch.topk) plain_ms={plain_ms:.4f} "
           f"bound_ms={bound_ms:.4f} by {bound_by} ({moved / 1e6:.2f} MB, "
-          f"{2 * B * I * d / 1e9:.2f} GFLOP) share_of_f32_peak="
-          f"{2 * B * I * d / PEAK_F32 * 1e3 / ms:.3f} CUDA kernels per call={kernels}", flush=True)
+          f"{ops / 1e9:.3f} GFLOP) share_of_f32_peak="
+          f"{ops / PEAK_F32 * 1e3 / ms:.3f} CUDA kernels per call={kernels}", flush=True)
     if kernels != 1:
         fail(f"one masked_catalog_topk call at {label} ran {kernels} CUDA kernels, not 1")
     return dict(ms=ms, unfused_ms=unfused_ms, library_ms=library_ms, plain_ms=plain_ms,
@@ -718,6 +763,128 @@ def infonce_phase(torch, K, timer, label, view1, view2, mask, timed=True):
     return k3, k4
 
 
+def filmtrust_records(seed: int = 0):
+    """FilmTrust-shaped explicit ratings (1,508 users x 2,071 items x
+    35,497 ratings on 0.5-4.0 in steps of 0.5, the public dataset's
+    counts): every user and item at least once, the rest with zipf item
+    popularity; a rating is 3 plus user and item effects and noise,
+    rounded to the half-step scale and clipped to it. Unique pairs."""
+    U_N, I_N, NNZ = 1508, 2071, 35497
+    rng = np.random.default_rng(seed)
+    u0 = np.concatenate([np.arange(U_N), rng.integers(0, U_N, size=I_N - U_N)])
+    first = u0.astype(np.int64) * I_N + rng.permutation(I_N)
+    p = np.arange(1, I_N + 1, dtype=np.float64) ** -0.8
+    p /= p.sum()
+    more = rng.integers(0, U_N, size=NNZ * 2).astype(np.int64) * I_N + rng.choice(I_N, NNZ * 2, p=p)
+    rest = np.setdiff1d(np.unique(more), first)
+    rng.shuffle(rest)
+    key = np.concatenate([first, rest[: NNZ - len(first)]])
+    rng.shuffle(key)
+    users, items = key // I_N, key % I_N
+    bu, bi = rng.normal(0, 0.5, U_N), rng.normal(0, 0.5, I_N)
+    raw = 3.0 + bu[users] + bi[items] + rng.normal(0, 0.5, NNZ)
+    ratings = np.clip(np.round(raw * 2) / 2, 0.5, 4.0)
+    return users, items, ratings
+
+
+def mf_phases(torch, K, QRec, timer, tmp, conf_of):
+    """The MF slice and the reference's protocols on the card, each driven
+    through ``QRec(conf).execute()`` with its launches counted: BPR as
+    published (5 epochs of bold-driver SGD on the lastfm-shaped file),
+    ranked through K2, one more epoch profiled; SVD on a FilmTrust-shaped
+    file as published (rating evaluation, 5 epochs, the per-epoch MAE/RMSE
+    and the two result files), then again with ``item.ranking=on -topN
+    10`` (K2's bias epilogue: bit for bit against the unfused sequence,
+    against the CPU plain version, timed); MostPopular on the lastfm-shaped
+    file (K2 with its popularity as the item bias); BPR under ``-cv 5`` (1
+    epoch a fold: five folds and the summary file) and under ``-predict``
+    with a list of 100 users (the list file only). Returns (K2 launches
+    per path, K2 checks, K2 timings)."""
+    from qrec_tpu_torch.data.split import cross_validation
+
+    launches, k2r, k2t = {}, {}, {}
+    bpr, counts, _ = drive(torch, K, QRec, conf_of("BPR", 5), "bpr")
+    launches["bpr"] = counts["masked_catalog_topk"]
+    k2r["bpr"] = ranking_phase(torch, K, "bpr", bpr, 10)
+    profile_epoch(torch, bpr, "BPR")
+    del bpr
+
+    users, items, ratings = filmtrust_records()
+    filmtrust = os.path.join(tmp, "filmtrust_like.txt")
+    with open(filmtrust, "w") as f:
+        f.writelines(f"{a} {b} {r}\n" for a, b, r in zip(users, items, ratings))
+    out = os.path.join(tmp, "svd")
+    conf = conf_of("SVD", 5)
+    conf["ratings"] = filmtrust
+    conf["output.setup"] = f"on -dir {out}/"
+    svd, counts, rating = drive(torch, K, QRec, conf, "svd rating")
+    files = sorted(os.listdir(out))
+    print(f"[svd rating] files {files}", flush=True)
+    if not (any("-rating-predictions[1].txt" in f for f in files)
+            and any("-measure[1].txt" in f for f in files)):
+        fail(f"svd rating: the rating-predictions and measure files are missing: {files}")
+    if not rating["RMSE"] < 1.5:
+        fail(f"svd rating: RMSE {rating['RMSE']} on a 0.5-4.0 scale")
+    del svd
+    conf["item.ranking"] = "on -topN 10"
+    conf["output.setup"] = f"off -dir {out}/"
+    svd, counts, _ = drive(torch, K, QRec, conf, "svd ranking")
+    launches["svd ranking"] = counts["masked_catalog_topk"]
+    k2r["svd biased"] = ranking_phase(torch, K, "svd biased", svd, 10)
+    k2t["svd biased"] = topk_timing(torch, K, timer, svd, 10, "svd biased")
+    del svd
+
+    pop, counts, _ = drive(torch, K, QRec, conf_of("MostPopular", 1), "mostpopular")
+    launches["mostpopular"] = counts["masked_catalog_topk"]
+    k2r["mostpopular"] = ranking_phase(torch, K, "mostpopular", pop, 10)
+    k2t["mostpopular"] = topk_timing(torch, K, timer, pop, 10, "mostpopular")
+    del pop
+
+    out = os.path.join(tmp, "cv")
+    conf = conf_of("BPR", 1)
+    conf["evaluation.setup"] = "-cv 5 -b 1"
+    conf["output.setup"] = f"on -dir {out}/"
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    rec = QRec(conf)
+    measure = rec.execute()
+    wall = time.perf_counter() - t0
+    counts = K.launch_counts()
+    folds = list(cross_validation(rec.training_data, 5, binarized=True))
+    batches = sum(math.ceil(len({r[0] for r in test}) / rec.model.eval_batch_size)
+                  for _, test in folds)
+    check_counts("bpr -cv 5", counts, {k.name: 0 for k in K.KERNELS} | {"masked_catalog_topk": batches})
+    launches["bpr -cv 5"] = counts["masked_catalog_topk"]
+    files = sorted(os.listdir(out))
+    print(f"[bpr -cv 5] wall_s={wall:.2f} summary {''.join(measure)!r} files {files}", flush=True)
+    lists = [f for f in files if "-top-10items[" in f]
+    if len(lists) != 5 or not any(f.endswith("-5-fold-cv.txt") for f in files):
+        fail(f"bpr -cv 5: expected five fold lists and the summary file, got {files}")
+    recall = float(next(line for line in measure if line.startswith("Recall:")).split(":")[1])
+    if not 0 <= recall <= 1:
+        fail(f"bpr -cv 5: bad summary {measure}")
+
+    out = os.path.join(tmp, "predict")
+    user_list = os.path.join(tmp, "users.txt")
+    with open(user_list, "w") as f:
+        f.writelines(f"{u}\n" for u in range(100))
+    conf = conf_of("BPR", 1)
+    conf["evaluation.setup"] = f"-predict {user_list} -b 1"
+    conf["output.setup"] = f"on -dir {out}/"
+    K.reset_launch_counts()
+    measure = QRec(conf).execute()
+    counts = K.launch_counts()
+    check_counts("bpr -predict", counts, {k.name: 0 for k in K.KERNELS} | {"masked_catalog_topk": 1})
+    launches["bpr -predict"] = counts["masked_catalog_topk"]
+    files = sorted(os.listdir(out))
+    with open(os.path.join(out, files[0])) as f:
+        lines = f.readlines()
+    print(f"[bpr -predict] measures {measure} files {files} lines {len(lines)}", flush=True)
+    if measure != [] or len(files) != 1 or len(lines) != 101 or "*" in "".join(lines[1:]):
+        fail("bpr -predict: expected the list file alone, 100 users, no measures")
+    return launches, k2r, k2t
+
+
 def write_yelp_file(path: str) -> None:
     """The :func:`yelp_matrix` interactions as a rating file."""
     rows, cols, _, _ = yelp_matrix()
@@ -790,13 +957,20 @@ def expected_launches(model):
     matvecs for node drop, aug type 0, on the dense adjacency); both
     evaluate after every epoch (n propagations + evals K2) and once more at
     the end; K3 = K4 = 2 per SimGCL step (users, items), 1 per SGL step
-    (merged)."""
+    (merged). The MF slice and the baselines run no kernel but the top-k:
+    one ranking when ``item.ranking`` is on (BPR, SVD, MostPopular), none
+    for a rating run nor for Rand (torch ops)."""
+    from qrec_tpu_torch.models.graph import LightGCN
+    from qrec_tpu_torch.ops.kernels import KERNELS
     from qrec_tpu_torch.ops.spmm import SparseJoint
 
-    steps = math.ceil(model.train_size / model.batch_size)
-    n, e = model.n_layers, model.max_epoch
     evals = math.ceil(len(model.data.test_set_u) / model.eval_batch_size)
     name = model.model_name
+    if not isinstance(model, LightGCN):
+        ranks = model.ranking.isMainOn() and name != "Rand"
+        return {k.name: 0 for k in KERNELS} | {"masked_catalog_topk": evals if ranks else 0}
+    steps = math.ceil(model.train_size / model.batch_size)
+    n, e = model.n_layers, model.max_epoch
     sparse = isinstance(model.joint_adj, SparseJoint)
     if name in ("LightGCN", "NGCF"):
         per_step, ssl, rankings = 2 * n, 0, 1
@@ -816,10 +990,21 @@ def expected_launches(model):
     }
 
 
+def check_counts(label, counts, expect) -> None:
+    """Every kernel's launches in a run against ``expected_launches``."""
+    print(f"[{label}] kernels {json.dumps(counts)} expected {json.dumps(expect)}", flush=True)
+    for name, n in counts.items():
+        if expect[name] > 0 and n <= 0:
+            fail(f"{label}: {name} never launched on the path")
+        if n != expect[name]:
+            fail(f"{label}: {name} launched {n} times, expected {expect[name]}")
+
+
 def drive(torch, K, QRec, conf, label):
     """One ``QRec(conf).execute()`` with the launch counts set to 0 just
-    before and read just after; prints and checks the run. Returns (model,
-    counts, measures)."""
+    before and read just after; prints and checks the run: its losses
+    (which must fall, for a trained model), its ranking or rating measures
+    and its launches. Returns (model, counts, measures)."""
     from qrec_tpu_torch.ops.metrics import parse_measure
 
     torch.cuda.reset_peak_memory_stats()
@@ -830,40 +1015,44 @@ def drive(torch, K, QRec, conf, label):
     wall = time.perf_counter() - t0
     counts = K.launch_counts()
     model = rec.model
-    losses = model.epoch_losses
-    summary = model.timer.summary()
-    top, parsed = next((k, v) for k, v in parse_measure(measure).items() if k.startswith("Top "))
-    at = top.split()[1]
+    losses = getattr(model, "epoch_losses", [])
     expect = expected_launches(model)
     print(f"[{label}] users={model.num_users} items={model.num_items} train={model.train_size} "
-          f"test_users={len(model.data.test_set_u)} d={model.emb_size} layers={model.n_layers} "
-          f"batch={model.batch_size} epochs={model.max_epoch} wall_s={wall:.2f}", flush=True)
-    print(f"[{label}] epoch losses: {losses}", flush=True)
-    print(f"[{label}] epoch ms: {[round(t * 1e3, 3) for t in model.timer.times]} steady_epoch_ms="
-          f"{summary['epoch_seconds'] * 1e3:.3f} (mean after epoch 1) examples_per_s="
-          f"{summary['examples_per_second']:.0f} median_epoch_ms_3_to_end="
-          f"{np.median(model.timer.times[2:] or model.timer.times) * 1e3:.3f}", flush=True)
-    print(f"[{label}] rank_ms={model.rank_seconds * 1e3:.3f} Precision@{at}={parsed['Precision']} "
-          f"Recall@{at}={parsed['Recall']} NDCG@{at}={parsed['NDCG']}", flush=True)
-    if model.tracker is not None:
-        print(f"[{label}] best epoch {model.tracker.best_epoch}: {model.tracker.best_metrics}",
-              flush=True)
+          f"test_users={len(model.data.test_set_u)} d={getattr(model, 'emb_size', '-')} "
+          f"layers={getattr(model, 'n_layers', '-')} batch={getattr(model, 'batch_size', '-')} "
+          f"epochs={len(losses)} wall_s={wall:.2f}", flush=True)
+    if model.timer is not None:
+        summary = model.timer.summary()
+        print(f"[{label}] epoch losses: {losses}", flush=True)
+        print(f"[{label}] epoch ms: {[round(t * 1e3, 3) for t in model.timer.times]} steady_epoch_ms="
+              f"{summary['epoch_seconds'] * 1e3:.3f} (mean after epoch 1) examples_per_s="
+              f"{summary['examples_per_second']:.0f} median_epoch_ms_3_to_end="
+              f"{np.median(model.timer.times[2:] or model.timer.times) * 1e3:.3f}", flush=True)
+    measures = parse_measure(measure)
+    if model.ranking.isMainOn():
+        top, parsed = next((k, v) for k, v in measures.items() if k.startswith("Top "))
+        at = top.split()[1]
+        print(f"[{label}] rank_ms={model.rank_seconds * 1e3:.3f} Precision@{at}={parsed['Precision']} "
+              f"Recall@{at}={parsed['Recall']} NDCG@{at}={parsed['NDCG']}", flush=True)
+        if not all(math.isfinite(v) and 0 <= v <= 1 for v in parsed.values()):
+            fail(f"{label}: bad measures {parsed}")
+    else:
+        parsed = measures["global"]
+        print(f"[{label}] MAE={parsed['MAE']} RMSE={parsed['RMSE']}", flush=True)
+        if not all(math.isfinite(v) and 0 < v for v in parsed.values()):
+            fail(f"{label}: bad measures {parsed}")
+    tracker = getattr(model, "tracker", None)
+    if tracker is not None:
+        print(f"[{label}] best epoch {tracker.best_epoch}: {tracker.best_metrics}", flush=True)
     print(f"[{label}] max_memory_allocated_MB={torch.cuda.max_memory_allocated() / 2**20:.1f}",
           flush=True)
-    print(f"[{label}] kernels {json.dumps(counts)} expected {json.dumps(expect)}", flush=True)
+    check_counts(label, counts, expect)
     if not all(math.isfinite(x) for x in losses):
         fail(f"{label}: non-finite loss {losses}")
-    if not losses[-1] < losses[0]:
+    if model.timer is not None and not losses[-1] < losses[0]:
         fail(f"{label}: loss did not decrease: {losses}")
-    for name, n in counts.items():
-        if expect[name] > 0 and n <= 0:
-            fail(f"{label}: {name} never launched on the path")
-        if n != expect[name]:
-            fail(f"{label}: {name} launched {n} times, expected {expect[name]}")
-    if not all(math.isfinite(v) and 0 <= v <= 1 for v in parsed.values()):
-        fail(f"{label}: bad measures {parsed}")
-    if (model.tracker is not None) != model.track_best:
-        fail(f"{label}: best-epoch tracking is {'off' if model.tracker is None else 'on'}")
+    if (tracker is not None) != getattr(model, "track_best", False):
+        fail(f"{label}: best-epoch tracking is {'off' if tracker is None else 'on'}")
     return model, counts, parsed
 
 
@@ -906,7 +1095,8 @@ def profile_epoch(torch, model, label):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         T.train(spec.params, spec.loss_fn, spec.sampler, max_epoch=1, lr=model.lrate,
-                device=model.device, generator=gen, examples_per_epoch=model.train_size)
+                device=model.device, mode=spec.mode, max_lr=model.max_lrate, generator=gen,
+                examples_per_epoch=model.train_size)
         wall_ms = (time.perf_counter() - t0) * 1e3
     # device-side kernels only: a user annotation such as the optimizer's
     # step range spans kernels already counted
@@ -943,7 +1133,7 @@ def main() -> None:
     from qrec_tpu_torch import ModelConf, QRec
     from qrec_tpu_torch.ops import kernels as K
     from qrec_tpu_torch.ops.metrics import parse_measure
-    from qrec_tpu_torch.ops.topk import CatalogRanker
+    from qrec_tpu_torch.ops.topk import CatalogRanker, ScoreForm
 
     # 2. build
     t0 = time.perf_counter()
@@ -968,10 +1158,10 @@ def main() -> None:
         # 3. LightGCN main path
         model, counts, _ = drive(torch, K, QRec, conf_of("LightGCN", 5), "main")
         # the final ranking against the plain versions on the CPU
-        ranker = CatalogRanker(model.data, k=10, device="cuda")
-        ids, scores = ranker.topk(model.U, model.V, model.rated_bitmask)
-        ref = CatalogRanker(model.data, k=10, device="cpu")
-        rids, rscores = ref.topk(model.U.cpu(), model.V.cpu(), model.rated_bitmask.cpu())
+        ranker = CatalogRanker(model.data, k=10, device="cuda", bitmask=model.rated_bitmask)
+        ids, scores = ranker.topk(ScoreForm(model.U, model.V))
+        ref = CatalogRanker(model.data, k=10, device="cpu", bitmask=model.rated_bitmask.cpu())
+        rids, rscores = ref.topk(ScoreForm(model.U.cpu(), model.V.cpu()))
         same = (ids == rids).all(axis=1)
         # a row may differ only where near-equal scores (f32 sums in another
         # order) swap places
@@ -1060,9 +1250,16 @@ def main() -> None:
         k2t["yelp2018"] = topk_timing(torch, K, timer, yelp, 20, "yelp2018")
         k5 = segment_phase(torch, K, timer, yelp, l2_rate)
         profile_epoch(torch, yelp, "LightGCN yelp2018 pallas")
-        del yelp, timer
+        del yelp
 
-        # 8. planted blocks
+        # 8. the MF slice (BPR, SVD rating and ranking, MostPopular) and the
+        # -cv and -predict protocols
+        mf_launches, mf_k2r, mf_k2t = mf_phases(torch, K, QRec, timer, tmp, conf_of)
+        k2r.update(mf_k2r)
+        k2t.update(mf_k2t)
+        del timer
+
+        # 9. planted blocks
         planted_check(torch, tmp, ModelConf, QRec, parse_measure, "LightGCN", "-n_layer 2")
         planted_check(torch, tmp, ModelConf, QRec, parse_measure, "SimGCL",
                       "-n_layer 2 -lambda 0.05 -eps 0.1")
@@ -1074,12 +1271,13 @@ def main() -> None:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
-    # 9. results
+    # 10. results
     print(f"[K5 yelp2018] launches {yelp_counts['weighted_segment_matmul']} ms={k5['ms']:.4f} "
           f"plain_ms={k5['plain_ms']:.4f} library_ms={k5['library_ms']:.4f} "
           f"bound_ms={k5['bound_ms']:.4f} gather_floor_ms={k5['floor_ms']:.4f}", flush=True)
     print(f"[K5 lastfm] launches {sgl_sparse_counts['weighted_segment_matmul']} (SGL-pallas) "
-          f"ms={k5l['ms']:.4f} library_ms={k5l['library_ms']:.4f} bound_ms={k5l['bound_ms']:.4f} "
+          f"ms={k5l['ms']:.4f} plain_ms={k5l['plain_ms']:.4f} library_ms={k5l['library_ms']:.4f} "
+          f"bound_ms={k5l['bound_ms']:.4f} "
           f"gather_floor_ms={k5l['floor_ms']:.4f}", flush=True)
     for label, k in (("lastfm", k1), ("lastfm d=150", k1w), ("lastfm d=1", k1d),
                      ("yelp2018", k1y)):
@@ -1099,6 +1297,8 @@ def main() -> None:
               flush=True)
     print(f"[K2] scores entry ms={k2['ms']:.4f} (on no path; launches "
           f"{counts['masked_catalog_scores']})", flush=True)
+    print(f"[K2 topk] launches: main {counts['masked_catalog_topk']} "
+          + " ".join(f"{label} {n}" for label, n in mf_launches.items()), flush=True)
 
     def row(name, source, replaces, launches, k):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -1114,7 +1314,7 @@ def main() -> None:
             "qrec_tpu/ops/pallas_kernels.py:49", counts["masked_catalog_scores"], k2),
         row("masked_catalog_topk", "qrec_tpu_torch/csrc/masked_scores.cu",
             "qrec_tpu/ops/pallas_kernels.py:49 + qrec_tpu/ops/topk.py:289",
-            counts["masked_catalog_topk"],
+            counts["masked_catalog_topk"] + sum(mf_launches.values()),
             dict(k2t["lastfm"], max_abs_err=max(k["max_abs_err"] for k in k2r.values()))),
         row("infonce_fwd", "qrec_tpu_torch/csrc/infonce.cu",
             "qrec_tpu/ops/pallas_kernels.py:155", sim_counts["infonce_fwd"], k3),

@@ -12,7 +12,12 @@ host enqueues). Before timing it checks the fused entry against the scores
 entry followed by a stable sort (bit for bit) and against its plain version
 (ids equal but at near-ties), and the scores entry against the other
 tree's scores kernel (bit for bit); with the bounds, the share of f32 peak,
-the CUDA kernels of one call and each path's peak device memory.
+the CUDA kernels of one call and each path's peak device memory. With
+``--parent`` the other tree's fused top-k is timed too and must give this
+tree's bits (its entry without biases). The biased top-k (SVD's score
+form: an item bias, a user bias and an offset) is timed beside the library
+with the same adds, and checked bit for bit against the scores entry with
+an all-zero mask, the adds in torch, the mask and a stable sort.
 
 Compare with a parent commit unpacked under ``build/parent`` (``git
 archive``):
@@ -116,6 +121,16 @@ def main() -> None:
                       lambda: parent.masked_catalog_scores(ub, v, mb, 0.0)]
         names.append("library")
         calls.append(lambda: torch.topk(torch.matmul(u[safe], v.T).masked_fill_(rated, 0.0), k))
+        g = torch.Generator(device="cuda").manual_seed(k)
+        bias = dict(item_bias=torch.randn(n_items, generator=g, device="cuda") * 0.1,
+                    user_bias=torch.randn(users, generator=g, device="cuda") * 0.1, offset=0.375)
+        names += ["biased topk", "biased library"]
+        calls += [lambda: K.masked_catalog_topk(u, v, bitmask, uids, gm, k, **bias),
+                  lambda: torch.topk(K.biased_scores(torch.matmul(u[safe], v.T), safe, **bias)
+                                     .masked_fill_(rated, 0.0), k)]
+        if parent is not None:
+            names.append("parent topk")
+            calls.append(lambda: parent.masked_catalog_topk(u, v, bitmask, uids, gm, k))
 
         # checks: bit for bit against the scores entry and a stable sort, at
         # every plan; the scores entry against the other tree's kernel
@@ -128,8 +143,16 @@ def main() -> None:
         rows_equal = (ids == pids).all(1)
         near = (vals - pvals).abs().max(1).values <= 1e-5
         plain_ok = bool((rows_equal | near).all())
-        scores_same = None
+        bids, bvals = K.masked_catalog_topk(u, v, bitmask, uids, gm, k, **bias)
+        want_bids, want_b = CS.scores_then_sort(torch, K.masked_catalog_scores, u, v, bitmask,
+                                                uids, gm, k, **bias)
+        biased_same = bool(torch.equal(bids, want_bids)
+                           and torch.equal(bvals.view(torch.int32), want_b.view(torch.int32)))
+        scores_same = topk_same = None
         if parent is not None:
+            p_ids, p_vals = parent.masked_catalog_topk(u, v, bitmask, uids, gm, k)
+            topk_same = bool(torch.equal(p_ids, ids)
+                             and torch.equal(p_vals.view(torch.int32), vals.view(torch.int32)))
             scores_same = bool(torch.equal(K.masked_catalog_scores(ub, v, mb, 0.0).view(torch.int32),
                                            parent.masked_catalog_scores(ub, v, mb, 0.0)
                                            .view(torch.int32)))
@@ -154,6 +177,8 @@ def main() -> None:
         flop = 2 * BATCH * n_items * d
         inputs = BATCH * d * 4 + n_items * d * 4 + BATCH * words * 4
         bound_ms, bound_by = CS.bound(inputs + BATCH * 8 + BATCH * k * 12, flop, CS.PEAK_F32)
+        biased_bound = CS.bound(inputs + BATCH * 8 + BATCH * k * 12 + (n_items + BATCH) * 4,
+                                flop + 3 * BATCH * n_items, CS.PEAK_F32)
         scores_bound, scores_by = CS.bound(inputs + BATCH * n_items * 4, flop, CS.PEAK_F32)
         ms = dict(zip(names, times))
         print(json.dumps({
@@ -162,12 +187,15 @@ def main() -> None:
             "bit_for_bit_vs_scores_and_sort": same, "plain_ids_equal_but_near_ties": plain_ok,
             "rows_equal_to_plain": int(rows_equal.sum()),
             "scores_entry_bit_for_bit_vs_parent": scores_same,
+            "topk_bit_for_bit_vs_parent": topk_same,
+            "biased_topk_bit_for_bit_vs_unfused": biased_same,
             "cuda_kernels_per_call": kernels, "peak_extra_MiB": memory,
-            "bound_ms": bound_ms, "bound_by": bound_by,
+            "bound_ms": bound_ms, "bound_by": bound_by, "biased_bound_ms": biased_bound[0],
+            "biased_bound_by": biased_bound[1],
             "scores_bound_ms": scores_bound, "scores_bound_by": scores_by,
             "share_of_f32_peak": {n: flop / CS.PEAK_F32 * 1e3 / t for n, t in ms.items()},
         }), flush=True)
-        if not all(same.values()) or not plain_ok or scores_same is False:
+        if not all(same.values()) or not plain_ok or False in (scores_same, topk_same, biased_same):
             failed.append(label)
     if failed:
         sys.exit(f"k2_paired: checks failed at {failed}")

@@ -6,8 +6,11 @@ for the CPU::
     from qrec_tpu_torch import ModelConf, QRec
     measure = QRec(ModelConf('./config/LightGCN.conf')).execute()
 
-Ported so far: LightGCN train + full-catalog rank (``-ap``/``-testSet``),
-with hand-written CUDA kernels for propagation and masked scoring.
+Ported so far: LightGCN, NGCF, SimGCL and SGL; BasicMF, PMF, SVD and BPR;
+UserMean, ItemMean, MostPopular and Rand — trained and ranked (or rated)
+under the ``-ap``, ``-testSet``, ``-cv`` and ``-predict`` protocols, with
+hand-written CUDA kernels for propagation, the contrastive loss and the
+masked full-catalog top-k.
 """
 
 from .config import ModelConf, OptionConf

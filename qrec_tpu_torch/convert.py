@@ -1,9 +1,10 @@
 """Carry weights across from the JAX package.
 
-The JAX package keeps the trainable state of its graph models as a flat
-pytree: ``{"user_emb": (U, d), "item_emb": (I, d)}`` for LightGCN, SGL and
-SimGCL, plus NGCF's (d, d) transforms ``W_{k}_1`` and ``W_{k}_2``. Arrays
-arrive here as numpy, so this module needs no JAX.
+The JAX package keeps a model's trainable state as a flat pytree:
+``{"user_emb": (U, d), "item_emb": (I, d)}`` for LightGCN, SGL, SimGCL and
+the MF family, plus NGCF's (d, d) transforms ``W_{k}_1`` and ``W_{k}_2``
+and SVD's ``user_bias`` (U,) and ``item_bias`` (I,); MostPopular keeps its
+``scores`` (I,). Arrays arrive here as numpy, so this module needs no JAX.
 """
 
 from __future__ import annotations
@@ -13,13 +14,16 @@ from typing import Dict
 import numpy as np
 import torch
 
+# the JAX names the port's models use for the same tensors
+_NAMES = ("user_emb", "item_emb", "user_bias", "item_bias", "scores")
+
 
 def embedding_params_from_jax(params: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
-    """The port's ``state_dict`` of a graph model (LightGCN, NGCF, SGL,
-    SimGCL) from the JAX parameter dict: the two embedding tables and every
-    ``W_*`` transform, under the same names:
+    """The port's ``state_dict`` of a model from the JAX parameter dict:
+    the embedding tables, SVD's biases, MostPopular's scores and every
+    ``W_*`` transform present, under the same names:
     ``model.load_state_dict(embedding_params_from_jax(p, device))``."""
-    names = ["user_emb", "item_emb"] + sorted(k for k in params if k.startswith("W_"))
+    names = [n for n in _NAMES if n in params] + sorted(k for k in params if k.startswith("W_"))
     return {
         name: torch.tensor(np.asarray(params[name], dtype=np.float32), device=device)
         for name in names

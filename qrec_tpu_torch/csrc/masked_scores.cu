@@ -51,6 +51,18 @@
 //   taken again from the bitmask and the dot product in the same order.
 //   Users with uid < 0 (unseen in training) get items 0..k-1 at
 //   global_mean, what a stable sort of a constant row gives.
+//   Biased scores (qrec_masked_topk with item_bias, user_bias or offset):
+//   the score form of SVD, ((dot + offset) + item_bias[c]) + user_bias[uid]
+//   (qrec_tpu/models/mf.py:130-150), and of MostPopular, whose width-1
+//   zero tables give +0 + item_bias[c], exactly its popularity. The adds
+//   run in registers in that order, before the rated mask and the order
+//   key, as round-to-nearest adds that are never fused; the biases are read
+//   through L1 where a score is formed. Only 64-row blocks take them: at
+//   128 rows the epilogue spilled some 450 bytes a thread (ptxas) and ran
+//   1.55x the unbiased kernel at d=150 on an H100 (PERF.md). The epilogue
+//   is a template flag: without biases the kernel is the one above, bit for
+//   bit (adding 0 would turn -0.0 into +0.0). Bias reads are (I + B)
+//   floats, small beside the tables.
 // The host's plan (ops/kernels.py masked_catalog_plan) picks the block and
 // the splits so that the blocks fill the SMs once. One launch per call for
 // either entry.
@@ -85,6 +97,10 @@ struct Params {
     float* out;              // scores: (B, I)
     int k;                   // top-k: k, lists, outputs
     float global_mean;
+    const float* item_bias;  // null or (I,)
+    const float* user_bias;  // null or (U,), read through uids
+    float offset;
+    int bias;                // whether the score form adds offset and the biases
     u64* part;               // (splits, B, k rounded up to even) each split's lists
     int* counters;           // (row tiles) 0 on entry and on exit
     int64_t* ids;            // (B, k)
@@ -104,7 +120,17 @@ __device__ __forceinline__ u64 order_key(float s, int item) {
     return ((u64)order_bits(s) << 32) | (uint32_t)~(uint32_t)item;
 }
 
+// the biased score of a dot product: ((acc + offset) + ib) + ub, each
+// bias where its table is given
+__device__ __forceinline__ float biased(const Params& p, float acc, float ib, float ub) {
+    float v = __fadd_rn(acc, p.offset);
+    if (p.item_bias) v = __fadd_rn(v, ib);
+    if (p.user_bias) v = __fadd_rn(v, ub);
+    return v;
+}
+
 // the score that user row `src` gives `item`, as the tile product sums it
+// and the epilogue biases it
 __device__ float score_of(const Params& p, int src, int item) {
     const uint32_t word = static_cast<uint32_t>(p.bitmask[(size_t)src * p.words + (item >> 5)]);
     if ((word >> (item & 31)) & 1u) return p.mask_value;
@@ -113,7 +139,8 @@ __device__ float score_of(const Params& p, int src, int item) {
     float acc = 0.f;
     for (int f = 0; f < 4 * ((p.d + 3) / 4); ++f)
         acc = fmaf(f < p.d ? a[f] : 0.f, f < p.d ? b[f] : 0.f, acc);
-    return acc;
+    if (!p.bias) return acc;
+    return biased(p, acc, p.item_bias ? p.item_bias[item] : 0.f, p.user_bias ? p.user_bias[src] : 0.f);
 }
 
 __device__ __forceinline__ float decode(const Params& p, u64 key, int src, int* item) {
@@ -262,8 +289,8 @@ __device__ __forceinline__ void merge_row(const Smem& s, int row, int n, int k) 
 // buffer, keeping those whose key beats the row's k-th; a buffer they
 // would overflow is merged into the list first and they are offered again
 // against the new k-th. cnt[i]: keys in row ty + 16 i's buffer, the same
-// in the half's lanes.
-template <int RM, bool TOPK>
+// in the half's lanes. BIAS: each score is biased first.
+template <int RM, bool TOPK, bool BIAS>
 __device__ __forceinline__ void tile_epilogue(const Params& p, const Smem& s, float (&acc)[RM][4],
                                               const uint32_t (&mw)[RM][2], const int (&src)[RM],
                                               int (&cnt)[RM], int r0, int t0, int c_end, int tx,
@@ -287,11 +314,14 @@ __device__ __forceinline__ void tile_epilogue(const Params& p, const Smem& s, fl
     for (int i = 0; i < RM; ++i) {
         const int row = ty + 16 * i;
         u64 thr = s.thr[row];
+        const float ub = BIAS && p.user_bias && src[i] >= 0 ? __ldg(p.user_bias + src[i]) : 0.f;
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
             const int c = t0 + tx + 16 * j;
             const bool rated = (mw[i][j >> 1] >> (tx + 16 * (j & 1))) & 1u;
-            const u64 key = order_key(rated ? p.mask_value : acc[i][j], c);
+            const float ib = BIAS && p.item_bias && c < c_end ? __ldg(p.item_bias + c) : 0.f;
+            const float v = BIAS ? biased(p, acc[i][j], ib, ub) : acc[i][j];
+            const u64 key = order_key(rated ? p.mask_value : v, c);
             bool win = src[i] >= 0 && c < c_end && key > thr;
             uint32_t mine = __ballot_sync(FULL, win);
             if (!mine) continue;
@@ -311,7 +341,7 @@ __device__ __forceinline__ void tile_epilogue(const Params& p, const Smem& s, fl
 
 // Block (tile, split): rows [tile BM, tile BM + BM) of the batch against
 // the items [split tps CT, (split + 1) tps CT).
-template <int RM, bool TOPK>
+template <int RM, bool TOPK, bool BIAS>
 __global__ void __launch_bounds__(THREADS, 2) catalog_tiles(Params p) {
     constexpr int BM = 16 * RM;
     extern __shared__ float4 smem_raw[];
@@ -361,7 +391,7 @@ __global__ void __launch_bounds__(THREADS, 2) catalog_tiles(Params p) {
                           mask_words(t0, mw);
                           float acc[RM][4];
                           patch_dots<RM>(s.a_s, t, ld, k4_end, tx, ty, acc);
-                          tile_epilogue<RM, TOPK>(p, s, acc, mw, src, cnt, r0, t0, c_end, tx, ty);
+                          tile_epilogue<RM, TOPK, BIAS>(p, s, acc, mw, src, cnt, r0, t0, c_end, tx, ty);
                       });
     } else {
         // d too wide to stage whole: each tile sums slices of p.slice
@@ -389,7 +419,7 @@ __global__ void __launch_bounds__(THREADS, 2) catalog_tiles(Params p) {
                 __syncthreads();
                 patch_dots_acc<RM>(s.a_s, s.b_s, ld, 0, k4, tx, ty, acc);
             }
-            tile_epilogue<RM, TOPK>(p, s, acc, mw, src, cnt, r0, t0, c_end, tx, ty);
+            tile_epilogue<RM, TOPK, BIAS>(p, s, acc, mw, src, cnt, r0, t0, c_end, tx, ty);
         }
     }
     if (!TOPK) return;
@@ -488,27 +518,27 @@ __global__ void __launch_bounds__(THREADS, 2) catalog_tiles(Params p) {
 template <int RM, bool TOPK>
 int blocks_per_sm(int d, int slice, int k, int splits) {
     const size_t smem = smem_bytes(16 * RM, d, slice, k, splits);
-    cudaError_t err = cudaFuncSetAttribute(catalog_tiles<RM, TOPK>,
+    cudaError_t err = cudaFuncSetAttribute(catalog_tiles<RM, TOPK, false>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     int blocks = 0;
     if (err == cudaSuccess)
-        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, catalog_tiles<RM, TOPK>,
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, catalog_tiles<RM, TOPK, false>,
                                                             THREADS, smem);
     cudaGetLastError();  // a block too large for the SM is an answer here, not an error
     return err == cudaSuccess ? blocks : 0;
 }
 
-template <int RM, bool TOPK>
+template <int RM, bool TOPK, bool BIAS>
 int launch(const Params& p, int splits, cudaStream_t st) {
     const size_t smem = smem_bytes(16 * RM, p.d, p.slice, p.k, splits);
-    cudaError_t err = cudaFuncSetAttribute(catalog_tiles<RM, TOPK>,
+    cudaError_t err = cudaFuncSetAttribute(catalog_tiles<RM, TOPK, BIAS>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) {
         cudaGetLastError();  // refused before the launch: leave no error behind for the caller
         return (int)err;
     }
     const int row_tiles = (p.B + 16 * RM - 1) / (16 * RM);
-    catalog_tiles<RM, TOPK><<<dim3(row_tiles, splits), THREADS, smem, st>>>(p);
+    catalog_tiles<RM, TOPK, BIAS><<<dim3(row_tiles, splits), THREADS, smem, st>>>(p);
     return (int)cudaGetLastError();
 }
 
@@ -564,12 +594,15 @@ int qrec_masked_scores(const void* u, const void* items, const void* bitmask, vo
     p.mask_value = mask_value;
     p.out = static_cast<float*>(out);
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-    return bm == 128 ? launch<8, false>(p, splits, st) : launch<4, false>(p, splits, st);
+    return bm == 128 ? launch<8, false, false>(p, splits, st) : launch<4, false, false>(p, splits, st);
 }
 
 // user_emb (U, d), items (I, d) f32; bitmask (U, words) int32 as above;
 // uids (B) int64, each in [0, U) or -1 (unseen: items 0..k-1 at
-// global_mean; row -1 is never read); 1 <= k <= min(128, I). The plan as
+// global_mean; row -1 is never read); 1 <= k <= min(128, I); the score
+// form: item_bias (I) and user_bias (U) f32 or null, and offset (with
+// neither bias and offset 0, the plain dot products; otherwise bm = 64).
+// The plan as
 // for qrec_masked_scores, with at most 16 splits (the block's shared
 // memory grows to hold 32 splits kp keys a warp for the last merge, kp = k
 // rounded up to even, where its tiles take less);
@@ -579,7 +612,8 @@ int qrec_masked_scores(const void* u, const void* items, const void* bitmask, vo
 // cudaGetLastError() after it.
 int qrec_masked_topk(const void* user_emb, const void* items, const void* bitmask,
                      const void* uids, void* part, void* counters, void* ids, void* scores, int B,
-                     int I, int d, int words, int k, float global_mean, float mask_value, int bm,
+                     int I, int d, int words, int k, float global_mean, float mask_value,
+                     const void* item_bias, const void* user_bias, float offset, int bm,
                      int slice, int tiles_per_split, void* stream) {
     const int splits = plan_splits(I, d, bm, slice, tiles_per_split);
     if (B <= 0 || I <= 0 || d <= 0 || words < (I + 31) / 32 || splits == 0 ||
@@ -600,12 +634,17 @@ int qrec_masked_topk(const void* user_emb, const void* items, const void* bitmas
     p.mask_value = mask_value;
     p.k = k;
     p.global_mean = global_mean;
+    p.item_bias = static_cast<const float*>(item_bias);
+    p.user_bias = static_cast<const float*>(user_bias);
+    p.offset = offset;
+    p.bias = item_bias != nullptr || user_bias != nullptr || offset != 0.f;
     p.part = static_cast<u64*>(part);
     p.counters = static_cast<int*>(counters);
     p.ids = static_cast<int64_t*>(ids);
     p.scores = static_cast<float*>(scores);
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-    return bm == 128 ? launch<8, true>(p, splits, st) : launch<4, true>(p, splits, st);
+    if (p.bias) return bm == 64 ? launch<4, true, true>(p, splits, st) : (int)cudaErrorInvalidValue;
+    return bm == 128 ? launch<8, true, false>(p, splits, st) : launch<4, true, false>(p, splits, st);
 }
 
 }  // extern "C"

@@ -1,13 +1,15 @@
-"""Train/test split with reference semantics (util/dataSplit.py:9-26).
+"""Train/test split protocols with reference semantics
+(util/dataSplit.py:9-44).
 
-Takes an explicit ``random.Random`` so runs are reproducible; the same
-generator gives the same split as the JAX package's ``data_split``.
+``data_split`` takes an explicit ``random.Random`` so runs are
+reproducible; the same generator gives the same split as the JAX package's.
+``cross_validation`` is deterministic.
 """
 
 from __future__ import annotations
 
 import random as _random
-from typing import List, Optional, Tuple
+from typing import Iterator, List, Optional, Tuple
 
 
 def data_split(
@@ -36,3 +38,29 @@ def data_split(
         else:
             train.append(entry)
     return train, test
+
+
+def cross_validation(
+    data: List[list],
+    k: int,
+    binarized: bool = False,
+) -> Iterator[Tuple[List[list], List[list]]]:
+    """Modulo-interleaved k folds (util/dataSplit.py:29-44): record ``ind``
+    is fold ``ind % k``'s test record. ``k`` outside [2, 10] falls back to 3
+    like the reference; with ``binarized`` only records with a true rating
+    reach a test fold."""
+    if k <= 1 or k > 10:
+        k = 3
+    for i in range(k):
+        train: List[list] = []
+        test: List[list] = []
+        for ind, line in enumerate(data):
+            if ind % k == i:
+                if binarized:
+                    if line[2]:
+                        test.append(line[:])
+                else:
+                    test.append(line[:])
+            else:
+                train.append(line[:])
+        yield train, test

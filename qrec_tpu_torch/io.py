@@ -2,8 +2,9 @@
 
 The pure-Python branch of the JAX package's ``io.load_ratings``: rating
 triples with configurable column order, delimiter and header
-(util/io.py:31-76), optional binarize-with-threshold (util/io.py:61-65), and
-result-file writing (util/io.py:18-28). Records stay plain
+(util/io.py:31-76), optional binarize-with-threshold (util/io.py:61-65),
+``-predict`` user lists (util/io.py:79-85) and result-file writing
+(util/io.py:18-28). Records stay plain
 ``[user, item, rating]`` lists so the split semantics match exactly.
 """
 
@@ -73,3 +74,15 @@ def load_ratings(
             ) from e
         data.append([user_id, item_id, rating])
     return data
+
+
+def load_user_list(path: str) -> List[str]:
+    """The users of a ``-predict`` run: the first field of each non-blank
+    line (util/io.py:79-85)."""
+    users = []
+    with open(path) as f:
+        for line in f:
+            stripped = line.strip()
+            if stripped:
+                users.append(stripped.split()[0])
+    return users

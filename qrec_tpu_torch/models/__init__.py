@@ -4,9 +4,15 @@
 from __future__ import annotations
 
 from ..errors import ModelNotFoundError
+from .baselines import ItemMean, MostPopular, Rand, UserMean
 from .graph import NGCF, SGL, LightGCN, SimGCL
+from .mf import BPR, PMF, SVD, BasicMF
 
-MODELS = {"LightGCN": LightGCN, "NGCF": NGCF, "SGL": SGL, "SimGCL": SimGCL}
+MODELS = {
+    "LightGCN": LightGCN, "NGCF": NGCF, "SGL": SGL, "SimGCL": SimGCL,
+    "BasicMF": BasicMF, "PMF": PMF, "SVD": SVD, "BPR": BPR,
+    "UserMean": UserMean, "ItemMean": ItemMean, "MostPopular": MostPopular, "Rand": Rand,
+}
 
 # display name -> canonical conf-key name (the reference's conf files key
 # model arguments under the class name: SVD++.conf carries
@@ -20,7 +26,8 @@ def get_model(name: str):
     if name not in MODELS:
         raise ModelNotFoundError(
             f"model {name!r} is not ported yet (ROADMAP.md Queue 1 names its "
-            "slice: MF/deep/GAN slice 3, social slice 4, ALS/classical/walks slice 5); "
+            "slice: deep/GAN slice 3 second half, social slice 4, "
+            "ALS/classical/walks slice 5); "
             f"available: {sorted(MODELS)}"
         )
     return MODELS[name]

@@ -3,17 +3,20 @@ reference base/recommender.py, base/iterativeRecommender.py,
 base/graphRecommender.py).
 
 A model is an ``nn.Module`` on one device: the CUDA device unless the
-caller passes ``device="cpu"`` (``device.resolve_device``). It implements
-``build() -> TrainSpec``; the inherited ``fit()`` trains with fixed-LR Adam
-(runtime/trainer.py), with a per-epoch quick evaluation and best-epoch
-selection when the spec asks for it, and ``finalize`` leaves the final user
-and item factors in ``self.U`` / ``self.V`` for the full-catalog ranker.
+caller passes ``device="cpu"`` (``device.resolve_device``). An iterative
+model implements ``build() -> TrainSpec``; the inherited ``fit()`` trains
+with fixed-LR Adam or bold-driver SGD (runtime/trainer.py), with a
+per-epoch quick evaluation and best-epoch selection when the spec asks for
+it (or the per-epoch MAE/RMSE of a rating run), and ``finalize`` leaves the
+final user and item factors in ``self.U`` / ``self.V``. Every model gives
+the ranker its score form (``score_form``; ``ops/topk.ScoreForm``) and
+predicts ratings with the reference's mean fallbacks (``predict_ratings``).
 """
 
 from __future__ import annotations
 
 import os
-from typing import Callable, List, Optional, Sequence
+from typing import Callable, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -25,7 +28,7 @@ from ..device import resolve_device
 from ..errors import ConfigError
 from ..ops import sampling
 from ..ops.metrics import device_ranking_metrics
-from ..ops.topk import CatalogRanker
+from ..ops.topk import CatalogRanker, RandomScores, ScoreForm
 from ..runtime import trainer as T
 
 DEFAULT_SEED = 2026
@@ -34,8 +37,9 @@ DEFAULT_SEED = 2026
 class TrainSpec:
     """A single-phase training problem: the parameters to train, the
     per-batch loss ``loss_fn(batch, generator)``, the epoch sampler, the map
-    from trained parameters to the final (user, item) factors, and whether
-    to evaluate every epoch and keep the best epoch's parameters."""
+    from trained parameters to the final (user, item) factors, whether to
+    evaluate every epoch and keep the best epoch's parameters, and the
+    training mode (``adam`` or ``bold``, runtime/trainer.py)."""
 
     def __init__(
         self,
@@ -44,12 +48,14 @@ class TrainSpec:
         sampler: Callable,
         score_params_fn: Callable,
         track_best: bool = False,
+        mode: str = "adam",
     ):
         self.params = list(params)
         self.loss_fn = loss_fn
         self.sampler = sampler
         self.score_params_fn = score_params_fn
         self.track_best = track_best
+        self.mode = mode
 
 
 class Recommender(nn.Module):
@@ -71,6 +77,8 @@ class Recommender(nn.Module):
         self.seed = conf.get_int("seed", DEFAULT_SEED)
         self.U: Optional[torch.Tensor] = None
         self.V: Optional[torch.Tensor] = None
+        # the epoch timer of a trained model (runtime/trainer.py)
+        self.timer = None
         self.read_configuration()
 
     def read_configuration(self) -> None:
@@ -104,6 +112,68 @@ class Recommender(nn.Module):
     def fit(self) -> None:
         pass
 
+    @property
+    def rated_bitmask(self) -> torch.Tensor:
+        """Packed (U, ceil(I/32)) int32 rated-items bitmask on the device."""
+        if not hasattr(self, "_rated_bitmask"):
+            self._rated_bitmask = torch.from_numpy(
+                sampling.pack_bitmask(
+                    self.data.u_indptr, self.data.u_indices, self.num_users, self.num_items
+                )
+            ).to(self.device)
+        return self._rated_bitmask
+
+    # -- scoring ----------------------------------------------------------
+    def score_form(self) -> Union[ScoreForm, RandomScores]:
+        """What the full-catalog ranker scores (``ops/topk.py``): the final
+        factors' dot products; biased and random scorers override it."""
+        if self.U is None or self.V is None:
+            raise RuntimeError(f"{self.model_name}: fit() before scoring")
+        return ScoreForm(self.U, self.V)
+
+    def _ids(self, users, items):
+        uids = np.array([self.data.user.get(u, -1) for u in users], dtype=np.int64)
+        iids = np.array([self.data.item.get(i, -1) for i in items], dtype=np.int64)
+        return uids, iids
+
+    def _mean_fallback(self, uids: np.ndarray, iids: np.ndarray, dot: np.ndarray) -> np.ndarray:
+        """Reference fallback chain (iterativeRecommender.py:65-73): the
+        prediction where both are known, else the user's mean, else the
+        item's, else the global mean."""
+        user_means = self.data.user_means[np.maximum(uids, 0)]
+        item_means = self.data.item_means[np.maximum(iids, 0)]
+        out = np.where(
+            (uids >= 0) & (iids >= 0),
+            dot,
+            np.where(
+                uids >= 0,
+                user_means,
+                np.where(iids >= 0, item_means, self.data.global_mean),
+            ),
+        )
+        return out.astype(np.float64)
+
+    def _at(self, ids: np.ndarray) -> torch.Tensor:
+        """``ids`` as a device index, an unknown id (-1) read as row 0 (the
+        fallback chain replaces what it gives)."""
+        return torch.as_tensor(np.maximum(ids, 0), device=self.device)
+
+    def _pair_dots(self, uids: np.ndarray, iids: np.ndarray) -> np.ndarray:
+        """``U[u] · V[i]`` of each pair, in f32 on the device, as a float32
+        numpy array."""
+        with torch.no_grad():
+            dot = (self.U[self._at(uids)] * self.V[self._at(iids)]).sum(dim=1)
+        return dot.cpu().numpy()
+
+    def predict_ratings(self, users, items) -> np.ndarray:
+        """float64 predictions for the (user, item) name pairs."""
+        uids, iids = self._ids(users, items)
+        if self.U is not None and self.V is not None:
+            dot = self._pair_dots(uids, iids)
+        else:
+            dot = np.zeros(len(uids))
+        return self._mean_fallback(uids, iids, dot)
+
 
 class IterativeRecommender(Recommender):
     """Adds embedding config, the training loop and the device-resident
@@ -123,15 +193,22 @@ class IterativeRecommender(Recommender):
         self.batch_size = self.config.get_int("batch_size", 2000)
 
     # -- init -------------------------------------------------------------
-    def init_embeddings(self) -> dict:
-        """Truncated normal σ=0.005 cut at ±2σ (deepRecommender.py:21-22),
-        drawn on the CPU from ``seed`` so a seed gives the same tables on
-        every device."""
+    def init_embeddings(self, kind: str = "normal") -> dict:
+        """``normal``: truncated normal σ=0.005 cut at ±2σ
+        (deepRecommender.py:21-22); ``uniform``: U(0, 1)/3
+        (iterativeRecommender.py:36-39). Drawn on the CPU from ``seed`` so a
+        seed gives the same tables on every device (not the JAX package's
+        draws: its PRNG is not reproduced)."""
         gen = torch.Generator().manual_seed(self.seed)
         out = {}
         for name, rows in (("user_emb", self.num_users), ("item_emb", self.num_items)):
             t = torch.empty((rows, self.emb_size), dtype=torch.float32)
-            nn.init.trunc_normal_(t, std=0.005, a=-0.01, b=0.01, generator=gen)
+            if kind == "normal":
+                nn.init.trunc_normal_(t, std=0.005, a=-0.01, b=0.01, generator=gen)
+            elif kind == "uniform":
+                t = torch.rand(t.shape, generator=gen) / 3
+            else:
+                raise ValueError(f"unknown init {kind!r} (expected normal|uniform)")
             out[name] = t.to(self.device)
         return out
 
@@ -144,21 +221,11 @@ class IterativeRecommender(Recommender):
             self._train_arrays = {
                 "u": idx(d.train_u),
                 "i": idx(d.train_i),
+                "r": torch.as_tensor(d.train_r, dtype=torch.float32, device=self.device),
                 "indices": idx(d.u_indices),
                 "indptr": idx(d.u_indptr),
             }
         return self._train_arrays
-
-    @property
-    def rated_bitmask(self) -> torch.Tensor:
-        """Packed (U, ceil(I/32)) int32 rated-items bitmask on the device."""
-        if not hasattr(self, "_rated_bitmask"):
-            self._rated_bitmask = torch.from_numpy(
-                sampling.pack_bitmask(
-                    self.data.u_indptr, self.data.u_indices, self.num_users, self.num_items
-                )
-            ).to(self.device)
-        return self._rated_bitmask
 
     def _auto_tries(self) -> int:
         """Smallest rejection-round count whose expected whole-epoch failure
@@ -173,8 +240,9 @@ class IterativeRecommender(Recommender):
                 return t
         return 16
 
-    def pairwise_sampler(self) -> Callable:
-        """generator -> (users, pos, neg, weight) batched epoch tensors."""
+    def pairwise_sampler(self, shuffle: bool = True) -> Callable:
+        """generator -> (users, pos, neg, weight) batched epoch tensors;
+        ``shuffle=False`` keeps the training pairs in file order."""
         num_tries = self._auto_tries()
         ta = self.train_arrays
         row_iters = sampling._bisect_iters(
@@ -186,8 +254,27 @@ class IterativeRecommender(Recommender):
             return sampling.pairwise_epoch(
                 gen, ta["u"], ta["i"], ta["indices"], ta["indptr"], bitmask,
                 num_items=self.num_items, batch_size=self.batch_size,
-                num_tries=num_tries, row_iters=row_iters,
+                num_tries=num_tries, row_iters=row_iters, shuffle=shuffle,
             )
+
+        return sampler
+
+    def rating_sampler(self) -> Callable:
+        """generator -> shuffled (users, items, ratings, weight) epoch
+        tensors shaped (num_batches, batch_size) for the explicit-rating SGD
+        models; ``weight`` zeroes the padded tail."""
+        ta = self.train_arrays
+        n, bs = self.train_size, self.batch_size
+        num_batches = (n + bs - 1) // bs
+        padded = num_batches * bs
+
+        def sampler(gen: torch.Generator):
+            perm = torch.randperm(n, generator=gen, device=self.device)
+            pad = torch.cat([perm, perm.new_zeros(padded - n)])
+            w = (torch.arange(padded, device=self.device) < n).float()
+            shape = (num_batches, bs)
+            return (ta["u"][pad].view(shape), ta["i"][pad].view(shape),
+                    ta["r"][pad].view(shape), w.view(shape))
 
         return sampler
 
@@ -214,7 +301,8 @@ class IterativeRecommender(Recommender):
                 n = 10
             self._top_n = n
             self._ranker = CatalogRanker(
-                self.data, k=n, device=self.device, batch_size=self.eval_batch_size
+                self.data, k=n, device=self.device, bitmask=self.rated_bitmask,
+                batch_size=self.eval_batch_size,
             )
         return self._ranker
 
@@ -222,42 +310,67 @@ class IterativeRecommender(Recommender):
         """Precision/Recall/F1/NDCG at the top N of the current parameters,
         ranked and measured on the device; one host copy of four numbers."""
         ranker = self._quick_ranker()
-        with torch.no_grad():
-            users, items = spec.score_params_fn()
-        ids, _ = ranker.topk_device(users.contiguous(), items, self.rated_bitmask)
+        self.finalize(spec)
+        ids, _ = ranker.topk_device(self.score_form())
         dev = device_ranking_metrics(ids, ranker.test_ids, ranker.test_counts, [self._top_n])
         return {k: float(v) for k, v in dev[self._top_n].items()}
 
-    def _emit(self, epoch: int, loss: float, wall: float, metrics: Optional[dict] = None) -> None:
-        """Epoch line (iterativeRecommender.py:88-94), with the quick
-        evaluation's measures when there is one."""
+    def _quick_rating_metrics(self, spec: TrainSpec) -> dict:
+        """Per-epoch MAE/RMSE of a rating run (iterativeRecommender.py:91-94):
+        the current parameters mapped onto the final factors (``finalize``,
+        overwritten again when training ends) predict the test records,
+        clipped to the rating scale."""
+        if not hasattr(self, "_quick_rating_data"):
+            test = self.data.test_data
+            self._quick_rating_data = (
+                [e[0] for e in test], [e[1] for e in test], np.asarray([float(e[2]) for e in test])
+            )
+        users, items, truth = self._quick_rating_data
+        self.finalize(spec)
+        preds = np.clip(self.predict_ratings(users, items), self.data.r_scale[0], self.data.r_scale[-1])
+        err = preds - truth
+        return {"MAE": float(np.mean(np.abs(err))), "RMSE": float(np.sqrt(np.mean(err**2)))}
+
+    def _emit(self, epoch: int, loss: float, lr: float, wall: float,
+              metrics: Optional[dict] = None) -> None:
+        """Epoch line (iterativeRecommender.py:88-94) with the learning rate
+        in force during the epoch, and the per-epoch measures when there
+        are any."""
         eps = self.train_size / wall if wall > 0 else 0.0
         extra = "" if metrics is None else " " + " ".join(f"{k}:{v:.5f}" for k, v in metrics.items())
         print(
             f"{self.model_name} {self.fold} epoch {epoch + 1}: "
-            f"loss = {loss:.4f} learning_rate = {self.lrate:.5f}{extra} "
+            f"loss = {loss:.4f} learning_rate = {lr:.5f}{extra} "
             f"[{wall * 1e3:.1f} ms, {eps:,.0f} ex/s]"
         )
 
     def fit(self, epoch_batches: Optional[Sequence] = None) -> List[float]:
-        """Train for ``num.max.epoch`` epochs and finalize. ``epoch_batches``
-        injects one (users, pos, neg, weight) tuple of arrays per epoch in
-        place of the sampler. When the spec tracks the best epoch, the
-        parameters of the epoch that won the vote are restored before
-        finalizing (base/iterativeRecommender.py:132-169). Returns the
+        """Train for ``num.max.epoch`` epochs (fewer if the bold mode
+        converges) and finalize. ``epoch_batches`` injects one tuple of
+        arrays per epoch in place of the sampler. ``evaluation.setup ...
+        -tf`` trains a bold-mode spec with Adam, the reference's TF path
+        (base/recommender.py:194-201). When the spec tracks the best epoch,
+        the parameters of the epoch that won the vote are restored before
+        finalizing (base/iterativeRecommender.py:132-169); a rating run
+        with test records prints their MAE/RMSE every epoch. Returns the
         per-epoch losses."""
         spec = self.build()
+        mode = "adam" if spec.mode == "bold" and self.eval_settings.contains("-tf") else spec.mode
         gen = torch.Generator(device=self.device).manual_seed(self.seed + 1)
-        tracker = None
+        tracker, quick_eval = None, None
         if spec.track_best and self._quick_ranker() is not None:
             tracker = T.BestTracker()
+            quick_eval = lambda: self.quick_eval(spec)  # noqa: E731
+        elif not self.ranking.isMainOn() and len(self.data.test_data) > 0:
+            quick_eval = lambda: self._quick_rating_metrics(spec)  # noqa: E731
         self.tracker = tracker
         self.epoch_losses, self.timer = T.train(
             spec.params, spec.loss_fn, spec.sampler,
             max_epoch=self.max_epoch, lr=self.lrate, device=self.device,
+            mode=mode, max_lr=self.max_lrate,
             generator=gen, examples_per_epoch=self.train_size,
             emit=self._emit, epoch_batches=epoch_batches,
-            quick_eval=lambda: self.quick_eval(spec), tracker=tracker,
+            quick_eval=quick_eval, tracker=tracker,
         )
         if tracker is not None and tracker.best_params is not None:
             print(
@@ -285,7 +398,7 @@ def check_graph_settings(conf: ModelConf) -> None:
     quant = conf.get("graph.dense.quant", "auto")
     if quant not in ("auto", "factored"):
         raise ConfigError(
-            f"graph.dense.quant={quant} is not ported yet (ROADMAP.md Queue 1: "
+            f"graph.dense.quant={quant} is not ported yet (ROADMAP.md Queue 1 item 5: "
             "bf16 and legacy int8 DenseJoint forms); use auto|factored"
         )
     dual = conf.get("graph.dense.dual", "auto")

@@ -9,8 +9,10 @@ launch counters and the build step (counterpart of the JAX package's
 * :func:`masked_catalog_scores` — ``U_block @ Vᵀ`` with rated items set to
   ``mask_value`` from a packed bitmask, and :func:`masked_catalog_topk`,
   the best k items of those scores for a batch of users, fused, so the
-  (B, I) block is never written (``csrc/masked_scores.cu``; replace
-  ``_score_kernel`` and the JAX ranker's ``lax.top_k``).
+  (B, I) block is never written, optionally biased first by an item bias,
+  a user bias and an offset (a model's score form, :func:`biased_scores`)
+  (``csrc/masked_scores.cu``; replace ``_score_kernel`` and the JAX
+  ranker's ``lax.top_k``).
 * :func:`infonce_fwd` / :func:`infonce_bwd` — the masked InfoNCE loss over
   normalized views and its two cotangents, never writing the B x B logits
   (``csrc/infonce.cu``; replace ``_infonce_kernel`` and
@@ -115,7 +117,7 @@ SCORES = Kernel(
 )
 TOPK = Kernel(
     "masked_catalog_topk", "masked_scores.cu", "qrec_masked_topk",
-    [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _I, _I, _I, _P],
+    [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P, _P, _F, _I, _I, _I, _P],
     queries=_CATALOG_QUERIES,
 )
 INFONCE_FWD = Kernel(
@@ -426,6 +428,9 @@ def masked_catalog_scores_plain(u_block, items, bitmask, mask_value: float = 0.0
 # K2: users a block (the row tile), item rows a tile, the widest d staged
 # whole, features a pass past it, the longest list, the most splits
 CATALOG_BLOCK_ROWS = (128, 64)
+# the top-k with the score form's biases runs 64-row blocks only: its
+# 128-row block spills (masked_scores.cu)
+CATALOG_BIASED_ROWS = (64,)
 CATALOG_TILE = 64
 CATALOG_MAX_D = 256
 CATALOG_SLICE = 64
@@ -433,8 +438,8 @@ CATALOG_MAX_K = 128
 CATALOG_MAX_SPLITS = 16
 
 
-def masked_catalog_plan(b: int, i: int, d: int, k: int, sms: int,
-                        blocks_per_sm) -> Tuple[int, int, int]:
+def masked_catalog_plan(b: int, i: int, d: int, k: int, sms: int, blocks_per_sm,
+                        rows: Sequence[int] = CATALOG_BLOCK_ROWS) -> Tuple[int, int, int]:
     """``(bm, slice, tiles_per_split)`` of K2 for B users, I items, width d
     and lists of k (0: the scores entry). ``blocks_per_sm(bm, slice,
     splits)`` is how many such blocks one SM holds. The items are split
@@ -442,23 +447,23 @@ def masked_catalog_plan(b: int, i: int, d: int, k: int, sms: int,
     no split empty; the top-k entry merges its splits with a lane of a
     half-warp each, so at most 16 (its block's shared memory grows with
     them for that merge). The block: d staged whole where a block fits
-    (128 or 64 rows), else in slices of 64 features; among those, the one
-    with the most blocks resident at once, then the larger."""
+    (of ``rows``: 128 or 64), else in slices of 64 features; among those,
+    the one with the most blocks resident at once, then the larger."""
     tiles = _cdiv(i, CATALOG_TILE)
     most = min(tiles, CATALOG_MAX_SPLITS) if k else tiles
     best = None
     for sl in ([0] if d <= CATALOG_MAX_D else []) + ([CATALOG_SLICE] if d > CATALOG_SLICE else []):
-        for bm in CATALOG_BLOCK_ROWS:
-            rows = _cdiv(b, bm)
+        for bm in rows:
+            tiles_b = _cdiv(b, bm)
             splits = most
             while splits > 1 and blocks_per_sm(bm, sl, splits) < 1:
                 splits -= 1
             per_sm = blocks_per_sm(bm, sl, splits)
             if per_sm < 1:
                 continue
-            splits = min(splits, max(1, per_sm * sms // rows))
+            splits = min(splits, max(1, per_sm * sms // tiles_b))
             per_sm = blocks_per_sm(bm, sl, splits)
-            key = (min(rows * splits, per_sm * sms), bm)
+            key = (min(tiles_b * splits, per_sm * sms), bm)
             if best is None or key > best[0]:
                 best = (key, bm, sl, splits)
         if best is not None:
@@ -470,11 +475,13 @@ def masked_catalog_plan(b: int, i: int, d: int, k: int, sms: int,
 
 
 @functools.lru_cache(maxsize=None)
-def _masked_catalog_plan(device: torch.device, b: int, i: int, d: int, k: int):
+def _masked_catalog_plan(device: torch.device, b: int, i: int, d: int, k: int,
+                         biased: bool = False):
     lib = SCORES.load()
     per_sm = functools.lru_cache(maxsize=None)(
         lambda bm, sl, splits: lib.qrec_masked_blocks_per_sm(bm, d, sl, k, splits))
-    return masked_catalog_plan(b, i, d, k, _num_sms(device), per_sm)
+    rows = CATALOG_BIASED_ROWS if biased else CATALOG_BLOCK_ROWS
+    return masked_catalog_plan(b, i, d, k, _num_sms(device), per_sm, rows)
 
 
 def _check_catalog(user_emb, items, bitmask) -> Tuple[int, int]:
@@ -527,13 +534,32 @@ def masked_catalog_scores(
     return out
 
 
+def biased_scores(scores, uids, item_bias=None, user_bias=None, offset: float = 0.0):
+    """The score form's adds on (B, I) dot products of the users ``uids``
+    (>= 0), in the kernel's order: ``((s + offset) + item_bias[c]) +
+    user_bias[uid]``, each bias where it is given; none of them without a
+    bias or an offset (adding 0 would turn -0.0 into +0.0)."""
+    if item_bias is None and user_bias is None and offset == 0:
+        return scores
+    scores = scores + float(np.float32(offset))
+    if item_bias is not None:
+        scores = scores + item_bias[None, :]
+    if user_bias is not None:
+        scores = scores + user_bias[uids][:, None]
+    return scores
+
+
 def masked_catalog_topk_plain(user_emb, items, bitmask, uids, global_mean: float, k: int,
-                              mask_value: float = 0.0):
-    """Plain version of :func:`masked_catalog_topk`: the masked (B, I)
-    scores of the users' rows, the global mean for unseen users, a stable
+                              mask_value: float = 0.0, item_bias=None, user_bias=None,
+                              offset: float = 0.0):
+    """Plain version of :func:`masked_catalog_topk`: the (B, I) dot
+    products of the users' rows, biased (:func:`biased_scores`), rated items
+    set to ``mask_value``, the global mean for unseen users, a stable
     descending sort, the first k columns."""
     safe = uids.clamp(min=0)
-    scores = masked_catalog_scores_plain(user_emb[safe], items, bitmask[safe], mask_value)
+    scores = biased_scores(user_emb[safe] @ items.T, safe, item_bias, user_bias, offset)
+    rated = expand_bitmask(bitmask[safe], items.shape[0])
+    scores = torch.where(rated, torch.full_like(scores, mask_value), scores)
     scores = torch.where((uids < 0)[:, None], torch.full_like(scores, global_mean), scores)
     top_scores, top_ids = torch.sort(scores, dim=1, descending=True, stable=True)
     # copies, so the (B, I) sort outputs are freed
@@ -555,39 +581,55 @@ def masked_catalog_topk(
     k: int,
     mask_value: float = 0.0,
     plan: Optional[Tuple[int, int, int]] = None,
+    item_bias: Optional[torch.Tensor] = None,
+    user_bias: Optional[torch.Tensor] = None,
+    offset: float = 0.0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(ids (B, k) int64, scores (B, k) f32)``: for each user of the batch
     ``uids`` (B,) int64 the k best items of the catalog under the scores of
     :func:`masked_catalog_scores` on its row of ``user_emb`` (U, d) and
-    ``bitmask`` (U, >= ceil(I/32)) int32, in the order of
+    ``bitmask`` (U, >= ceil(I/32)) int32, biased before the mask as
+    :func:`biased_scores` says by ``item_bias`` (I,) and ``user_bias`` (U,)
+    f32 (each optional) and ``offset`` (rounded to f32), in the order of
     ``torch.sort(descending=True, stable=True)``: score descending, the
     lower item first on equal scores (-0.0 equal to +0.0, NaN above +inf).
     Rated items stay candidates at ``mask_value``. A user id of -1 (unseen
     in training) gets items 0..k-1 at ``global_mean``; its rows are never
     read. 1 <= k <= min(128, I), any d. One kernel launch; no (B, I) tensor
     is allocated. ``plan`` (bm, slice, tiles_per_split) replaces
-    :func:`masked_catalog_plan`'s choice."""
+    :func:`masked_catalog_plan`'s choice (with a bias or an offset, bm 64:
+    ``CATALOG_BIASED_ROWS``)."""
     i, d = _check_catalog(user_emb, items, bitmask)
     _check(uids, "uids", (torch.int64,), 1)
+    biases = [t for t in (item_bias, user_bias) if t is not None]
+    for name, t, rows in (("item_bias", item_bias, i), ("user_bias", user_bias, user_emb.shape[0])):
+        if t is not None:
+            _check(t, name, (torch.float32,), 1)
+            if t.shape[0] != rows:
+                raise ValueError(f"{name}: {t.shape[0]} entries, expected {rows}")
     k = int(k)
     if not 1 <= k <= min(CATALOG_MAX_K, i):
         raise ValueError(f"k={k} outside 1..min({CATALOG_MAX_K}, I={i})")
-    if _route(user_emb, items, bitmask, uids) == "cpu":
-        return masked_catalog_topk_plain(user_emb, items, bitmask, uids, global_mean, k, mask_value)
+    if _route(user_emb, items, bitmask, uids, *biases) == "cpu":
+        return masked_catalog_topk_plain(user_emb, items, bitmask, uids, global_mean, k,
+                                         mask_value, item_bias, user_bias, offset)
     dev = user_emb.device
     b = uids.shape[0]
     ids = torch.empty((b, k), dtype=torch.int64, device=dev)
     scores = torch.empty((b, k), dtype=torch.float32, device=dev)
     if b == 0:
         return ids, scores
-    bm, sl, tps = _masked_catalog_plan(dev, b, i, d, k) if plan is None else plan
+    biased = item_bias is not None or user_bias is not None or offset != 0
+    bm, sl, tps = _masked_catalog_plan(dev, b, i, d, k, biased) if plan is None else plan
     splits = _cdiv(_cdiv(i, CATALOG_TILE), tps)
     part = _scratch(dev, splits * b * (k + k % 2), "masked_topk", torch.int64)
     counters = _scratch(dev, _cdiv(b, bm), "masked_topk_counters", torch.int32)
     TOPK.call(
         user_emb.data_ptr(), items.data_ptr(), bitmask.data_ptr(), uids.data_ptr(),
         part.data_ptr(), counters.data_ptr(), ids.data_ptr(), scores.data_ptr(),
-        b, i, d, bitmask.shape[1], k, float(global_mean), float(mask_value), bm, sl, tps,
+        b, i, d, bitmask.shape[1], k, float(global_mean), float(mask_value),
+        None if item_bias is None else item_bias.data_ptr(),
+        None if user_bias is None else user_bias.data_ptr(), float(offset), bm, sl, tps,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     return ids, scores

@@ -1,7 +1,8 @@
-"""Ranking metrics (counterpart of the JAX package's ``ops/metrics.py``).
+"""Ranking and rating metrics (counterpart of the JAX package's
+``ops/metrics.py``).
 
-``ranking_measure`` operates on the same dict structures as the reference
-(util/measure.py) and produces identical output strings. The reference's
+``ranking_measure`` and ``rating_measure`` operate on the same structures as
+the reference (util/measure.py) and produce identical output strings. The reference's
 NDCG idiosyncrasies are kept (util/measure.py:69-82): binary relevance,
 natural-log discount ``1/ln(n+2)``, and IDCG summed over the first
 ``min(|test_u|, N)`` positions. ``device_ranking_metrics`` computes the
@@ -79,6 +80,19 @@ def ranking_measure(
         measure.append("F1:" + str(f1(prec, rec)) + "\n")
         measure.append("NDCG:" + str(ndcg(origin, predicted, n)) + "\n")
     return measure
+
+
+def rating_measure(res: Sequence[Sequence]) -> List[str]:
+    """MAE/RMSE lines over [user, item, rating, prediction] records
+    (util/measure.py:5-12,118-138)."""
+    mae_err, rmse_err, count = 0.0, 0.0, 0
+    for entry in res:
+        mae_err += abs(entry[2] - entry[3])
+        rmse_err += (entry[2] - entry[3]) ** 2
+        count += 1
+    mae = mae_err / count if count else mae_err
+    rmse = math.sqrt(rmse_err / count) if count else rmse_err
+    return ["MAE:" + str(mae) + "\n", "RMSE:" + str(rmse) + "\n"]
 
 
 def parse_measure(measure: List[str]) -> Dict[str, Dict[str, float]]:

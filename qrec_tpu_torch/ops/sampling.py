@@ -134,14 +134,20 @@ def pairwise_epoch(
     batch_size: int,
     num_tries: int = 8,
     row_iters: int = 32,
+    shuffle: bool = True,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Shuffled (user, pos, neg, weight) int64/int64/int64/f32 tensors shaped
     ``(num_batches, batch_size)`` (next_batch_pairwise,
     deepRecommender.py:29-52): shuffle the training pairs, then one uniform
-    non-positive negative per positive."""
+    non-positive negative per positive. ``shuffle=False`` keeps the
+    training pairs in file order with fresh negatives every epoch, as BPR's
+    own TF batcher iterates them (BPR.py:57-64)."""
     n = train_u.shape[0]
     device = train_u.device
-    perm = torch.randperm(n, generator=gen, device=device)
+    if shuffle:
+        perm = torch.randperm(n, generator=gen, device=device)
+    else:
+        perm = torch.arange(n, device=device)
     num_batches = (n + batch_size - 1) // batch_size
     padded = num_batches * batch_size
     pad_idx = torch.cat([perm, torch.zeros(padded - n, dtype=perm.dtype, device=device)])

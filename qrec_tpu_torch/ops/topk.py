@@ -2,6 +2,18 @@
 ``ops/topk.py``), on the fused masked top-k kernel: no (batch, I) score
 block and no sort reach device memory.
 
+A model hands the ranker its score form instead of the JAX package's
+``(score_fn, params)``:
+
+* :class:`ScoreForm` — ``user_emb @ item_embᵀ``, optionally biased as
+  ``((dot + offset) + item_bias[i]) + user_bias[u]``: embedding models (no
+  bias), SVD (``offset`` = the global mean and both biases) and MostPopular
+  (width-1 zero tables and its popularity as ``item_bias``), all ranked by
+  K2's fused top-k;
+* :class:`RandomScores` — Rand's uniform scores, drawn per batch from a
+  ``torch.Generator`` (the JAX package draws them with ``jax.random`` and
+  takes ``lax.top_k``, both XLA: here ``torch.rand`` and a stable sort).
+
 Semantics kept from the reference (base/recommender.py:143-160,
 base/iterativeRecommender.py:75-80):
 
@@ -13,25 +25,47 @@ base/iterativeRecommender.py:75-80):
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
-from .kernels import masked_catalog_topk
+from .kernels import expand_bitmask, masked_catalog_topk
 
 # rated items score 0, as the reference zeroes them (base/recommender.py:147-149)
 MASK_VALUE = 0.0
 
 
+class ScoreForm(NamedTuple):
+    """Scores ``((user_emb[u] · item_emb[i] + offset) + item_bias[i]) +
+    user_bias[u]``; ``user_emb`` (U, d), ``item_emb`` (I, d), the biases
+    (I,) and (U,) f32, each optional (without either and with offset 0, the
+    plain dot products)."""
+
+    user_emb: torch.Tensor
+    item_emb: torch.Tensor
+    item_bias: Optional[torch.Tensor] = None
+    user_bias: Optional[torch.Tensor] = None
+    offset: float = 0.0
+
+
+class RandomScores(NamedTuple):
+    """U(0, 1) scores for every (user, item), drawn from ``generator`` on the
+    ranker's device, one (batch, I) block per batch."""
+
+    generator: torch.Generator
+
+
 class CatalogRanker:
     """Top-k over the whole catalog for a fixed test-user set, in user
-    batches of ``batch_size`` (one kernel launch per batch)."""
+    batches of ``batch_size`` (one kernel launch per batch). ``bitmask``
+    (U, ceil(I/32)) int32 on ``device`` holds the train-rated items."""
 
-    def __init__(self, data, k: int, device, batch_size: int = 1024):
+    def __init__(self, data, k: int, device, bitmask: torch.Tensor, batch_size: int = 1024):
         self.data = data
         self.k = int(k)
         self.device = torch.device(device)
+        self.bitmask = bitmask
         self.batch_size = int(batch_size)
         ev = data.test_eval_arrays()
         self.names = ev["names"]
@@ -43,33 +77,40 @@ class CatalogRanker:
         # float32 like the JAX ranker's global-mean constant
         self.global_mean = float(np.float32(data.global_mean))
 
-    def topk(
-        self, user_emb: torch.Tensor, item_emb: torch.Tensor, bitmask: torch.Tensor
-    ) -> Tuple[np.ndarray, np.ndarray]:
+    def topk(self, form: Union[ScoreForm, RandomScores]) -> Tuple[np.ndarray, np.ndarray]:
         """(ids int32, scores f32) numpy arrays of shape (num_test_users, k)."""
-        ids, scores = self.topk_device(user_emb, item_emb, bitmask)
+        ids, scores = self.topk_device(form)
         return ids.cpu().numpy().astype(np.int32), scores.cpu().numpy()
 
-    def topk_device(
-        self, user_emb: torch.Tensor, item_emb: torch.Tensor, bitmask: torch.Tensor
-    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    def topk_device(self, form: Union[ScoreForm, RandomScores]) -> Tuple[torch.Tensor, torch.Tensor]:
         """(ids int64, scores f32) tensors of shape (num_test_users, k) on
-        ``self.device``, with no host copy.
-
-        ``user_emb`` (U, d), ``item_emb`` (I, d) f32 and ``bitmask``
-        (U, ceil(I/32)) int32 on ``self.device``."""
-        b = len(self.names)
-        k = min(self.k, item_emb.shape[0])
-        user_emb, item_emb = user_emb.contiguous(), item_emb.contiguous()
-        ids_out, scores_out = [], []
-        for start in range(0, b, self.batch_size):
-            ids, scores = masked_catalog_topk(
-                user_emb, item_emb, bitmask, self._uids[start : start + self.batch_size],
-                self.global_mean, k, MASK_VALUE,
-            )
-            ids_out.append(ids)
-            scores_out.append(scores)
-        if not ids_out:
+        ``self.device``, with no host copy; the form's tensors lie there."""
+        num_items = self.data.num_items
+        k = min(self.k, num_items)
+        batches = [self._uids[s : s + self.batch_size] for s in range(0, len(self.uids), self.batch_size)]
+        if not batches:
             return (torch.empty((0, k), dtype=torch.int64, device=self.device),
                     torch.empty((0, k), dtype=torch.float32, device=self.device))
-        return torch.cat(ids_out), torch.cat(scores_out)
+        if isinstance(form, RandomScores):
+            out = [self._random_topk(form.generator, uids, num_items, k) for uids in batches]
+        else:
+            user_emb, item_emb = form.user_emb.contiguous(), form.item_emb.contiguous()
+            out = [
+                masked_catalog_topk(
+                    user_emb, item_emb, self.bitmask, uids, self.global_mean, k, MASK_VALUE,
+                    item_bias=form.item_bias, user_bias=form.user_bias, offset=form.offset,
+                )
+                for uids in batches
+            ]
+        return torch.cat([o[0] for o in out]), torch.cat([o[1] for o in out])
+
+    def _random_topk(self, gen, uids, num_items: int, k: int):
+        """Rand's batch (Rand.py:10-15): uniform scores, rated items at
+        ``MASK_VALUE``, unseen users at the global mean, a stable sort."""
+        safe = uids.clamp(min=0)
+        scores = torch.rand((uids.shape[0], num_items), generator=gen, device=self.device)
+        rated = expand_bitmask(self.bitmask[safe], num_items)
+        scores = scores.masked_fill(rated, MASK_VALUE)
+        scores = torch.where((uids < 0)[:, None], torch.full_like(scores, self.global_mean), scores)
+        vals, ids = torch.sort(scores, dim=1, descending=True, stable=True)
+        return ids[:, :k].clone(), vals[:, :k].clone()

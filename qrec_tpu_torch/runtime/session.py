@@ -1,10 +1,13 @@
 """Session orchestrator — the reference's ``QRec`` class (QRec.py:7-118;
-the JAX package's ``runtime/session.py``) for the ``-ap`` and ``-testSet``
-protocols.
+the JAX package's ``runtime/session.py``) for the ``-ap``, ``-testSet``,
+``-cv`` and ``-predict`` protocols.
 
 ``QRec(conf, seed=0, device=None)`` runs on the CUDA device unless the
 caller passes ``device="cpu"``; with no card it raises
-:class:`DeviceUnavailableError` rather than falling back.
+:class:`DeviceUnavailableError` rather than falling back. Cross-validation
+folds run one after another on that device; their measures are averaged as
+strings and the summary file is written whatever ``output.setup`` says, as
+the reference does (QRec.py:91-107).
 """
 
 from __future__ import annotations
@@ -15,7 +18,7 @@ from typing import List
 from .. import io as qio
 from ..config import ModelConf, OptionConf
 from ..data.dataset import Interactions
-from ..data.split import data_split
+from ..data.split import cross_validation, data_split
 from ..device import resolve_device
 from ..errors import ConfigError, EvaluationError
 from ..log import Log, timestamp
@@ -23,15 +26,11 @@ from ..models import get_model
 from ..models.base import check_graph_settings
 from . import evaluator
 
-# config keys and protocols the port does not run yet -> ROADMAP.md item
+# config keys the port does not run yet -> ROADMAP.md item
 _NOT_PORTED_KEYS = {
-    "parallel.setup": "Queue 1, slice 7: multi-GPU",
-    "checkpoint.setup": "Queue 1, slice 6: checkpoint/resume",
-    "model.setup": "Queue 1, slice 6: model save/load",
-}
-_NOT_PORTED_PROTOCOLS = {
-    "-cv": "Queue 1, slice 1 deferrals: -cv cross-validation",
-    "-predict": "Queue 1, slice 1 deferrals: -predict user lists",
+    "parallel.setup": "Queue 1 item 19, slice 7: multi-GPU",
+    "checkpoint.setup": "Queue 1 item 2, slice 6: checkpoint/resume",
+    "model.setup": "Queue 1 item 2, slice 6: model save/load",
 }
 
 
@@ -52,10 +51,6 @@ def check_ported(config: ModelConf) -> None:
     for key, item in _NOT_PORTED_KEYS.items():
         if _asks_for(config, key):
             raise ConfigError(f"{key} is not ported yet (ROADMAP.md {item})")
-    evaluation = OptionConf(config["evaluation.setup"])
-    for flag, item in _NOT_PORTED_PROTOCOLS.items():
-        if evaluation.contains(flag):
-            raise ConfigError(f"evaluation.setup {flag} is not ported yet (ROADMAP.md {item})")
     check_graph_settings(config)
 
 
@@ -72,13 +67,14 @@ def run_fold(config: ModelConf, train, test, fold: str, seed: int, device):
         model.print_config()
     print(f"Building Model {fold}...")
     model.fit()
-    s = model.timer.summary()
-    log.add(
-        "### training throughput ###\n"
-        f"epochs={int(s['epochs'])} "
-        f"epoch_seconds={s['epoch_seconds']:.4f} "
-        f"examples_per_second={s['examples_per_second']:.0f}"
-    )
+    if model.timer is not None and model.timer.times:
+        s = model.timer.summary()
+        log.add(
+            "### training throughput ###\n"
+            f"epochs={int(s['epochs'])} "
+            f"epoch_seconds={s['epoch_seconds']:.4f} "
+            f"examples_per_second={s['examples_per_second']:.0f}"
+        )
     print(f"Predicting {fold}...")
     measure = evaluator.evaluate(model, data, config, fold, log)
     return measure, model
@@ -101,6 +97,7 @@ class QRec:
         if self.evaluation.contains("-b"):
             binarized = True
             bottom = float(self.evaluation["-b"])
+        self.binarized = binarized
 
         ratings_path = config["ratings"]
         if self.evaluation.contains("-testSet"):
@@ -120,14 +117,65 @@ class QRec:
                 binarized=binarized,
                 rng=_random.Random(seed),
             )
+        elif self.evaluation.contains("-cv"):
+            self.training_data = qio.load_ratings(
+                config, ratings_path, binarized=binarized, threshold=bottom
+            )
+        elif self.evaluation.contains("-predict"):
+            self.training_data = qio.load_ratings(
+                config, ratings_path, binarized=binarized, threshold=bottom
+            )
+            self.test_data = qio.load_user_list(self.evaluation["-predict"])
         else:
             raise EvaluationError(
-                "evaluation.setup must contain one of -testSet/-ap"
+                "evaluation.setup must contain one of -testSet/-ap/-cv/-predict"
             )
         print("Reading data and preprocessing...")
 
+    def _run_fold(self, train, test, fold: str) -> List[str]:
+        measure, self.model = run_fold(self.config, train, test, fold, self.seed, self.device)
+        return measure
+
     def execute(self) -> List[str]:
-        self.measure, self.model = run_fold(
-            self.config, self.training_data, self.test_data, "[1]", self.seed, self.device
-        )
+        if not self.evaluation.contains("-cv"):
+            self.measure = self._run_fold(self.training_data, self.test_data, "[1]")
+            return self.measure
+        k = int(self.evaluation["-cv"])
+        if k < 2 or k > 10:
+            raise EvaluationError("k for cross-validation should be between 2 and 10")
+        if self.evaluation.contains("-p"):
+            print(
+                "-p parallel folds need one device per process; a single card "
+                "cannot be shared — running folds sequentially"
+            )
+        fold_measures = [
+            self._run_fold(train, test, f"[{i + 1}]")
+            for i, (train, test) in enumerate(
+                cross_validation(self.training_data, k, binarized=self.binarized)
+            )
+        ]
+        self.measure = average_folds(fold_measures)
+        # the summary is written whatever output.setup's main switch says
+        # (QRec.py:103-106)
+        output = OptionConf(self.config["output.setup"])
+        file_name = self.config["model.name"] + "@" + timestamp() + "-" + str(k) + "-fold-cv.txt"
+        qio.write_file(output.get("-dir", "./results/"), file_name, self.measure)
+        print("The result of %d-fold cross validation:\n%s" % (k, "".join(self.measure)))
         return self.measure
+
+
+def average_folds(fold_measures: List[List[str]]) -> List[str]:
+    """The folds' measure lines averaged as the reference averages them
+    (QRec.py:91-107): a ``Top N`` line is kept, every ``name:value`` line
+    becomes ``name:`` and the mean of the folds' values as ``str`` writes
+    it."""
+    k = len(fold_measures)
+    res = []
+    for i, line in enumerate(fold_measures[0]):
+        if line[:3] == "Top":
+            res.append(line)
+            continue
+        metric = line.split(":")[0]
+        total = sum(float(fold_measures[j][i].split(":")[1]) for j in range(k))
+        res.append(metric + ":" + str(total / k) + "\n")
+    return res

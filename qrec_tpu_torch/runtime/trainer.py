@@ -1,12 +1,22 @@
 """Per-epoch training loop (counterpart of the JAX package's
-``runtime/trainer.py``, fixed-LR Adam mode).
+``runtime/trainer.py``: its ``EpochLoop`` in both modes).
 
 Each epoch draws its batches from the sampler (or takes injected ones),
-runs one Adam step per batch, and materializes the epoch's summed loss
-once on the host, where ``check_finite`` gives the reference's NaN abort
-(base/iterativeRecommender.py:84-87). With a :class:`BestTracker`, a quick
-evaluation follows each epoch and the parameters of the epoch that wins
-the tracker's vote are kept (``EpochLoop.run``'s tracker branch).
+runs one optimizer step per batch, and materializes the epoch's summed
+loss once on the host, where ``check_finite`` gives the reference's NaN
+abort (base/iterativeRecommender.py:84-87). Two modes:
+
+* ``adam``: fixed-LR Adam (the reference's TF paths);
+* ``bold``: SGD with the bold-driver learning rate and the ``|Δloss| <
+  1e-3`` convergence rule (the reference's NumPy-SGD family,
+  base/iterativeRecommender.py:56-63,82-102), in the JAX package's order
+  after each epoch: the convergence check may end training, then the
+  driver's update, its ``last_loss``, and the new rate on the optimizer.
+
+With a :class:`BestTracker`, a quick evaluation follows each epoch and the
+parameters of the epoch that wins the tracker's vote are kept
+(``EpochLoop.run``'s tracker branch); a ``quick_eval`` without a tracker
+only adds its measures to the epoch line (the rating models' MAE/RMSE).
 """
 
 from __future__ import annotations
@@ -28,6 +38,51 @@ def check_finite(loss: float) -> None:
             "Loss = NaN or Infinity: current settings does not fit the "
             "recommender! Change the settings and try again!"
         )
+
+
+class BoldDriver:
+    """Epoch-level learning-rate schedule (base/iterativeRecommender.py:56-63):
+    x1.05 after a loss decrease, x0.5 otherwise, capped by ``max_lr``."""
+
+    def __init__(self, init_lr: float, max_lr: float):
+        self.lr = init_lr
+        self.max_lr = max_lr
+        self.last_loss = 0.0
+
+    def update(self, epoch: int, loss: float) -> float:
+        if epoch > 1:
+            if abs(self.last_loss) > abs(loss):
+                self.lr *= 1.05
+            else:
+                self.lr *= 0.5
+        if self.lr > self.max_lr > 0:
+            self.lr = self.max_lr
+        return self.lr
+
+
+class ConvergenceMonitor:
+    """``|Δloss| < 1e-3`` + NaN abort (base/iterativeRecommender.py:82-102)."""
+
+    def __init__(self, tol: float = 1e-3):
+        self.tol = tol
+        self.last_loss = 0.0
+
+    def check(self, loss: float) -> bool:
+        check_finite(loss)
+        delta = self.last_loss - loss
+        converged = abs(delta) < self.tol
+        self.last_loss = loss
+        return converged
+
+
+def make_optimizer(params: Sequence[torch.Tensor], mode: str, lr: float) -> torch.optim.Optimizer:
+    """``adam``: optax.adam's defaults; ``bold``: plain SGD, whose rate the
+    bold driver sets after every epoch."""
+    if mode == "adam":
+        return torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8)
+    if mode == "bold":
+        return torch.optim.SGD(params, lr=lr)
+    raise ValueError(f"unknown training mode {mode!r} (expected adam|bold)")
 
 
 class BestTracker:
@@ -62,14 +117,15 @@ class BestTracker:
 
 
 def as_device_batches(batches: Sequence, device) -> tuple:
-    """Numpy or tensor (users, pos, neg, weight) epoch arrays → device
-    tensors (indices int64, weights f32)."""
-    users, pos, neg, weight = batches
-    idx = lambda a: torch.tensor(np.asarray(a), dtype=torch.int64, device=device)  # noqa: E731
-    return (
-        idx(users), idx(pos), idx(neg),
-        torch.tensor(np.asarray(weight), dtype=torch.float32, device=device),
-    )
+    """Numpy or tensor epoch arrays, (users, pos, neg, weight) or (users,
+    items, ratings, weight), → device tensors: integer arrays as int64
+    indices, the others f32."""
+    out = []
+    for a in batches:
+        a = np.asarray(a)
+        dtype = torch.int64 if np.issubdtype(a.dtype, np.integer) else torch.float32
+        out.append(torch.tensor(a, dtype=dtype, device=device))
+    return tuple(out)
 
 
 def train(
@@ -80,6 +136,8 @@ def train(
     max_epoch: int,
     lr: float,
     device,
+    mode: str = "adam",
+    max_lr: float = 0.0,
     generator: torch.Generator,
     examples_per_epoch: int,
     emit: Optional[Callable] = None,
@@ -87,22 +145,26 @@ def train(
     quick_eval: Optional[Callable] = None,
     tracker: Optional[BestTracker] = None,
 ) -> Tuple[List[float], StepTimer]:
-    """Train ``params`` in place; return the per-epoch summed losses and the
-    epoch timer.
+    """Train ``params`` in place; return the per-epoch summed losses (fewer
+    than ``max_epoch`` when the bold mode converges) and the epoch timer.
 
-    ``loss_fn(batch, generator) -> scalar`` for one (users, pos, neg,
-    weight) batch; a model that needs random numbers in its loss draws them
-    from ``generator``, the stream the sampler also uses.
+    ``loss_fn(batch, generator) -> scalar`` for one batch of the sampler's
+    tuple; a model that needs random numbers in its loss draws them from
+    ``generator``, the stream the sampler also uses.
     ``sampler(generator)`` returns an epoch's batches shaped
     ``(num_batches, batch_size)``. ``epoch_batches``, when given, replaces
-    the sampler with one injected (users, pos, neg, weight) tuple of
-    arrays per epoch. With ``tracker``, ``quick_eval() -> metrics`` runs
-    after each epoch (outside its timing) and the parameters of a winning
-    epoch are copied into ``tracker.best_params``.
-    ``emit(epoch, loss, seconds, metrics)`` prints the epoch line.
+    the sampler with one injected tuple of arrays per epoch. ``mode``:
+    ``adam`` at the fixed rate ``lr``, or ``bold`` (SGD from ``lr``, the
+    bold driver capped at ``max_lr``, the convergence rule). With
+    ``quick_eval() -> metrics``, the measures of each epoch (taken outside
+    its timing) join its line; with ``tracker`` too, the parameters of a
+    winning epoch are copied into ``tracker.best_params``.
+    ``emit(epoch, loss, lr, seconds, metrics)`` prints the epoch line with
+    the learning rate in force during the epoch.
     """
-    # optax.adam's defaults
-    optimizer = torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8)
+    optimizer = make_optimizer(params, mode, lr)
+    bold = BoldDriver(lr, max_lr) if mode == "bold" else None
+    conv = ConvergenceMonitor() if mode == "bold" else None
     timer = StepTimer(examples_per_epoch, device)
     losses: List[float] = []
     for epoch in range(max_epoch):
@@ -119,12 +181,21 @@ def train(
                 optimizer.step()
                 total = total + loss.detach()
             loss_val = float(total)
-        check_finite(loss_val)
+        if conv is None:
+            # the bold mode checks inside conv.check below
+            check_finite(loss_val)
         losses.append(loss_val)
-        metrics = quick_eval() if tracker is not None else None
+        metrics = quick_eval() if quick_eval is not None else None
         if emit is not None:
-            emit(epoch, loss_val, timer.last, metrics)
-        if metrics is not None and tracker.update(epoch, metrics):
-            # copies: Adam updates the parameters in place
+            emit(epoch, loss_val, bold.lr if bold else lr, timer.last, metrics)
+        if tracker is not None and tracker.update(epoch, metrics):
+            # copies: the optimizer updates the parameters in place
             tracker.best_params = [p.detach().clone() for p in params]
+        if conv is not None:
+            if conv.check(loss_val):
+                break
+            new_lr = bold.update(epoch + 1, loss_val)
+            bold.last_loss = loss_val
+            for group in optimizer.param_groups:
+                group["lr"] = new_lr
     return losses, timer

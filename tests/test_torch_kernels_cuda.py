@@ -6,6 +6,8 @@ installed:
     python -m pytest tests/test_torch_kernels_cuda.py --noconftest -m cuda -q
 """
 
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -14,6 +16,8 @@ from qrec_tpu_torch import ModelConf, QRec
 from qrec_tpu_torch.ops import kernels as K
 from qrec_tpu_torch.ops.metrics import parse_measure
 from qrec_tpu_torch.ops.spmm import DenseJoint, SparseJoint, lightgcn_propagate, spmm
+
+CONFIG = Path(__file__).resolve().parents[1] / "config"
 
 
 @pytest.fixture
@@ -229,6 +233,97 @@ def test_topk_kernel_is_one_cuda_kernel(cuda_device, b, i, d, k):
     assert not K.masked_catalog_topk_counters(cuda_device).any()
 
 
+def _biases(device, u_n, i, which, seed):
+    """The score form's item bias (I,), user bias (U,) and offset, each where
+    ``which`` names it."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    ib = torch.randn(i, generator=g, device=device) * 0.5 if "item" in which else None
+    ub = torch.randn(u_n, generator=g, device=device) * 0.5 if "user" in which else None
+    return ib, ub, 0.375 if "offset" in which else 0.0
+
+
+# the bias epilogue (SVD's and MostPopular's score forms): bit for bit
+# against the scores entry with an all-zero mask, the adds in torch in the
+# kernel's order, the mask, the unseen rows and a stable sort (NaN, +-inf
+# and ties included); unseen users keep items 0..k-1 at the global mean;
+# counters back at 0
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["item", "user", "offset", "item+offset", "item+user+offset"])
+@pytest.mark.parametrize("d", [1, 10, 50, 150])
+def test_topk_bias_epilogue_matches_unfused(cuda_device, d, which):
+    from chip_smoke import scores_then_sort
+
+    b, i, gm = 1000, 2071, 0.25
+    user, items, bitmask, uids = _topk_inputs(cuda_device, b, i, d, seed=d)
+    ib, ub, offset = _biases(cuda_device, user.shape[0], i, which, seed=d + 1)
+    bias = dict(item_bias=ib, user_bias=ub, offset=offset)
+    for k in (1, 10, 20, 100):
+        before = K.TOPK.launches
+        ids, vals = K.masked_catalog_topk(user, items, bitmask, uids, gm, k, **bias)
+        assert K.TOPK.launches == before + 1
+        want_ids, want = scores_then_sort(torch, K.masked_catalog_scores, user, items, bitmask,
+                                          uids, gm, k, **bias)
+        torch.cuda.synchronize()
+        bad = (ids != want_ids).any(1).nonzero().flatten()[:3].tolist()
+        assert not bad, (k, bad, ids[bad], want_ids[bad], vals[bad], want[bad])
+        assert _same_bits(vals, want), k
+        unseen = uids < 0
+        assert (ids[unseen] == torch.arange(k, device=cuda_device)).all()
+        assert (vals[unseen] == gm).all()
+        assert not K.masked_catalog_topk_counters(cuda_device).any()
+    with pytest.raises(RuntimeError):  # the biased epilogue runs 64-row blocks only
+        K.masked_catalog_topk(user, items, bitmask, uids, gm, 10, plan=(128, 0, 3), **bias)
+
+
+# the bias epilogue against its plain version (cuBLAS's sums in another
+# order): ids equal except in rows whose scores differ by at most 1e-5, at
+# finite inputs of the scale training leaves
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["none", "item", "user", "item+user+offset"])
+@pytest.mark.parametrize("k", [1, 10, 20, 100])
+@pytest.mark.parametrize("d", [1, 10, 50, 150])
+def test_topk_bias_epilogue_matches_plain(cuda_device, d, k, which):
+    b, i, gm = 1000, 2071, 0.25
+    user, items, bitmask, uids = _topk_inputs(cuda_device, b, i, d, seed=k + d)
+    user[5:8] = torch.randn((3, d), device=cuda_device)
+    items[3] = items[4]
+    user, items = user * 0.1, items * 0.1
+    ib, ub, offset = _biases(cuda_device, user.shape[0], i, which, seed=k)
+    bias = dict(item_bias=ib, user_bias=ub, offset=offset)
+    ids, vals = K.masked_catalog_topk(user, items, bitmask, uids, gm, k, **bias)
+    pids, pvals = K.masked_catalog_topk_plain(user, items, bitmask, uids, gm, k, **bias)
+    torch.cuda.synchronize()
+    rows_equal = (ids == pids).all(1)
+    near = (vals - pvals).abs().max(1).values <= 1e-5
+    assert bool((rows_equal | near).all())
+    assert rows_equal.float().mean() > 0.9
+
+
+# without a bias or an offset the kernel takes the epilogue it had before
+# them: the same call as before (an offset of -0.0 selects it too), which
+# keeps a dot product that underflows to -0.0; zero biases go through the
+# adds, which make it +0.0 and change nothing else
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [4, 64])
+def test_topk_no_bias_path_keeps_its_bits(cuda_device, d):
+    b, i, k = 64, 100, 100
+    user, items, bitmask, uids = _topk_inputs(cuda_device, b, i, d, seed=3)
+    user[:8] = 1e-30
+    items[10:20] = -1e-30  # products of -1e-60: -0.0 where d is a multiple of 4
+    ids, vals = K.masked_catalog_topk(user, items, bitmask, uids, 0.0, k)
+    neg_ids, neg_vals = K.masked_catalog_topk(user, items, bitmask, uids, 0.0, k, offset=-0.0)
+    zero_ids, zero_vals = K.masked_catalog_topk(
+        user, items, bitmask, uids, 0.0, k, item_bias=torch.zeros(i, device=cuda_device),
+        user_bias=torch.zeros(user.shape[0], device=cuda_device))
+    torch.cuda.synchronize()
+    negative_zero = lambda v: torch.signbit(v) & (v == 0)  # noqa: E731
+    assert torch.equal(ids, neg_ids) and _same_bits(vals, neg_vals)
+    assert negative_zero(vals).any()
+    assert torch.equal(zero_ids, ids)
+    torch.testing.assert_close(zero_vals, vals, rtol=0, atol=0, equal_nan=True)  # -0.0 == +0.0
+    assert not negative_zero(zero_vals).any()
+
+
 # widths past the old tests' 50, whole and in slices: the same products
 # summed in another order than cuBLAS, each score within d 2^-23 of the sum
 # of its terms' magnitudes
@@ -313,6 +408,29 @@ def test_qrec_learns_planted_blocks_on_card(cuda_device, tmp_path):
     assert after["infonce_fwd"] == before["infonce_fwd"]
     assert after["infonce_bwd"] == before["infonce_bwd"]
     assert recall > 0.5
+
+
+# the MF slice's bundled confs on the card (a small synthetic file, 2
+# epochs): every ranking but Rand's runs K2's top-k, a rating run no kernel
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "name", ["BasicMF", "PMF", "SVD", "BPR", "UserMean", "ItemMean", "MostPopular", "Rand"])
+def test_mf_slice_confs_run_on_card(cuda_device, tmp_path, name):
+    rng = np.random.RandomState(1)
+    path = tmp_path / "ratings.txt"
+    path.write_text("".join(f"{u} {i} {rng.randint(1, 9) / 2}\n" for u in range(300)
+                            for i in rng.choice(500, size=12, replace=False)))
+    conf = ModelConf(str(CONFIG / f"{name}.conf"))
+    conf["ratings"] = str(path)
+    conf["num.max.epoch"] = "2"
+    conf["output.setup"] = f"off -dir {tmp_path}/"
+    K.reset_launch_counts()
+    parsed = parse_measure(QRec(conf).execute())
+    counts = K.launch_counts()
+    ranks = conf.options("item.ranking").isMainOn()
+    assert counts.pop("masked_catalog_topk") == (1 if ranks and name != "Rand" else 0)
+    assert not any(counts.values())
+    assert parsed["Top 10" if ranks else "global"]
 
 
 def _infonce_inputs(device, b, d, masked=(), zero_row=None, seed=0):

@@ -31,7 +31,7 @@ from qrec_tpu_torch.models.graph import LightGCN
 from qrec_tpu_torch.ops import metrics
 from qrec_tpu_torch.ops.sampling import pack_bitmask
 from qrec_tpu_torch.ops.spmm import DenseJoint, lightgcn_propagate
-from qrec_tpu_torch.ops.topk import CatalogRanker
+from qrec_tpu_torch.ops.topk import CatalogRanker, ScoreForm
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -148,8 +148,8 @@ def test_ranker_matches_jax_topk_and_measures():
         embedding_score_fn, {"user_emb": jnp.asarray(user_emb), "item_emb": jnp.asarray(item_emb)}
     )
     bitmask = torch.from_numpy(pack_bitmask(td.u_indptr, td.u_indices, td.num_users, td.num_items))
-    ranker = CatalogRanker(td, k=k, device="cpu", batch_size=4)  # several batches
-    tids, tscores = ranker.topk(torch.from_numpy(user_emb), torch.from_numpy(item_emb), bitmask)
+    ranker = CatalogRanker(td, k=k, device="cpu", bitmask=bitmask, batch_size=4)  # several batches
+    tids, tscores = ranker.topk(ScoreForm(torch.from_numpy(user_emb), torch.from_numpy(item_emb)))
     assert tids.shape == jids.shape
     # rows whose top k+1 scores hold a near-tie (within 1e-6) may order it
     # either way; exact ties (masked zeros, unseen users' global mean) may not
@@ -230,8 +230,6 @@ def test_qrec_without_a_card_raises(tmp_path):
 @pytest.mark.parametrize(
     "extra",
     [
-        {"evaluation.setup": "-cv 5"},
-        {"evaluation.setup": "-predict users.txt"},
         {"parallel.setup": "on"},
         {"parallel.setup": "on -model 2"},
         {"checkpoint.setup": "on -dir ckpt"},

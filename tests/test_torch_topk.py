@@ -271,6 +271,17 @@ def test_k2_plan(b, i, d, k, want):
         assert splits <= K.CATALOG_MAX_SPLITS
 
 
+@pytest.mark.parametrize("b,i,d,k", [(1024, 16591, 150, 10), (1024, 2071, 10, 10),
+                                     (1024, 16591, 1, 10), (100, 33, 300, 10)])
+def test_k2_plan_biased_takes_64_rows(b, i, d, k):
+    per_sm = _fake_occupancy()
+    plan = K.masked_catalog_plan(b, i, d, k, 132, lambda bm, sl, sp: per_sm(bm, d, sl, k, sp),
+                                 K.CATALOG_BIASED_ROWS)
+    assert plan[0] == 64
+    tiles = -(-i // 64)
+    assert -(-tiles // plan[2]) <= K.CATALOG_MAX_SPLITS
+
+
 def test_k2_plan_replay_at_its_own_plan():
     # the plan of a small batch, replayed: many splits of one tile
     b, n_items, k = 40, 1500, 10
@@ -323,3 +334,127 @@ def test_changed_header_builds_anew(tmp_path):
     assert kernel.library_path() == first
     header.write_text("// two\n")
     assert kernel.library_path() != first
+
+
+# ---------------------------------------------------------------------------
+# score forms: SVD's biased scores, MostPopular's popularity, Rand
+# ---------------------------------------------------------------------------
+
+
+def _rated_data(name, ranking="on -topN 10"):
+    """Both packages' data and confs for ``name`` on explicit ratings, with
+    test users unseen in training."""
+    import random
+
+    from qrec_tpu import config as jconfig
+    from qrec_tpu.data.dataset import Interactions as JInteractions
+    from qrec_tpu.data.split import data_split
+    from qrec_tpu_torch import ModelConf
+    from qrec_tpu_torch.data.dataset import Interactions
+
+    rng = np.random.RandomState(6)
+    records = [[f"u{u}", f"i{i}", float(rng.randint(1, 9)) / 2]
+               for u in range(40) for i in rng.choice(150, size=12, replace=False)]
+    train, test = data_split(records, 0.2, rng=random.Random(3))
+    test += [["ghost1", "i3", 2.0], ["ghost2", "i4", 1.0]]
+    conf = {
+        "ratings": "unused", "ratings.setup": "-columns 0 1 2", "model.name": name,
+        "evaluation.setup": "-ap 0.2", "item.ranking": ranking, "num.factors": "7",
+        "num.max.epoch": "1", "batch_size": "32", "learnRate": "-init 0.02 -max 1",
+        "reg.lambda": "-u 0.01 -i 0.01 -b 0.01 -s 0.2", "output.setup": "off -dir ./r/",
+        "seed": "21",
+    }
+    jconf, tconf = jconfig.ModelConf(conf), ModelConf(conf)
+    return jconf, JInteractions(jconf, train, test), tconf, Interactions(tconf, train, test)
+
+
+def _rows_agree(tids, tscores, jids, jscores, tol=1e-5):
+    """Ids equal row by row, except where the row's scores differ by at
+    most ``tol`` (near-equal scores summed in another order may swap)."""
+    rows_equal = (tids == jids).all(1)
+    gap = np.abs(tscores - jscores).max(1)
+    assert (rows_equal | (gap <= tol)).all()
+    return rows_equal
+
+
+def test_biased_topk_plain_matches_jax_svd_ranker():
+    from qrec_tpu.models.mf import SVD as JSVD
+    from qrec_tpu.ops.topk import CatalogRanker as JRanker
+    from qrec_tpu_torch.convert import embedding_params_from_jax
+    from qrec_tpu_torch.models.mf import SVD
+    from qrec_tpu_torch.ops.topk import CatalogRanker
+
+    jconf, jd, tconf, td = _rated_data("SVD")
+    jmodel = JSVD(jconf, jd)
+    spec = jmodel.build()
+    jmodel.finalize(spec.params, spec)
+    jids, jscores = JRanker(jd, k=10, batch_size=16).topk(*jmodel.score_fn_params())
+    tmodel = SVD(tconf, td, device="cpu")
+    tmodel.load_state_dict(embedding_params_from_jax(
+        {k: np.asarray(v) for k, v in spec.params.items()}, "cpu"))
+    tmodel.finalize(tmodel.build())
+    form = tmodel.score_form()
+    assert form.item_bias is not None and form.user_bias is not None and form.offset != 0
+    ranker = CatalogRanker(td, k=10, device="cpu", bitmask=tmodel.rated_bitmask, batch_size=16)
+    tids, tscores = ranker.topk(form)
+    rows_equal = _rows_agree(tids, tscores, np.asarray(jids), np.asarray(jscores))
+    assert rows_equal.mean() > 0.9
+    unseen = ranker.uids < 0
+    assert unseen.sum() == 2 and (tids[unseen] == np.arange(10)).all()
+    assert (tscores[unseen] == np.float32(td.global_mean)).all()
+    np.testing.assert_allclose(tscores, np.asarray(jscores), rtol=1e-6, atol=1e-5)
+
+
+def test_popularity_topk_plain_matches_jax_mostpopular():
+    """MostPopular's ranking through the score form (width-1 zero tables,
+    the popularity as the item bias) equals the JAX ranker's bit for bit."""
+    from qrec_tpu.models.baselines import MostPopular as JMostPopular
+    from qrec_tpu.ops.topk import CatalogRanker as JRanker
+    from qrec_tpu_torch.convert import embedding_params_from_jax
+    from qrec_tpu_torch.models.baselines import MostPopular
+    from qrec_tpu_torch.ops.topk import CatalogRanker
+
+    jconf, jd, tconf, td = _rated_data("MostPopular")
+    jmodel = JMostPopular(jconf, jd)
+    jmodel.fit()
+    jids, jscores = JRanker(jd, k=10, batch_size=16).topk(*jmodel.score_fn_params())
+    tmodel = MostPopular(tconf, td, device="cpu")
+    tmodel.fit()
+    np.testing.assert_array_equal(tmodel.scores.numpy(), jmodel.scores)
+    carried = MostPopular(tconf, td, device="cpu")  # the JAX scores carried across
+    carried.load_state_dict(embedding_params_from_jax({"scores": jmodel.scores}, "cpu"))
+    assert torch.equal(carried.scores, tmodel.scores)
+    ranker = CatalogRanker(td, k=10, device="cpu", bitmask=tmodel.rated_bitmask, batch_size=16)
+    tids, tscores = ranker.topk(tmodel.score_form())
+    np.testing.assert_array_equal(tids, np.asarray(jids))
+    np.testing.assert_array_equal(tscores.view(np.uint32), np.asarray(jscores).view(np.uint32))
+
+
+def test_rand_ranking_properties():
+    """Rand's scores: U(0, 1), rated items at 0 (they rank last), k
+    distinct items a row, unseen users at the global mean on items 0..k-1,
+    and a fresh draw for every ranking."""
+    from qrec_tpu_torch.models.baselines import Rand
+    from qrec_tpu_torch.ops.topk import CatalogRanker
+
+    _, _, tconf, td = _rated_data("Rand")
+    model = Rand(tconf, td, device="cpu")
+    model.fit()
+    k = td.num_items
+    ranker = CatalogRanker(td, k=k, device="cpu", bitmask=model.rated_bitmask, batch_size=16)
+    ids, scores = ranker.topk(model.score_form())
+    assert ids.shape == (len(ranker.uids), k)
+    for b, uid in enumerate(ranker.uids):
+        assert len(set(ids[b].tolist())) == k
+        if uid < 0:
+            assert (ids[b] == np.arange(k)).all() and (scores[b] == np.float32(td.global_mean)).all()
+            continue
+        rated = set(td.user_row_ids(uid).tolist())
+        assert set(ids[b, k - len(rated):].tolist()) == rated
+        assert (scores[b, k - len(rated):] == 0).all()
+        free = scores[b, : k - len(rated)]
+        assert ((free > 0) & (free < 1)).all() and (np.diff(scores[b]) <= 0).all()
+    again, _ = ranker.topk(model.score_form())
+    assert not np.array_equal(again, ids)
+    draws = np.concatenate([scores[b, : 20] for b in range(len(ranker.uids)) if ranker.uids[b] >= 0])
+    assert 0.5 < draws.mean() < 1.0  # the top 20 of ~140 uniform draws
