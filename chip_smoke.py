@@ -58,9 +58,17 @@ Phases, each of which exits non-zero on failure:
    item bias; BPR under ``-cv 5`` (five folds, the summary file) and
    ``-predict`` (a list of 100 users, the list file only); each with its
    launch counts against ``expected_launches``;
-9. planted-block runs that must learn their blocks: LightGCN and SimGCL on
+9. the deep and GAN slice (``deep_phases``): NeuMF, APR, IRGAN, DMF, CDAE
+   and CFGAN on the lastfm-shaped file, each ``config/`` file at its
+   published widths with the reduced epochs of ``DEEP_EPOCHS``, each with
+   its launch counts (K2's top-k for APR and IRGAN, IRGAN's with its item
+   bias; nothing for the score blocks of the other four), its steady epoch
+   ms per phase and its Recall@10; APR's and IRGAN's rankings held as the
+   main path's, the other four's against a copy of the model on the CPU;
+   one NeuMF and one CFGAN epoch under ``torch.profiler``;
+10. planted-block runs that must learn their blocks: LightGCN and SimGCL on
    the dense adjacency, LightGCN and SGL on the sparse one, and NGCF;
-10. the ``kernels`` JSON line, the card line, and the final status line.
+11. the ``kernels`` JSON line, the card line, and the final status line.
 """
 
 from __future__ import annotations
@@ -885,6 +893,99 @@ def mf_phases(torch, K, QRec, timer, tmp, conf_of):
     return launches, k2r, k2t
 
 
+# the deep and GAN slice's depth on the card: each config/*.conf at its
+# published widths, with these epochs (NeuMF's phases 5, 2, 1; APR's 2, 2)
+DEEP_EPOCHS = {"NeuMF": 5, "APR": 4, "IRGAN": 2, "DMF": 2, "CDAE": 100, "CFGAN": 20}
+# phases whose loss is one side of a minimax game and need not fall epoch
+# by epoch: a GAN's D and G losses; APR's perturbed phase, whose worst-case
+# deltas grow with the tables (its loss rises in the JAX package too)
+MINIMAX_PHASES = {"APR": (1,), "CFGAN": (0,), "IRGAN": (0,)}
+
+
+def block_ranking_phase(torch, label, model, k, users: int = 256):
+    """A score-block ranking (a model's own scorer, torch ops): the run's
+    ranking of its first ``users`` test users against the same form of a
+    copy of the model on the CPU (its parameters copied), ids equal but
+    where near-equal scores (1e-5) swap; scores finite. No kernel runs."""
+    from qrec_tpu_torch.ops.topk import CatalogRanker
+
+    ranker = CatalogRanker(model.data, k=k, device="cuda", bitmask=model.rated_bitmask,
+                           batch_size=model.eval_batch_size)
+    t0 = time.perf_counter()
+    ids, vals = ranker.topk_device(model.score_form())
+    torch.cuda.synchronize()
+    rank_ms = (time.perf_counter() - t0) * 1e3
+    cpu_model = type(model)(model.config, model.data, fold=model.fold, device="cpu")
+    cpu_model.load_state_dict({n: t.cpu() for n, t in model.state_dict().items()})
+    if model.U is not None:  # final factors (DMF's tower outputs)
+        cpu_model.U, cpu_model.V = model.U.cpu(), model.V.cpu()
+    cpu = CatalogRanker(model.data, k=k, device="cpu", bitmask=model.rated_bitmask.cpu(),
+                        batch_size=model.eval_batch_size)
+    form = cpu_model.score_form()
+    out = []
+    with torch.no_grad():
+        for start in range(0, users, cpu.batch_size):
+            uids = cpu._uids[start : min(start + cpu.batch_size, users)]
+            out.append(cpu._block_topk(form.fn(uids.clamp(min=0)), uids, k))
+    pids, pvals = torch.cat([o[0] for o in out]), torch.cat([o[1] for o in out])
+    rows_equal = (ids[:users].cpu() == pids).all(1)
+    gap = (vals[:users].cpu() - pvals).abs().max(1).values
+    ok = bool((rows_equal | (gap <= 1e-5)).all()) and bool(torch.isfinite(vals).all())
+    print(f"[{label} score block] users={len(ranker.uids)} I={model.num_items} k={k} batch="
+          f"{ranker.batch_size} rank_ms={rank_ms:.3f} (torch ops, no kernel); vs the CPU copy "
+          f"on the first {users} users: {int(rows_equal.sum())}/{len(rows_equal)} rows identical, "
+          f"max score diff {gap.max().item():.3e} (rows may differ only at near-ties, 1e-5) "
+          f"{'ok' if ok else 'MISMATCH'}", flush=True)
+    if not ok:
+        fail(f"{label}: the score-block ranking disagrees with the CPU")
+
+
+def deep_phases(torch, K, QRec, timer, conf_of):
+    """The deep and GAN slice on the card: NeuMF, APR, IRGAN, DMF, CDAE and
+    CFGAN, each driven through ``QRec(conf).execute()`` with its config at
+    its published widths and the depth of ``DEEP_EPOCHS``, its launches
+    counted against ``expected_launches`` (K2's top-k for APR and IRGAN,
+    no kernel for the four score blocks) and the steady epoch ms of each
+    phase printed; APR's and IRGAN's rankings checked as the main path's
+    (``ranking_phase``; IRGAN's top-k with its item bias also timed), the
+    score-block rankings of NeuMF, DMF, CDAE and CFGAN against the CPU; one
+    more NeuMF epoch (the fused phase: host-bound pointwise steps) and one
+    more CFGAN epoch (the (I, I) products) under torch.profiler; a summary
+    line. Returns (K2 launches per path, K2 checks, K2 timings)."""
+    launches, k2r, k2t, summary = {}, {}, {}, {}
+    for name, epochs in DEEP_EPOCHS.items():
+        label = name.lower()
+        t0 = time.perf_counter()
+        model, counts, measures = drive(torch, K, QRec, conf_of(name, epochs), label)
+        wall = time.perf_counter() - t0
+        timers = getattr(model, "phase_timers", None) or [model.timer]
+        steady = [round(t.steady_state() * 1e3, 3) for t in timers]
+        print(f"[{label}] epochs per phase {[len(t.times) for t in timers]} steady epoch ms per "
+              f"phase {steady} (mean after a phase's first epoch)", flush=True)
+        summary[name] = dict(wall_s=wall, steady_ms=steady, recall=measures["Recall"],
+                             rank_ms=model.rank_seconds * 1e3)
+        if name in ("APR", "IRGAN"):
+            launches[label] = counts["masked_catalog_topk"]
+            k2r[label] = ranking_phase(torch, K, label, model, 10)
+            if name == "IRGAN":
+                k2t["irgan biased"] = topk_timing(torch, K, timer, model, 10, "irgan biased")
+                k2r["irgan biased"] = k2r[label]
+        else:
+            block_ranking_phase(torch, label, model, 10)
+        if name == "NeuMF":
+            params = list(model.parameters())
+            profile_epoch(torch, model, "NeuMF fused phase", lambda: model.run_training(
+                params, model.loss_neu, model.pointwise_sampler(), max_epoch=1))
+        elif name == "CFGAN":
+            model.max_epoch = 1
+            profile_epoch(torch, model, "CFGAN", model.fit_phases)
+        del model
+    print("[deep] " + " ".join(
+        f"{n}: wall_s={v['wall_s']:.2f} steady_ms={v['steady_ms']} Recall@10={v['recall']} "
+        f"rank_ms={v['rank_ms']:.3f};" for n, v in summary.items()), flush=True)
+    return launches, k2r, k2t
+
+
 def write_yelp_file(path: str) -> None:
     """The :func:`yelp_matrix` interactions as a rating file."""
     rows, cols, _, _ = yelp_matrix()
@@ -957,17 +1058,22 @@ def expected_launches(model):
     matvecs for node drop, aug type 0, on the dense adjacency); both
     evaluate after every epoch (n propagations + evals K2) and once more at
     the end; K3 = K4 = 2 per SimGCL step (users, items), 1 per SGL step
-    (merged). The MF slice and the baselines run no kernel but the top-k:
-    one ranking when ``item.ranking`` is on (BPR, SVD, MostPopular), none
-    for a rating run nor for Rand (torch ops)."""
+    (merged). The MF slice, the baselines and the deep and GAN slice run no
+    kernel but the top-k: one ranking when ``item.ranking`` is on and the
+    model's score form is a ``ScoreForm`` (BPR, SVD, MostPopular, APR,
+    IRGAN: ceil(test users / eval_batch_size) launches, 512 users a batch
+    for IRGAN); none for a rating run, for Rand (torch ops) nor for the
+    score blocks of NeuMF, DMF, CDAE and CFGAN (torch ops, as the JAX
+    package ranks them through XLA)."""
     from qrec_tpu_torch.models.graph import LightGCN
     from qrec_tpu_torch.ops.kernels import KERNELS
     from qrec_tpu_torch.ops.spmm import SparseJoint
+    from qrec_tpu_torch.ops.topk import ScoreForm
 
     evals = math.ceil(len(model.data.test_set_u) / model.eval_batch_size)
     name = model.model_name
     if not isinstance(model, LightGCN):
-        ranks = model.ranking.isMainOn() and name != "Rand"
+        ranks = model.ranking.isMainOn() and isinstance(model.score_form(), ScoreForm)
         return {k.name: 0 for k in KERNELS} | {"masked_catalog_topk": evals if ranks else 0}
     steps = math.ceil(model.train_size / model.batch_size)
     n, e = model.n_layers, model.max_epoch
@@ -1049,8 +1155,13 @@ def drive(torch, K, QRec, conf, label):
     check_counts(label, counts, expect)
     if not all(math.isfinite(x) for x in losses):
         fail(f"{label}: non-finite loss {losses}")
-    if model.timer is not None and not losses[-1] < losses[0]:
-        fail(f"{label}: loss did not decrease: {losses}")
+    # each phase of a multi-phase fit minimizes its own loss, but for the
+    # phases of a minimax game
+    if model.timer is not None:
+        skip = MINIMAX_PHASES.get(model.model_name, ())
+        for k, phase in enumerate(getattr(model, "phase_losses", None) or [losses]):
+            if k not in skip and len(phase) > 1 and not phase[-1] < phase[0]:
+                fail(f"{label}: loss did not decrease in phase {k + 1}: {phase}")
     if (tracker is not None) != getattr(model, "track_best", False):
         fail(f"{label}: best-epoch tracking is {'off' if tracker is None else 'on'}")
     return model, counts, parsed
@@ -1080,23 +1191,28 @@ def planted_check(torch, tmp, ModelConf, QRec, parse_measure, name, args, extra=
         fail(f"planted-block {name} run reached Recall@10={recall} <= 0.5")
 
 
-def profile_epoch(torch, model, label):
+def profile_epoch(torch, model, label, epoch=None):
     """One more training epoch under torch.profiler: device time by kernel
     and the device's busy share of the epoch's wall time, with the InfoNCE
-    kernels' and K5's device ms."""
+    kernels' and K5's device ms. ``epoch`` runs the epoch (by default one
+    epoch of the model's single-phase spec)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from qrec_tpu_torch.runtime import trainer as T
 
-    spec = model.build()
-    gen = torch.Generator(device="cuda").manual_seed(0)
+    if epoch is None:
+        spec = model.build()
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        epoch = lambda: T.train(  # noqa: E731
+            spec.params, spec.loss_fn, spec.sampler, max_epoch=1, lr=model.lrate,
+            device=model.device, mode=spec.mode, max_lr=model.max_lrate, generator=gen,
+            examples_per_epoch=model.train_size)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        T.train(spec.params, spec.loss_fn, spec.sampler, max_epoch=1, lr=model.lrate,
-                device=model.device, mode=spec.mode, max_lr=model.max_lrate, generator=gen,
-                examples_per_epoch=model.train_size)
+        epoch()
+        torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     # device-side kernels only: a user annotation such as the optimizer's
     # step range spans kernels already counted
@@ -1257,9 +1373,15 @@ def main() -> None:
         mf_launches, mf_k2r, mf_k2t = mf_phases(torch, K, QRec, timer, tmp, conf_of)
         k2r.update(mf_k2r)
         k2t.update(mf_k2t)
+
+        # 9. the deep and GAN slice (NeuMF, APR, IRGAN, DMF, CDAE, CFGAN)
+        deep_launches, deep_k2r, deep_k2t = deep_phases(torch, K, QRec, timer, conf_of)
+        mf_launches.update(deep_launches)
+        k2r.update(deep_k2r)
+        k2t.update(deep_k2t)
         del timer
 
-        # 9. planted blocks
+        # 10. planted blocks
         planted_check(torch, tmp, ModelConf, QRec, parse_measure, "LightGCN", "-n_layer 2")
         planted_check(torch, tmp, ModelConf, QRec, parse_measure, "SimGCL",
                       "-n_layer 2 -lambda 0.05 -eps 0.1")
@@ -1271,7 +1393,7 @@ def main() -> None:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
-    # 10. results
+    # 11. results
     print(f"[K5 yelp2018] launches {yelp_counts['weighted_segment_matmul']} ms={k5['ms']:.4f} "
           f"plain_ms={k5['plain_ms']:.4f} library_ms={k5['library_ms']:.4f} "
           f"bound_ms={k5['bound_ms']:.4f} gather_floor_ms={k5['floor_ms']:.4f}", flush=True)

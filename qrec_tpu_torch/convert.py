@@ -1,34 +1,38 @@
 """Carry weights across from the JAX package.
 
-The JAX package keeps a model's trainable state as a flat pytree:
-``{"user_emb": (U, d), "item_emb": (I, d)}`` for LightGCN, SGL, SimGCL and
-the MF family, plus NGCF's (d, d) transforms ``W_{k}_1`` and ``W_{k}_2``
-and SVD's ``user_bias`` (U,) and ``item_bias`` (I,); MostPopular keeps its
-``scores`` (I,). Arrays arrive here as numpy, so this module needs no JAX.
+The JAX package keeps a model's trainable state as a pytree of arrays:
+flat for most models (``{"user_emb": (U, d), "item_emb": (I, d)}`` for
+LightGCN, SGL, SimGCL, APR and the MF family, plus NGCF's ``W_{k}_1`` and
+``W_{k}_2``, SVD's biases, MostPopular's ``scores``, NeuMF's ``PG``, ``QG``,
+``PM``, ``QM``, ``h_mf``, ``h_mlp``, ``W1..W3``, ``b1..b3``, DMF's
+``uW1 ... ib2``, CDAE's ``V``, ``enc_*``, ``dec_*``), one dict per player
+for the GANs (CFGAN's ``g`` and ``d``, IRGAN's ``gen`` and ``dis``). The
+port's modules hold the same tensors under the same names, a nested dict's
+under its key as a prefix (``gen.user_emb``). Arrays arrive here as numpy,
+so this module needs no JAX.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Mapping
 
 import numpy as np
 import torch
 
-# the JAX names the port's models use for the same tensors
-_NAMES = ("user_emb", "item_emb", "user_bias", "item_bias", "scores")
+
+def params_from_jax(params: Mapping, device, prefix: str = "") -> Dict[str, torch.Tensor]:
+    """The port's ``state_dict`` of a model from its JAX parameter pytree:
+    every array as an f32 tensor on ``device``, a nested dict's entries
+    under ``key.``:
+    ``model.load_state_dict(params_from_jax(p, device))``."""
+    out: Dict[str, torch.Tensor] = {}
+    for key, value in params.items():
+        if isinstance(value, Mapping):
+            out.update(params_from_jax(value, device, f"{prefix}{key}."))
+        else:
+            out[prefix + key] = torch.tensor(np.asarray(value, dtype=np.float32), device=device)
+    return out
 
 
-def embedding_params_from_jax(params: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
-    """The port's ``state_dict`` of a model from the JAX parameter dict:
-    the embedding tables, SVD's biases, MostPopular's scores and every
-    ``W_*`` transform present, under the same names:
-    ``model.load_state_dict(embedding_params_from_jax(p, device))``."""
-    names = [n for n in _NAMES if n in params] + sorted(k for k in params if k.startswith("W_"))
-    return {
-        name: torch.tensor(np.asarray(params[name], dtype=np.float32), device=device)
-        for name in names
-    }
-
-
-# the name of slice 1, when LightGCN was the only such model
-lightgcn_params_from_jax = embedding_params_from_jax
+# the names of earlier slices, kept for their callers
+embedding_params_from_jax = lightgcn_params_from_jax = params_from_jax

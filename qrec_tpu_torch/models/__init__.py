@@ -5,6 +5,8 @@ from __future__ import annotations
 
 from ..errors import ModelNotFoundError
 from .baselines import ItemMean, MostPopular, Rand, UserMean
+from .deep import APR, CDAE, CFGAN, DMF, NeuMF
+from .gan import IRGAN
 from .graph import NGCF, SGL, LightGCN, SimGCL
 from .mf import BPR, PMF, SVD, BasicMF
 
@@ -12,6 +14,7 @@ MODELS = {
     "LightGCN": LightGCN, "NGCF": NGCF, "SGL": SGL, "SimGCL": SimGCL,
     "BasicMF": BasicMF, "PMF": PMF, "SVD": SVD, "BPR": BPR,
     "UserMean": UserMean, "ItemMean": ItemMean, "MostPopular": MostPopular, "Rand": Rand,
+    "NeuMF": NeuMF, "DMF": DMF, "CDAE": CDAE, "CFGAN": CFGAN, "APR": APR, "IRGAN": IRGAN,
 }
 
 # display name -> canonical conf-key name (the reference's conf files key
@@ -26,8 +29,7 @@ def get_model(name: str):
     if name not in MODELS:
         raise ModelNotFoundError(
             f"model {name!r} is not ported yet (ROADMAP.md Queue 1 names its "
-            "slice: deep/GAN slice 3 second half, social slice 4, "
-            "ALS/classical/walks slice 5); "
+            "slice: social slice 4, ALS/classical/walks slice 5); "
             f"available: {sorted(MODELS)}"
         )
     return MODELS[name]

@@ -8,9 +8,12 @@ model implements ``build() -> TrainSpec``; the inherited ``fit()`` trains
 with fixed-LR Adam or bold-driver SGD (runtime/trainer.py), with a
 per-epoch quick evaluation and best-epoch selection when the spec asks for
 it (or the per-epoch MAE/RMSE of a rating run), and ``finalize`` leaves the
-final user and item factors in ``self.U`` / ``self.V``. Every model gives
-the ranker its score form (``score_form``; ``ops/topk.ScoreForm``) and
-predicts ratings with the reference's mean fallbacks (``predict_ratings``).
+final user and item factors in ``self.U`` / ``self.V``. A model trained in
+several phases (NeuMF, APR) overrides ``fit_phases`` and calls
+``run_training`` once a phase. Every model gives the ranker its score form
+(``score_form``; ``ops/topk.ScoreForm``, or ``ScoreBlock`` for a scorer
+that is not a dot product) and predicts ratings with the reference's mean
+fallbacks (``predict_ratings``).
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ from ..ops import sampling
 from ..ops.metrics import device_ranking_metrics
 from ..ops.topk import CatalogRanker, RandomScores, ScoreForm
 from ..runtime import trainer as T
+from ..runtime.profiling import StepTimer
 
 DEFAULT_SEED = 2026
 
@@ -278,6 +282,34 @@ class IterativeRecommender(Recommender):
 
         return sampler
 
+    def pointwise_sampler(self, num_negatives: int = 4) -> Callable:
+        """generator -> (users, items, labels, weight) epoch tensors shaped
+        ``(num_batches, batch_size * (1 + num_negatives))``: each shuffled
+        positive, then ``num_negatives`` non-positive negatives
+        (``ops/sampling.pointwise_epoch``)."""
+        num_tries = self._auto_tries()
+        ta = self.train_arrays
+        row_iters = sampling._bisect_iters(
+            int(np.max(np.diff(self.data.u_indptr))) if self.train_size else 1
+        )
+        bitmask = self.rated_bitmask
+
+        def sampler(gen: torch.Generator):
+            return sampling.pointwise_epoch(
+                gen, ta["u"], ta["i"], ta["indices"], ta["indptr"], bitmask,
+                num_items=self.num_items, batch_size=self.batch_size,
+                num_negatives=num_negatives, num_tries=num_tries, row_iters=row_iters,
+            )
+
+        return sampler
+
+    def dense_ratings(self) -> torch.Tensor:
+        """The dense (U, I) f32 training rating matrix on the device (the
+        row and column inputs of DMF, CDAE and CFGAN). Cached."""
+        if not hasattr(self, "_dense_r"):
+            self._dense_r = torch.from_numpy(self.data.dense_matrix()).to(self.device)
+        return self._dense_r
+
     # -- lifecycle --------------------------------------------------------
     def build(self) -> TrainSpec:
         raise NotImplementedError
@@ -345,43 +377,103 @@ class IterativeRecommender(Recommender):
         )
 
     def fit(self, epoch_batches: Optional[Sequence] = None) -> List[float]:
-        """Train for ``num.max.epoch`` epochs (fewer if the bold mode
-        converges) and finalize. ``epoch_batches`` injects one tuple of
-        arrays per epoch in place of the sampler. ``evaluation.setup ...
-        -tf`` trains a bold-mode spec with Adam, the reference's TF path
+        """Train every phase of the model and finalize it (``fit_phases``).
+        ``epoch_batches`` injects one tuple of arrays per epoch in place of
+        the sampler, numbered across the phases: a phase takes the entries
+        after the epochs already run (``_epochs_done``). Returns the
+        per-epoch losses of all phases, in order."""
+        self.begin_fit(epoch_batches)
+        self.fit_phases()
+        return self.epoch_losses
+
+    def begin_fit(self, epoch_batches: Optional[Sequence] = None) -> None:
+        """Reset the state that the phases of one fit share: the injected
+        batches, the epochs run so far, the losses and the epoch timers."""
+        self._epoch_batches = epoch_batches
+        # cumulative over the phases of this fit (the JAX package's
+        # ``_epochs_done``, models/base.py:525-535,597)
+        self._epochs_done = 0
+        self.epoch_losses: List[float] = []
+        self.phase_losses: List[List[float]] = []
+        self.phase_timers: List[StepTimer] = []
+        self.timer = StepTimer(self.train_size, self.device)
+        self.tracker = None
+
+    def fit_phases(self) -> None:
+        """One phase from ``build()`` (the JAX package's single-spec
+        ``fit``): ``num.max.epoch`` epochs (fewer if the bold mode
+        converges), then ``finalize``. ``evaluation.setup ... -tf`` trains a
+        bold-mode spec with Adam, the reference's TF path
         (base/recommender.py:194-201). When the spec tracks the best epoch,
-        the parameters of the epoch that won the vote are restored before
-        finalizing (base/iterativeRecommender.py:132-169); a rating run
-        with test records prints their MAE/RMSE every epoch. Returns the
-        per-epoch losses."""
+        a quick evaluation follows every epoch; a rating run with test
+        records prints their MAE/RMSE every epoch."""
         spec = self.build()
-        mode = "adam" if spec.mode == "bold" and self.eval_settings.contains("-tf") else spec.mode
-        gen = torch.Generator(device=self.device).manual_seed(self.seed + 1)
-        tracker, quick_eval = None, None
+        quick_eval = None
         if spec.track_best and self._quick_ranker() is not None:
-            tracker = T.BestTracker()
             quick_eval = lambda: self.quick_eval(spec)  # noqa: E731
         elif not self.ranking.isMainOn() and len(self.data.test_data) > 0:
             quick_eval = lambda: self._quick_rating_metrics(spec)  # noqa: E731
-        self.tracker = tracker
-        self.epoch_losses, self.timer = T.train(
-            spec.params, spec.loss_fn, spec.sampler,
-            max_epoch=self.max_epoch, lr=self.lrate, device=self.device,
+        self.run_training(spec.params, spec.loss_fn, spec.sampler, mode=spec.mode,
+                          track_best=spec.track_best, quick_eval=quick_eval)
+        self.finalize(spec)
+
+    def run_training(
+        self,
+        params: Sequence[torch.Tensor],
+        loss_fn: Callable,
+        sampler: Callable,
+        *,
+        mode: str = "adam",
+        track_best: bool = False,
+        max_epoch: Optional[int] = None,
+        quick_eval: Optional[Callable] = None,
+        tracker: Optional[T.BestTracker] = None,
+    ) -> List[float]:
+        """One training phase (the JAX package's ``run_training``,
+        ``models/base.py:670-830``): ``max_epoch`` epochs (``num.max.epoch``
+        by default) of ``loss_fn`` on ``sampler``'s batches, with a fresh
+        optimizer and a fresh generator seeded ``seed + 1``, as every JAX
+        phase starts from ``optimizer.init(params)`` and ``PRNGKey(seed +
+        1)``. With ``track_best`` and a ``quick_eval``, the measures of every
+        epoch go to ``tracker`` (a new one unless the caller shares one
+        across phases, whose ``epoch_offset`` numbers the epochs), and the
+        parameters of the epoch that won its vote are restored at the end.
+        Returns the phase's epoch losses."""
+        max_epoch = max_epoch or self.max_epoch
+        if mode == "bold" and self.eval_settings.contains("-tf"):
+            mode = "adam"
+        if track_best and quick_eval is not None and tracker is None:
+            tracker = T.BestTracker()
+        gen = torch.Generator(device=self.device).manual_seed(self.seed + 1)
+        done = self._epochs_done
+        injected = None
+        if self._epoch_batches is not None:
+            injected = self._epoch_batches[done : done + max_epoch]
+        losses, timer = T.train(
+            params, loss_fn, sampler,
+            max_epoch=max_epoch, lr=self.lrate, device=self.device,
             mode=mode, max_lr=self.max_lrate,
             generator=gen, examples_per_epoch=self.train_size,
-            emit=self._emit, epoch_batches=epoch_batches,
+            emit=self._emit, epoch_batches=injected,
             quick_eval=quick_eval, tracker=tracker,
         )
-        if tracker is not None and tracker.best_params is not None:
-            print(
-                f"{self.model_name} {self.fold} best epoch {tracker.best_epoch}: "
-                + " | ".join(f"{k}:{v:.5f}" for k, v in tracker.best_metrics.items())
-            )
-            with torch.no_grad():
-                for p, best in zip(spec.params, tracker.best_params):
-                    p.copy_(best)
-        self.finalize(spec)
-        return self.epoch_losses
+        self._epochs_done += len(losses)
+        self.epoch_losses += losses
+        self.phase_losses.append(losses)
+        self.phase_timers.append(timer)
+        self.timer.times += timer.times
+        self.tracker = tracker
+        if tracker is not None:
+            tracker.epoch_offset += len(losses)
+            if tracker.best_params is not None:
+                print(
+                    f"{self.model_name} {self.fold} best epoch {tracker.best_epoch}: "
+                    + " | ".join(f"{k}:{v:.5f}" for k, v in tracker.best_metrics.items())
+                )
+                with torch.no_grad():
+                    for p, best in zip(params, tracker.best_params):
+                        p.copy_(best)
+        return losses
 
 
 def check_graph_settings(conf: ModelConf) -> None:

@@ -10,6 +10,8 @@
   K tries hit positives, so a sampled negative is never a training positive.
 * ``pairwise_epoch`` — one epoch of shuffled (user, pos, neg, weight)
   batches; ``weight`` zeroes the padded tail.
+* ``pointwise_epoch`` — one epoch of (user, item, label, weight) batches,
+  each positive followed by its negatives.
 
 Randomness comes from an explicit ``torch.Generator`` on the tensors'
 device; the streams differ from ``jax.random``, so parity with the JAX
@@ -157,3 +159,43 @@ def pairwise_epoch(
     neg = sample_negatives(gen, users, num_items, indices, indptr, bitmask, num_tries, row_iters)
     shape = (num_batches, batch_size)
     return users.view(shape), pos.view(shape), neg.view(shape), weight.view(shape)
+
+
+def pointwise_epoch(
+    gen: torch.Generator,
+    train_u: torch.Tensor,
+    train_i: torch.Tensor,
+    indices: torch.Tensor,
+    indptr: torch.Tensor,
+    bitmask: torch.Tensor,
+    num_items: int,
+    batch_size: int,
+    num_negatives: int = 4,
+    num_tries: int = 8,
+    row_iters: int = 32,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Pointwise (user, item, label, weight) int64/int64/f32/f32 tensors
+    shaped ``(num_batches, batch_size * (1 + num_negatives))``
+    (next_batch_pointwise, deepRecommender.py:54-77): the training pairs
+    shuffled and padded to whole batches, each positive (label 1) followed
+    by ``num_negatives`` uniform non-positive items of its user (label 0);
+    ``weight`` is 0 on the padded tail's positives and their negatives."""
+    n = train_u.shape[0]
+    device = train_u.device
+    perm = torch.randperm(n, generator=gen, device=device)
+    num_batches = (n + batch_size - 1) // batch_size
+    padded = num_batches * batch_size
+    pad_idx = torch.cat([perm, torch.zeros(padded - n, dtype=perm.dtype, device=device)])
+    users_pos = train_u[pad_idx]
+    items_pos = train_i[pad_idx]
+    w_pos = (torch.arange(padded, device=device) < n).float()
+    users_neg = users_pos.repeat_interleave(num_negatives)
+    negs = sample_negatives(gen, users_neg, num_items, indices, indptr, bitmask, num_tries, row_iters)
+    k = 1 + num_negatives
+    users = torch.cat([users_pos[:, None], users_neg.view(padded, num_negatives)], dim=1)
+    items = torch.cat([items_pos[:, None], negs.view(padded, num_negatives)], dim=1)
+    labels = torch.zeros((padded, k), device=device)
+    labels[:, 0] = 1.0
+    weight = w_pos.repeat_interleave(k)
+    shape = (num_batches, batch_size * k)
+    return users.reshape(shape), items.reshape(shape), labels.reshape(shape), weight.reshape(shape)

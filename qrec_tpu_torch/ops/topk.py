@@ -10,6 +10,11 @@ A model hands the ranker its score form instead of the JAX package's
   bias), SVD (``offset`` = the global mean and both biases) and MostPopular
   (width-1 zero tables and its popularity as ``item_bias``), all ranked by
   K2's fused top-k;
+* :class:`ScoreBlock` — a model's own scorer ``fn(uids) -> (B, I)``, for
+  the scorers that are not a dot product (NeuMF's towers, DMF's cosine,
+  CDAE's decoder, CFGAN's generator): the JAX package ranks them through
+  XLA (its general ``score_fn`` path, ``qrec_tpu/ops/topk.py:32-80``), and
+  so does the port, with torch ops and a stable sort;
 * :class:`RandomScores` — Rand's uniform scores, drawn per batch from a
   ``torch.Generator`` (the JAX package draws them with ``jax.random`` and
   takes ``lax.top_k``, both XLA: here ``torch.rand`` and a stable sort).
@@ -25,7 +30,7 @@ base/iterativeRecommender.py:75-80):
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple, Union
+from typing import Callable, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -47,6 +52,13 @@ class ScoreForm(NamedTuple):
     item_bias: Optional[torch.Tensor] = None
     user_bias: Optional[torch.Tensor] = None
     offset: float = 0.0
+
+
+class ScoreBlock(NamedTuple):
+    """Scores ``fn(uids)``: the (B, I) f32 block of the users ``uids`` (B,)
+    int64 (all >= 0), computed on the ranker's device."""
+
+    fn: Callable[[torch.Tensor], torch.Tensor]
 
 
 class RandomScores(NamedTuple):
@@ -77,12 +89,12 @@ class CatalogRanker:
         # float32 like the JAX ranker's global-mean constant
         self.global_mean = float(np.float32(data.global_mean))
 
-    def topk(self, form: Union[ScoreForm, RandomScores]) -> Tuple[np.ndarray, np.ndarray]:
+    def topk(self, form: Union[ScoreForm, ScoreBlock, RandomScores]) -> Tuple[np.ndarray, np.ndarray]:
         """(ids int32, scores f32) numpy arrays of shape (num_test_users, k)."""
         ids, scores = self.topk_device(form)
         return ids.cpu().numpy().astype(np.int32), scores.cpu().numpy()
 
-    def topk_device(self, form: Union[ScoreForm, RandomScores]) -> Tuple[torch.Tensor, torch.Tensor]:
+    def topk_device(self, form: Union[ScoreForm, ScoreBlock, RandomScores]) -> Tuple[torch.Tensor, torch.Tensor]:
         """(ids int64, scores f32) tensors of shape (num_test_users, k) on
         ``self.device``, with no host copy; the form's tensors lie there."""
         num_items = self.data.num_items
@@ -92,7 +104,12 @@ class CatalogRanker:
             return (torch.empty((0, k), dtype=torch.int64, device=self.device),
                     torch.empty((0, k), dtype=torch.float32, device=self.device))
         if isinstance(form, RandomScores):
-            out = [self._random_topk(form.generator, uids, num_items, k) for uids in batches]
+            out = [self._block_topk(torch.rand((uids.shape[0], num_items), generator=form.generator,
+                                               device=self.device), uids, k)
+                   for uids in batches]
+        elif isinstance(form, ScoreBlock):
+            with torch.no_grad():
+                out = [self._block_topk(form.fn(uids.clamp(min=0)), uids, k) for uids in batches]
         else:
             user_emb, item_emb = form.user_emb.contiguous(), form.item_emb.contiguous()
             out = [
@@ -104,12 +121,12 @@ class CatalogRanker:
             ]
         return torch.cat([o[0] for o in out]), torch.cat([o[1] for o in out])
 
-    def _random_topk(self, gen, uids, num_items: int, k: int):
-        """Rand's batch (Rand.py:10-15): uniform scores, rated items at
-        ``MASK_VALUE``, unseen users at the global mean, a stable sort."""
-        safe = uids.clamp(min=0)
-        scores = torch.rand((uids.shape[0], num_items), generator=gen, device=self.device)
-        rated = expand_bitmask(self.bitmask[safe], num_items)
+    def _block_topk(self, scores: torch.Tensor, uids: torch.Tensor, k: int):
+        """Top-k of a (B, I) score block (Rand's uniform scores, Rand.py:10-15,
+        or a :class:`ScoreBlock`): rated items at ``MASK_VALUE``, unseen users
+        at the global mean, a stable descending sort (ties to the lower
+        item, as ``lax.top_k``)."""
+        rated = expand_bitmask(self.bitmask[uids.clamp(min=0)], scores.shape[1])
         scores = scores.masked_fill(rated, MASK_VALUE)
         scores = torch.where((uids < 0)[:, None], torch.full_like(scores, self.global_mean), scores)
         vals, ids = torch.sort(scores, dim=1, descending=True, stable=True)

@@ -85,18 +85,30 @@ def make_optimizer(params: Sequence[torch.Tensor], mode: str, lr: float) -> torc
     raise ValueError(f"unknown training mode {mode!r} (expected adam|bold)")
 
 
+def step(optimizer: torch.optim.Optimizer, loss: torch.Tensor, params: Sequence[torch.Tensor]) -> None:
+    """One optimizer step on the gradients of ``loss`` with respect to
+    ``params`` alone (a GAN player's step: the other player's tables get no
+    gradient)."""
+    for p, g in zip(params, torch.autograd.grad(loss, params)):
+        p.grad = g
+    optimizer.step()
+
+
 class BestTracker:
     """Majority-vote best-epoch tracking (base/iterativeRecommender.py:132-169).
 
     ``update`` returns True when the new metrics win the vote (more metrics
     at least as good as the best so far than worse); the training loop
-    then stores a copy of the parameters in ``best_params``.
+    then stores a copy of the parameters in ``best_params``. A tracker
+    shared by the phases of a multi-phase fit numbers epochs across them:
+    ``epoch_offset`` holds the epochs of the phases before the current one.
     """
 
     def __init__(self):
         self.best_epoch: Optional[int] = None
         self.best_metrics: Optional[Dict[str, float]] = None
         self.best_params: Optional[List[torch.Tensor]] = None
+        self.epoch_offset = 0
 
     def update(self, epoch: int, metrics: Dict[str, float]) -> bool:
         if self.best_metrics is None:
@@ -188,7 +200,7 @@ def train(
         metrics = quick_eval() if quick_eval is not None else None
         if emit is not None:
             emit(epoch, loss_val, bold.lr if bold else lr, timer.last, metrics)
-        if tracker is not None and tracker.update(epoch, metrics):
+        if tracker is not None and tracker.update(epoch + tracker.epoch_offset, metrics):
             # copies: the optimizer updates the parameters in place
             tracker.best_params = [p.detach().clone() for p in params]
         if conv is not None:

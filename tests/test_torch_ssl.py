@@ -395,6 +395,6 @@ def test_sgl_sparse_views_name_the_roadmap(tmp_path, backend):
 
 
 def test_unported_model_names_its_roadmap_item(tmp_path):
-    conf = _planted(tmp_path, "NeuMF", "", 2)
-    with pytest.raises(ModelNotFoundError, match="deep/GAN slice 3"):
+    conf = _planted(tmp_path, "SocialMF", "", 2)
+    with pytest.raises(ModelNotFoundError, match="social slice 4"):
         QRec(ModelConf(conf), device="cpu").execute()
