@@ -66,9 +66,24 @@ Phases, each of which exits non-zero on failure:
    ms per phase and its Recall@10; APR's and IRGAN's rankings held as the
    main path's, the other four's against a copy of the model on the CPU;
    one NeuMF and one CFGAN epoch under ``torch.profiler``;
-10. planted-block runs that must learn their blocks: LightGCN and SimGCL on
+10. the social slice (``social_phases``): LightGCN on the bf16 joint form
+   (``graph.dense.quant=off graph.dense.dual=on``, 2 epochs), then K1's
+   bf16-Ŝ route on that run's Ŝ, forward and backward through the model's
+   autograd Function against its plain version, bit for bit against
+   itself, timed in turns with the JAX package's two bf16 products; LightGCN
+   on the legacy int8 form and on ``graph.backend=coo`` (1 epoch each); a
+   synthetic lastfm-shaped trust file (``lastfm_trust``: 25,434 directed
+   links, clustered, mostly reciprocated) and MHCN, SEPT, BUIR, DiffNet and
+   DHCF on it at their published widths with the epochs of
+   ``SOCIAL_EPOCHS`` (SEPT's warm-up and joint phase), each with its
+   launches, host graph build, steady
+   epoch ms per phase, Recall@10/NDCG@10 and K2 ranking checks; MHCN's five
+   matrices applied as ``DenseMat`` and as ``DeviceCOO``, timed in turns,
+   the latter bit for bit against a repeat; one MHCN and one DHCF epoch
+   under ``torch.profiler``;
+11. planted-block runs that must learn their blocks: LightGCN and SimGCL on
    the dense adjacency, LightGCN and SGL on the sparse one, and NGCF;
-11. the ``kernels`` JSON line, the card line, and the final status line.
+12. the ``kernels`` JSON line, the card line, and the final status line.
 """
 
 from __future__ import annotations
@@ -900,6 +915,11 @@ DEEP_EPOCHS = {"NeuMF": 5, "APR": 4, "IRGAN": 2, "DMF": 2, "CDAE": 100, "CFGAN":
 # by epoch: a GAN's D and G losses; APR's perturbed phase, whose worst-case
 # deltas grow with the tables (its loss rises in the JAX package too)
 MINIMAX_PHASES = {"APR": (1,), "CFGAN": (0,), "IRGAN": (0,)}
+# phases checked from their second epoch on: every phase reseeds the
+# trainer's generator (seed + 1, as the JAX package's run_training does), so
+# SEPT's joint phase starts on the batches its warm-up already trained on,
+# and its first epoch's loss can sit below the next one's
+RESEEDED_PHASES = {"SEPT": (1,)}
 
 
 def block_ranking_phase(torch, label, model, k, users: int = 256):
@@ -986,6 +1006,213 @@ def deep_phases(torch, K, QRec, timer, conf_of):
     return launches, k2r, k2t
 
 
+# the social slice's depth on the card (SEPT's 4: one warm-up epoch, then
+# three joint ones, the last two on batches no phase has seen)
+SOCIAL_EPOCHS = {"MHCN": 2, "SEPT": 4, "BUIR": 2, "DiffNet": 2, "DHCF": 2}
+
+
+def lastfm_trust(num_users: int = 1892, links: int = 25434, seed: int = 0) -> np.ndarray:
+    """A lastfm-shaped trust relation (25,434 directed links among the 1,892
+    users, BASELINE.md:12), drawn from ``seed``: 59 communities of about 32
+    users, 85% of the pairs inside a community, so that triangles (MHCN's
+    motifs, SEPT's friend view) are common; 90% of the pairs reciprocated.
+    Returns (links, 2) user ids."""
+    rng = np.random.default_rng(seed)
+    community = rng.permutation(num_users) % 59
+    members = [np.flatnonzero(community == c) for c in range(59)]
+    seen, out = set(), []
+    while len(out) < links:
+        a = int(rng.integers(num_users))
+        group = members[community[a]]
+        b = int(group[rng.integers(len(group))]) if rng.random() < 0.85 else int(rng.integers(num_users))
+        if a == b or (min(a, b), max(a, b)) in seen:
+            continue
+        seen.add((min(a, b), max(a, b)))
+        both = rng.random() < 0.9 and len(out) + 2 <= links
+        out += [(a, b), (b, a)] if both else [(a, b)]
+    return np.asarray(out, dtype=np.int64)
+
+
+def bf16_phase(torch, K, timer, model, launches):
+    """K1's bf16-Ŝ route on the Ŝ that ``DenseJoint(quant=off)`` built for
+    ``model`` (LightGCN at d=50): forward and backward through the model's
+    autograd Function (``joint_matmul``: one K1 call each way) against the
+    plain version, bit for bit against itself; one application timed in
+    turns with the JAX package's ``_dense_joint_matmul`` (two bf16 products
+    with f32 results, x cast to bf16), its plain version alone, the bound of
+    the padded bf16 Ŝ plus x and the result."""
+    from qrec_tpu_torch.ops.spmm import joint_matmul
+
+    adj = model.joint_adj
+    if adj.form != "off" or adj.r.dtype != torch.bfloat16:
+        fail(f"the bf16 run built a {adj.form} {adj.r.dtype} table")
+    U, ld = adj.r.shape
+    I, d = adj.num_items, model.emb_size
+    with torch.no_grad():
+        x = torch.cat([model.user_emb, model.item_emb]).contiguous()
+    w = torch.randn(x.shape, generator=torch.Generator(device="cuda").manual_seed(4), device="cuda")
+
+    def fwd_bwd():
+        xx = x.detach().requires_grad_(True)
+        y = joint_matmul(adj, xx)
+        y.backward(w)
+        return y.detach(), xx.grad
+
+    before = K.DUAL.launches
+    y, dx = fwd_bwd()
+    calls = K.DUAL.launches - before
+    y2, dx2 = fwd_bwd()
+    plain = K.factored_dual_matmul_plain(adj.r, x, adj.row_scale, adj.col_scale)
+    plain_dx = K.factored_dual_matmul_plain(adj.r, w, adj.row_scale, adj.col_scale)
+    torch.cuda.synchronize()
+    err = max((y - plain).abs().max().item(), (dx - plain_dx).abs().max().item())
+    ok = all(torch.allclose(a, b, rtol=1e-5, atol=1e-5 * b.abs().max().item())
+             for a, b in ((y, plain), (dx, plain_dx)))
+    repeat = torch.equal(y, y2) and torch.equal(dx, dx2)
+    rb = adj.r[:, :I]
+
+    def one():
+        return K.factored_dual_matmul(adj.r, x, adj.row_scale, adj.col_scale)
+
+    def library():
+        xu, xi = x[:U].bfloat16(), x[U:].bfloat16()
+        return (torch.mm(rb, xi, out_dtype=torch.float32),
+                torch.mm(rb.T, xu, out_dtype=torch.float32))
+
+    ms, library_ms = timer.paired([one, library])
+    fwd_bwd_ms = timer.ms(fwd_bwd)
+    plain_ms = timer.ms(lambda: K.factored_dual_matmul_plain(adj.r, x, adj.row_scale,
+                                                             adj.col_scale), iters=5)
+    moved = U * ld * 2 + 2 * (U + I) * d * 4
+    bound_ms, bound_by = bound(moved, 2 * 2 * U * I * d, PEAK_BF16)
+    print(f"[K1 bf16-S lastfm] U={U} I={I} (stored {ld}) d={d} bf16 table {U * ld * 2 / 1e6:.1f} MB; "
+          f"forward and backward through joint_matmul: {calls} counted calls, max_abs_err vs plain="
+          f"{err:.3e} (rtol 1e-5, atol 1e-5 of the largest) {'ok' if ok else 'MISMATCH'}; repeat "
+          f"bit-identical={repeat}; ms={ms:.4f} library_ms={library_ms:.4f} (one application, L2 "
+          f"flushed, median of 15, timed in turns; library: 2x torch.mm bf16 -> f32) fwd_bwd_ms="
+          f"{fwd_bwd_ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} by {bound_by} "
+          f"({moved / 1e6:.1f} MB) launches on the bf16 run={launches}", flush=True)
+    if calls != 2:
+        fail(f"forward and backward of the bf16 form took {calls} K1 calls, not 2")
+    if not ok:
+        fail("K1 on the bf16 table disagrees with its plain version")
+    if not repeat:
+        fail("K1 on the bf16 table did not repeat bit for bit")
+    return dict(max_abs_err=err, ms=ms, library_ms=library_ms, plain_ms=plain_ms,
+                fwd_bwd_ms=fwd_bwd_ms, bound_ms=bound_ms, bound_by=bound_by)
+
+
+def aux_forms_phase(torch, timer, model):
+    """MHCN's five matrices (h_s, h_j, h_p, r, rᵀ) at the lastfm shape, one
+    application forward and backward as ``DenseMat`` (bf16, cuBLAS) and as
+    ``DeviceCOO`` (f32 gather and segment sum), timed in turns; the COO
+    product and gradient bit for bit against a repeat and within 1e-5 of
+    the CPU's. Returns {matrix: (dense_ms, coo_ms)}."""
+    from qrec_tpu_torch.ops.spmm import DenseMat, DeviceCOO, spmm
+
+    r = model.joint_r()
+    mats = dict(zip(("h_s", "h_j", "h_p"), model.motif_matrices()), r=r, rt=r.T.tocsr())
+    g = torch.Generator(device="cuda").manual_seed(6)
+    out = {}
+    for key, m in mats.items():
+        dense, coo = DenseMat.from_scipy(m, "cuda"), DeviceCOO.from_scipy(m, "cuda")
+        x = torch.randn((m.shape[1], 50), generator=g, device="cuda") * 0.1
+        w = torch.randn((m.shape[0], 50), generator=g, device="cuda")
+
+        def apply(op, x=x, w=w):
+            xx = x.detach().requires_grad_(True)
+            y = spmm(op, xx)
+            y.backward(w)
+            return y.detach(), xx.grad
+
+        y1, g1 = apply(coo)
+        y2, g2 = apply(coo)
+        cpu = DeviceCOO.from_scipy(m, "cpu")
+        yc, gc = apply(cpu, x.cpu(), w.cpu())
+        repeat = torch.equal(y1, y2) and torch.equal(g1, g2)
+        cpu_ok = all(torch.allclose(a.cpu(), b, rtol=1e-5, atol=1e-5 * max(b.abs().max().item(), 1e-30))
+                     for a, b in ((y1, yc), (g1, gc)))
+        yd, _ = apply(dense)
+        gap = (yd - y1).abs().max().item()
+        dense_ms, coo_ms = timer.paired([lambda: apply(dense), lambda: apply(coo)])
+        out[key] = (dense_ms, coo_ms)
+        print(f"[aux {key}] {m.shape[0]}x{m.shape[1]} nnz={m.nnz} d=50 forward+backward: "
+              f"DenseMat ms={dense_ms:.4f} ({m.shape[0] * m.shape[1] * 2 / 1e6:.1f} MB bf16) "
+              f"DeviceCOO ms={coo_ms:.4f} (L2 flushed, in turns); DeviceCOO repeat bit-identical="
+              f"{repeat}, within 1e-5 of the CPU={cpu_ok}; max |DenseMat - DeviceCOO| {gap:.3e} "
+              f"(bf16 storage and x)", flush=True)
+        if not repeat:
+            fail(f"DeviceCOO did not repeat bit for bit on MHCN's {key}")
+        if not cpu_ok:
+            fail(f"DeviceCOO on the card disagrees with the CPU on MHCN's {key}")
+    return out
+
+
+def social_phases(torch, K, QRec, timer, conf_of, trust_path):
+    """The social slice: LightGCN on the bf16 form (2 epochs, then K1's
+    bf16-Ŝ route, :func:`bf16_phase`), on the legacy int8 form and on
+    ``graph.backend=coo`` (1 epoch each); then MHCN, SEPT, BUIR, DiffNet and
+    DHCF on the lastfm-shaped file with :func:`lastfm_trust`, at their
+    published widths with the epochs of ``SOCIAL_EPOCHS`` (SEPT's 4 run its
+    warm-up and its joint phase), each with its launches against
+    ``expected_launches``, its host graph build apart from its epochs, its
+    steady epoch ms per phase, and its ranking checked as the main path's;
+    MHCN's matrices as ``DenseMat`` and as ``DeviceCOO``
+    (:func:`aux_forms_phase`); one more MHCN and DHCF epoch under
+    torch.profiler. Returns (K1 bf16 dict, bf16 run's K1
+    launches, K2 launches per path, K2 checks)."""
+    from qrec_tpu_torch.ops.spmm import DenseMat, DeviceCOO
+
+    forms = (("lightgcn-bf16", {"graph.dense.quant": "off", "graph.dense.dual": "on"}, 2),
+             ("lightgcn-int8", {"graph.dense.quant": "int8"}, 1),
+             ("lightgcn-coo", {"graph.backend": "coo"}, 1))
+    launches, k2r = {}, {}
+    for label, extra, epochs in forms:
+        conf = conf_of("LightGCN", epochs)
+        for key, value in extra.items():
+            conf[key] = value
+        model, counts, _ = drive(torch, K, QRec, conf, label)
+        launches[label] = counts["masked_catalog_topk"]
+        if label == "lightgcn-bf16":
+            k1b_launches = counts["bipartite_dual_matmul"]
+            k1b = bf16_phase(torch, K, timer, model, k1b_launches)
+        del model
+    summary = {}
+    for name, epochs in SOCIAL_EPOCHS.items():
+        conf = conf_of(name, epochs)
+        if conf.contains("social"):
+            conf["social"] = trust_path
+        label = name.lower()
+        model, counts, measures = drive(torch, K, QRec, conf, label)
+        timers = getattr(model, "phase_timers", None) or [model.timer]
+        steady = [round(t.steady_state() * 1e3, 3) for t in timers]
+        social = model.social.trustSize() if model.social is not None else None
+        ops = [
+            f"{k}=DenseMat({v.mat.shape[0]}x{v.mat.shape[1]})" if isinstance(v, DenseMat)
+            else f"{k}=DeviceCOO({v.num_rows}x{v.num_cols}, nnz={v.rows.numel()})"
+            for k, v in vars(model).items() if isinstance(v, (DenseMat, DeviceCOO))
+        ]
+        print(f"[{label}] auxiliary operators {' '.join(ops)}", flush=True)
+        print(f"[{label}] trust (users, links)={social} host graph build s={model.graph_seconds:.3f} "
+              f"(before the epochs) epochs per phase {[len(t.times) for t in timers]} steady epoch "
+              f"ms per phase {steady} (mean after a phase's first epoch) U width="
+              f"{model.U.shape[1]}", flush=True)
+        summary[name] = dict(steady_ms=steady, recall=measures["Recall"], ndcg=measures["NDCG"],
+                             rank_ms=model.rank_seconds * 1e3, graph_s=model.graph_seconds)
+        launches[label] = counts["masked_catalog_topk"]
+        k2r[label] = ranking_phase(torch, K, label, model, 10)
+        if name == "MHCN":
+            aux_forms_phase(torch, timer, model)
+        if name in ("MHCN", "DHCF"):
+            profile_epoch(torch, model, name)
+        del model
+    print("[social] " + " ".join(
+        f"{n}: steady_ms={v['steady_ms']} Recall@10={v['recall']} NDCG@10={v['ndcg']} "
+        f"rank_ms={v['rank_ms']:.3f} graph_s={v['graph_s']:.3f};" for n, v in summary.items()),
+        flush=True)
+    return k1b, k1b_launches, launches, k2r
+
+
 def write_yelp_file(path: str) -> None:
     """The :func:`yelp_matrix` interactions as a rating file."""
     rows, cols, _, _ = yelp_matrix()
@@ -1050,49 +1277,70 @@ def expected_launches(model):
     """Launches of K1-K5 in one ``QRec(conf).execute()``, from the code.
     S steps per epoch, E epochs, n layers, evals = K2 launches per ranking
     (ceil(test users / 1024), all of the fused top-k entry: no path runs
-    K2's scores entry). Every propagation is one launch forward and
-    one backward, of K1 on the dense adjacency and of K5 on the sparse one
-    (K1 then 0). LightGCN and NGCF: 2n per step, n for the final factors.
-    SimGCL: the shared first layer and the fused (N, 3d) layers, 2n per
-    step; SGL: the main graph and two views, 6n per step (+2 K1 degree
-    matvecs for node drop, aug type 0, on the dense adjacency); both
-    evaluate after every epoch (n propagations + evals K2) and once more at
-    the end; K3 = K4 = 2 per SimGCL step (users, items), 1 per SGL step
-    (merged). The MF slice, the baselines and the deep and GAN slice run no
-    kernel but the top-k: one ranking when ``item.ranking`` is on and the
-    model's score form is a ``ScoreForm`` (BPR, SVD, MostPopular, APR,
-    IRGAN: ceil(test users / eval_batch_size) launches, 512 users a batch
-    for IRGAN); none for a rating run, for Rand (torch ops) nor for the
-    score blocks of NeuMF, DMF, CDAE and CFGAN (torch ops, as the JAX
-    package ranks them through XLA)."""
+    K2's scores entry). Every propagation over the joint adjacency is one
+    launch forward and one backward, of K1 on a dense form (factored, bf16
+    or legacy int8), of K5 on the sparse one, of neither on a ``DeviceCOO``
+    (``graph.backend=coo``: torch ops). LightGCN and NGCF: 2n per step, n
+    for the final factors. SimGCL: the shared first layer and the fused
+    (N, 3d) layers, 2n per step; SGL: the main graph and two views, 6n per
+    step (+2 K1 degree matvecs for node drop, aug type 0, on the dense
+    adjacency); both evaluate after every epoch (n propagations + evals
+    K2) and once more at the end; K3 = K4 = 2 per SimGCL step (users,
+    items), 1 per SGL step (merged). The social slice: MHCN, DiffNet and
+    DHCF propagate over auxiliary matrices only (torch ops); SEPT's rec
+    view is the joint adjacency, 2n per step in both phases, n per quick
+    evaluation (every epoch) and n at the end; BUIR's dropout views ride
+    K5 (n forward and n backward online, n forward for the target per
+    step; a ``DeviceCOO`` under coo) and its final factors one joint
+    propagation of n; MHCN and SEPT rank after every epoch and at the end,
+    the other three once. The MF slice, the baselines and the deep and GAN
+    slice run no kernel but the top-k: one ranking when ``item.ranking`` is
+    on and the model's score form is a ``ScoreForm`` (BPR, SVD,
+    MostPopular, APR, IRGAN: ceil(test users / eval_batch_size) launches,
+    512 users a batch for IRGAN); none for a rating run, for Rand (torch
+    ops) nor for the score blocks of NeuMF, DMF, CDAE and CFGAN (torch ops,
+    as the JAX package ranks them through XLA)."""
     from qrec_tpu_torch.models.graph import LightGCN
+    from qrec_tpu_torch.models.social_graph import BUIR, SEPT, _GraphModel
     from qrec_tpu_torch.ops.kernels import KERNELS
-    from qrec_tpu_torch.ops.spmm import SparseJoint
+    from qrec_tpu_torch.ops.spmm import DenseJoint, SparseJoint
     from qrec_tpu_torch.ops.topk import ScoreForm
 
     evals = math.ceil(len(model.data.test_set_u) / model.eval_batch_size)
     name = model.model_name
-    if not isinstance(model, LightGCN):
+    counts = {k.name: 0 for k in KERNELS}
+    if not isinstance(model, (LightGCN, _GraphModel)):
         ranks = model.ranking.isMainOn() and isinstance(model.score_form(), ScoreForm)
-        return {k.name: 0 for k in KERNELS} | {"masked_catalog_topk": evals if ranks else 0}
+        return counts | {"masked_catalog_topk": evals if ranks else 0}
     steps = math.ceil(model.train_size / model.batch_size)
     n, e = model.n_layers, model.max_epoch
-    sparse = isinstance(model.joint_adj, SparseJoint)
+    adj = model.joint_adj if isinstance(model, (LightGCN, SEPT, BUIR)) else None
+    joint = ("bipartite_dual_matmul" if isinstance(adj, DenseJoint) else
+             "weighted_segment_matmul" if isinstance(adj, SparseJoint) else None)
+    if isinstance(model, _GraphModel):
+        rankings = e + 1 if model.track_best else 1
+        counts["masked_catalog_topk"] = evals * rankings
+        if isinstance(model, SEPT) and joint:
+            counts[joint] = 2 * n * steps * e + n * rankings
+        if isinstance(model, BUIR):
+            if isinstance(model.view_adj, SparseJoint):
+                counts["weighted_segment_matmul"] += 3 * n * steps * e
+            if joint:
+                counts[joint] += n
+        return counts
     if name in ("LightGCN", "NGCF"):
         per_step, ssl, rankings = 2 * n, 0, 1
     elif name == "SimGCL":
         per_step, ssl, rankings = 2 * n, 2, e + 1
     else:
-        degrees = 2 if model.aug_type == 0 and not sparse else 0
+        degrees = 2 if model.aug_type == 0 and joint == "bipartite_dual_matmul" else 0
         per_step, ssl, rankings = 6 * n + degrees, 1, e + 1
-    propagations = per_step * steps * e + n * rankings
-    return {
-        "bipartite_dual_matmul": 0 if sparse else propagations,
-        "masked_catalog_scores": 0,
+    if joint:
+        counts[joint] = per_step * steps * e + n * rankings
+    return counts | {
         "masked_catalog_topk": evals * rankings,
         "infonce_fwd": ssl * steps * e,
         "infonce_bwd": ssl * steps * e,
-        "weighted_segment_matmul": propagations if sparse else 0,
     }
 
 
@@ -1159,8 +1407,10 @@ def drive(torch, K, QRec, conf, label):
     # phases of a minimax game
     if model.timer is not None:
         skip = MINIMAX_PHASES.get(model.model_name, ())
+        reseeded = RESEEDED_PHASES.get(model.model_name, ())
         for k, phase in enumerate(getattr(model, "phase_losses", None) or [losses]):
-            if k not in skip and len(phase) > 1 and not phase[-1] < phase[0]:
+            first = 1 if k in reseeded else 0
+            if k not in skip and len(phase) > first + 1 and not phase[-1] < phase[first]:
                 fail(f"{label}: loss did not decrease in phase {k + 1}: {phase}")
     if (tracker is not None) != getattr(model, "track_best", False):
         fail(f"{label}: best-epoch tracking is {'off' if tracker is None else 'on'}")
@@ -1379,9 +1629,19 @@ def main() -> None:
         mf_launches.update(deep_launches)
         k2r.update(deep_k2r)
         k2t.update(deep_k2t)
+
+        # 10. the social slice: the bf16 and legacy int8 forms, DeviceCOO,
+        # MHCN, SEPT, BUIR, DiffNet and DHCF with a synthetic trust file
+        trust = os.path.join(tmp, "trust_like.txt")
+        with open(trust, "w") as f:
+            f.writelines(f"{a} {b}\n" for a, b in lastfm_trust())
+        k1b, k1b_launches, social_launches, social_k2r = social_phases(
+            torch, K, QRec, timer, conf_of, trust)
+        mf_launches.update(social_launches)
+        k2r.update(social_k2r)
         del timer
 
-        # 10. planted blocks
+        # 11. planted blocks
         planted_check(torch, tmp, ModelConf, QRec, parse_measure, "LightGCN", "-n_layer 2")
         planted_check(torch, tmp, ModelConf, QRec, parse_measure, "SimGCL",
                       "-n_layer 2 -lambda 0.05 -eps 0.1")
@@ -1393,7 +1653,7 @@ def main() -> None:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
-    # 11. results
+    # 12. results
     print(f"[K5 yelp2018] launches {yelp_counts['weighted_segment_matmul']} ms={k5['ms']:.4f} "
           f"plain_ms={k5['plain_ms']:.4f} library_ms={k5['library_ms']:.4f} "
           f"bound_ms={k5['bound_ms']:.4f} gather_floor_ms={k5['floor_ms']:.4f}", flush=True)
@@ -1428,10 +1688,14 @@ def main() -> None:
                 "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
                 "bound_by": k["bound_by"], "library_ms": k["library_ms"]}
 
-    k1["max_abs_err"] = max(k["max_abs_err"] for k in (k1, k1w, k1d, k1y))
+    print(f"[K1 bf16-S lastfm] launches {k1b_launches} (LightGCN bf16 run) ms={k1b['ms']:.4f} "
+          f"plain_ms={k1b['plain_ms']:.4f} library_ms={k1b['library_ms']:.4f} "
+          f"bound_ms={k1b['bound_ms']:.4f} max_abs_err={k1b['max_abs_err']:.3e}", flush=True)
+    k1["max_abs_err"] = max(k["max_abs_err"] for k in (k1, k1w, k1d, k1y, k1b))
     kernels = [
         row("bipartite_dual_matmul", "qrec_tpu_torch/csrc/dual_matmul.cu",
-            "qrec_tpu/ops/pallas_kernels.py:563", counts["bipartite_dual_matmul"], k1),
+            "qrec_tpu/ops/pallas_kernels.py:563",
+            counts["bipartite_dual_matmul"] + k1b_launches, k1),
         row("masked_catalog_scores", "qrec_tpu_torch/csrc/masked_scores.cu",
             "qrec_tpu/ops/pallas_kernels.py:49", counts["masked_catalog_scores"], k2),
         row("masked_catalog_topk", "qrec_tpu_torch/csrc/masked_scores.cu",

@@ -5,10 +5,16 @@ flat for most models (``{"user_emb": (U, d), "item_emb": (I, d)}`` for
 LightGCN, SGL, SimGCL, APR and the MF family, plus NGCF's ``W_{k}_1`` and
 ``W_{k}_2``, SVD's biases, MostPopular's ``scores``, NeuMF's ``PG``, ``QG``,
 ``PM``, ``QM``, ``h_mf``, ``h_mlp``, ``W1..W3``, ``b1..b3``, DMF's
-``uW1 ... ib2``, CDAE's ``V``, ``enc_*``, ``dec_*``), one dict per player
-for the GANs (CFGAN's ``g`` and ``d``, IRGAN's ``gen`` and ``dis``). The
-port's modules hold the same tensors under the same names, a nested dict's
-under its key as a prefix (``gen.user_emb``). Arrays arrive here as numpy,
+``uW1 ... ib2``, CDAE's ``V``, ``enc_*``, ``dec_*``, MHCN's
+``gating{c}``, ``gating_bias{c}``, ``sgating{c}``, ``sgating_bias{c}``,
+``attention`` and ``attention_mat``, DiffNet's ``W{k}``, DHCF's
+``layer{k}``, BUIR's ``W`` and ``b``), one dict per player for the GANs
+(CFGAN's ``g`` and ``d``, IRGAN's ``gen`` and ``dis``). The port's modules
+hold the same tensors under the same names, a nested dict's under its key
+as a prefix (``gen.user_emb``; BUIR's momentum target, which the JAX
+package keeps beside its parameters, as ``{"target": {"user_emb": ...,
+"item_emb": ...}}`` into the buffers ``target.user_emb`` and
+``target.item_emb``). Arrays arrive here as numpy,
 so this module needs no JAX.
 """
 

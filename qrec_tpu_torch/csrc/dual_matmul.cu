@@ -277,8 +277,13 @@ __global__ void __launch_bounds__(THREADS, 1) dual_regions(Args p) {
         cp_commit();
     };
     // the first group also carries the region's xi rows (raw, into oi_s
-    // before it accumulates; their scales into xu_s) and row tile 0's xu rows
-    stage_rows(oi_s, xu_s, si, p.d, col0, p.bn);
+    // before it accumulates; their scales into the ring's last stage, which
+    // the first tile to use it is issued into only after they are
+    // converted) and row tile 0's xu rows. xu_s cannot take bn scales
+    // with bf16 tiles at N = 8: TM x sx bf16 is 256 floats
+    float* xi_scale = reinterpret_cast<float*>(ring + (STAGES - 1) * stage_bytes(A_INT8, TM));
+    static_assert(stage_bytes(A_INT8, TM) >= MAX_BN * 4, "a ring stage holds a region's xi scales");
+    stage_rows(oi_s, xi_scale, si, p.d, col0, p.bn);
     stage_rows(staging, staging_scale, su, p.d, row0, TM);
     for (int k = 0; k < STAGES - 1; ++k) issue(k);
 
@@ -294,7 +299,7 @@ __global__ void __launch_bounds__(THREADS, 1) dual_regions(Args p) {
             cp_wait<STAGES>();
         __syncthreads();  // tile k landed; every warp is done with step k-1
         if (k == 0) {
-            convert_rows(xi_s, oi_s, reinterpret_cast<const float*>(xu_s), si, p.d, N, col0, p.bn);
+            convert_rows(xi_s, oi_s, xi_scale, si, p.d, N, col0, p.bn);
             __syncthreads();
             float4* o4 = reinterpret_cast<float4*>(oi_s);
             for (int e = tid; e < p.bn * so / 4; e += THREADS) o4[e] = make_float4(0.f, 0.f, 0.f, 0.f);

@@ -2,8 +2,8 @@
 
 The pure-Python branch of the JAX package's ``io.load_ratings``: rating
 triples with configurable column order, delimiter and header
-(util/io.py:31-76), optional binarize-with-threshold (util/io.py:61-65),
-``-predict`` user lists (util/io.py:79-85) and result-file writing
+(util/io.py:31-76), optional binarize-with-threshold (util/io.py:61-65), trust relations
+honouring ``social.setup`` (util/io.py:88-111), ``-predict`` user lists (util/io.py:79-85) and result-file writing
 (util/io.py:18-28). Records stay plain
 ``[user, item, rating]`` lists so the split semantics match exactly.
 """
@@ -74,6 +74,34 @@ def load_ratings(
             ) from e
         data.append([user_id, item_id, rating])
     return data
+
+
+def load_relations(conf: ModelConf, path: str) -> List[list]:
+    """Trust edges ``[user1, user2, weight]`` honouring ``social.setup``
+    (util/io.py:88-111): ``-columns a b [c]`` selects the two users and the
+    weight (1 without a third column), ``-header`` skips the first line."""
+    social_conf = OptionConf(conf["social.setup"])
+    with open(path) as f:
+        lines = f.readlines()
+    if social_conf.contains("-header"):
+        lines = lines[1:]
+    order = social_conf["-columns"].strip().split()
+    if len(order) < 2:
+        raise DataFormatError("The social file is not in a correct format (need >=2 columns).")
+    u1_col, u2_col = int(order[0]), int(order[1])
+    w_col = int(order[2]) if len(order) >= 3 else -1
+    pattern = re.compile(_DEFAULT_DELIM)
+    relation: List[list] = []
+    for line_no, line in enumerate(lines):
+        items = pattern.split(line.strip())
+        try:
+            weight = 1.0 if w_col < 0 else float(items[w_col])
+            relation.append([items[u1_col], items[u2_col], weight])
+        except (ValueError, IndexError) as e:
+            raise DataFormatError(
+                f"Malformed relation line {line_no} in {path}: {line.strip()!r}"
+            ) from e
+    return relation
 
 
 def load_user_list(path: str) -> List[str]:

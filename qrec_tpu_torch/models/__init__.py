@@ -9,12 +9,14 @@ from .deep import APR, CDAE, CFGAN, DMF, NeuMF
 from .gan import IRGAN
 from .graph import NGCF, SGL, LightGCN, SimGCL
 from .mf import BPR, PMF, SVD, BasicMF
+from .social_graph import BUIR, DHCF, MHCN, SEPT, DiffNet
 
 MODELS = {
     "LightGCN": LightGCN, "NGCF": NGCF, "SGL": SGL, "SimGCL": SimGCL,
     "BasicMF": BasicMF, "PMF": PMF, "SVD": SVD, "BPR": BPR,
     "UserMean": UserMean, "ItemMean": ItemMean, "MostPopular": MostPopular, "Rand": Rand,
     "NeuMF": NeuMF, "DMF": DMF, "CDAE": CDAE, "CFGAN": CFGAN, "APR": APR, "IRGAN": IRGAN,
+    "MHCN": MHCN, "SEPT": SEPT, "BUIR": BUIR, "DiffNet": DiffNet, "DHCF": DHCF,
 }
 
 # display name -> canonical conf-key name (the reference's conf files key
@@ -29,7 +31,8 @@ def get_model(name: str):
     if name not in MODELS:
         raise ModelNotFoundError(
             f"model {name!r} is not ported yet (ROADMAP.md Queue 1 names its "
-            "slice: social slice 4, ALS/classical/walks slice 5); "
+            "slice: social slice 4 (SocialMF and the rating and ranking social models, "
+            "ESRF, RSGAN), ALS/classical/walks slice 5); "
             f"available: {sorted(MODELS)}"
         )
     return MODELS[name]

@@ -67,11 +67,16 @@ class Recommender(nn.Module):
 
     # full-catalog scoring batch (users per masked-scorer launch)
     eval_batch_size = 1024
+    # a model that needs the trust relation (SocialRecommender) gets it as
+    # ``social``; the session refuses to run it without one
+    requires_social = False
 
-    def __init__(self, conf: ModelConf, data: Interactions, fold: str = "[1]", device=None):
+    def __init__(self, conf: ModelConf, data: Interactions, fold: str = "[1]", device=None,
+                 social=None):
         super().__init__()
         self.config = conf
         self.data = data
+        self.social = social
         self.fold = fold
         self.device = resolve_device(device)
         self.model_name = conf["model.name"]
@@ -428,6 +433,8 @@ class IterativeRecommender(Recommender):
         max_epoch: Optional[int] = None,
         quick_eval: Optional[Callable] = None,
         tracker: Optional[T.BestTracker] = None,
+        return_best: bool = True,
+        after_step: Optional[Callable] = None,
     ) -> List[float]:
         """One training phase (the JAX package's ``run_training``,
         ``models/base.py:670-830``): ``max_epoch`` epochs (``num.max.epoch``
@@ -437,8 +444,11 @@ class IterativeRecommender(Recommender):
         1)``. With ``track_best`` and a ``quick_eval``, the measures of every
         epoch go to ``tracker`` (a new one unless the caller shares one
         across phases, whose ``epoch_offset`` numbers the epochs), and the
-        parameters of the epoch that won its vote are restored at the end.
-        Returns the phase's epoch losses."""
+        parameters of the epoch that won its vote are restored at the end
+        unless ``return_best`` is off (a phase that hands its last
+        parameters and its tracker to the next, SEPT's warm-up).
+        ``after_step()`` runs after every optimizer step. Returns the
+        phase's epoch losses."""
         max_epoch = max_epoch or self.max_epoch
         if mode == "bold" and self.eval_settings.contains("-tf"):
             mode = "adam"
@@ -455,7 +465,7 @@ class IterativeRecommender(Recommender):
             mode=mode, max_lr=self.max_lrate,
             generator=gen, examples_per_epoch=self.train_size,
             emit=self._emit, epoch_batches=injected,
-            quick_eval=quick_eval, tracker=tracker,
+            quick_eval=quick_eval, tracker=tracker, after_step=after_step,
         )
         self._epochs_done += len(losses)
         self.epoch_losses += losses
@@ -465,7 +475,7 @@ class IterativeRecommender(Recommender):
         self.tracker = tracker
         if tracker is not None:
             tracker.epoch_offset += len(losses)
-            if tracker.best_params is not None:
+            if return_best and tracker.best_params is not None:
                 print(
                     f"{self.model_name} {self.fold} best epoch {tracker.best_epoch}: "
                     + " | ".join(f"{k}:{v:.5f}" for k, v in tracker.best_metrics.items())
@@ -476,26 +486,29 @@ class IterativeRecommender(Recommender):
         return losses
 
 
+GRAPH_BACKENDS = ("auto", "dense", "coo", "pallas")
+DENSE_QUANTS = ("auto", "off", "int8", "factored")
+
+
 def check_graph_settings(conf: ModelConf) -> None:
-    """Raise ConfigError for adjacency settings this port does not run: it
-    has the factored dense joint adjacency and the sparse one."""
+    """Raise ConfigError for an unknown adjacency setting, with the JAX
+    package's messages (``qrec_tpu/models/base.py:928-935,976-983,1023-1029``)."""
     backend = conf.get("graph.backend", "auto")
-    if backend == "coo":
-        raise ConfigError(
-            "graph.backend=coo (DeviceCOO: f32 gather and segment_sum) is not ported "
-            "yet (ROADMAP.md Queue 1 item 5); use auto|dense|pallas"
-        )
-    if backend not in ("auto", "dense", "pallas"):
+    if backend not in GRAPH_BACKENDS:
         raise ConfigError(f"unknown graph.backend {backend!r} (expected auto|dense|coo|pallas)")
     quant = conf.get("graph.dense.quant", "auto")
-    if quant not in ("auto", "factored"):
-        raise ConfigError(
-            f"graph.dense.quant={quant} is not ported yet (ROADMAP.md Queue 1 item 5: "
-            "bf16 and legacy int8 DenseJoint forms); use auto|factored"
-        )
+    if quant not in DENSE_QUANTS:
+        raise ConfigError(f"graph.dense.quant must be auto|off|int8|factored, got {quant!r}")
     dual = conf.get("graph.dense.dual", "auto")
     if dual not in ("auto", "on", "off"):
         raise ConfigError(f"graph.dense.dual must be auto|on|off, got {dual!r}")
+
+
+_DENSE_BUILT = {
+    "factored": "DenseJoint factored int8, dual kernel",
+    "off": "DenseJoint bf16, dual kernel",
+    "int8": "DenseJoint int8 per-row scale, dual kernel",
+}
 
 
 class GraphRecommender(IterativeRecommender):
@@ -503,19 +516,22 @@ class GraphRecommender(IterativeRecommender):
     the JAX package's ``GraphRecommender.joint_adj``, ``models/base.py:866-1034``).
 
     ``graph.backend=dense``, or ``auto`` while ``num_users x num_items``
-    fits ``graph.dense.limit``, builds the factored dense adjacency, which
-    every propagation runs through on the dual kernel whatever
-    ``graph.dense.dual`` says: the factored function is the one the JAX
-    package computes, and the port has no other dense path.
-    ``graph.backend=pallas``, or ``auto`` past the limit, builds the sparse
-    one on the segment kernel: the JAX package's single-device choice on a
-    TPU (off a TPU its ``auto`` gives ``DeviceCOO``, which is not ported)."""
+    fits ``graph.dense.limit``, builds the dense form that
+    ``graph.dense.quant`` names: ``factored`` (and ``auto``, on every
+    device), ``off`` (the bf16 Ŝ) or ``int8`` (the legacy per-row scale).
+    Every one runs through the dual kernel whatever ``graph.dense.dual``
+    says: the JAX package's two bf16 products and its dual kernel compute
+    the same function up to summation order. ``graph.backend=pallas``, or
+    ``auto`` past the limit, builds the sparse one on the segment kernel
+    (the JAX package's single-device choice on a TPU); ``coo`` builds the
+    f32 :class:`~qrec_tpu_torch.ops.spmm.DeviceCOO` (the JAX package's
+    ``auto`` off a TPU)."""
 
     @property
     def joint_adj(self):
         if not hasattr(self, "_joint_adj"):
             from ..data.graph import joint_normalized_adjacency
-            from ..ops.spmm import DENSE_JOINT_LIMIT, DenseJoint, SparseJoint
+            from ..ops.spmm import DENSE_JOINT_LIMIT, DenseJoint, DeviceCOO, SparseJoint
 
             check_graph_settings(self.config)
             try:
@@ -530,8 +546,15 @@ class GraphRecommender(IterativeRecommender):
                 backend == "auto" and self.num_users * self.num_items <= limit
             )
             if dense:
-                self._joint_adj = DenseJoint.from_interactions(self.data, self.device)
-                built = "DenseJoint factored int8, dual kernel"
+                quant = self.config.get("graph.dense.quant", "auto")
+                quant = "factored" if quant == "auto" else quant
+                self._joint_adj = DenseJoint.from_interactions(self.data, self.device, quant)
+                built = _DENSE_BUILT[quant]
+            elif backend == "coo":
+                self._joint_adj = DeviceCOO.from_host(
+                    joint_normalized_adjacency(self.data), self.device
+                )
+                built = "DeviceCOO f32 gather and segment sum"
             else:
                 self._joint_adj = SparseJoint.from_host(
                     joint_normalized_adjacency(self.data), self.device, check_symmetric=False
@@ -539,3 +562,27 @@ class GraphRecommender(IterativeRecommender):
                 built = "SparseJoint CSR, segment kernel"
             print(f"Graph backend: {built} (graph.backend={backend})")
         return self._joint_adj
+
+
+class SocialRecommender(IterativeRecommender):
+    """Adds the cleaned trust graph (``self.social``, a
+    :class:`~qrec_tpu_torch.data.social.SocialGraph`) and ``-s``
+    regularization (base/socialRecommender.py:43-46)."""
+
+    requires_social = True
+
+    def read_configuration(self) -> None:
+        super().read_configuration()
+        self.reg_s = self.config.options("reg.lambda").get_float("-s", 0.0)
+
+    @property
+    def social_arrays(self) -> dict:
+        """The trust edges on the device: ``src``, ``dst`` int64, ``w`` f32."""
+        if not hasattr(self, "_social_arrays"):
+            src, dst, w = self.social.coo()
+            self._social_arrays = {
+                "src": torch.as_tensor(src, dtype=torch.int64, device=self.device),
+                "dst": torch.as_tensor(dst, dtype=torch.int64, device=self.device),
+                "w": torch.as_tensor(w, device=self.device),
+            }
+        return self._social_arrays

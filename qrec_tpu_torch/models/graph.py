@@ -164,14 +164,15 @@ class SGL(LightGCN):
     views of the graph + merged-batch InfoNCE (SGL.py).
 
     On the factored dense adjacency (the JAX package's ``dense_views``
-    branch) a view keeps the binary R and changes its scales (node drop,
+    branch; the bf16 and legacy int8 forms take the sparse views, as there) a view keeps the binary R and changes its scales (node drop,
     aug type 0) or masks R's edges with a pair hash (edge drop, aug type 1;
     aug type 2 draws a fresh edge view per layer), then propagates through
     the dual kernel like the main graph (``ops/spmm.factored_*_view``). On
     the sparse adjacency a view is a vector of renormalized edge values
     over the joint structure of ``joint_bipartite_coo`` (node keeps, or one
     keep flag per interaction, ``ops/spmm.subgraph_vals``) and propagates
-    through the segment kernel."""
+    through the segment kernel (through torch ops on a ``DeviceCOO`` under
+    ``graph.backend=coo``)."""
 
     track_best = True
 
@@ -194,7 +195,11 @@ class SGL(LightGCN):
 
     @property
     def dense_views(self) -> bool:
-        return isinstance(self.joint_adj, DenseJoint)
+        """Views of the factored form are factored tables (the JAX
+        package's ``dense_views``: a ``DenseJoint`` with a column scale);
+        every other form takes edge values over ``view_adjacency``."""
+        adj = self.joint_adj
+        return isinstance(adj, DenseJoint) and adj.form == "factored"
 
     @property
     def edges(self) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -205,13 +210,15 @@ class SGL(LightGCN):
 
     @property
     def view_structure(self):
-        """Sparse views: the joint structure of ``joint_bipartite_coo`` on the
-        segment kernel, the interaction id of every edge and the number of
-        interactions. Built from the host's CSR: never the (U, I) R."""
+        """Sparse views: the joint structure of ``joint_bipartite_coo`` (on
+        the segment kernel, or a ``DeviceCOO`` under ``graph.backend=coo``),
+        the interaction id of every edge and the number of interactions.
+        Built from the host's CSR: never the (U, I) R."""
         if not hasattr(self, "_view_structure"):
             rows, cols, edge_ids, n = joint_bipartite_coo(self.data)
+            backend = self.config.get("graph.backend", "auto")
             self._view_structure = (
-                view_adjacency(rows, cols, n, self.device),
+                view_adjacency(rows, cols, n, self.device, backend),
                 torch.as_tensor(edge_ids, device=self.device),
                 len(self.data.csr_sel),
             )

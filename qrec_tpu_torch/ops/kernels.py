@@ -3,9 +3,10 @@ launch counters and the build step (counterpart of the JAX package's
 ``ops/pallas_kernels.py``).
 
 * :func:`bipartite_dual_matmul` — ``(A @ xi, Aᵀ @ xu)`` in one pass over A,
-  and :func:`factored_dual_matmul`, one application of the factored joint
-  adjacency with the scales fused (``csrc/dual_matmul.cu``; replaces
-  ``_dual_kernel``).
+  and :func:`factored_dual_matmul`, one application of a dense joint
+  adjacency with its scales fused: the factored and legacy int8 forms on
+  an int8 table, the bf16 Ŝ with unit scales (``csrc/dual_matmul.cu``;
+  replaces ``_dual_kernel``).
 * :func:`masked_catalog_scores` — ``U_block @ Vᵀ`` with rated items set to
   ``mask_value`` from a packed bitmask, and :func:`masked_catalog_topk`,
   the best k items of those scores for a batch of users, fused, so the
@@ -232,8 +233,8 @@ def bipartite_dual_matmul_plain(a, xu, xi):
 
 def factored_dual_matmul_plain(r, x, row_scale, col_scale):
     """Plain version of :func:`factored_dual_matmul`, the steps of the JAX
-    package's ``_int8_call``: scale, cast to bf16, the dual product, scale
-    the f32 sums."""
+    package's ``_int8_call``: scale, cast to bf16, the dual product (of an
+    int8 or a bf16 r), scale the f32 sums."""
     nu, ni = r.shape[0], col_scale.shape[0]
     su, si = row_scale[:, None], col_scale[:, None]
     xu = (x[:nu] * su).to(torch.bfloat16)
@@ -375,16 +376,20 @@ def factored_dual_matmul(
     r: torch.Tensor, x: torch.Tensor, row_scale: torch.Tensor, col_scale: torch.Tensor
 ) -> torch.Tensor:
     """``[[0, Ŝ], [Ŝᵀ, 0]] @ x`` as one (U+I, d) f32 tensor, with
-    ``Ŝ = diag(row_scale) · R · diag(col_scale)``: ``ou = su · (R @
-    bf16(si · x_i))``, ``oi = si · (Rᵀ @ bf16(su · x_u))``, the arithmetic
+    ``Ŝ = diag(row_scale) · r · diag(col_scale)``: ``ou = su · (r @
+    bf16(si · x_i))``, ``oi = si · (rᵀ @ bf16(su · x_u))``, the arithmetic
     of the JAX package's ``_int8_call``. One kernel call: the scaling and
     the casts happen as the kernel loads x, the scales of the result as it
     writes it.
 
-    ``r``: (U, ld) int8 with I = ``col_scale``'s length <= ld; on a card ld
-    is a multiple of 16 and the columns past I are zero (``DenseJoint``'s
-    layout). ``x`` (U+I, d) f32, any d <= 256; the scales f32."""
-    _check(r, "r", (torch.int8,), 2)
+    ``r``: (U, ld) int8 (the binary R of the factored form, the legacy
+    form's quantized table) or bf16 (the bf16 Ŝ, with unit scales: then
+    this is the JAX package's ``_dual_call``, x cast to bf16 and f32 sums,
+    since a unit scale changes no bit), with I = ``col_scale``'s length <=
+    ld; on a card ld is a multiple of 16 and the columns past I are zero
+    (``DenseJoint``'s layout), so no copy is made. ``x`` (U+I, d) f32, any
+    d <= 256; the scales f32."""
+    _check(r, "r", (torch.int8, torch.bfloat16), 2)
     _check(x, "x", (torch.float32,), 2)
     _check(row_scale, "row_scale", (torch.float32,), 1)
     _check(col_scale, "col_scale", (torch.float32,), 1)

@@ -1,27 +1,45 @@
-"""Joint LightGCN propagation on one device, over either form of the
-normalized joint adjacency ``[[0, Ŝ], [Ŝᵀ, 0]]`` (counterpart of the JAX
-package's ``ops/spmm.py``):
+"""Propagation on one device over every form of an adjacency (counterpart
+of the JAX package's ``ops/spmm.py``):
 
-* :class:`DenseJoint` — the ``graph.dense.quant=factored`` form:
-  ``Ŝ = diag(su) · R · diag(si)`` with R the binary interaction matrix in
-  int8 and ``su = deg_u^-1/2``, ``si = deg_i^-1/2``. Every application is
-  one call of the dual kernel's factored entry
-  (:func:`~qrec_tpu_torch.ops.kernels.factored_dual_matmul`), which reads R
-  in both orientations from one copy (no transposed R is stored) and
-  applies the scales as it loads x and writes the result.
+* :class:`DenseJoint` — the normalized joint adjacency ``[[0, Ŝ], [Ŝᵀ,
+  0]]`` as one (U, ld) table ``r`` with a row and a column scale, ``Ŝ =
+  diag(row_scale) · r · diag(col_scale)``, in one of three forms
+  (``graph.dense.quant``):
+
+  - ``factored``: r the binary interaction matrix in int8, the scales
+    ``deg_u^-1/2`` and ``deg_i^-1/2`` (exact);
+  - ``off``: r the bf16 Ŝ itself, unit scales (the JAX package's
+    ``_dense_joint_matmul`` and ``_dual_joint_matmul``);
+  - ``int8``: the legacy lossy form, r = rint(127 · Ŝ / rowmax), the row
+    scale rowmax / 127 and a unit column scale (``_int8_call`` with
+    ``si=None``).
+
+  Every application, forward and backward, is one call of the dual
+  kernel's scaled entry
+  (:func:`~qrec_tpu_torch.ops.kernels.factored_dual_matmul`), which reads
+  r once for both products and applies the scales as it loads x and writes
+  the result; a unit scale multiplies by 1.0, which changes no bit.
 * :class:`SparseJoint` — the whole (U+I) x (U+I) matrix as a row-sorted
   CSR, the counterpart of ``PaddedCOO``; every application runs through the
   segment kernel
   (:func:`~qrec_tpu_torch.ops.kernels.weighted_segment_matmul`), with
   per-edge values that a caller may replace (SGL's views).
+* :class:`DeviceCOO` — any row-sorted COO matrix, square or not, symmetric
+  or not, in f32: a gather, a multiply by the edge values and a sum per
+  row (``graph.backend=coo``, the social models' auxiliary matrices,
+  SEPT's augmented graph). The gradient is the transpose's product, in the
+  transposed order sorted once at build; the sums run in a fixed order,
+  with no atomics, so a product repeats bit for bit.
+* :class:`DenseMat` — a small auxiliary matrix stored bf16, times bf16(x)
+  with f32 sums and an f32 result.
 
-:func:`spmm` dispatches on the form. SGL's augmented views of the dense
+:func:`spmm` dispatches on the form. SGL's augmented views of the factored
 form (``factored_edge_drop_view``, ``factored_node_drop_view``) are
 ``DenseJoint``s too, with a masked table or renormalized scales, so
 :func:`joint_matmul` on a view is the JAX package's
-``factored_view_matmul``; views of the sparse form are edge values
-(:func:`subgraph_vals`). Their random inputs come in as tensors that the
-caller draws.
+``factored_view_matmul``; views of the other forms are edge values
+(:func:`subgraph_vals`) over :func:`view_adjacency`. Their random inputs
+come in as tensors that the caller draws.
 """
 
 from __future__ import annotations
@@ -60,14 +78,15 @@ def pad_table(r: torch.Tensor) -> torch.Tensor:
 
 
 class DenseJoint(NamedTuple):
-    """Factored dense joint adjacency on one device. ``r`` is stored with
-    its rows padded by zero columns (:func:`pad_table`): the item count I is
-    ``col_scale``'s length, and zero columns meet zero rows of x, so no
-    result changes."""
+    """Dense joint adjacency on one device in one of the forms of the module
+    docstring. ``r`` is stored with its rows padded by zero columns
+    (:func:`pad_table`): the item count I is ``col_scale``'s length, and
+    zero columns meet zero rows of x, so no result changes."""
 
-    r: torch.Tensor  # (U, ld) int8, binary; columns I..ld zero
-    row_scale: torch.Tensor  # (U,) f32, deg_u^-1/2
-    col_scale: torch.Tensor  # (I,) f32, deg_i^-1/2
+    r: torch.Tensor  # (U, ld) int8 (factored, int8) or bf16 (off); columns I..ld zero
+    row_scale: torch.Tensor  # (U,) f32
+    col_scale: torch.Tensor  # (I,) f32
+    form: str = "factored"
 
     @property
     def num_users(self) -> int:
@@ -82,30 +101,52 @@ class DenseJoint(NamedTuple):
         return self.num_users + self.num_items
 
     @classmethod
-    def from_tables(cls, r, row_scale, col_scale) -> "DenseJoint":
-        """From an unpadded (U, I) R."""
-        return cls(pad_table(r), row_scale, col_scale)
+    def from_tables(cls, r, row_scale, col_scale, form: str = "factored") -> "DenseJoint":
+        """From an unpadded (U, I) r."""
+        return cls(pad_table(r), row_scale, col_scale, form)
 
     @classmethod
-    def from_interactions(cls, data, device) -> "DenseJoint":
-        rb, su, si = factored_adjacency(data)
-        return cls.from_tables(
-            torch.from_numpy(rb).to(device),
-            torch.from_numpy(su).to(device),
-            torch.from_numpy(si).to(device),
-        )
+    def from_interactions(cls, data, device, quant: str = "factored") -> "DenseJoint":
+        """The form ``quant`` (factored | off | int8) of the binary
+        normalized adjacency, as the JAX package's
+        ``DenseJoint.from_interactions`` builds it (duplicates count once)."""
+        if quant == "factored":
+            rb, su, si = factored_adjacency(data)
+            as_t = lambda a: torch.from_numpy(a).to(device)  # noqa: E731
+            return cls.from_tables(as_t(rb), as_t(su), as_t(si))
+        if quant not in ("off", "int8"):
+            raise ValueError(f"unknown dense form {quant!r} (expected factored|off|int8)")
+        deg_u = np.maximum(np.diff(data.u_indptr), 1).astype(np.float32)
+        deg_i = np.maximum(np.diff(data.i_indptr), 1).astype(np.float32)
+        u = data.train_u[data.csr_sel]
+        i = data.train_i[data.csr_sel]
+        r = np.zeros((data.num_users, data.num_items), dtype=np.float32)
+        r[u, i] = 1.0 / np.sqrt(deg_u[u]) / np.sqrt(deg_i[i])
+        ones_i = torch.ones(data.num_items, dtype=torch.float32, device=device)
+        if quant == "off":
+            table = torch.from_numpy(r).to(device=device, dtype=torch.bfloat16)
+            ones_u = torch.ones(data.num_users, dtype=torch.float32, device=device)
+            return cls.from_tables(table, ones_u, ones_i, "off")
+        # legacy per-user-row scale: the row max maps to 127
+        smax = r.max(axis=1)
+        scale = np.where(smax > 0, smax / 127.0, 1.0).astype(np.float32)
+        q = np.rint(r / scale[:, None]).astype(np.int8)
+        return cls.from_tables(torch.from_numpy(q).to(device), torch.from_numpy(scale).to(device),
+                               ones_i, "int8")
 
 
 def factored_call(adj: DenseJoint, x: torch.Tensor) -> torch.Tensor:
     """``[[0, Ŝ], [Ŝᵀ, 0]] @ x`` for x (U+I, d) f32, as the JAX package's
-    ``_int8_call``: one call of the dual kernel's factored entry."""
+    ``_int8_call`` (and ``_dual_call`` for the bf16 form): one call of the
+    dual kernel's scaled entry."""
     return factored_dual_matmul(adj.r, x.contiguous(), adj.row_scale, adj.col_scale)
 
 
 class JointMatmul(torch.autograd.Function):
-    """``y = M @ x`` with M the symmetric joint adjacency. The gradient is
-    ``dx = M @ dy``: the backward is the same factored dual-kernel call on
-    the cotangent, never autograd through a transpose of R."""
+    """``y = M @ x`` with M the symmetric joint adjacency in any dense form.
+    The gradient is ``dx = M @ dy``: the backward is the same dual-kernel
+    call on the cotangent, never autograd through a transpose of r (the JAX
+    package's ``_int8_joint_matmul`` and ``_dual_joint_matmul`` VJPs)."""
 
     @staticmethod
     def forward(ctx, x, r, row_scale, col_scale):
@@ -217,17 +258,153 @@ class SegmentMatmul(torch.autograd.Function):
         return dx, dvals, None
 
 
+class DeviceCOO(NamedTuple):
+    """A (num_rows, num_cols) matrix as a row-sorted COO with f32 values
+    (the JAX package's ``DeviceCOO``, ``ops/spmm.py:25-41``), kept as a CSR
+    (``indptr``) and as the CSR of its transpose: ``t_perm`` sorts the
+    edges by (column, row), ``t_indptr`` starts each column's run and
+    ``t_cols`` holds the rows in that order. (cuSPARSE's CSR product does
+    not repeat bit for bit on an H100, so the sums are torch's segment
+    reduction.)"""
+
+    rows: torch.Tensor  # (E,) int32, sorted
+    cols: torch.Tensor  # (E,) int32
+    vals: torch.Tensor  # (E,) f32
+    num_rows: int
+    num_cols: int
+    indptr: torch.Tensor  # (num_rows + 1,) int64
+    t_perm: torch.Tensor  # (E,) int64
+    t_indptr: torch.Tensor  # (num_cols + 1,) int64
+    t_cols: torch.Tensor  # (E,) int32, rows[t_perm]
+
+    @classmethod
+    def from_host(cls, coo: COO, device) -> "DeviceCOO":
+        rows = np.asarray(coo.rows, dtype=np.int32)
+        cols = np.asarray(coo.cols, dtype=np.int32)
+        n_rows, n_cols = int(coo.shape[0]), int(coo.shape[1])
+        assert np.all(np.diff(rows) >= 0), "DeviceCOO requires row-sorted edges"
+        t_perm = np.lexsort((rows, cols))
+
+        def indptr(ids, n):
+            out = np.zeros(n + 1, dtype=np.int64)
+            np.cumsum(np.bincount(ids, minlength=n), out=out[1:])
+            return out
+
+        as_t = lambda a: torch.as_tensor(a, device=device)  # noqa: E731
+        return cls(
+            as_t(rows), as_t(cols), as_t(np.asarray(coo.vals, dtype=np.float32)), n_rows, n_cols,
+            as_t(indptr(rows, n_rows)), as_t(t_perm), as_t(indptr(cols, n_cols)),
+            as_t(rows[t_perm]),
+        )
+
+    @classmethod
+    def from_scipy(cls, m, device) -> "DeviceCOO":
+        return cls.from_host(COO.from_scipy(m), device)
+
+
+def _segment_sum(data: torch.Tensor, indptr: torch.Tensor) -> torch.Tensor:
+    """Rows of ``data`` summed in the runs that ``indptr`` starts (an empty
+    run gives a zero row), each run from its first row to its last: a
+    fixed order with no atomics, so a sum repeats bit for bit. ``unsafe``
+    skips the check that would copy the run lengths to the host."""
+    return torch.segment_reduce(data, "sum", offsets=indptr, axis=0, unsafe=True)
+
+
+def coo_matmul(adj: DeviceCOO, x: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
+    """``A @ x`` in f32 as the JAX package computes it: ``segment_sum(x[cols]
+    * vals)`` over the sorted rows."""
+    return _segment_sum(x[adj.cols] * vals[:, None], adj.indptr)
+
+
+def coo_matmul_t(adj: DeviceCOO, g: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
+    """``Aᵀ @ g`` over the transposed order, in f32."""
+    p = adj.t_perm
+    return _segment_sum(g[adj.t_cols] * vals[p][:, None], adj.t_indptr)
+
+
+class CooMatmul(torch.autograd.Function):
+    """``y = A @ x`` for a :class:`DeviceCOO` with edge values ``vals``.
+    ``dx = Aᵀ @ dy`` runs over the transposed CSR (A need not be symmetric:
+    SEPT's augmented graph is not); ``dvals[e] = dy[row_e] · x[col_e]``,
+    computed only when ``vals`` needs a gradient."""
+
+    @staticmethod
+    def forward(ctx, x, vals, adj):
+        ctx.adj = adj
+        ctx.save_for_backward(x, vals)
+        return coo_matmul(adj, x.contiguous(), vals)
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, vals = ctx.saved_tensors
+        adj = ctx.adj
+        dx = dvals = None
+        if ctx.needs_input_grad[0]:
+            dx = coo_matmul_t(adj, grad.contiguous(), vals)
+        if ctx.needs_input_grad[1]:
+            dvals = (grad[adj.rows] * x[adj.cols]).sum(dim=1)
+        return dx, dvals, None
+
+
+class DenseMat(NamedTuple):
+    """A small auxiliary matrix stored bf16 (the JAX package's ``DenseMat``,
+    ``ops/spmm.py:161-181``): ``mat @ bf16(x)`` with f32 sums and an f32
+    result."""
+
+    mat: torch.Tensor  # (m, n) bf16
+
+    @property
+    def num_rows(self) -> int:
+        return self.mat.shape[0]
+
+    @classmethod
+    def from_scipy(cls, m, device) -> "DenseMat":
+        return cls(torch.from_numpy(m.toarray().astype(np.float32)).to(device=device,
+                                                                      dtype=torch.bfloat16))
+
+
+def _bf16_product(mat: torch.Tensor, xb: torch.Tensor) -> torch.Tensor:
+    """``mat @ xb`` for bf16 operands with f32 sums and an f32 result: one
+    cuBLAS bf16 product with an f32 output on the card; on the CPU (whose
+    bf16 product rounds its result to bf16) an f32 product of the exact
+    values."""
+    if mat.device.type == "cuda":
+        return torch.mm(mat, xb, out_dtype=torch.float32)
+    return mat.float() @ xb.float()
+
+
+class DenseMatmul(torch.autograd.Function):
+    """``y = mat @ bf16(x)``. The gradient reaches x through the bf16 cast
+    as JAX's autodiff of the dot takes it: ``dx = bf16(matᵀ @ dy)`` in f32,
+    returned as f32."""
+
+    @staticmethod
+    def forward(ctx, x, mat):
+        ctx.save_for_backward(mat)
+        return _bf16_product(mat, x.to(torch.bfloat16))
+
+    @staticmethod
+    def backward(ctx, grad):
+        (mat,) = ctx.saved_tensors
+        return (mat.T.float() @ grad).to(torch.bfloat16).float(), None
+
+
 def spmm(adj, x: torch.Tensor, vals: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """``A @ x`` for either form of the joint adjacency (the JAX package's
-    ``spmm``, ``ops/spmm.py:419-457``): the factored :class:`DenseJoint`
-    through the dual kernel, the :class:`SparseJoint` through the segment
-    kernel. ``vals`` replaces the stored edge values (SGL's views) and
-    needs the sparse form."""
-    if isinstance(adj, DenseJoint):
+    """``A @ x`` for every form (the JAX package's ``spmm``,
+    ``ops/spmm.py:419-457``): a :class:`DenseJoint` through the dual
+    kernel, a :class:`SparseJoint` through the segment kernel, a
+    :class:`DeviceCOO` or :class:`DenseMat` through torch ops. ``vals``
+    replaces the stored edge values (views) and needs a sparse form."""
+    if isinstance(adj, (DenseJoint, DenseMat)):
         if vals is not None:
-            raise ValueError("per-edge values need the sparse adjacency")
+            raise ValueError("per-edge values need a sparse adjacency")
+        if isinstance(adj, DenseMat):
+            return DenseMatmul.apply(x, adj.mat)
         return joint_matmul(adj, x)
-    return SegmentMatmul.apply(x, adj.vals if vals is None else vals, adj)
+    v = adj.vals if vals is None else vals
+    if isinstance(adj, DeviceCOO):
+        return CooMatmul.apply(x, v, adj)
+    return SegmentMatmul.apply(x, v, adj)
 
 
 def lightgcn_propagate(
@@ -277,17 +454,21 @@ def subgraph_vals(
     return renormalize_vals(rows, cols, kept.float(), num_nodes)
 
 
-def view_adjacency(rows, cols, n_nodes: int, device) -> SparseJoint:
-    """Adjacency of per-edge-value views (SGL's dropout subgraphs): the
-    structure is fixed and the values change every step, so the stored
-    values are placeholders and callers pass ``vals`` to :func:`spmm`. The
-    single-device part of the JAX package's ``view_adjacency``
-    (``ops/spmm.py:931-978``) under ``graph.backend=pallas``: the port's
-    views of a sparse joint adjacency always ride the segment kernel.
-    ``rows``/``cols`` describe a symmetric structure in lexsorted order, as
-    ``joint_bipartite_coo`` returns it."""
+def view_adjacency(rows, cols, n_nodes: int, device, backend: str = "auto"):
+    """Adjacency of per-edge-value views (SGL's and BUIR's dropout
+    subgraphs): the structure is fixed and the values change every step, so
+    the stored values are placeholders and callers pass ``vals`` to
+    :func:`spmm`. The single-device part of the JAX package's
+    ``view_adjacency`` (``ops/spmm.py:931-978``): a :class:`DeviceCOO`
+    under ``graph.backend=coo``, else the segment kernel's
+    :class:`SparseJoint` (the JAX package's ``PaddedCOO``; its
+    ``VIEW_PALLAS_MIN_EDGES`` rule is a TPU choice that the port does not
+    take). ``rows``/``cols`` describe a symmetric structure in lexsorted
+    order, as ``joint_bipartite_coo`` returns it."""
     ones = np.ones(len(rows), dtype=np.float32)
     coo = COO(np.asarray(rows, np.int32), np.asarray(cols, np.int32), ones, (n_nodes, n_nodes))
+    if backend == "coo":
+        return DeviceCOO.from_host(coo, device)
     return SparseJoint.from_host(coo, device, check_symmetric=False)
 
 

@@ -2,8 +2,10 @@
 the JAX package's ``runtime/session.py``) for the ``-ap``, ``-testSet``,
 ``-cv`` and ``-predict`` protocols.
 
-``QRec(conf, seed=0, device=None)`` runs on the CUDA device unless the
-caller passes ``device="cpu"``; with no card it raises
+``QRec(conf, seed=0, device=None)`` reads the ``social`` relation file
+when the config names one and hands it to every fold (a social model
+without one raises); it runs on the CUDA device unless the caller passes
+``device="cpu"``; with no card it raises
 :class:`DeviceUnavailableError` rather than falling back. Cross-validation
 folds run one after another on that device; their measures are averaged as
 strings and the summary file is written whatever ``output.setup`` says, as
@@ -13,11 +15,12 @@ the reference does (QRec.py:91-107).
 from __future__ import annotations
 
 import random as _random
-from typing import List
+from typing import List, Optional
 
 from .. import io as qio
 from ..config import ModelConf, OptionConf
 from ..data.dataset import Interactions
+from ..data.social import SocialGraph
 from ..data.split import cross_validation, data_split
 from ..device import resolve_device
 from ..errors import ConfigError, EvaluationError
@@ -54,11 +57,20 @@ def check_ported(config: ModelConf) -> None:
     check_graph_settings(config)
 
 
-def run_fold(config: ModelConf, train, test, fold: str, seed: int, device):
-    """Train + evaluate one fold; returns (measure lines, model)."""
+def run_fold(config: ModelConf, train, test, relation, fold: str, seed: int, device):
+    """Train + evaluate one fold; returns (measure lines, model). A social
+    model gets the trust ``relation`` cleaned against the fold's training
+    users (``SocialGraph``)."""
     model_cls = get_model(config["model.name"])
     data = Interactions(config, train, test, seed=seed)
-    model = model_cls(config, data, fold=fold, device=device)
+    kwargs = {}
+    if model_cls.requires_social:
+        if relation is None:
+            raise ConfigError(
+                f"model {config['model.name']} requires a 'social' relation file in the config"
+            )
+        kwargs["social"] = SocialGraph(relation, data)
+    model = model_cls(config, data, fold=fold, device=device, **kwargs)
     log = Log(model.model_name, model.model_name + fold + " " + timestamp())
     log.add("### model configuration ###")
     for k in config:
@@ -87,6 +99,7 @@ class QRec:
         self.device = resolve_device(device)
         self.training_data: List[list] = []
         self.test_data: List[list] = []
+        self.relation: Optional[List[list]] = None
         self.measure: List[str] = []
         if not config.contains("evaluation.setup"):
             raise ConfigError("Wrong configuration of evaluation!")
@@ -130,10 +143,14 @@ class QRec:
             raise EvaluationError(
                 "evaluation.setup must contain one of -testSet/-ap/-cv/-predict"
             )
+        if config.contains("social"):
+            self.relation = qio.load_relations(config, config["social"])
         print("Reading data and preprocessing...")
 
     def _run_fold(self, train, test, fold: str) -> List[str]:
-        measure, self.model = run_fold(self.config, train, test, fold, self.seed, self.device)
+        measure, self.model = run_fold(
+            self.config, train, test, self.relation, fold, self.seed, self.device
+        )
         return measure
 
     def execute(self) -> List[str]:

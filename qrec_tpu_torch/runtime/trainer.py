@@ -156,6 +156,7 @@ def train(
     epoch_batches: Optional[Sequence] = None,
     quick_eval: Optional[Callable] = None,
     tracker: Optional[BestTracker] = None,
+    after_step: Optional[Callable] = None,
 ) -> Tuple[List[float], StepTimer]:
     """Train ``params`` in place; return the per-epoch summed losses (fewer
     than ``max_epoch`` when the bold mode converges) and the epoch timer.
@@ -172,7 +173,8 @@ def train(
     its timing) join its line; with ``tracker`` too, the parameters of a
     winning epoch are copied into ``tracker.best_params``.
     ``emit(epoch, loss, lr, seconds, metrics)`` prints the epoch line with
-    the learning rate in force during the epoch.
+    the learning rate in force during the epoch. ``after_step()`` runs after
+    every optimizer step (BUIR's momentum target).
     """
     optimizer = make_optimizer(params, mode, lr)
     bold = BoldDriver(lr, max_lr) if mode == "bold" else None
@@ -191,6 +193,8 @@ def train(
                 optimizer.zero_grad(set_to_none=True)
                 loss.backward()
                 optimizer.step()
+                if after_step is not None:
+                    after_step()
                 total = total + loss.detach()
             loss_val = float(total)
         if conv is None:

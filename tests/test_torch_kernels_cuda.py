@@ -868,3 +868,164 @@ def test_sparse_and_ngcf_paths_learn_planted_blocks_on_card(
     assert (after["weighted_segment_matmul"] > before["weighted_segment_matmul"]) == sparse
     assert (after["bipartite_dual_matmul"] > before["bipartite_dual_matmul"]) == (not sparse)
     assert recall > 0.5
+
+
+# ---------------------------------------------------------------------------
+# the social slice: the bf16 Ŝ and legacy int8 forms on K1, DeviceCOO,
+# DenseMat and the five models
+# ---------------------------------------------------------------------------
+
+
+def _dense_form(device, u, i, form, seed=5):
+    """A normalized (U, I) Ŝ of 5% density as the bf16 form (unit scales)
+    or the legacy int8 form (rint(127 r / rowmax), row scale rowmax / 127,
+    unit column scale), as ``DenseJoint.from_interactions`` builds them."""
+    rng = np.random.RandomState(seed)
+    r = ((rng.rand(u, i) < 0.05) * rng.rand(u, i)).astype(np.float32)
+    r[0] = 0  # a user without an edge
+    ones_u, ones_i = torch.ones(u, device=device), torch.ones(i, device=device)
+    if form == "off":
+        table = torch.from_numpy(r).to(device=device, dtype=torch.bfloat16)
+        return DenseJoint.from_tables(table, ones_u, ones_i, "off")
+    smax = r.max(axis=1)
+    scale = np.where(smax > 0, smax / 127.0, 1.0).astype(np.float32)
+    q = np.rint(r / scale[:, None]).astype(np.int8)
+    return DenseJoint.from_tables(torch.from_numpy(q).to(device), torch.from_numpy(scale).to(device),
+                                  ones_i, "int8")
+
+
+# the bf16-Ŝ route: the symmetric autograd Function, one K1 call forward
+# and one backward, each against the plain version on the same operands
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["off", "int8"])
+@pytest.mark.parametrize("d", [1, 50, 150])
+@pytest.mark.parametrize("u,i", [(15, 17), (300, 901), (1892, 16591)])
+def test_dense_forms_forward_and_backward_match_plain(cuda_device, u, i, d, form):
+    from qrec_tpu_torch.ops.spmm import joint_matmul
+
+    adj = _dense_form(cuda_device, u, i, form)
+    assert adj.r.shape[1] % 16 == 0 and not adj.r[:, i:].any()
+    assert adj.r.dtype == (torch.bfloat16 if form == "off" else torch.int8)
+    g = torch.Generator(device=cuda_device).manual_seed(d)
+    x = torch.randn((u + i, d), generator=g, device=cuda_device).requires_grad_(True)
+    w = torch.randn((u + i, d), generator=g, device=cuda_device)
+    before = K.DUAL.launches
+    y = joint_matmul(adj, x)
+    (y * w).sum().backward()
+    assert K.DUAL.launches == before + 2  # forward, then the same call on the cotangent
+    plain = K.factored_dual_matmul_plain(adj.r, x.detach(), adj.row_scale, adj.col_scale)
+    plain_dx = K.factored_dual_matmul_plain(adj.r, w, adj.row_scale, adj.col_scale)
+    torch.cuda.synchronize()
+    for got, want in ((y.detach(), plain), (x.grad, plain_dx)):
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * float(want.abs().max()))
+    again = K.factored_dual_matmul(adj.r, x.detach(), adj.row_scale, adj.col_scale)
+    assert torch.equal(again, y.detach())  # repeats bit for bit
+    if form == "off":
+        # unit scales change no bit: the unscaled entry on bf16(x) gives
+        # the same sums in the same order
+        xb = x.detach().bfloat16()
+        xi = torch.zeros((adj.r.shape[1], d), dtype=torch.bfloat16, device=cuda_device)
+        xi[:i] = xb[u:]
+        ou, oi = K.bipartite_dual_matmul(adj.r, xb[:u].contiguous(), xi)
+        assert torch.equal(y.detach(), torch.cat([ou, oi[:i]]))
+
+
+def _coo_operands(device, m, n, seed=3):
+    import scipy.sparse as sp
+
+    from qrec_tpu_torch.ops.spmm import DeviceCOO
+
+    rng = np.random.RandomState(seed)
+    mat = sp.random(m, n, density=0.02, format="csr", random_state=rng, dtype=np.float32)
+    return DeviceCOO.from_scipy(mat, device), DeviceCOO.from_scipy(mat, "cpu")
+
+
+# DeviceCOO repeats bit for bit on the card (segment sums in a fixed order,
+# no atomics), forward and through the transposed order backward
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n", [(1892, 1892), (1892, 16591), (16591, 1892)])
+def test_device_coo_repeats_bit_for_bit(cuda_device, m, n):
+    adj, cpu = _coo_operands(cuda_device, m, n)
+    g = torch.Generator().manual_seed(m + n)
+    x0, w0 = torch.randn((n, 50), generator=g), torch.randn((m, 50), generator=g)
+    outs = []
+    for _ in range(2):
+        x = x0.to(cuda_device).requires_grad_(True)
+        y = spmm(adj, x)
+        (y * w0.to(cuda_device)).sum().backward()
+        outs.append((y.detach(), x.grad))
+    assert torch.equal(outs[0][0], outs[1][0]) and torch.equal(outs[0][1], outs[1][1])
+    xc = x0.clone().requires_grad_(True)
+    yc = spmm(cpu, xc)
+    (yc * w0).sum().backward()
+    torch.testing.assert_close(outs[0][0].cpu(), yc.detach(), rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(outs[0][1].cpu(), xc.grad, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_dense_mat_on_card_matches_the_cpu(cuda_device):
+    import scipy.sparse as sp
+
+    from qrec_tpu_torch.ops.spmm import DenseMat
+
+    rng = np.random.RandomState(4)
+    mat = sp.random(300, 700, density=0.1, format="csr", random_state=rng, dtype=np.float32)
+    x0 = torch.from_numpy(rng.randn(700, 50).astype(np.float32))
+    w0 = torch.from_numpy(rng.randn(300, 50).astype(np.float32))
+    outs = []
+    for device in ("cpu", cuda_device):
+        adj = DenseMat.from_scipy(mat, device)
+        x = x0.to(device).clone().requires_grad_(True)
+        y = spmm(adj, x)
+        assert y.dtype == torch.float32
+        (y * w0.to(device)).sum().backward()
+        outs.append((y.detach().cpu(), x.grad.cpu()))
+    torch.testing.assert_close(outs[1][0], outs[0][0], rtol=1e-5, atol=1e-5)
+    # the gradient is bf16-rounded: a sum-order difference may flip a rounding
+    torch.testing.assert_close(outs[1][1], outs[0][1], rtol=8e-3, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "name,args,extra",
+    [("MHCN", "-n_layer 2 -ss_rate 0.01", {}),
+     ("SEPT", "-n_layer 2 -ss_rate 0.005 -drop_rate 0.3 -ins_cnt 5", {}),
+     ("BUIR", "-n_layer 2 -tau 0.99 -drop_rate 0.2",
+      {"learnRate": "-init 0.01 -max 1", "num.max.epoch": "40"}),
+     ("DiffNet", "-n_layer 2", {"graph.aux.dense": "on"}),
+     ("DHCF", None, {}),
+     ("LightGCN", "-n_layer 2", {"graph.dense.quant": "off"}),
+     ("LightGCN", "-n_layer 2", {"graph.dense.quant": "int8"}),
+     ("LightGCN", "-n_layer 2", {"graph.backend": "coo"})],
+)
+def test_social_slice_learns_planted_blocks_on_card(cuda_device, tmp_path, name, args, extra):
+    rng = np.random.RandomState(0)
+    ratings, trust = tmp_path / "ratings.txt", tmp_path / "trust.txt"
+    ratings.write_text("".join(
+        f"u{u} i{i} 1\n"
+        for u in range(40)
+        for i in rng.choice(15, size=10, replace=False) + (0 if u < 20 else 15)
+    ))
+    trust.write_text("".join(
+        [f"u{u} u{f} 1\n" for u in range(40)
+         for f in rng.choice(20, size=4, replace=False) + (0 if u < 20 else 20) if f != u]
+        + [f"u{u} u{u ^ 1} 1\n" for u in range(40)]
+    ))
+    conf = {
+        "ratings": str(ratings), "ratings.setup": "-columns 0 1 2", "social": str(trust),
+        "social.setup": "-columns 0 1 2", "model.name": name, "evaluation.setup": "-ap 0.2",
+        "item.ranking": "on -topN 10", "num.factors": "16", "num.max.epoch": "30",
+        "batch_size": "64", "learnRate": "-init 0.05 -max 1",
+        "reg.lambda": "-u 0.001 -i 0.001 -b 0.1 -s 0.1",
+        "output.setup": "off -dir ./results/", "seed": "7", **extra,
+    }
+    if args:
+        conf[name] = args
+    K.reset_launch_counts()
+    recall = parse_measure(QRec(ModelConf(conf), seed=3).execute())["Top 10"]["Recall"]
+    counts = K.launch_counts()
+    assert counts["masked_catalog_topk"] > 0  # every model ranks through K2
+    joint = name in ("SEPT", "BUIR") or (name == "LightGCN" and "graph.backend" not in extra)
+    assert (counts["bipartite_dual_matmul"] > 0) == joint
+    assert (counts["weighted_segment_matmul"] > 0) == (name == "BUIR")
+    assert recall > (0.35 if name == "BUIR" else 0.5)

@@ -236,10 +236,11 @@ def test_qrec_without_a_card_raises(tmp_path):
         {"model.setup": "-load model.npz"},
         {"model.setup": "-save model.npz"},
         {"model.setup": "off -save model.npz"},  # -save asks, whatever the switch
-        {"graph.backend": "coo"},
+        # the adjacency forms are ported: what they come with is still refused
+        {"graph.backend": "coo", "checkpoint.setup": "on -dir ckpt"},
         {"graph.backend": "pallas", "parallel.setup": "on"},  # the sharded segment kernel
-        {"graph.dense.quant": "int8"},
-        {"graph.dense.quant": "off"},
+        {"graph.dense.quant": "int8", "model.setup": "-save model.npz"},
+        {"graph.dense.quant": "off", "parallel.setup": "on"},
     ],
 )
 def test_unported_settings_raise(tmp_path, extra):
@@ -263,6 +264,10 @@ def test_port_never_imports_jax():
     files = (sorted((REPO / "qrec_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
              + sorted(REPO.glob("k*_p*.py")))
     assert len(files) > 15
+    # the social slice's modules are among them
+    scanned = {str(p.relative_to(REPO)) for p in files}
+    assert {"qrec_tpu_torch/models/social_graph.py", "qrec_tpu_torch/data/social.py",
+            "qrec_tpu_torch/io.py", "qrec_tpu_torch/ops/spmm.py"} <= scanned
     banned = {"jax", "jaxlib", "optax", "flax", "qrec_tpu"}
     for path in files:
         bad = banned & set(_imported_roots(path))

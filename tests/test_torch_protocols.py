@@ -96,7 +96,8 @@ def test_cv_summary_matches_jax_for_the_same_fold_measures(tmp_path, monkeypatch
         return folds[int(fold.strip("[]")) - 1]
 
     monkeypatch.setattr(jsession, "run_fold", lambda c, tr, te, rel, fold, seed: (fold_of(fold), None))
-    monkeypatch.setattr(session, "run_fold", lambda c, tr, te, fold, seed, dev: (fold_of(fold), None))
+    monkeypatch.setattr(session, "run_fold",
+                        lambda c, tr, te, rel, fold, seed, dev: (fold_of(fold), None))
     conf = _conf(tmp_path, "MostPopular", "-cv 4", "off")
     want = jsession.QRec(jconfig.ModelConf(conf)).execute()
     jax_files = _files(tmp_path)

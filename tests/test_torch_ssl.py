@@ -382,16 +382,18 @@ def test_ssl_backend_is_checked_and_selects_nothing(tmp_path):
 
 @pytest.mark.parametrize("backend", ["coo", "pallas"])
 def test_sgl_sparse_views_name_the_roadmap(tmp_path, backend):
-    """``coo`` (DeviceCOO) is still refused with its ROADMAP item; under
-    ``pallas`` SGL trains on the sparse adjacency with per-edge views."""
+    """Under ``coo`` (``DeviceCOO``, ported since the social slice) and
+    ``pallas`` SGL trains on the sparse adjacency with per-edge views of
+    that form."""
+    from qrec_tpu_torch.ops.spmm import DeviceCOO, SparseJoint
+
     conf = _planted(tmp_path, "SGL", MODEL_ARGS["SGL"], 2)
-    if backend == "coo":
-        with pytest.raises(ConfigError, match=r"ROADMAP.md Queue 1 item 5"):
-            QRec(ModelConf({**conf, "graph.backend": backend}), device="cpu")
-        return
     rec = QRec(ModelConf({**conf, "graph.backend": backend}), seed=3, device="cpu")
     rec.execute()
     assert not rec.model.dense_views and len(rec.model.epoch_losses) == 2
+    form = DeviceCOO if backend == "coo" else SparseJoint
+    assert isinstance(rec.model.joint_adj, form)
+    assert isinstance(rec.model.view_structure[0], form)
 
 
 def test_unported_model_names_its_roadmap_item(tmp_path):
