@@ -81,9 +81,20 @@ Phases, each of which exits non-zero on failure:
    matrices applied as ``DenseMat`` and as ``DeviceCOO``, timed in turns,
    the latter bit for bit against a repeat; one MHCN and one DHCF epoch
    under ``torch.profiler``;
-11. planted-block runs that must learn their blocks: LightGCN and SimGCL on
-   the dense adjacency, LightGCN and SGL on the sparse one, and NGCF;
-12. the ``kernels`` JSON line, the card line, and the final status line.
+11. the rest of the social family (``social_rest_phases``): SoRec, SoReg,
+   SocialMF, RSTE, LOCABAL, SREE and SocialFD on a FilmTrust-shaped file
+   with a FilmTrust-shaped trust file (``filmtrust_trust``: 1,853 links),
+   beside UserMean's and ItemMean's MAE/RMSE; SBPR (again under ``-tf``),
+   TBPR and ESRF on the lastfm-shaped file with ``lastfm_trust``; each at
+   its published widths with the epochs of ``SOCIAL_REST_EPOCHS``, its
+   launches (K1 in ESRF's discriminator, K2's top-k for the three rankers,
+   no kernel for the rating models), its host build, its steady epoch ms
+   per phase and its measures; the rankers' rankings held as the main
+   path's; one ESRF adversarial epoch under ``torch.profiler``;
+12. planted-block runs that must learn their blocks: LightGCN and SimGCL on
+   the dense adjacency, LightGCN and SGL on the sparse one, NGCF, and
+   SBPR and ESRF with a trust relation;
+13. the ``kernels`` JSON line, the card line, and the final status line.
 """
 
 from __future__ import annotations
@@ -1011,15 +1022,16 @@ def deep_phases(torch, K, QRec, timer, conf_of):
 SOCIAL_EPOCHS = {"MHCN": 2, "SEPT": 4, "BUIR": 2, "DiffNet": 2, "DHCF": 2}
 
 
-def lastfm_trust(num_users: int = 1892, links: int = 25434, seed: int = 0) -> np.ndarray:
-    """A lastfm-shaped trust relation (25,434 directed links among the 1,892
-    users, BASELINE.md:12), drawn from ``seed``: 59 communities of about 32
-    users, 85% of the pairs inside a community, so that triangles (MHCN's
-    motifs, SEPT's friend view) are common; 90% of the pairs reciprocated.
-    Returns (links, 2) user ids."""
+def trust_links(num_users: int, links: int, communities: int, mutual: float, seed: int) -> np.ndarray:
+    """A clustered trust relation of ``links`` directed links among
+    ``num_users`` users, drawn from ``seed``: ``communities`` communities,
+    85% of the pairs inside one, so that triangles (MHCN's and ESRF's
+    motifs, SEPT's friend view, TBPR's shared followees) are common; a
+    share ``mutual`` of the pairs reciprocated. Returns (links, 2) user
+    ids."""
     rng = np.random.default_rng(seed)
-    community = rng.permutation(num_users) % 59
-    members = [np.flatnonzero(community == c) for c in range(59)]
+    community = rng.permutation(num_users) % communities
+    members = [np.flatnonzero(community == c) for c in range(communities)]
     seen, out = set(), []
     while len(out) < links:
         a = int(rng.integers(num_users))
@@ -1028,9 +1040,24 @@ def lastfm_trust(num_users: int = 1892, links: int = 25434, seed: int = 0) -> np
         if a == b or (min(a, b), max(a, b)) in seen:
             continue
         seen.add((min(a, b), max(a, b)))
-        both = rng.random() < 0.9 and len(out) + 2 <= links
+        both = rng.random() < mutual and len(out) + 2 <= links
         out += [(a, b), (b, a)] if both else [(a, b)]
     return np.asarray(out, dtype=np.int64)
+
+
+def lastfm_trust(seed: int = 0) -> np.ndarray:
+    """A lastfm-shaped trust relation: 25,434 directed links among the 1,892
+    users (BASELINE.md:12), 59 communities of about 32 users, 90% of the
+    pairs reciprocated."""
+    return trust_links(1892, 25434, 59, 0.9, seed)
+
+
+def filmtrust_trust(seed: int = 0) -> np.ndarray:
+    """A FilmTrust-shaped trust relation: 1,853 directed links (the public
+    file's count of trust statements) among the 1,508 users of
+    :func:`filmtrust_records`, 47 communities of about 32 users, half of
+    the pairs reciprocated; binary, as FilmTrust's statements are read."""
+    return trust_links(1508, 1853, 47, 0.5, seed)
 
 
 def bf16_phase(torch, K, timer, model, launches):
@@ -1213,6 +1240,85 @@ def social_phases(torch, K, QRec, timer, conf_of, trust_path):
     return k1b, k1b_launches, launches, k2r
 
 
+# the rest of the social family's depth on the card, each config/ file at
+# its published widths: 3 epochs of the rating models, SBPR (1 more under
+# -tf) and TBPR; ESRF's 3 are one epoch a phase. LOCABAL takes 2: on the
+# FilmTrust-shaped file its third epoch diverges in both packages (the bold
+# driver raises the rate to 0.021 and the JAX package's loss goes from
+# 23,533 to 175,296, the port's to NaN, which ends a run)
+SOCIAL_REST_EPOCHS = {"SoRec": 3, "SoReg": 3, "SocialMF": 3, "RSTE": 3, "LOCABAL": 2,
+                      "SREE": 3, "SocialFD": 3, "SBPR": 3, "SBPR -tf": 1, "TBPR": 3, "ESRF": 3}
+
+
+def social_rest_phases(torch, K, QRec, conf_of, tmp, trust_path):
+    """The rest of the social family: the seven social MF rating models on
+    a FilmTrust-shaped file (:func:`filmtrust_records` with
+    :func:`filmtrust_trust`), beside UserMean's and ItemMean's MAE/RMSE on
+    the same split; SBPR (again under ``-tf``), TBPR and ESRF on the
+    lastfm-shaped file with :func:`lastfm_trust`. Each ``config/`` file at
+    its published widths with the epochs of ``SOCIAL_REST_EPOCHS``, driven
+    through ``QRec(conf).execute()`` with its launches against
+    ``expected_launches`` (K1 in ESRF, K2's top-k for the rankers, no
+    kernel for the rating models), its host build (edge similarities,
+    PageRank, friend items, tie sets, motifs) apart from its epochs, its
+    steady epoch ms per phase and its measures; the rankers' rankings
+    checked as the main path's (``ranking_phase``); one more ESRF
+    adversarial epoch under torch.profiler. Returns (ESRF's K1 launches,
+    K2 launches per path, K2 checks)."""
+    users, items, ratings = filmtrust_records()
+    filmtrust = os.path.join(tmp, "filmtrust_social.txt")
+    with open(filmtrust, "w") as f:
+        f.writelines(f"{a} {b} {r}\n" for a, b, r in zip(users, items, ratings))
+    film_trust = os.path.join(tmp, "filmtrust_trust.txt")
+    with open(film_trust, "w") as f:
+        f.writelines(f"{a} {b} 1\n" for a, b in filmtrust_trust())
+    baseline = {}
+    for name in ("UserMean", "ItemMean"):
+        conf = conf_of(name, 1)
+        conf["ratings"] = filmtrust
+        _, _, baseline[name] = drive(torch, K, QRec, conf, name.lower())
+    launches, k2r, summary = {}, {}, {}
+    k1 = 0
+    for key, epochs in SOCIAL_REST_EPOCHS.items():
+        name = key.split()[0]
+        conf = conf_of(name, epochs)
+        ranked = conf.options("item.ranking").isMainOn()
+        if not ranked:
+            conf["ratings"] = filmtrust
+        conf["social"] = trust_path if ranked else film_trust
+        if key.endswith("-tf"):
+            conf["evaluation.setup"] = conf["evaluation.setup"] + " -tf"
+        label = key.lower().replace(" ", "")
+        model, counts, measures = drive(torch, K, QRec, conf, label)
+        timers = getattr(model, "phase_timers", None) or [model.timer]
+        steady = [round(t.steady_state() * 1e3, 3) for t in timers]
+        print(f"[{label}] trust (users, links)={model.social.trustSize()} host build s="
+              f"{model.graph_seconds:.3f} (before the epochs) epochs per phase "
+              f"{[len(t.times) for t in timers]} steady epoch ms per phase {steady} (mean after a "
+              f"phase's first epoch)", flush=True)
+        summary[key] = dict(steady_ms=steady, graph_s=model.graph_seconds, **measures)
+        if ranked:
+            launches[label] = counts["masked_catalog_topk"]
+            k2r[label] = ranking_phase(torch, K, label, model, 10)
+        else:
+            print(f"[{label}] MAE={measures['MAE']} RMSE={measures['RMSE']} beside UserMean "
+                  f"{baseline['UserMean']['MAE']}/{baseline['UserMean']['RMSE']} and ItemMean "
+                  f"{baseline['ItemMean']['MAE']}/{baseline['ItemMean']['RMSE']} on the same split",
+                  flush=True)
+        if name == "ESRF":
+            k1 = counts["bipartite_dual_matmul"]
+            gen = torch.Generator(device="cuda").manual_seed(0)
+            d_opt, g_opt = model.optimizers()
+            profile_epoch(torch, model, "ESRF adversarial", lambda: model.run_phase(
+                2, 1, gen, d_opt, g_opt, model.pairwise_sampler()))
+        del model
+    print("[social rest] " + " ".join(
+        f"{k}: steady_ms={v['steady_ms']} graph_s={v['graph_s']:.3f} "
+        + (f"Recall@10={v['Recall']} NDCG@10={v['NDCG']};" if "Recall" in v
+           else f"MAE={v['MAE']} RMSE={v['RMSE']};") for k, v in summary.items()), flush=True)
+    return k1, launches, k2r
+
+
 def write_yelp_file(path: str) -> None:
     """The :func:`yelp_matrix` interactions as a rating file."""
     rows, cols, _, _ = yelp_matrix()
@@ -1273,6 +1379,15 @@ def first_step_views(torch, model):
                 torch.cat([um, im]))
 
 
+def _joint_kernel(adj):
+    """The kernel that propagates over a joint adjacency: K1 on a dense
+    form, K5 on the sparse one, none on a ``DeviceCOO`` (torch ops)."""
+    from qrec_tpu_torch.ops.spmm import DenseJoint, SparseJoint
+
+    return ("bipartite_dual_matmul" if isinstance(adj, DenseJoint) else
+            "weighted_segment_matmul" if isinstance(adj, SparseJoint) else None)
+
+
 def expected_launches(model):
     """Launches of K1-K5 in one ``QRec(conf).execute()``, from the code.
     S steps per epoch, E epochs, n layers, evals = K2 launches per ranking
@@ -1293,30 +1408,44 @@ def expected_launches(model):
     K5 (n forward and n backward online, n forward for the target per
     step; a ``DeviceCOO`` under coo) and its final factors one joint
     propagation of n; MHCN and SEPT rank after every epoch and at the end,
-    the other three once. The MF slice, the baselines and the deep and GAN
-    slice run no kernel but the top-k: one ranking when ``item.ranking`` is
-    on and the model's score form is a ``ScoreForm`` (BPR, SVD,
-    MostPopular, APR, IRGAN: ceil(test users / eval_batch_size) launches,
-    512 users a batch for IRGAN); none for a rating run, for Rand (torch
-    ops) nor for the score blocks of NeuMF, DMF, CDAE and CFGAN (torch ops,
-    as the JAX package ranks them through XLA)."""
+    the other three once. ESRF: ``max_epoch // 3`` epochs a phase; a
+    discriminator step propagates forward and backward (2n), in every
+    phase; the adversarial phase's generator step propagates forward (n)
+    and backward through every layer but the first (n - 1): the
+    discriminator's tables are constants there, and the first layer reads
+    only them; n for the final factors; one ranking. The MF slice, the
+    social MF and ranking models, the baselines and the deep and GAN slice
+    run no kernel but the top-k: one ranking when ``item.ranking`` is on
+    and the model's score form is a ``ScoreForm`` (BPR, SVD, MostPopular,
+    APR, IRGAN, SBPR, TBPR: ceil(test users / eval_batch_size) launches,
+    512 users a batch for IRGAN); none for a rating run (the seven social
+    MF models as published), for Rand (torch ops) nor for the score blocks
+    of NeuMF, DMF, CDAE, CFGAN, SREE and SocialFD (torch ops, as the JAX
+    package ranks them through XLA)."""
+    from qrec_tpu_torch.models.adversarial_social import ESRF
     from qrec_tpu_torch.models.graph import LightGCN
     from qrec_tpu_torch.models.social_graph import BUIR, SEPT, _GraphModel
     from qrec_tpu_torch.ops.kernels import KERNELS
-    from qrec_tpu_torch.ops.spmm import DenseJoint, SparseJoint
+    from qrec_tpu_torch.ops.spmm import SparseJoint
     from qrec_tpu_torch.ops.topk import ScoreForm
 
     evals = math.ceil(len(model.data.test_set_u) / model.eval_batch_size)
     name = model.model_name
     counts = {k.name: 0 for k in KERNELS}
+    if isinstance(model, ESRF):
+        joint = _joint_kernel(model.joint_adj)
+        if joint:
+            steps = math.ceil(model.train_size / model.batch_size)
+            n = model.n_layers
+            third = max(1, model.max_epoch // 3)
+            counts[joint] = third * steps * (2 * n + 2 * n + (2 * n + 2 * n - 1)) + n
+        return counts | {"masked_catalog_topk": evals}
     if not isinstance(model, (LightGCN, _GraphModel)):
         ranks = model.ranking.isMainOn() and isinstance(model.score_form(), ScoreForm)
         return counts | {"masked_catalog_topk": evals if ranks else 0}
     steps = math.ceil(model.train_size / model.batch_size)
     n, e = model.n_layers, model.max_epoch
-    adj = model.joint_adj if isinstance(model, (LightGCN, SEPT, BUIR)) else None
-    joint = ("bipartite_dual_matmul" if isinstance(adj, DenseJoint) else
-             "weighted_segment_matmul" if isinstance(adj, SparseJoint) else None)
+    joint = _joint_kernel(model.joint_adj) if isinstance(model, (LightGCN, SEPT, BUIR)) else None
     if isinstance(model, _GraphModel):
         rankings = e + 1 if model.track_best else 1
         counts["masked_catalog_topk"] = evals * rankings
@@ -1417,10 +1546,13 @@ def drive(torch, K, QRec, conf, label):
     return model, counts, parsed
 
 
-def planted_check(torch, tmp, ModelConf, QRec, parse_measure, name, args, extra=None):
+def planted_check(torch, tmp, ModelConf, QRec, parse_measure, name, args, extra=None,
+                  social=False, floor=0.5):
     """The repo's planted-block quality floor (tests/test_graph_models.py),
-    on the card: Recall@10 > 0.5 where random ranking gives about 0.33.
-    ``extra`` adds config keys (``graph.backend``)."""
+    on the card: Recall@10 > ``floor`` where random ranking gives about
+    0.33. ``extra`` adds config keys (``graph.backend``); ``social`` adds
+    the trust relation of tests/test_adversarial_models.py (4 links inside
+    a user's block and 20 reciprocated pairs)."""
     rng = np.random.RandomState(0)
     path = os.path.join(tmp, "planted.txt")
     with open(path, "w") as f:
@@ -1434,11 +1566,21 @@ def planted_check(torch, tmp, ModelConf, QRec, parse_measure, name, args, extra=
         "reg.lambda": "-u 0.001 -i 0.001 -b 0.1 -s 0.1", name: args,
         "output.setup": "off -dir ./results/", "seed": "7", **(extra or {}),
     })
+    if social:
+        trust = os.path.join(tmp, "planted_trust.txt")
+        with open(trust, "w") as f:
+            for u in range(40):
+                for v in rng.choice(20, size=4, replace=False) + (0 if u < 20 else 20):
+                    if v != u:
+                        f.write(f"u{u} u{v}\n")
+            for u in range(0, 40, 2):
+                f.write(f"u{u} u{u + 1}\nu{u + 1} u{u}\n")
+        conf["social"], conf["social.setup"] = trust, "-columns 0 1"
     recall = parse_measure(QRec(conf, seed=3).execute())["Top 10"]["Recall"]
     label = " ".join([name, *(f"{k}={v}" for k, v in (extra or {}).items())])
-    print(f"[planted {label}] Recall@10={recall}", flush=True)
-    if not recall > 0.5:
-        fail(f"planted-block {name} run reached Recall@10={recall} <= 0.5")
+    print(f"[planted {label}] Recall@10={recall} (floor {floor})", flush=True)
+    if not recall > floor:
+        fail(f"planted-block {name} run reached Recall@10={recall} <= {floor}")
 
 
 def profile_epoch(torch, model, label, epoch=None):
@@ -1641,7 +1783,13 @@ def main() -> None:
         k2r.update(social_k2r)
         del timer
 
-        # 11. planted blocks
+        # 11. the rest of the social family: the seven social MF rating
+        # models, SBPR (and its -tf path), TBPR and ESRF
+        k1_esrf, rest_launches, rest_k2r = social_rest_phases(torch, K, QRec, conf_of, tmp, trust)
+        mf_launches.update(rest_launches)
+        k2r.update(rest_k2r)
+
+        # 12. planted blocks
         planted_check(torch, tmp, ModelConf, QRec, parse_measure, "LightGCN", "-n_layer 2")
         planted_check(torch, tmp, ModelConf, QRec, parse_measure, "SimGCL",
                       "-n_layer 2 -lambda 0.05 -eps 0.1")
@@ -1650,10 +1798,14 @@ def main() -> None:
         planted_check(torch, tmp, ModelConf, QRec, parse_measure, "SGL",
                       "-n_layer 2 -lambda 0.05 -droprate 0.2 -augtype 1 -temp 0.2", pallas)
         planted_check(torch, tmp, ModelConf, QRec, parse_measure, "NGCF", "")
+        # the floors of tests/test_social_models.py and tests/test_adversarial_models.py
+        planted_check(torch, tmp, ModelConf, QRec, parse_measure, "SBPR", "", social=True)
+        planted_check(torch, tmp, ModelConf, QRec, parse_measure, "ESRF", "-K 5 -beta 0.1 -n_layer 2",
+                      social=True, floor=0.45)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
-    # 12. results
+    # 13. results
     print(f"[K5 yelp2018] launches {yelp_counts['weighted_segment_matmul']} ms={k5['ms']:.4f} "
           f"plain_ms={k5['plain_ms']:.4f} library_ms={k5['library_ms']:.4f} "
           f"bound_ms={k5['bound_ms']:.4f} gather_floor_ms={k5['floor_ms']:.4f}", flush=True)
@@ -1679,6 +1831,8 @@ def main() -> None:
               flush=True)
     print(f"[K2] scores entry ms={k2['ms']:.4f} (on no path; launches "
           f"{counts['masked_catalog_scores']})", flush=True)
+    print(f"[K1] launches: main {counts['bipartite_dual_matmul']} lightgcn-bf16 {k1b_launches} "
+          f"esrf {k1_esrf}", flush=True)
     print(f"[K2 topk] launches: main {counts['masked_catalog_topk']} "
           + " ".join(f"{label} {n}" for label, n in mf_launches.items()), flush=True)
 
@@ -1695,7 +1849,7 @@ def main() -> None:
     kernels = [
         row("bipartite_dual_matmul", "qrec_tpu_torch/csrc/dual_matmul.cu",
             "qrec_tpu/ops/pallas_kernels.py:563",
-            counts["bipartite_dual_matmul"] + k1b_launches, k1),
+            counts["bipartite_dual_matmul"] + k1b_launches + k1_esrf, k1),
         row("masked_catalog_scores", "qrec_tpu_torch/csrc/masked_scores.cu",
             "qrec_tpu/ops/pallas_kernels.py:49", counts["masked_catalog_scores"], k2),
         row("masked_catalog_topk", "qrec_tpu_torch/csrc/masked_scores.cu",

@@ -8,8 +8,11 @@ LightGCN, SGL, SimGCL, APR and the MF family, plus NGCF's ``W_{k}_1`` and
 ``uW1 ... ib2``, CDAE's ``V``, ``enc_*``, ``dec_*``, MHCN's
 ``gating{c}``, ``gating_bias{c}``, ``sgating{c}``, ``sgating_bias{c}``,
 ``attention`` and ``attention_mat``, DiffNet's ``W{k}``, DHCF's
-``layer{k}``, BUIR's ``W`` and ``b``), one dict per player for the GANs
-(CFGAN's ``g`` and ``d``, IRGAN's ``gen`` and ``dis``). The port's modules
+``layer{k}``, BUIR's ``W`` and ``b``, SoRec's ``Z``, LOCABAL's ``H``,
+SREE's ``user_bias`` and ``item_bias``, SocialFD's ``H`` and both biases),
+one dict per player for the GANs and ESRF (CFGAN's ``g`` and ``d``,
+IRGAN's ``gen`` and ``dis``, ESRF's ``d`` with ``user_emb`` and
+``item_emb`` and ``g`` with ``relation_emb`` and ``selector``). The port's modules
 hold the same tensors under the same names, a nested dict's under its key
 as a prefix (``gen.user_emb``; BUIR's momentum target, which the JAX
 package keeps beside its parameters, as ``{"target": {"user_emb": ...,

@@ -12,7 +12,11 @@ forms:
   segment-SpMM path, the port's copies of the JAX package's
   ``data/graph.py`` functions.
 
-The two count a duplicated (user, item) rating differently, as the JAX
+:func:`normalized_interaction` and :func:`normalized_social_adjacency` give
+the normalized (U, I) rating matrix and (U, U) trust matrix as COO triples,
+as the JAX package's functions of those names do.
+
+The two joint forms count a duplicated (user, item) rating differently, as the JAX
 package does: the factored R and its degrees come from the deduplicated
 CSR (``csr_sel``), so a pair counts once; :func:`joint_normalized_adjacency`
 sums every training record, so a duplicated pair weighs 2 there.
@@ -91,6 +95,40 @@ def interaction_matrix(data, binary: bool = False) -> sp.csr_matrix:
         (vals, (data.train_u, data.train_i)),
         shape=(data.num_users, data.num_items),
     )
+
+
+def _inv_power(deg: np.ndarray, p: float) -> sp.dia_matrix:
+    """``diag(deg^p)``, 0 where the degree is 0."""
+    return sp.diags(np.power(deg, p, where=deg > 0, out=np.zeros_like(deg)))
+
+
+def normalized_interaction(data, mode: str = "sym") -> COO:
+    """Normalized |U|×|I| rating matrix (base/graphRecommender.py:41-61),
+    ratings treated binary: ``sym`` = D_u^-1/2 R D_i^-1/2, ``row`` =
+    D_u^-1 R."""
+    r = interaction_matrix(data, binary=True)
+    deg_u = np.asarray(r.sum(axis=1)).ravel()
+    deg_i = np.asarray(r.sum(axis=0)).ravel()
+    if mode == "sym":
+        return COO.from_scipy(_inv_power(deg_u, -0.5) @ r @ _inv_power(deg_i, -0.5))
+    if mode == "row":
+        return COO.from_scipy(_inv_power(deg_u, -1.0) @ r)
+    raise ValueError(f"unknown normalization mode {mode!r}")
+
+
+def normalized_social_adjacency(social, mode: str = "row") -> COO:
+    """Normalized U×U trust adjacency of a
+    :class:`~qrec_tpu_torch.data.social.SocialGraph` (SocialMF's sparse
+    social product, model/rating/SocialMF.py:69-90): ``row`` = D^-1 S,
+    ``sym`` = D^-1/2 S D^-1/2, D the weighted out-degrees."""
+    s = social.scipy_adjacency()
+    deg = np.asarray(s.sum(axis=1)).ravel()
+    if mode == "row":
+        return COO.from_scipy(_inv_power(deg, -1.0) @ s)
+    if mode == "sym":
+        d = _inv_power(deg, -0.5)
+        return COO.from_scipy(d @ s @ d)
+    raise ValueError(f"unknown normalization mode {mode!r}")
 
 
 def joint_normalized_adjacency(data, self_loop: bool = False) -> COO:

@@ -4,12 +4,15 @@
 from __future__ import annotations
 
 from ..errors import ModelNotFoundError
+from .adversarial_social import ESRF
 from .baselines import ItemMean, MostPopular, Rand, UserMean
 from .deep import APR, CDAE, CFGAN, DMF, NeuMF
 from .gan import IRGAN
 from .graph import NGCF, SGL, LightGCN, SimGCL
 from .mf import BPR, PMF, SVD, BasicMF
 from .social_graph import BUIR, DHCF, MHCN, SEPT, DiffNet
+from .social_mf import LOCABAL, RSTE, SREE, SoRec, SoReg, SocialFD, SocialMF
+from .social_ranking import SBPR, TBPR
 
 MODELS = {
     "LightGCN": LightGCN, "NGCF": NGCF, "SGL": SGL, "SimGCL": SimGCL,
@@ -17,6 +20,8 @@ MODELS = {
     "UserMean": UserMean, "ItemMean": ItemMean, "MostPopular": MostPopular, "Rand": Rand,
     "NeuMF": NeuMF, "DMF": DMF, "CDAE": CDAE, "CFGAN": CFGAN, "APR": APR, "IRGAN": IRGAN,
     "MHCN": MHCN, "SEPT": SEPT, "BUIR": BUIR, "DiffNet": DiffNet, "DHCF": DHCF,
+    "SoRec": SoRec, "SoReg": SoReg, "SocialMF": SocialMF, "RSTE": RSTE, "LOCABAL": LOCABAL,
+    "SREE": SREE, "SocialFD": SocialFD, "SBPR": SBPR, "TBPR": TBPR, "ESRF": ESRF,
 }
 
 # display name -> canonical conf-key name (the reference's conf files key
@@ -31,8 +36,8 @@ def get_model(name: str):
     if name not in MODELS:
         raise ModelNotFoundError(
             f"model {name!r} is not ported yet (ROADMAP.md Queue 1 names its "
-            "slice: social slice 4 (SocialMF and the rating and ranking social models, "
-            "ESRF, RSGAN), ALS/classical/walks slice 5); "
+            "slice: ALS/classical/walks slice 5, and RSGAN with IF_BPR there, whose "
+            "meta-path walks seed its friends); "
             f"available: {sorted(MODELS)}"
         )
     return MODELS[name]

@@ -19,6 +19,7 @@ fallbacks (``predict_ratings``).
 from __future__ import annotations
 
 import os
+import time
 from typing import Callable, List, Optional, Sequence, Union
 
 import numpy as np
@@ -202,13 +203,14 @@ class IterativeRecommender(Recommender):
         self.batch_size = self.config.get_int("batch_size", 2000)
 
     # -- init -------------------------------------------------------------
-    def init_embeddings(self, kind: str = "normal") -> dict:
+    def init_embeddings(self, kind: str = "normal", gen: Optional[torch.Generator] = None) -> dict:
         """``normal``: truncated normal σ=0.005 cut at ±2σ
         (deepRecommender.py:21-22); ``uniform``: U(0, 1)/3
         (iterativeRecommender.py:36-39). Drawn on the CPU from ``seed`` so a
         seed gives the same tables on every device (not the JAX package's
-        draws: its PRNG is not reproduced)."""
-        gen = torch.Generator().manual_seed(self.seed)
+        draws: its PRNG is not reproduced); ``gen``, a CPU generator, draws
+        them in its place, for a model that draws more tables after them."""
+        gen = gen if gen is not None else torch.Generator().manual_seed(self.seed)
         out = {}
         for name, rows in (("user_emb", self.num_users), ("item_emb", self.num_items)):
             t = torch.empty((rows, self.emb_size), dtype=torch.float32)
@@ -316,6 +318,18 @@ class IterativeRecommender(Recommender):
         return self._dense_r
 
     # -- lifecycle --------------------------------------------------------
+    def prepare_graph(self) -> None:
+        """Run the model's one-time host build (``build_graph``: motif, tie
+        or friend-item matrices, edge similarities, ranks) once, with its
+        seconds in ``graph_seconds``."""
+        if not hasattr(self, "graph_seconds"):
+            t0 = time.perf_counter()
+            self.build_graph()
+            self.graph_seconds = time.perf_counter() - t0
+
+    def build_graph(self) -> None:
+        pass
+
     def build(self) -> TrainSpec:
         raise NotImplementedError
 

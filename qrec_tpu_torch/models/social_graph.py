@@ -24,7 +24,6 @@ import hashlib
 import os
 import pickle
 import tempfile
-import time
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -178,10 +177,41 @@ def _binary_interactions(data) -> sp.csr_matrix:
     return y
 
 
+def triangle_motifs(social, data):
+    """``(s, yy, [a1, ..., a9])``: the binary (U, U) trust matrix s, the
+    co-purchase counts yy = y yᵀ of the (U, I) rating matrix y (a duplicate
+    rating counts twice) and the motif counts of MHCN.py:54-85 and
+    ESRF.py:53-81, with b = s ∘ sᵀ the reciprocated links and u = s - b the
+    one-way ones; a1-a7 the seven social triangle motifs, a8 and a9 the
+    co-purchases over b and u (a9 not symmetrized: MHCN adds its transpose,
+    ESRF does not)."""
+    src, dst, _ = social.coo()
+    s = sp.csr_matrix((np.ones(len(src), dtype=np.float32), (src, dst)),
+                      shape=(data.num_users, data.num_users))
+    y = sp.csr_matrix((np.ones_like(data.train_u, dtype=np.float32), (data.train_u, data.train_i)),
+                      shape=(data.num_users, data.num_items))
+    b = s.multiply(s.T)
+    u = s - b
+    c1 = (u @ u).multiply(u.T)
+    a1 = c1 + c1.T
+    c2 = (b @ u).multiply(u.T) + (u @ b).multiply(u.T) + (u @ u).multiply(b)
+    a2 = c2 + c2.T
+    c3 = (b @ b).multiply(u) + (b @ u).multiply(b) + (u @ b).multiply(b)
+    a3 = c3 + c3.T
+    a4 = (b @ b).multiply(b)
+    c5 = (u @ u).multiply(u) + (u @ u.T).multiply(u) + (u.T @ u).multiply(u)
+    a5 = c5 + c5.T
+    a6 = (u @ b).multiply(u) + (b @ u.T).multiply(u.T) + (u.T @ u).multiply(b)
+    a7 = (u.T @ b).multiply(u.T) + (b @ u).multiply(u) + (u @ u.T).multiply(b)
+    yy = y @ y.T
+    return s, yy, [a1, a2, a3, a4, a5, a6, a7, yy.multiply(b), yy.multiply(u)]
+
+
 class _GraphModel(GraphRecommender):
     """What the five models share: construction with an optional trust
-    graph, the auxiliary-matrix mode, a timed host build (``prepare_graph``
-    records ``graph_seconds``) and the BPR-style rec loss."""
+    graph, the auxiliary-matrix mode and the BPR-style rec loss; each
+    builds its host matrices in ``build_graph`` (timed by
+    ``prepare_graph``)."""
 
     track_best = False
 
@@ -208,15 +238,6 @@ class _GraphModel(GraphRecommender):
         t = torch.empty(shape, dtype=torch.float32)
         nn.init.xavier_uniform_(t, generator=self._init_gen)
         return t.to(self.device)
-
-    def prepare_graph(self) -> None:
-        if not hasattr(self, "graph_seconds"):
-            t0 = time.perf_counter()
-            self.build_graph()
-            self.graph_seconds = time.perf_counter() - t0
-
-    def build_graph(self) -> None:
-        raise NotImplementedError
 
     @staticmethod
     def dot_loss(users, items, batch, reg_u: float) -> torch.Tensor:
@@ -291,33 +312,9 @@ class MHCN(SocialRecommender, _GraphModel):
 
     def compute_motif_matrices(self):
         """(h_s, h_j, h_p), the algebra of MHCN.py:54-85 verbatim."""
-        src, dst, _ = self.social.coo()
-        s = sp.csr_matrix(
-            (np.ones(len(src), dtype=np.float32), (src, dst)),
-            shape=(self.num_users, self.num_users),
-        )
-        y = sp.csr_matrix(
-            (np.ones_like(self.data.train_u, dtype=np.float32),
-             (self.data.train_u, self.data.train_i)),
-            shape=(self.num_users, self.num_items),
-        )
-        b = s.multiply(s.T)
-        u = s - b
-        c1 = (u @ u).multiply(u.T)
-        a1 = c1 + c1.T
-        c2 = (b @ u).multiply(u.T) + (u @ b).multiply(u.T) + (u @ u).multiply(b)
-        a2 = c2 + c2.T
-        c3 = (b @ b).multiply(u) + (b @ u).multiply(b) + (u @ b).multiply(b)
-        a3 = c3 + c3.T
-        a4 = (b @ b).multiply(b)
-        c5 = (u @ u).multiply(u) + (u @ u.T).multiply(u) + (u.T @ u).multiply(u)
-        a5 = c5 + c5.T
-        a6 = (u @ b).multiply(u) + (b @ u.T).multiply(u.T) + (u.T @ u).multiply(b)
-        a7 = (u.T @ b).multiply(u.T) + (b @ u).multiply(u) + (u @ u.T).multiply(b)
-        a8 = (y @ y.T).multiply(b)
-        a9 = (y @ y.T).multiply(u)
+        _, yy, (a1, a2, a3, a4, a5, a6, a7, a8, a9) = triangle_motifs(self.social, self.data)
         a9 = a9 + a9.T
-        a10 = y @ y.T - a8 - a9
+        a10 = yy - a8 - a9
         h_s = _row_norm(a1 + a2 + a3 + a4 + a5 + a6 + a7)
         h_j = _row_norm(a8 + a9)
         h_p = _row_norm(a10.multiply(a10 > 1))

@@ -5,6 +5,9 @@
   on the host. It is stored as int32 holding the uint32 bit pattern,
   because torch has no usable uint32 arithmetic; shifts and ``& 1`` read
   the same bits.
+* ``csr_member`` and ``sample_from_rows`` — membership in, and a uniform
+  draw from, a user's row of any CSR table (the social rankers' friend-item
+  and tie-item tables).
 * ``sample_negatives`` — K-try uniform rejection against the bitmask,
   falling back to the exact rejection-free draw for the queries where all
   K tries hit positives, so a sampled negative is never a training positive.
@@ -21,7 +24,7 @@ package is checked on properties and on injected batches.
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -67,6 +70,33 @@ def csr_searchsorted_right(indices, lo, hi, queries, n_iters: int = 32):
     return lo
 
 
+def csr_member(indices, indptr, users, items, n_iters: int = 32) -> torch.Tensor:
+    """Whether each ``items[b]`` lies in CSR row ``users[b]`` (bool, the
+    shape of ``items``; ``users`` broadcasts against it): the last entry <=
+    the item, found by bisection, equals it."""
+    if indices.numel() == 0:
+        return torch.zeros(items.shape, dtype=torch.bool, device=items.device)
+    lo = indptr[users]
+    pos = csr_searchsorted_right(indices, lo, indptr[users + 1], items, n_iters)
+    return (pos > lo) & (indices[torch.clamp(pos - 1, min=0)] == items)
+
+
+def sample_from_rows(gen: torch.Generator, indptr, indices, users):
+    """One uniform column of each user's CSR row: ``(items, has, idx)``, with
+    ``has`` false and the item meaningless where the row is empty, and
+    ``idx`` the entry's position in ``indices`` (the JAX package's
+    ``_sample_from_rows``, ``models/social_ranking.py:39-46``)."""
+    lo = indptr[users]
+    deg = indptr[users + 1] - lo
+    r = torch.rand(users.shape, generator=gen, device=users.device)
+    off = torch.floor(r * torch.clamp_min(deg, 1)).long()
+    if indices.numel() == 0:
+        zero = torch.zeros_like(users)
+        return zero, deg > 0, zero
+    idx = torch.clamp(lo + off, max=indices.shape[0] - 1)
+    return indices[idx], deg > 0, idx
+
+
 def sample_negatives_exact(
     gen: torch.Generator,
     users: torch.Tensor,
@@ -106,15 +136,22 @@ def sample_negatives(
     bitmask: torch.Tensor,
     num_tries: int = 8,
     row_iters: int = 32,
+    also_exclude: Optional[Callable] = None,
 ) -> torch.Tensor:
     """K-try rejection sampling with exact fallback: ``num_tries`` uniform
     candidates per query, the first that is not a positive wins; queries
-    whose tries all hit positives take the exact sampler's draw."""
+    whose tries all hit positives take the exact sampler's draw.
+    ``also_exclude(users, items) -> bool`` rejects more candidates in the
+    tries (SBPR's friend items; its exact fallback avoids the positives
+    alone, as the JAX package's does)."""
     b = users.shape[0]
     cands = torch.randint(
         0, num_items, (b, num_tries), generator=gen, device=users.device, dtype=torch.int64
     )
-    ok = ~bitmask_member(bitmask, users[:, None], cands)
+    bad = bitmask_member(bitmask, users[:, None], cands)
+    if also_exclude is not None:
+        bad = bad | also_exclude(users[:, None], cands)
+    ok = ~bad
     first_ok = ok.to(torch.int8).argmax(dim=1)
     chosen = cands.gather(1, first_ok[:, None])[:, 0]
     any_ok = ok.any(dim=1)

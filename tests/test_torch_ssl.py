@@ -397,6 +397,6 @@ def test_sgl_sparse_views_name_the_roadmap(tmp_path, backend):
 
 
 def test_unported_model_names_its_roadmap_item(tmp_path):
-    conf = _planted(tmp_path, "SocialMF", "", 2)
-    with pytest.raises(ModelNotFoundError, match="social slice 4"):
+    conf = _planted(tmp_path, "RSGAN", "", 2)
+    with pytest.raises(ModelNotFoundError, match="RSGAN with IF_BPR there"):
         QRec(ModelConf(conf), device="cpu").execute()
