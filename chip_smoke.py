@@ -91,10 +91,18 @@ Phases, each of which exits non-zero on failure:
    no kernel for the rating models), its host build, its steady epoch ms
    per phase and its measures; the rankers' rankings held as the main
    path's; one ESRF adversarial epoch under ``torch.profiler``;
-12. planted-block runs that must learn their blocks: LightGCN and SimGCL on
+12. the ALS and classical slice (``als_classical_phases``): WRMF, ExpoMF,
+   CoFactor and SERec (with ``lastfm_trust``) on the lastfm-shaped file at
+   d=20, 3 epochs each (``ALS_EPOCHS``), ranked at top-10 through K2's
+   fused top-k and checked as the main path's, CoFactor's SPPMI edges and
+   host build, one more WRMF epoch under ``torch.profiler``; UserKNN,
+   ItemKNN, SlopeOne, SVD++ and EE (3 epochs each) on the FilmTrust-shaped
+   file, their MAE/RMSE beside UserMean's and ItemMean's and the seconds
+   of each rating evaluation; SVD++ ranked through K2's bias epilogue;
+13. planted-block runs that must learn their blocks: LightGCN and SimGCL on
    the dense adjacency, LightGCN and SGL on the sparse one, NGCF, and
    SBPR and ESRF with a trust relation;
-13. the ``kernels`` JSON line, the card line, and the final status line.
+14. the ``kernels`` JSON line, the card line, and the final status line.
 """
 
 from __future__ import annotations
@@ -1319,6 +1327,81 @@ def social_rest_phases(torch, K, QRec, conf_of, tmp, trust_path):
     return k1, launches, k2r
 
 
+# the ALS and classical slice's depth on the card, each config/ file at
+# its published widths (d=20 for the ALS models, d=10 for SVD++ and EE)
+ALS_EPOCHS = {"WRMF": 3, "ExpoMF": 3, "CoFactor": 3, "SERec": 3}
+CLASSICAL_EPOCHS = {"UserKNN": 1, "ItemKNN": 1, "SlopeOne": 1, "SVD++": 3, "EE": 3}
+
+
+def als_classical_phases(torch, K, QRec, conf_of, tmp, trust_path):
+    """The ALS and classical slice: WRMF, ExpoMF, CoFactor and SERec (with
+    :func:`lastfm_trust`) on the lastfm-shaped file, top-10 rankings through
+    K2 checked as the main path's (``ranking_phase``), CoFactor's SPPMI edge
+    count and host build, one more WRMF epoch under torch.profiler;
+    UserKNN, ItemKNN, SlopeOne, SVD++ and EE on a FilmTrust-shaped file
+    (rating evaluation) beside UserMean's and ItemMean's MAE/RMSE on the
+    same split, with the seconds of the whole rating evaluation (the
+    memory-based models' only cost); then SVD++ ranked at top-10 through
+    K2's bias epilogue. Each ``config/`` file at its published widths with
+    the epochs of ``ALS_EPOCHS`` and ``CLASSICAL_EPOCHS``, driven through
+    ``QRec(conf).execute()`` with its launches against
+    ``expected_launches``. Returns (K2 launches per path, K2 checks)."""
+    launches, k2r, summary = {}, {}, {}
+    for name, epochs in ALS_EPOCHS.items():
+        conf = conf_of(name, epochs)
+        if name == "SERec":
+            conf["social"] = trust_path
+        label = name.lower()
+        model, counts, measures = drive(torch, K, QRec, conf, label)
+        steady = model.timer.steady_state() * 1e3
+        summary[name] = dict(steady_ms=steady, Recall=measures["Recall"], NDCG=measures["NDCG"])
+        if name == "CoFactor":
+            print(f"[cofactor] SPPMI edges E={model.sppmi_edges} host build s="
+                  f"{model.graph_seconds:.3f} (before the epochs) context blocks "
+                  f"{model.sppmi_edges * model.emb_size ** 2 * 4 / 1e6:.1f} MB", flush=True)
+            summary[name]["edges"] = model.sppmi_edges
+        launches[label] = counts["masked_catalog_topk"]
+        k2r[label] = ranking_phase(torch, K, label, model, 10)
+        if name == "WRMF":
+            profile_epoch(torch, model, "WRMF", lambda: model.epoch(model.tables))
+        del model
+
+    users, items, ratings = filmtrust_records()
+    filmtrust = os.path.join(tmp, "filmtrust_classical.txt")
+    with open(filmtrust, "w") as f:
+        f.writelines(f"{a} {b} {r}\n" for a, b, r in zip(users, items, ratings))
+    baseline = {}
+    for name in ("UserMean", "ItemMean"):
+        conf = conf_of(name, 1)
+        conf["ratings"] = filmtrust
+        _, _, baseline[name] = drive(torch, K, QRec, conf, name.lower())
+    for name, epochs in CLASSICAL_EPOCHS.items():
+        conf = conf_of(name, epochs)
+        conf["ratings"] = filmtrust
+        label = name.lower()
+        model, _, measures = drive(torch, K, QRec, conf, label)
+        summary[name] = dict(measures, eval_s=model.rating_seconds)
+        if model.timer is not None:
+            summary[name]["steady_ms"] = model.timer.steady_state() * 1e3
+        print(f"[{label}] MAE={measures['MAE']} RMSE={measures['RMSE']} beside UserMean "
+              f"{baseline['UserMean']['MAE']}/{baseline['UserMean']['RMSE']} and ItemMean "
+              f"{baseline['ItemMean']['MAE']}/{baseline['ItemMean']['RMSE']} on the same split; "
+              f"rating evaluation s={model.rating_seconds:.3f} ({len(model.data.test_data)} test "
+              f"ratings)", flush=True)
+        del model
+    conf = conf_of("SVD++", CLASSICAL_EPOCHS["SVD++"])
+    conf["ratings"] = filmtrust
+    conf["item.ranking"] = "on -topN 10"
+    model, counts, _ = drive(torch, K, QRec, conf, "svd++ ranking")
+    launches["svd++ ranking"] = counts["masked_catalog_topk"]
+    k2r["svd++ biased"] = ranking_phase(torch, K, "svd++ biased", model, 10)
+    del model
+    print("[als classical] " + " ".join(
+        f"{k}: " + " ".join(f"{m}={v:.4f}" if isinstance(v, float) else f"{m}={v}"
+                            for m, v in d.items()) + ";" for k, d in summary.items()), flush=True)
+    return launches, k2r
+
+
 def write_yelp_file(path: str) -> None:
     """The :func:`yelp_matrix` interactions as a rating file."""
     rows, cols, _, _ = yelp_matrix()
@@ -1417,11 +1500,13 @@ def expected_launches(model):
     social MF and ranking models, the baselines and the deep and GAN slice
     run no kernel but the top-k: one ranking when ``item.ranking`` is on
     and the model's score form is a ``ScoreForm`` (BPR, SVD, MostPopular,
-    APR, IRGAN, SBPR, TBPR: ceil(test users / eval_batch_size) launches,
-    512 users a batch for IRGAN); none for a rating run (the seven social
-    MF models as published), for Rand (torch ops) nor for the score blocks
-    of NeuMF, DMF, CDAE, CFGAN, SREE and SocialFD (torch ops, as the JAX
-    package ranks them through XLA)."""
+    APR, IRGAN, SBPR, TBPR, WRMF, ExpoMF, CoFactor, SERec, SVD++:
+    ceil(test users / eval_batch_size) launches, 512 users a batch for
+    IRGAN); none for a rating run (the seven social MF models, UserKNN,
+    ItemKNN, SlopeOne, SVD++ and EE as published; their solves, similarity
+    blocks and segment sums are torch ops), for Rand (torch ops) nor for
+    the score blocks of NeuMF, DMF, CDAE, CFGAN, SREE, SocialFD and EE
+    (torch ops, as the JAX package ranks them through XLA)."""
     from qrec_tpu_torch.models.adversarial_social import ESRF
     from qrec_tpu_torch.models.graph import LightGCN
     from qrec_tpu_torch.models.social_graph import BUIR, SEPT, _GraphModel
@@ -1500,10 +1585,12 @@ def drive(torch, K, QRec, conf, label):
     model = rec.model
     losses = getattr(model, "epoch_losses", [])
     expect = expected_launches(model)
+    # the ALS models time their epochs but report no loss (WRMF's only)
+    epochs = len(model.timer.times) if model.timer is not None else len(losses)
     print(f"[{label}] users={model.num_users} items={model.num_items} train={model.train_size} "
           f"test_users={len(model.data.test_set_u)} d={getattr(model, 'emb_size', '-')} "
           f"layers={getattr(model, 'n_layers', '-')} batch={getattr(model, 'batch_size', '-')} "
-          f"epochs={len(losses)} wall_s={wall:.2f}", flush=True)
+          f"epochs={epochs} wall_s={wall:.2f}", flush=True)
     if model.timer is not None:
         summary = model.timer.summary()
         print(f"[{label}] epoch losses: {losses}", flush=True)
@@ -1789,7 +1876,13 @@ def main() -> None:
         mf_launches.update(rest_launches)
         k2r.update(rest_k2r)
 
-        # 12. planted blocks
+        # 12. the ALS and classical slice: WRMF, ExpoMF, CoFactor, SERec,
+        # UserKNN, ItemKNN, SlopeOne, SVD++ and EE
+        als_launches, als_k2r = als_classical_phases(torch, K, QRec, conf_of, tmp, trust)
+        mf_launches.update(als_launches)
+        k2r.update(als_k2r)
+
+        # 13. planted blocks
         planted_check(torch, tmp, ModelConf, QRec, parse_measure, "LightGCN", "-n_layer 2")
         planted_check(torch, tmp, ModelConf, QRec, parse_measure, "SimGCL",
                       "-n_layer 2 -lambda 0.05 -eps 0.1")
@@ -1805,7 +1898,7 @@ def main() -> None:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
-    # 13. results
+    # 14. results
     print(f"[K5 yelp2018] launches {yelp_counts['weighted_segment_matmul']} ms={k5['ms']:.4f} "
           f"plain_ms={k5['plain_ms']:.4f} library_ms={k5['library_ms']:.4f} "
           f"bound_ms={k5['bound_ms']:.4f} gather_floor_ms={k5['floor_ms']:.4f}", flush=True)

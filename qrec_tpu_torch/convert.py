@@ -9,7 +9,9 @@ LightGCN, SGL, SimGCL, APR and the MF family, plus NGCF's ``W_{k}_1`` and
 ``gating{c}``, ``gating_bias{c}``, ``sgating{c}``, ``sgating_bias{c}``,
 ``attention`` and ``attention_mat``, DiffNet's ``W{k}``, DHCF's
 ``layer{k}``, BUIR's ``W`` and ``b``, SoRec's ``Z``, LOCABAL's ``H``,
-SREE's ``user_bias`` and ``item_bias``, SocialFD's ``H`` and both biases),
+SREE's ``user_bias`` and ``item_bias``, SocialFD's ``H`` and both biases,
+EE's ``user_emb``, ``item_emb``, ``user_bias`` and ``item_bias``, SVD++'s
+the same and ``Y``),
 one dict per player for the GANs and ESRF (CFGAN's ``g`` and ``d``,
 IRGAN's ``gen`` and ``dis``, ESRF's ``d`` with ``user_emb`` and
 ``item_emb`` and ``g`` with ``relation_emb`` and ``selector``). The port's modules
@@ -17,8 +19,12 @@ hold the same tensors under the same names, a nested dict's under its key
 as a prefix (``gen.user_emb``; BUIR's momentum target, which the JAX
 package keeps beside its parameters, as ``{"target": {"user_emb": ...,
 "item_emb": ...}}`` into the buffers ``target.user_emb`` and
-``target.item_emb``). Arrays arrive here as numpy,
-so this module needs no JAX.
+``target.item_emb``). The ALS models keep no parameter pytree: their
+initial tables are one dict each (WRMF's ``x`` and ``y``; CoFactor's those
+and ``g``, ``w``, ``c``; ExpoMF's and SERec's ``theta``, ``beta`` and
+``mu``), which ``init_tables()`` returns, so a test replaces that method
+to start from the JAX package's tables. Arrays arrive here as numpy, so
+this module needs no JAX.
 """
 
 from __future__ import annotations

@@ -3,6 +3,8 @@ the CPU, and no silent fallback when there is no card."""
 
 from __future__ import annotations
 
+from contextlib import contextmanager
+
 import torch
 
 from .errors import DeviceUnavailableError
@@ -16,3 +18,16 @@ def resolve_device(device=None) -> torch.device:
             "no CUDA device is available; pass device='cpu' to run on the CPU"
         )
     return dev
+
+
+@contextmanager
+def f32_products():
+    """Float32 matrix products inside the block, never TF32, whatever the
+    caller set (the JAX package's ``preferred_element_type=float32``);
+    the caller's setting comes back after it."""
+    prev = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("highest")
+    try:
+        yield
+    finally:
+        torch.set_float32_matmul_precision(prev)

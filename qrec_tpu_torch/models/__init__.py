@@ -5,7 +5,9 @@ from __future__ import annotations
 
 from ..errors import ModelNotFoundError
 from .adversarial_social import ESRF
+from .als import WRMF, CoFactor, ExpoMF, SERec
 from .baselines import ItemMean, MostPopular, Rand, UserMean
+from .classical import EE, ItemKNN, SlopeOne, SVDPlusPlus, UserKNN
 from .deep import APR, CDAE, CFGAN, DMF, NeuMF
 from .gan import IRGAN
 from .graph import NGCF, SGL, LightGCN, SimGCL
@@ -22,6 +24,9 @@ MODELS = {
     "MHCN": MHCN, "SEPT": SEPT, "BUIR": BUIR, "DiffNet": DiffNet, "DHCF": DHCF,
     "SoRec": SoRec, "SoReg": SoReg, "SocialMF": SocialMF, "RSTE": RSTE, "LOCABAL": LOCABAL,
     "SREE": SREE, "SocialFD": SocialFD, "SBPR": SBPR, "TBPR": TBPR, "ESRF": ESRF,
+    "WRMF": WRMF, "ExpoMF": ExpoMF, "CoFactor": CoFactor, "SERec": SERec,
+    "UserKNN": UserKNN, "ItemKNN": ItemKNN, "SlopeOne": SlopeOne, "EE": EE,
+    "SVDPlusPlus": SVDPlusPlus, "SVD++": SVDPlusPlus,
 }
 
 # display name -> canonical conf-key name (the reference's conf files key
@@ -35,9 +40,9 @@ ALIASES = {
 def get_model(name: str):
     if name not in MODELS:
         raise ModelNotFoundError(
-            f"model {name!r} is not ported yet (ROADMAP.md Queue 1 names its "
-            "slice: ALS/classical/walks slice 5, and RSGAN with IF_BPR there, whose "
-            "meta-path walks seed its friends); "
+            f"model {name!r} is not ported yet (ROADMAP.md Queue 1 item 17, slice 5: "
+            "the walks, CUNE_MF, CUNE_BPR and IF_BPR, and RSGAN with IF_BPR there, "
+            "whose meta-path walks seed its friends); "
             f"available: {sorted(MODELS)}"
         )
     return MODELS[name]

@@ -302,7 +302,7 @@ class DeviceCOO(NamedTuple):
         return cls.from_host(COO.from_scipy(m), device)
 
 
-def _segment_sum(data: torch.Tensor, indptr: torch.Tensor) -> torch.Tensor:
+def segment_sum(data: torch.Tensor, indptr: torch.Tensor) -> torch.Tensor:
     """Rows of ``data`` summed in the runs that ``indptr`` starts (an empty
     run gives a zero row), each run from its first row to its last: a
     fixed order with no atomics, so a sum repeats bit for bit. ``unsafe``
@@ -313,13 +313,13 @@ def _segment_sum(data: torch.Tensor, indptr: torch.Tensor) -> torch.Tensor:
 def coo_matmul(adj: DeviceCOO, x: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
     """``A @ x`` in f32 as the JAX package computes it: ``segment_sum(x[cols]
     * vals)`` over the sorted rows."""
-    return _segment_sum(x[adj.cols] * vals[:, None], adj.indptr)
+    return segment_sum(x[adj.cols] * vals[:, None], adj.indptr)
 
 
 def coo_matmul_t(adj: DeviceCOO, g: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
     """``Aᵀ @ g`` over the transposed order, in f32."""
     p = adj.t_perm
-    return _segment_sum(g[adj.t_cols] * vals[p][:, None], adj.t_indptr)
+    return segment_sum(g[adj.t_cols] * vals[p][:, None], adj.t_indptr)
 
 
 class CooMatmul(torch.autograd.Function):

@@ -104,7 +104,9 @@ def eval_ranking(model, data, conf, fold="[1]", log=None) -> List[str]:
 
 def eval_ratings(model, data, conf, fold="[1]", log=None) -> List[str]:
     """The rating-prediction file (each prediction clamped to the rating
-    scale or rounded to 3 decimals) and MAE/RMSE over the test records."""
+    scale or rounded to 3 decimals) and MAE/RMSE over the test records;
+    their seconds in ``model.rating_seconds``."""
+    t0 = time.perf_counter()
     output = conf.options("output.setup")
     users = [e[0] for e in data.test_data]
     items = [e[1] for e in data.test_data]
@@ -126,5 +128,6 @@ def eval_ratings(model, data, conf, fold="[1]", log=None) -> List[str]:
         write_file(out_dir, file_name, res)
         print("The result has been output to ", os.path.abspath(out_dir), ".")
     measure = M.rating_measure(records)
+    model.rating_seconds = time.perf_counter() - t0
     _write_measure(measure, conf, fold, log, current_time)
     return measure

@@ -1029,3 +1029,93 @@ def test_social_slice_learns_planted_blocks_on_card(cuda_device, tmp_path, name,
     assert (counts["bipartite_dual_matmul"] > 0) == joint
     assert (counts["weighted_segment_matmul"] > 0) == (name == "BUIR")
     assert recall > (0.35 if name == "BUIR" else 0.5)
+
+
+def _planted_als(name, device, epochs=10):
+    """``name`` on tests/test_als_models.py's planted blocks (binary for the
+    ALS models, 3-5 stars for SVD++), fitted on ``device``; SVD++'s
+    epochs run on batches drawn on the CPU, so that both devices train on
+    the same ones. Returns the model."""
+    import random
+
+    from qrec_tpu_torch.data.dataset import Interactions
+    from qrec_tpu_torch.data.split import data_split
+    from qrec_tpu_torch.models import get_model
+
+    rng = np.random.RandomState(0)
+    rated = name == "SVDPlusPlus"
+    records = [[f"u{u}", f"i{i}", float(rng.randint(3, 6)) if rated else 1.0]
+               for u in range(40) for i in rng.choice(15, size=10, replace=False) + (0 if u < 20 else 15)]
+    conf = ModelConf({
+        "ratings": "unused", "ratings.setup": "-columns 0 1 2", "model.name": name,
+        "evaluation.setup": "-ap 0.2", "item.ranking": "on -topN 10", "num.factors": "8",
+        "num.max.epoch": str(epochs), "batch_size": "64", "learnRate": "-init 0.01 -max 1",
+        "reg.lambda": "-u 0.1 -i 0.1 -b 0.1 -s 0.1", "output.setup": "off -dir ./results/",
+        "seed": "7", "CoFactor": "-k 2 -gamma 0.1 -filter 1", "SVDPlusPlus": "-y 0.01",
+    })
+    train, test = data_split(records, 0.2, rng=random.Random(3))
+    model = get_model(name)(conf, Interactions(conf, train, test), device=device)
+    if rated:
+        cpu = get_model(name)(conf, Interactions(conf, train, test), device="cpu")
+        sampler = cpu.rating_sampler()
+        gen = torch.Generator().manual_seed(5)
+        model.fit(epoch_batches=[sampler(gen) for _ in range(epochs)])
+    else:
+        model.fit()
+    return model
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["WRMF", "SVDPlusPlus"])
+def test_als_and_svdpp_tables_on_card_match_cpu(cuda_device, name):
+    """The batched solves (WRMF) and the implicit-mean segment sums (SVD++)
+    on the card against the CPU, on the same initial tables and batches."""
+    card = _planted_als(name, cuda_device)
+    cpu = _planted_als(name, "cpu")
+    for got, want in ((card.U, cpu.U), (card.V, cpu.V)):
+        want = want.numpy()
+        np.testing.assert_allclose(got.cpu().numpy(), want, rtol=1e-3, atol=1e-4 * np.abs(want).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["CoFactor", "SVDPlusPlus"])
+def test_seeded_segment_sum_models_repeat_on_card(cuda_device, name):
+    """CoFactor's context blocks and SVD++'s implicit mean are segment sums
+    with no atomics, so two seeded runs on the card give the same bits."""
+    runs = [_planted_als(name, cuda_device) for _ in range(2)]
+    assert torch.equal(runs[0].U, runs[1].U) and torch.equal(runs[0].V, runs[1].V)
+    if name == "CoFactor":
+        for key in ("g", "w", "c"):
+            assert torch.equal(runs[0].tables[key], runs[1].tables[key])
+    else:
+        assert runs[0].epoch_losses == runs[1].epoch_losses
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["WRMF", "ExpoMF", "CoFactor", "SERec", "SVD++"])
+def test_als_slice_ranks_through_k2_on_card(cuda_device, tmp_path, name):
+    """The four ALS models and SVD++ (its bias epilogue) rank the planted
+    blocks through K2's fused top-k, the ALS models above
+    tests/test_als_models.py's floors."""
+    rng = np.random.RandomState(0)
+    ratings, trust = tmp_path / "ratings.txt", tmp_path / "trust.txt"
+    ratings.write_text("".join(f"u{u} i{i} {rng.randint(3, 6) if name == 'SVD++' else 1}\n"
+                               for u in range(40)
+                               for i in rng.choice(15, size=10, replace=False) + (0 if u < 20 else 15)))
+    trust.write_text("".join(f"u{u} u{f} 1\n" for u in range(40)
+                             for f in rng.choice(20, size=3, replace=False) + (0 if u < 20 else 20) if f != u))
+    conf = ModelConf(str(CONFIG / f"{name}.conf"))
+    for key, value in (("ratings", str(ratings)), ("social", str(trust)), ("social.setup", "-columns 0 1 2"),
+                       ("evaluation.setup", "-ap 0.2"), ("item.ranking", "on -topN 10"),
+                       ("num.factors", "8"), ("num.max.epoch", "10"), ("batch_size", "64"),
+                       ("reg.lambda", "-u 0.1 -i 0.1 -b 0.1 -s 0.1"), ("seed", "7"),
+                       ("output.setup", "off -dir ./results/")):
+        conf[key] = value
+    if name == "CoFactor":
+        conf["CoFactor"] = "-k 2 -gamma 0.1 -filter 1"
+    K.reset_launch_counts()
+    recall = parse_measure(QRec(conf, seed=3).execute())["Top 10"]["Recall"]
+    counts = K.launch_counts()
+    assert counts["masked_catalog_topk"] == 1 and sum(counts.values()) == 1
+    floor = {"WRMF": 0.6, "ExpoMF": 0.5, "CoFactor": 0.55, "SERec": 0.5}.get(name, 0.0)
+    assert recall > floor
