@@ -99,10 +99,19 @@ Phases, each of which exits non-zero on failure:
    ItemKNN, SlopeOne, SVD++ and EE (3 epochs each) on the FilmTrust-shaped
    file, their MAE/RMSE beside UserMean's and ItemMean's and the seconds
    of each rating evaluation; SVD++ ranked through K2's bias epilogue;
-13. planted-block runs that must learn their blocks: LightGCN and SimGCL on
+13. the walk slice (``walk_phases``): CUNE_MF on the FilmTrust-shaped file
+   beside UserMean's and ItemMean's MAE/RMSE; CUNE_BPR, IF_BPR (without and
+   with a synthetic ``ratings_n.txt``) and RSGAN on the lastfm-shaped file
+   with ``lastfm_trust``; each at its published widths with the epochs of
+   ``WALK_EPOCHS``, its launches (K2's top-k for the four rankings), its
+   host walk build, walkers and pairs, its SGNS steps and seconds per
+   channel, its friend top-k ms, its steady epoch and its measures; the
+   rankings held as the main path's; RSGAN's pretraining ms and one more
+   RSGAN epoch under ``torch.profiler``;
+14. planted-block runs that must learn their blocks: LightGCN and SimGCL on
    the dense adjacency, LightGCN and SGL on the sparse one, NGCF, and
    SBPR and ESRF with a trust relation;
-14. the ``kernels`` JSON line, the card line, and the final status line.
+15. the ``kernels`` JSON line, the card line, and the final status line.
 """
 
 from __future__ import annotations
@@ -933,7 +942,7 @@ DEEP_EPOCHS = {"NeuMF": 5, "APR": 4, "IRGAN": 2, "DMF": 2, "CDAE": 100, "CFGAN":
 # phases whose loss is one side of a minimax game and need not fall epoch
 # by epoch: a GAN's D and G losses; APR's perturbed phase, whose worst-case
 # deltas grow with the tables (its loss rises in the JAX package too)
-MINIMAX_PHASES = {"APR": (1,), "CFGAN": (0,), "IRGAN": (0,)}
+MINIMAX_PHASES = {"APR": (1,), "CFGAN": (0,), "IRGAN": (0,), "RSGAN": (0,)}
 # phases checked from their second epoch on: every phase reseeds the
 # trainer's generator (seed + 1, as the JAX package's run_training does), so
 # SEPT's joint phase starts on the batches its warm-up already trained on,
@@ -1402,6 +1411,118 @@ def als_classical_phases(torch, K, QRec, conf_of, tmp, trust_path):
     return launches, k2r
 
 
+# the walk slice's depth on the card, each config/ file at its published
+# widths (CUNE_MF d=10 on the FilmTrust shape; CUNE_BPR and IF_BPR d=10,
+# RSGAN d=50 on the lastfm shape)
+WALK_EPOCHS = {"CUNE_MF": 3, "CUNE_BPR": 3, "IF_BPR": 3, "RSGAN": 3}
+
+
+def negative_feedback_file(ratings: str, seed: int = 0) -> str:
+    """A copy of the rating file with a synthetic ``<ratings>_n.txt``
+    beside it: ten items per user that the user did not rate, drawn with
+    numpy from ``seed``. Returns the copy's path."""
+    rows = np.loadtxt(ratings, dtype=np.int64, usecols=(0, 1))
+    users, items = rows[:, 0], rows[:, 1]
+    num_items = int(items.max()) + 1
+    rated = set((users * num_items + items).tolist())
+    rng = np.random.default_rng(seed)
+    lines = []
+    for u in np.unique(users):
+        picks = [i for i in rng.integers(0, num_items, size=40).tolist() if u * num_items + i not in rated]
+        lines += [f"{u} {i} 1\n" for i in dict.fromkeys(picks).keys()][:10]
+    copy = os.path.join(os.path.dirname(ratings), "ifbpr_negative.txt")
+    shutil.copyfile(ratings, copy)
+    with open(copy[:-4] + "_n.txt", "w") as f:
+        f.writelines(lines)
+    return copy
+
+
+def walk_stats_line(label: str, stats: dict) -> str:
+    """The walk pipeline's numbers: the host seconds of the network and
+    walk build, the walkers kept (by meta-path for IF_BPR's channels) and
+    the pairs, each SGNS channel's steps and seconds, the friend top-k's
+    ms."""
+    sgns = " ".join(f"channel {c}: {steps} steps {sec:.3f} s ({sec / steps * 1e3:.3f} ms a step)"
+                    for c, (steps, sec) in enumerate(stats["sgns"]))
+    return (f"[{label}] walks: host build s={stats['walk_s']:.3f} walkers kept={stats['walkers']} "
+            f"pairs={stats['pairs']}; SGNS {sgns}; friend top-k ms={stats['topk_ms']:.3f}")
+
+
+def walk_phases(torch, K, QRec, conf_of, tmp, trust_path):
+    """The walk slice: CUNE_MF on a FilmTrust-shaped file beside UserMean's
+    and ItemMean's MAE/RMSE on the same split; CUNE_BPR on the lastfm-shaped
+    file; IF_BPR with :func:`lastfm_trust`, once without negative feedback
+    and once with the synthetic ``_n.txt`` of :func:`negative_feedback_file`
+    (its negative channel, the neg tier and the true friends); RSGAN with
+    :func:`lastfm_trust`, its 30 pretraining steps timed. Each ``config/``
+    file at its published widths with the epochs of ``WALK_EPOCHS``, driven
+    through ``QRec(conf).execute()`` with its launches against
+    ``expected_launches`` (K2's top-k for the four rankings, none for
+    CUNE_MF), its walk, SGNS and friend top-k numbers, its steady epoch and
+    its measures; the rankings checked as the main path's
+    (``ranking_phase``); one more RSGAN epoch under torch.profiler. Returns
+    (K2 launches per path, K2 checks)."""
+    users, items, ratings = filmtrust_records()
+    filmtrust = os.path.join(tmp, "filmtrust_walk.txt")
+    with open(filmtrust, "w") as f:
+        f.writelines(f"{a} {b} {r}\n" for a, b, r in zip(users, items, ratings))
+    baseline = {}
+    for name in ("UserMean", "ItemMean"):
+        conf = conf_of(name, 1)
+        conf["ratings"] = filmtrust
+        _, _, baseline[name] = drive(torch, K, QRec, conf, name.lower())
+    launches, k2r, summary = {}, {}, {}
+    negative = None
+    for key in ("CUNE_MF", "CUNE_BPR", "IF_BPR", "IF_BPR negative", "RSGAN"):
+        name = key.split()[0]
+        conf = conf_of(name, WALK_EPOCHS[name])
+        if name == "CUNE_MF":
+            conf["ratings"] = filmtrust
+        if name in ("IF_BPR", "RSGAN"):
+            conf["social"] = trust_path
+        if key.endswith("negative"):
+            negative = negative or negative_feedback_file(conf["ratings"])
+            conf["ratings"] = negative
+        label = key.lower().replace(" ", "-")
+        model, counts, measures = drive(torch, K, QRec, conf, label)
+        steady = model.timer.steady_state() * 1e3
+        print(walk_stats_line(label, model.walk_stats), flush=True)
+        print(f"[{label}] host build s={model.graph_seconds:.3f} (walks, SGNS, friends and tables, "
+              f"before the epochs) steady epoch ms={steady:.3f} (mean after the first epoch)",
+              flush=True)
+        summary[key] = dict(steady_ms=steady, graph_s=model.graph_seconds, **measures)
+        if name == "CUNE_MF":
+            print(f"[{label}] MAE={measures['MAE']} RMSE={measures['RMSE']} beside UserMean "
+                  f"{baseline['UserMean']['MAE']}/{baseline['UserMean']['RMSE']} and ItemMean "
+                  f"{baseline['ItemMean']['MAE']}/{baseline['ItemMean']['RMSE']} on the same split",
+                  flush=True)
+            del model
+            continue
+        if name == "IF_BPR":
+            friends = model.friends
+            print(f"[{label}] negative feedback pairs={len(friends.negative[0])} negative channel="
+                  f"{friends.n_ids is not None} tier entries joint/ps/neg="
+                  f"{[int(t[1].numel()) for t in model.tables]}", flush=True)
+            if key.endswith("negative") and (friends.n_ids is None or model.tables[2][1].numel() == 0):
+                fail(f"{label}: the negative channel or tier is empty")
+        launches[label] = counts["masked_catalog_topk"]
+        k2r[label] = ranking_phase(torch, K, label, model, 10)
+        if name == "RSGAN":
+            summary[key]["pretrain_ms"] = model.pretrain_timer.last * 1e3
+            print(f"[{label}] generator pretraining: {model.pretrain_steps} full-profile steps in "
+                  f"{model.pretrain_timer.last * 1e3:.3f} ms, losses {model.pretrain_losses[0]:.4f} -> "
+                  f"{model.pretrain_losses[-1]:.4f}", flush=True)
+            gen = torch.Generator(device="cuda").manual_seed(0)
+            g_opt, d_opt = model.optimizers()
+            sampler = model.pairwise_sampler()
+            profile_epoch(torch, model, "RSGAN", lambda: model.train_epoch(gen, g_opt, d_opt, sampler(gen)))
+        del model
+    print("[walk] " + " ".join(
+        f"{k}: " + " ".join(f"{m}={v:.4f}" if isinstance(v, float) else f"{m}={v}"
+                            for m, v in d.items()) + ";" for k, d in summary.items()), flush=True)
+    return launches, k2r
+
+
 def write_yelp_file(path: str) -> None:
     """The :func:`yelp_matrix` interactions as a rating file."""
     rows, cols, _, _ = yelp_matrix()
@@ -1500,11 +1621,12 @@ def expected_launches(model):
     social MF and ranking models, the baselines and the deep and GAN slice
     run no kernel but the top-k: one ranking when ``item.ranking`` is on
     and the model's score form is a ``ScoreForm`` (BPR, SVD, MostPopular,
-    APR, IRGAN, SBPR, TBPR, WRMF, ExpoMF, CoFactor, SERec, SVD++:
-    ceil(test users / eval_batch_size) launches, 512 users a batch for
-    IRGAN); none for a rating run (the seven social MF models, UserKNN,
-    ItemKNN, SlopeOne, SVD++ and EE as published; their solves, similarity
-    blocks and segment sums are torch ops), for Rand (torch ops) nor for
+    APR, IRGAN, SBPR, TBPR, WRMF, ExpoMF, CoFactor, SERec, SVD++, CUNE_BPR,
+    IF_BPR, RSGAN: ceil(test users / eval_batch_size) launches, 512 users a
+    batch for IRGAN); none for a rating run (the seven social MF models,
+    UserKNN, ItemKNN, SlopeOne, SVD++ and EE as published, CUNE_MF; their
+    solves, similarity blocks, segment sums, walks' skip-gram and friend
+    top-k are torch ops), for Rand (torch ops) nor for
     the score blocks of NeuMF, DMF, CDAE, CFGAN, SREE, SocialFD and EE
     (torch ops, as the JAX package ranks them through XLA)."""
     from qrec_tpu_torch.models.adversarial_social import ESRF
@@ -1882,7 +2004,13 @@ def main() -> None:
         mf_launches.update(als_launches)
         k2r.update(als_k2r)
 
-        # 13. planted blocks
+        # 13. the walk slice: CUNE_MF, CUNE_BPR, IF_BPR (without and with
+        # negative feedback) and RSGAN
+        walk_launches, walk_k2r = walk_phases(torch, K, QRec, conf_of, tmp, trust)
+        mf_launches.update(walk_launches)
+        k2r.update(walk_k2r)
+
+        # 14. planted blocks
         planted_check(torch, tmp, ModelConf, QRec, parse_measure, "LightGCN", "-n_layer 2")
         planted_check(torch, tmp, ModelConf, QRec, parse_measure, "SimGCL",
                       "-n_layer 2 -lambda 0.05 -eps 0.1")
@@ -1898,7 +2026,7 @@ def main() -> None:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
-    # 14. results
+    # 15. results
     print(f"[K5 yelp2018] launches {yelp_counts['weighted_segment_matmul']} ms={k5['ms']:.4f} "
           f"plain_ms={k5['plain_ms']:.4f} library_ms={k5['library_ms']:.4f} "
           f"bound_ms={k5['bound_ms']:.4f} gather_floor_ms={k5['floor_ms']:.4f}", flush=True)

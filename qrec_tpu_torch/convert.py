@@ -11,10 +11,17 @@ LightGCN, SGL, SimGCL, APR and the MF family, plus NGCF's ``W_{k}_1`` and
 ``layer{k}``, BUIR's ``W`` and ``b``, SoRec's ``Z``, LOCABAL's ``H``,
 SREE's ``user_bias`` and ``item_bias``, SocialFD's ``H`` and both biases,
 EE's ``user_emb``, ``item_emb``, ``user_bias`` and ``item_bias``, SVD++'s
-the same and ``Y``),
-one dict per player for the GANs and ESRF (CFGAN's ``g`` and ``d``,
+the same and ``Y``, the walk models' (CUNE_MF, CUNE_BPR, IF_BPR)
+``user_emb`` and ``item_emb``),
+one dict per player for the GANs, ESRF and RSGAN (CFGAN's ``g`` and ``d``,
 IRGAN's ``gen`` and ``dis``, ESRF's ``d`` with ``user_emb`` and
-``item_emb`` and ``g`` with ``relation_emb`` and ``selector``). The port's modules
+``item_emb`` and ``g`` with ``relation_emb`` and ``selector``, RSGAN's
+``d`` with ``user_emb`` and ``item_emb`` and ``g`` with ``V``, ``enc_w``,
+``enc_b``, ``dec_w``, ``dec_b`` and ``item_selection``). The skip-gram
+tables are ``in`` and ``out`` in both packages; the port's
+``ops/walks.train_skipgram`` takes its initial ``in`` table from a
+``SkipgramDraws`` that a caller replaces (``out`` starts at zero in
+both). The port's modules
 hold the same tensors under the same names, a nested dict's under its key
 as a prefix (``gen.user_emb``; BUIR's momentum target, which the JAX
 package keeps beside its parameters, as ``{"target": {"user_emb": ...,

@@ -1,20 +1,22 @@
-"""Model registry: an explicit name→class map that grows slice by slice
-(reference: QRec.py:51-56's ``exec``-based import)."""
+"""Model registry: an explicit name→class map of every model the JAX
+package registers (reference: QRec.py:51-56's ``exec``-based import)."""
 
 from __future__ import annotations
 
 from ..errors import ModelNotFoundError
-from .adversarial_social import ESRF
+from .adversarial_social import ESRF, RSGAN
 from .als import WRMF, CoFactor, ExpoMF, SERec
 from .baselines import ItemMean, MostPopular, Rand, UserMean
 from .classical import EE, ItemKNN, SlopeOne, SVDPlusPlus, UserKNN
 from .deep import APR, CDAE, CFGAN, DMF, NeuMF
 from .gan import IRGAN
 from .graph import NGCF, SGL, LightGCN, SimGCL
+from .ifbpr import IF_BPR
 from .mf import BPR, PMF, SVD, BasicMF
 from .social_graph import BUIR, DHCF, MHCN, SEPT, DiffNet
 from .social_mf import LOCABAL, RSTE, SREE, SoRec, SoReg, SocialFD, SocialMF
 from .social_ranking import SBPR, TBPR
+from .walk import CUNE_BPR, CUNE_MF
 
 MODELS = {
     "LightGCN": LightGCN, "NGCF": NGCF, "SGL": SGL, "SimGCL": SimGCL,
@@ -27,6 +29,7 @@ MODELS = {
     "WRMF": WRMF, "ExpoMF": ExpoMF, "CoFactor": CoFactor, "SERec": SERec,
     "UserKNN": UserKNN, "ItemKNN": ItemKNN, "SlopeOne": SlopeOne, "EE": EE,
     "SVDPlusPlus": SVDPlusPlus, "SVD++": SVDPlusPlus,
+    "CUNE_MF": CUNE_MF, "CUNE_BPR": CUNE_BPR, "IF_BPR": IF_BPR, "RSGAN": RSGAN,
 }
 
 # display name -> canonical conf-key name (the reference's conf files key
@@ -39,10 +42,5 @@ ALIASES = {
 
 def get_model(name: str):
     if name not in MODELS:
-        raise ModelNotFoundError(
-            f"model {name!r} is not ported yet (ROADMAP.md Queue 1 item 17, slice 5: "
-            "the walks, CUNE_MF, CUNE_BPR and IF_BPR, and RSGAN with IF_BPR there, "
-            "whose meta-path walks seed its friends); "
-            f"available: {sorted(MODELS)}"
-        )
+        raise ModelNotFoundError(f"unknown model {name!r}; available: {sorted(MODELS)}")
     return MODELS[name]

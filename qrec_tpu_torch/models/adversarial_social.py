@@ -1,7 +1,8 @@
-"""ESRF: enhancing social recommendation with adversarial graph
-refinement (reference model/ranking/ESRF.py; the JAX package's
-``models/adversarial_social.py``, whose RSGAN seeds its friends through
-IF_BPR's meta-path walks and comes with them, ROADMAP slice 5).
+"""The adversarial social family, ESRF and RSGAN (reference
+model/ranking/ESRF.py and RSGAN.py; the JAX package's
+``models/adversarial_social.py``).
+
+ESRF: enhancing social recommendation with adversarial graph refinement.
 
 A motif-GCN generator proposes K alternative neighbours for a segment of
 ``min(100, U)`` users by concrete selection (K Gumbel-softmax draws over
@@ -20,20 +21,42 @@ factors are the discriminator's propagation without the social term.
 Parameters: ``d.user_emb``, ``d.item_emb`` (truncated normal), then
 ``g.relation_emb`` (U, d) (truncated normal) and ``g.selector`` (K, U)
 (Glorot), all drawn from one CPU generator seeded ``seed``.
+
+RSGAN: a CDAE-like generator reads each user's seeded friends (the first 30
+positive implicit friends of IF_BPR's meta-path pipeline, plus those that
+are also negative friends, :func:`~.ifbpr.friend_lists`) and proposes
+virtual friends by a Gumbel softmax over all users; their rated items
+(the (I, U) rating matrix as a ``DeviceCOO``), weighted by a learned (U, I)
+item selection, give a virtual item by a second Gumbel softmax. The
+discriminator trains the social BPR chain ``i ≻ virtual item ≻ j`` and the
+generator is rewarded where the virtual item outscores the positive. The
+generator pretrains for 30 full-profile Adam steps on its reconstruction;
+then every step is a generator step followed by a discriminator step on the
+updated generator, each under its own Adam(lr), each with its own (B, U)
+and (B, I) uniforms (``draw``). Parameters: ``g.V`` (U, 200), ``g.enc_w``
+(U, 200), ``g.dec_w`` (200, U) (Glorot, from a CPU generator seeded
+``seed``), ``g.enc_b``, ``g.dec_b`` (zeros), ``g.item_selection`` (U, I)
+(0.01), then ``d.user_emb``, ``d.item_emb`` (truncated normal).
 """
 
 from __future__ import annotations
 
 from typing import Optional, Tuple
 
+import numpy as np
+import scipy.sparse as sp
 import torch
 from torch import nn
 
+from ..device import f32_products
 from ..ops.losses import _l2n, bpr_loss
 from ..ops.spmm import spmm
+from ..ops.walks import SkipgramDraws
 from ..runtime import trainer as T
 from ..runtime.profiling import StepTimer
 from .base import GraphRecommender, SocialRecommender
+from .deep import xavier
+from .ifbpr import friend_lists, read_negative_feedback
 from .social_graph import _row_norm, aux_operator, triangle_motifs
 
 
@@ -222,3 +245,170 @@ class ESRF(SocialRecommender, GraphRecommender):
         with torch.no_grad():
             users, items = self.encode(self.d["user_emb"], self.d["item_emb"])
         self.U, self.V = users.contiguous(), items.contiguous()
+
+
+class RSGAN(SocialRecommender):
+    """Social GAN with a Gumbel-softmax CDAE generator of virtual friends
+    (RSGAN.py), its friends seeded by IF_BPR's meta-path pipeline."""
+
+    hidden = 200
+    seed_top_k = 100
+    seed_keep = 30
+    temperature = 0.1
+    pretrain_steps = 30  # RSGAN.py:344-349
+    skipgram_draws = SkipgramDraws  # the seeding SGNS runs' random inputs (replaceable)
+
+    def __init__(self, conf, data, fold: str = "[1]", device=None, social=None):
+        super().__init__(conf, data, fold=fold, device=device, social=social)
+        gen = torch.Generator().manual_seed(self.seed)
+        nu, ni, h = self.num_users, self.num_items, self.hidden
+        self.g = nn.ParameterDict({
+            "V": xavier(gen, (nu, h)), "enc_w": xavier(gen, (nu, h)), "enc_b": torch.zeros(h),
+            "dec_w": xavier(gen, (h, nu)), "dec_b": torch.zeros(nu),
+            "item_selection": torch.full((nu, ni), 0.01),
+        }).to(self.device)
+        self.d = nn.ParameterDict(self.init_embeddings("normal", gen))
+
+    def seeded_friends(self) -> np.ndarray:
+        """(U, U) f32 0/1 profiles: each user's first 30 positive implicit
+        friends, plus those also among its negative friends
+        (RSGAN.py:221-224), by :func:`~.ifbpr.friend_lists` at walk length
+        20, dimension 32, window 5 and top-k ``min(100, U - 1)``."""
+        negative = read_negative_feedback(self.config["ratings"], self.data)
+        friends = friend_lists(self.data, self.social, self.seed, 20, 32, 5,
+                               min(self.seed_top_k, self.num_users - 1), self.device, negative,
+                               draws=self.skipgram_draws)
+        self.walk_stats = friends.stats
+        nu = self.num_users
+        seeds = np.zeros((nu, nu), dtype=np.float32)
+        for u in range(nu):
+            chosen = set(friends.p_ids[u][:self.seed_keep].tolist())
+            if friends.n_ids is not None:
+                chosen |= set(friends.p_ids[u]) & set(friends.n_ids[u])
+            seeds[u, list(map(int, chosen))] = 1.0
+        return seeds
+
+    def build_graph(self) -> None:
+        self.profiles = torch.tensor(self.seeded_friends(), device=self.device)
+        # the (I, U) rating matrix that turns virtual friends into candidate
+        # items (RSGAN.py:231-233), a DeviceCOO (the JAX package passes no
+        # graph.aux.dense mode)
+        iu = sp.csr_matrix((self.data.train_r, (self.data.train_i, self.data.train_u)),
+                           shape=(self.num_items, self.num_users))
+        self.iu = aux_operator(iu, None, "auto", self.device)
+        self._all_users = torch.arange(self.num_users, device=self.device)
+
+    def generate(self, x: torch.Tensor, uids: torch.Tensor) -> torch.Tensor:
+        g = self.g
+        layer = torch.sigmoid(x @ g["enc_w"] + g["enc_b"] + g["V"][uids])
+        return torch.sigmoid(layer @ g["dec_w"] + g["dec_b"])
+
+    def recon_loss(self) -> torch.Tensor:
+        """The generator's pretraining loss on every user's full profile:
+        clipped cross-entropy plus L2 on the weights and biases."""
+        x, g = self.profiles, self.g
+        pred = torch.clamp_min(x * self.generate(x, self._all_users), 1e-6)
+        ce = -x * torch.log(pred) - (1 - x) * torch.log(torch.clamp_min(1 - pred, 1e-6))
+        reg = self.reg_u * 0.5 * ((g["enc_w"] ** 2).sum() + (g["dec_w"] ** 2).sum()
+                                  + (g["enc_b"] ** 2).sum() + (g["dec_b"] ** 2).sum())
+        return ce.sum() + reg
+
+    def draw(self, gen: torch.Generator) -> Tuple[torch.Tensor, torch.Tensor]:
+        """One step's Gumbel uniforms: (B, U) for the virtual friends and
+        (B, I) for the virtual items."""
+        b = self.batch_size
+        return (torch.rand((b, self.num_users), generator=gen, device=self.device),
+                torch.rand((b, self.num_items), generator=gen, device=self.device))
+
+    def virtual_items(self, u: torch.Tensor, draws) -> torch.Tensor:
+        """(B, d): the discriminator's embedding of each user's virtual
+        item."""
+        friend_u, item_u = draws
+        out = self.generate(self.profiles[u], u)
+        vf = gumbel_softmax(friend_u, out, self.temperature)
+        cand = spmm(self.iu, vf.T).T
+        vi = gumbel_softmax(item_u, cand * self.g["item_selection"][u], self.temperature)
+        return vi @ self.d["item_emb"].detach()
+
+    def d_loss(self, batch, draws) -> torch.Tensor:
+        """``i ≻ virtual item ≻ j`` with L2 on the batch's rows, the virtual
+        item a constant."""
+        u, i, j, w = batch
+        pu, qi, qj = self.d["user_emb"][u], self.d["item_emb"][i], self.d["item_emb"][j]
+        with torch.no_grad():
+            vie = self.virtual_items(u, draws)
+        y_v = (pu * vie).sum(dim=1)
+        y_uf = (pu * qi).sum(dim=1) - y_v
+        y_fs = y_v - (pu * qj).sum(dim=1)
+        loss = bpr_loss(y_uf, torch.zeros_like(y_uf), w) + bpr_loss(y_fs, torch.zeros_like(y_fs), w)
+        wc = w[:, None]
+        return loss + self.reg_u * 0.5 * ((wc * pu**2).sum() + (wc * qi**2).sum() + (wc * qj**2).sum())
+
+    def g_loss(self, batch, draws) -> torch.Tensor:
+        """``30 Σ w (p·q_i - p·v)``: the generator gains where the virtual
+        item outscores the positive; the discriminator's tables constants."""
+        u, i, _, w = batch
+        pu, qi = self.d["user_emb"][u].detach(), self.d["item_emb"][i].detach()
+        y_uf = (pu * qi).sum(dim=1) - (pu * self.virtual_items(u, draws)).sum(dim=1)
+        return 30.0 * (w * y_uf).sum()
+
+    def optimizers(self):
+        """Adam(lr) on the generator, Adam(lr) on the discriminator."""
+        return (T.make_optimizer(list(self.g.values()), "adam", self.lrate),
+                T.make_optimizer(list(self.d.values()), "adam", self.lrate))
+
+    def pretrain(self, g_opt) -> list:
+        """The generator's full-profile pretraining steps; their losses.
+        ``item_selection`` takes no part, but its Adam step count advances
+        on a zero gradient, as optax's does."""
+        params = list(self.g.values())
+        losses = []
+        with f32_products():
+            for _ in range(self.pretrain_steps):
+                loss = self.recon_loss()
+                for p, g in zip(params, torch.autograd.grad(loss, params, allow_unused=True)):
+                    p.grad = torch.zeros_like(p) if g is None else g
+                g_opt.step()
+                losses.append(loss.detach())
+        return [float(x) for x in losses]
+
+    def train_epoch(self, gen: torch.Generator, g_opt, d_opt, batches) -> torch.Tensor:
+        """One epoch: each step a generator step, then a discriminator step
+        on the updated generator, each on its own draws, the products in
+        f32; returns the summed discriminator loss."""
+        g_params, d_params = list(self.g.values()), list(self.d.values())
+        total = torch.zeros((), device=self.device)
+        with f32_products():
+            for step in range(batches[0].shape[0]):
+                batch = tuple(t[step] for t in batches)
+                T.step(g_opt, self.g_loss(batch, self.draw(gen)), g_params)
+                loss = self.d_loss(batch, self.draw(gen))
+                T.step(d_opt, loss, d_params)
+                total = total + loss.detach()
+        return total
+
+    def fit_phases(self) -> None:
+        self.prepare_graph()
+        g_opt, d_opt = self.optimizers()
+        print("pretraining for generator...")
+        self.pretrain_timer = StepTimer(self.num_users, self.device)
+        with self.pretrain_timer:
+            self.pretrain_losses = self.pretrain(g_opt)
+        print("Training GAN...")
+        gen = torch.Generator(device=self.device).manual_seed(self.seed + 1)
+        sampler = self.pairwise_sampler()
+        losses = []
+        for epoch in range(self.max_epoch):
+            with self.timer:
+                if self._epoch_batches is not None:
+                    batches = T.as_device_batches(self._epoch_batches[epoch], self.device)
+                else:
+                    batches = sampler(gen)
+                loss = float(self.train_epoch(gen, g_opt, d_opt, batches))
+            T.check_finite(loss)
+            losses.append(loss)
+            if (epoch + 1) % 5 == 0 or epoch == self.max_epoch - 1:
+                print(f"{self.model_name} {self.fold} epoch {epoch + 1}: D_loss = {loss:.4f}")
+        self.epoch_losses, self.phase_losses = losses, [losses]
+        self.U = self.d["user_emb"].detach().clone()
+        self.V = self.d["item_emb"].detach().clone()

@@ -310,6 +310,31 @@ class IterativeRecommender(Recommender):
 
         return sampler
 
+    def _pairs(self, gen: torch.Generator, shuffle: bool = True):
+        """(users, pos, weight) of one epoch's training pairs, shuffled or in
+        file order, padded to whole batches (weight 0 on the pad): the
+        epoch samplers of the social rankers and the walk family."""
+        ta = self.train_arrays
+        n = self.train_size
+        padded = -(-n // self.batch_size) * self.batch_size
+        perm = (torch.randperm(n, generator=gen, device=self.device) if shuffle
+                else torch.arange(n, device=self.device))
+        pad = torch.cat([perm, perm.new_zeros(padded - n)])
+        w = (torch.arange(padded, device=self.device) < n).float()
+        return ta["u"][pad], ta["i"][pad], w
+
+    def _negatives(self, gen: torch.Generator, users: torch.Tensor, also_exclude=None):
+        """One non-positive uniform item per user: 8 tries, then the exact
+        draw (the JAX package's 8)."""
+        ta = self.train_arrays
+        row_iters = sampling._bisect_iters(int(np.max(np.diff(self.data.u_indptr))) if self.train_size else 1)
+        return sampling.sample_negatives(gen, users, self.num_items, ta["indices"], ta["indptr"],
+                                         self.rated_bitmask, 8, row_iters, also_exclude)
+
+    def _batched(self, *tensors):
+        shape = (-1, self.batch_size)
+        return tuple(t.view(shape) for t in tensors)
+
     def dense_ratings(self) -> torch.Tensor:
         """The dense (U, I) f32 training rating matrix on the device (the
         row and column inputs of DMF, CDAE and CFGAN). Cached."""

@@ -1119,3 +1119,91 @@ def test_als_slice_ranks_through_k2_on_card(cuda_device, tmp_path, name):
     assert counts["masked_catalog_topk"] == 1 and sum(counts.values()) == 1
     floor = {"WRMF": 0.6, "ExpoMF": 0.5, "CoFactor": 0.55, "SERec": 0.5}.get(name, 0.0)
     assert recall > floor
+
+
+# ---------------------------------------------------------------------------
+# the walk slice: IF_BPR's threshold sums, the friend top-k, the rankers
+# ---------------------------------------------------------------------------
+
+
+def _walk_files(tmp_path):
+    """The planted blocks of tests/test_adversarial_models.py: ratings,
+    ``ratings_n.txt`` (3 items of the other block per user) and trust."""
+    rng = np.random.RandomState(0)
+    ratings, negative, trust = tmp_path / "ratings.txt", tmp_path / "ratings_n.txt", tmp_path / "trust.txt"
+    ratings.write_text("".join(f"u{u} i{i} 1\n" for u in range(40)
+                               for i in rng.choice(15, size=10, replace=False) + (0 if u < 20 else 15)))
+    negative.write_text("".join(f"u{u} i{i} 1\n" for u in range(40)
+                                for i in rng.choice(15, size=3, replace=False) + (15 if u < 20 else 0)))
+    trust.write_text("".join(f"u{u} u{f} 1\n" for u in range(40)
+                             for f in rng.choice(20, size=4, replace=False) + (0 if u < 20 else 20) if f != u)
+                     + "".join(f"u{u} u{u + 1} 1\nu{u + 1} u{u} 1\n" for u in range(0, 40, 2)))
+    return ratings, trust
+
+
+def _walk_conf(name, ratings, trust, epochs=30):
+    conf = ModelConf(str(CONFIG / f"{name}.conf"))
+    for key, value in (("ratings", str(ratings)), ("social", str(trust)), ("social.setup", "-columns 0 1 2"),
+                       ("evaluation.setup", "-ap 0.2"), ("item.ranking", "on -topN 10"),
+                       ("num.factors", "16"), ("num.max.epoch", str(epochs)), ("batch_size", "64"),
+                       ("learnRate", "-init 0.02 -max 1" if name != "CUNE_BPR" else "-init 0.05 -max 1"),
+                       ("reg.lambda", "-u 0.001 -i 0.001 -b 0.1 -s 0.1"), ("seed", "7"),
+                       ("output.setup", "off -dir ./results/")):
+        conf[key] = value
+    if name == "IF_BPR":
+        conf["IF_BPR"] = "-L 20 -l 16 -w 5 -k 10 -a 0.1 -ep 10 -neg 3 -r 0.2"
+    if name == "CUNE_BPR":
+        conf["CUNE-BPR"] = "-T 10 -L 10 -l 16 -w 5 -k 10 -s 2 -ep 10"
+        conf["reg.lambda"] = "-u 0.01 -i 0.01 -b 0.1 -s 0.1"
+    return conf
+
+
+@pytest.mark.cuda
+def test_ifbpr_threshold_sums_repeat_bit_for_bit_on_card(cuda_device, tmp_path):
+    """IF_BPR's per-user threshold sums are segment sums over each batch
+    sorted by user (no atomics), so two seeded runs on the card give the
+    same sums, thresholds and tables bit for bit."""
+    ratings, trust = _walk_files(tmp_path)
+    runs = []
+    for _ in range(2):
+        rec = QRec(_walk_conf("IF_BPR", ratings, trust, epochs=5), seed=3)
+        rec.execute()
+        runs.append(rec.model)
+    a, b = runs
+    assert a.acc.device.type == "cuda" and a.acc.abs().sum() > 0
+    assert torch.equal(a.acc, b.acc)
+    for (t1, v1), (t2, v2) in zip(a.thresholds, b.thresholds):
+        assert torch.equal(t1, t2) and torch.equal(v1, v2)
+    assert torch.equal(a.U, b.U) and torch.equal(a.V, b.V)
+    assert a.epoch_losses == b.epoch_losses
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk", [1024, 64])
+def test_friend_topk_on_card_equals_cpu(cuda_device, chunk):
+    """The friend top-k on a tie-free block: the same ids as on the CPU,
+    the similarities within 1e-5."""
+    from qrec_tpu_torch.ops.walks import topk_cosine_neighbors
+
+    g = torch.Generator().manual_seed(0)
+    emb = torch.randn((700, 32), generator=g)
+    active = np.arange(0, 700, 3)
+    ids, sims = topk_cosine_neighbors(emb.to(cuda_device), active, 30, chunk=chunk)
+    cids, csims = topk_cosine_neighbors(emb, active, 30, chunk=chunk)
+    assert ids.device.type == "cuda"
+    assert torch.equal(ids.cpu(), cids)
+    torch.testing.assert_close(sims.cpu(), csims, rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,floor", [("CUNE_BPR", 0.5), ("IF_BPR", 0.45), ("RSGAN", 0.35)])
+def test_walk_rankers_rank_through_k2_on_card(cuda_device, tmp_path, name, floor):
+    """CUNE_BPR, IF_BPR (with its negative channel) and RSGAN rank the
+    planted blocks through K2's fused top-k, above the JAX package's
+    floors (tests/test_walk_models.py, tests/test_adversarial_models.py)."""
+    ratings, trust = _walk_files(tmp_path)
+    K.reset_launch_counts()
+    recall = parse_measure(QRec(_walk_conf(name, ratings, trust), seed=3).execute())["Top 10"]["Recall"]
+    counts = K.launch_counts()
+    assert counts["masked_catalog_topk"] == 1 and sum(counts.values()) == 1
+    assert recall > floor

@@ -264,14 +264,16 @@ def test_port_never_imports_jax():
     files = (sorted((REPO / "qrec_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
              + sorted(REPO.glob("k*_p*.py")))
     assert len(files) > 15
-    # the social, ALS and classical slices' modules are among them
+    # the social, ALS, classical and walk slices' modules are among them
     scanned = {str(p.relative_to(REPO)) for p in files}
     assert {"qrec_tpu_torch/models/social_graph.py", "qrec_tpu_torch/data/social.py",
             "qrec_tpu_torch/io.py", "qrec_tpu_torch/ops/spmm.py",
             "qrec_tpu_torch/models/social_mf.py", "qrec_tpu_torch/models/social_ranking.py",
             "qrec_tpu_torch/models/adversarial_social.py",
             "qrec_tpu_torch/ops/similarity.py", "qrec_tpu_torch/ops/als.py",
-            "qrec_tpu_torch/models/als.py", "qrec_tpu_torch/models/classical.py"} <= scanned
+            "qrec_tpu_torch/models/als.py", "qrec_tpu_torch/models/classical.py",
+            "qrec_tpu_torch/ops/walks.py", "qrec_tpu_torch/models/walk.py",
+            "qrec_tpu_torch/models/ifbpr.py"} <= scanned
     # networkx: the card's machine lacks it (LOCABAL's PageRank is the port's own)
     banned = {"jax", "jaxlib", "optax", "flax", "qrec_tpu", "networkx"}
     for path in files:

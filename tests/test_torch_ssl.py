@@ -396,7 +396,14 @@ def test_sgl_sparse_views_name_the_roadmap(tmp_path, backend):
     assert isinstance(rec.model.view_structure[0], form)
 
 
-def test_unported_model_names_its_roadmap_item(tmp_path):
-    conf = _planted(tmp_path, "RSGAN", "", 2)
-    with pytest.raises(ModelNotFoundError, match="RSGAN with IF_BPR there"):
+def test_registry_holds_every_jax_model_and_refuses_unknown_names(tmp_path):
+    """Every name the JAX package registers runs on the port; an unknown
+    name raises ``ModelNotFoundError`` with the JAX package's message."""
+    from qrec_tpu.models import available_models
+    from qrec_tpu_torch.models import MODELS, get_model
+
+    assert set(available_models()) <= set(MODELS)
+    assert all(get_model(name) is MODELS[name] for name in available_models())
+    conf = _planted(tmp_path, "NoSuchModel", "", 2)
+    with pytest.raises(ModelNotFoundError, match=r"unknown model 'NoSuchModel'; available: \['APR'"):
         QRec(ModelConf(conf), device="cpu").execute()
