@@ -108,14 +108,28 @@ Phases, each of which exits non-zero on failure:
    channel, its friend top-k ms, its steady epoch and its measures; the
    rankings held as the main path's; RSGAN's pretraining ms and one more
    RSGAN epoch under ``torch.profiler``;
-14. planted-block runs that must learn their blocks: LightGCN and SimGCL on
+14. the lifecycle slice (``host_and_lifecycle_phases``): the host library
+   built; the lastfm- and FilmTrust-shaped files parsed through its
+   tokenizer and the plain parser (equal records, both times);
+   ``config/LightGCN.conf`` at full width stopped after 3 epochs under
+   ``checkpoint.setup=on -every 2`` and resumed to 5, bit for bit against
+   the main path's unbroken run, K1's launches those of the resumed epochs;
+   ``-save`` then ``-load`` (LightGCN, and SVD ranked through K2's bias
+   epilogue on the FilmTrust-shaped file): the same measure lines, K2 once
+   a batch of test users and K1 never; CUNE_BPR's walks from the host
+   walker against the numpy walker's distribution checks and against
+   itself; one LightGCN epoch and ranking under
+   ``runtime.profiling.trace``, whose file must name K1's and K2's CUDA
+   kernels;
+15. planted-block runs that must learn their blocks: LightGCN and SimGCL on
    the dense adjacency, LightGCN and SGL on the sparse one, NGCF, and
    SBPR and ESRF with a trust relation;
-15. the ``kernels`` JSON line, the card line, and the final status line.
+16. the ``kernels`` JSON line, the card line, and the final status line.
 """
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import os
@@ -1523,6 +1537,234 @@ def walk_phases(torch, K, QRec, conf_of, tmp, trust_path):
     return launches, k2r
 
 
+def walk_distribution(net, walks, active, walk_count) -> float:
+    """Total variation between the nodes a walker visits (steps 1 to L-1,
+    pooled) and their expectation under the weighted transition matrix
+    from ``walk_count`` walkers at every active node; every step must
+    follow an edge (else 1.0)."""
+    import scipy.sparse as sp
+
+    if walks.shape[1] > 1 and not np.all(
+            np.asarray(net[walks[:, :-1].ravel(), walks[:, 1:].ravel()]).ravel() > 0):
+        return 1.0
+    deg = np.asarray(net.sum(axis=1)).ravel()
+    step = (sp.diags(1.0 / np.maximum(deg, 1e-30)) @ net).T.tocsr()
+    x = np.zeros(net.shape[0])
+    x[active] = walk_count
+    expected = np.zeros(net.shape[0])
+    seen = np.zeros(net.shape[0])
+    for k in range(1, walks.shape[1]):
+        x = step @ x
+        expected += x
+        seen += np.bincount(walks[:, k], minlength=net.shape[0])
+    return float(0.5 * np.abs(seen / seen.sum() - expected / expected.sum()).sum())
+
+
+def host_and_lifecycle_phases(torch, K, QRec, conf_of, tmp, card, unbroken):
+    """The lifecycle slice: the host library, resume, save/load and the trace.
+
+    * the host library built (g++), then the lastfm- and FilmTrust-shaped
+      files parsed through its tokenizer (``io.load_ratings``) and through
+      the plain regex parser: equal records, both parse times;
+    * LightGCN (``config/LightGCN.conf`` at full width) under
+      ``checkpoint.setup=on -every 2``: stopped after 3 epochs, resumed to
+      5 from the checkpoint of epoch 2, with ``model.setup=-save``; its
+      final ``U``/``V`` and epoch losses bit for bit against ``unbroken``
+      (the main path's 5-epoch run), K1's launches those of the resumed
+      epochs; then a fresh session with ``-load``: the same measure lines,
+      K2's top-k launched once a batch of test users, K1 never;
+    * SVD on the FilmTrust-shaped file, ranked (K2's bias epilogue), saved
+      and loaded the same way;
+    * CUNE_BPR's walks on the lastfm-shaped file from the host walker and
+      from the plain numpy walker: every step along an edge, the visits'
+      distance from their expectation under the edge weights (both below
+      0.05 and within 0.01 of each other), the host walker repeating
+      itself on the same seed; both walk times;
+    * one LightGCN epoch and one ranking under ``runtime.profiling.trace``:
+      the trace file names K1's (``dual_regions``) and K2's
+      (``catalog_tiles``) CUDA kernels.
+
+    Returns (K1 launches of the stopped and resumed runs, K2 launches per
+    path)."""
+    from qrec_tpu_torch import io as tio
+    from qrec_tpu_torch import native
+    from qrec_tpu_torch.config import OptionConf
+    from qrec_tpu_torch.data.dataset import Interactions
+    from qrec_tpu_torch.ops import walks as W
+    from qrec_tpu_torch.ops.topk import CatalogRanker
+    from qrec_tpu_torch.runtime import trainer as T
+    from qrec_tpu_torch.runtime.profiling import trace
+
+    t0 = time.perf_counter()
+    lib = native.build()
+    print(f"[host] library {os.path.relpath(lib, REPO)} built or found in "
+          f"{time.perf_counter() - t0:.3f} s (g++ -O3; host time; card: {card})", flush=True)
+    users, items, ratings = filmtrust_records()
+    filmtrust = os.path.join(tmp, "filmtrust_host.txt")
+    with open(filmtrust, "w") as f:
+        f.writelines(f"{a} {b} {r}\n" for a, b, r in zip(users, items, ratings))
+    rated = conf_of("SVD", 1)
+    rated["ratings"] = filmtrust
+    for label, conf in (("lastfm", conf_of("LightGCN", 1)), ("filmtrust", rated)):
+        evaluation = OptionConf(conf["evaluation.setup"])
+        binarized = evaluation.contains("-b")
+        threshold = float(evaluation["-b"]) if binarized else 0.0
+        order = [int(c) for c in OptionConf(conf["ratings.setup"])["-columns"].split()]
+        routes = {
+            "tokenizer": lambda: native.parse_ratings(conf["ratings"], *order, binarized, threshold),
+            "load_ratings": lambda: tio.load_ratings(conf, conf["ratings"], binarized, threshold),
+            "plain": lambda: tio.parse_ratings_plain(conf["ratings"], *order, binarized, threshold),
+        }
+        # in turns, three rounds, each after a full garbage collection: the
+        # records are 100 k small lists, and a collection that one route's
+        # allocations set off walks every object of this long process
+        seconds = {name: [] for name in routes}
+        for _ in range(3):
+            for name, parse in routes.items():
+                gc.collect()
+                t0 = time.perf_counter()
+                out = parse()
+                seconds[name].append(time.perf_counter() - t0)
+                if name == "load_ratings":
+                    fast = out
+                elif name == "plain":
+                    plain = out
+        med = {name: float(np.median(v)) for name, v in seconds.items()}
+        print(f"[host parse {label}] records={len(fast)} median of 3 in turns after gc.collect(): "
+              f"the tokenizer alone s={med['tokenizer']:.4f}, load_ratings through it (with the "
+              f"Python records) s={med['load_ratings']:.4f}, the plain parser s={med['plain']:.4f}; "
+              f"all rounds {json.dumps({k: [round(x, 4) for x in v] for k, v in seconds.items()})} "
+              f"equal={fast == plain} (host times; card: {card})", flush=True)
+        if fast != plain or not fast:
+            fail(f"host parse {label}: the tokenizer's records differ from the plain parser's")
+
+    # resume at full width, then save and load
+    def checked_run(label, conf, expect):
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        rec = QRec(conf)
+        measure = rec.execute()
+        wall = time.perf_counter() - t0
+        counts = K.launch_counts()
+        print(f"[{label}] wall_s={wall:.2f} measures {''.join(measure)!r} (card: {card})", flush=True)
+        check_counts(label, counts, expect(rec.model))
+        return rec.model, measure, counts
+
+    zero = {k.name: 0 for k in K.KERNELS}
+    evals = lambda m: math.ceil(len(m.data.test_set_u) / m.eval_batch_size)  # noqa: E731
+    saved = os.path.join(tmp, "lifecycle", "lightgcn")
+    ckpt = f"on -dir {os.path.join(tmp, 'lifecycle', 'ck')} -every 2"
+    conf = conf_of("LightGCN", 3)
+    conf["checkpoint.setup"] = ckpt
+    stopped, _, stopped_counts = checked_run("lightgcn stopped", conf, expected_launches)
+
+    def resumed_launches(model):
+        counts = expected_launches(model)
+        steps = math.ceil(model.train_size / model.batch_size)
+        counts["bipartite_dual_matmul"] -= 2 * model.n_layers * steps * model.resumed_step
+        return counts
+
+    conf = conf_of("LightGCN", 5)
+    conf["checkpoint.setup"] = ckpt
+    conf["model.setup"] = f"-save {saved}"
+    resumed, measure, counts = checked_run("lightgcn resumed", conf, resumed_launches)
+    same = (resumed.resumed_step == 2 and stopped.epoch_losses == unbroken["losses"][:3]
+            and resumed.epoch_losses == unbroken["losses"][2:]
+            and torch.equal(resumed.U, unbroken["U"]) and torch.equal(resumed.V, unbroken["V"]))
+    print(f"[lightgcn resumed] from step {resumed.resumed_step}: stopped losses "
+          f"{stopped.epoch_losses}, resumed losses {resumed.epoch_losses}, unbroken "
+          f"{unbroken['losses']}; U, V and losses bit-identical to the unbroken run: {same}; "
+          f"steady epoch ms={resumed.timer.steady_state() * 1e3:.3f} (card: {card})", flush=True)
+    if not same:
+        fail("lightgcn resumed: the resumed run differs from the unbroken one")
+    k1 = stopped_counts["bipartite_dual_matmul"] + counts["bipartite_dual_matmul"]
+    k2 = {"lightgcn stopped": stopped_counts["masked_catalog_topk"],
+          "lightgcn resumed": counts["masked_catalog_topk"]}
+    del stopped, resumed
+    conf = conf_of("LightGCN", 5)
+    conf["model.setup"] = f"-load {saved}"
+    _, loaded, counts = checked_run("lightgcn loaded", conf,
+                                    lambda m: zero | {"masked_catalog_topk": evals(m)})
+    if loaded != measure:
+        fail("lightgcn loaded: the measure lines differ from the saving run's")
+    print(f"[lightgcn loaded] measure lines equal to the saving run's ({counts['masked_catalog_topk']} "
+          f"K2 launches, {counts['bipartite_dual_matmul']} K1)", flush=True)
+    k2["lightgcn loaded"] = counts["masked_catalog_topk"]
+
+    saved = os.path.join(tmp, "lifecycle", "svd")
+    conf = conf_of("SVD", 3)
+    conf["ratings"] = filmtrust
+    conf["item.ranking"] = "on -topN 10"
+    conf["model.setup"] = f"-save {saved}"
+    svd, measure, counts = checked_run("svd saved", conf, expected_launches)
+    k2["svd saved"] = counts["masked_catalog_topk"]
+    conf["model.setup"] = f"-load {saved}"
+    loaded_svd, loaded, counts = checked_run("svd loaded", conf,
+                                             lambda m: zero | {"masked_catalog_topk": evals(m)})
+    biased = loaded_svd.score_form().user_bias is not None
+    if loaded != measure or not biased or not torch.equal(loaded_svd.Bu, svd.Bu):
+        fail("svd loaded: the measure lines or the biases differ from the saving run's")
+    print(f"[svd loaded] measure lines equal to the saving run's through K2's bias epilogue "
+          f"({counts['masked_catalog_topk']} launches)", flush=True)
+    k2["svd loaded"] = counts["masked_catalog_topk"]
+    del svd, loaded_svd
+
+    # CUNE_BPR's walks: host walker against the plain numpy walker
+    conf = conf_of("CUNE_BPR", 1)
+    rec = QRec(conf)
+    data = Interactions(conf, rec.training_data, rec.test_data)
+    options = OptionConf(conf["CUNE-BPR"])
+    count, length = options.get_int("-T"), options.get_int("-L")
+    net = W.cooccurrence_network(data)
+    seed = int(conf.get("seed", 2026))
+    walked = {}
+    for name, walker in (("host", W.random_walks), ("host repeat", W.random_walks),
+                         ("numpy", W.random_walks_numpy)):
+        t0 = time.perf_counter()
+        walks, active = walker(net, count, length, np.random.RandomState(seed))
+        walked[name] = (walks, time.perf_counter() - t0, walk_distribution(net, walks, active, count))
+    (host, host_s, host_tv), (numpy_walks, numpy_s, numpy_tv) = walked["host"], walked["numpy"]
+    repeat = np.array_equal(host, walked["host repeat"][0])
+    print(f"[walks cune_bpr] network nnz={net.nnz} walkers={len(host)} length={length}: host "
+          f"walker s={host_s:.4f} (repeat {walked['host repeat'][1]:.4f}) numpy walker "
+          f"s={numpy_s:.4f}; visits' distance from their expectation host={host_tv:.4f} "
+          f"numpy={numpy_tv:.4f}; host repeats itself: {repeat} (host times; card: {card})",
+          flush=True)
+    if not (repeat and host_tv < 0.05 and numpy_tv < 0.05 and abs(host_tv - numpy_tv) <= 0.01
+            and host.shape == numpy_walks.shape):
+        fail("walks cune_bpr: the host walker fails the distribution checks or does not repeat")
+    del rec, data, net, walked
+
+    # the trace: one LightGCN epoch and one ranking
+    conf = conf_of("LightGCN", 1)
+    rec = QRec(conf)
+    rec.execute()
+    model = rec.model
+    spec = model.build()
+    gen = torch.Generator(device=model.device).manual_seed(0)
+    ranker = CatalogRanker(model.data, k=10, device=model.device, bitmask=model.rated_bitmask)
+    log_dir = os.path.join(tmp, "trace")
+    t0 = time.perf_counter()
+    with trace(log_dir) as prof:
+        T.train(spec.params, spec.loss_fn, spec.sampler, max_epoch=1, lr=model.lrate,
+                device=model.device, mode=spec.mode, max_lr=model.max_lrate, generator=gen,
+                examples_per_epoch=model.train_size)
+        model.finalize(spec)
+        ranker.topk(model.score_form())
+    wall = time.perf_counter() - t0
+    with open(prof.trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = {e["name"] for e in events if e.get("cat") == "kernel"}
+    found = {sym: sum(sym in n for n in kernels) for sym in ("dual_regions", "catalog_tiles")}
+    print(f"[trace] {os.path.basename(prof.trace_path)} {os.path.getsize(prof.trace_path)} bytes, "
+          f"{len(events)} events, {len(kernels)} kernel names, K1/K2 kernel names {found}; "
+          f"epoch + ranking under the trace {wall * 1e3:.1f} ms (card: {card})", flush=True)
+    if not all(found.values()):
+        fail(f"trace: the trace names no {[s for s, n in found.items() if not n]} kernel")
+    del rec, model, spec
+    return k1, k2
+
+
 def write_yelp_file(path: str) -> None:
     """The :func:`yelp_matrix` interactions as a rating file."""
     rows, cols, _, _ = yelp_matrix()
@@ -1857,6 +2099,12 @@ def main() -> None:
     K.build()
     print(f"[build] {time.perf_counter() - t0:.2f} s for {len(K.KERNELS)} kernels "
           f"into {K.BUILD_DIR}", flush=True)
+    from qrec_tpu_torch import native
+
+    t0 = time.perf_counter()
+    native.build()
+    print(f"[build] {time.perf_counter() - t0:.2f} s for the host library "
+          f"{native.library_path().name} (g++)", flush=True)
 
     rows, cols, _, _ = lastfm_records()
     tmp = tempfile.mkdtemp(prefix="qrec_smoke_")
@@ -1874,6 +2122,8 @@ def main() -> None:
 
         # 3. LightGCN main path
         model, counts, _ = drive(torch, K, QRec, conf_of("LightGCN", 5), "main")
+        # the unbroken run the slice-6 resume is held against
+        unbroken = {"U": model.U.clone(), "V": model.V.clone(), "losses": list(model.epoch_losses)}
         # the final ranking against the plain versions on the CPU
         ranker = CatalogRanker(model.data, k=10, device="cuda", bitmask=model.rated_bitmask)
         ids, scores = ranker.topk(ScoreForm(model.U, model.V))
@@ -2010,7 +2260,13 @@ def main() -> None:
         mf_launches.update(walk_launches)
         k2r.update(walk_k2r)
 
-        # 14. planted blocks
+        # 14. the lifecycle slice: the host library, resume, save/load and the trace
+        k1_life, life_launches = host_and_lifecycle_phases(
+            torch, K, QRec, conf_of, tmp, card, unbroken)
+        mf_launches.update(life_launches)
+        del unbroken
+
+        # 15. planted blocks
         planted_check(torch, tmp, ModelConf, QRec, parse_measure, "LightGCN", "-n_layer 2")
         planted_check(torch, tmp, ModelConf, QRec, parse_measure, "SimGCL",
                       "-n_layer 2 -lambda 0.05 -eps 0.1")
@@ -2026,7 +2282,7 @@ def main() -> None:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
-    # 15. results
+    # 16. results
     print(f"[K5 yelp2018] launches {yelp_counts['weighted_segment_matmul']} ms={k5['ms']:.4f} "
           f"plain_ms={k5['plain_ms']:.4f} library_ms={k5['library_ms']:.4f} "
           f"bound_ms={k5['bound_ms']:.4f} gather_floor_ms={k5['floor_ms']:.4f}", flush=True)
@@ -2053,7 +2309,7 @@ def main() -> None:
     print(f"[K2] scores entry ms={k2['ms']:.4f} (on no path; launches "
           f"{counts['masked_catalog_scores']})", flush=True)
     print(f"[K1] launches: main {counts['bipartite_dual_matmul']} lightgcn-bf16 {k1b_launches} "
-          f"esrf {k1_esrf}", flush=True)
+          f"esrf {k1_esrf} lightgcn-stopped+resumed {k1_life}", flush=True)
     print(f"[K2 topk] launches: main {counts['masked_catalog_topk']} "
           + " ".join(f"{label} {n}" for label, n in mf_launches.items()), flush=True)
 
@@ -2070,7 +2326,7 @@ def main() -> None:
     kernels = [
         row("bipartite_dual_matmul", "qrec_tpu_torch/csrc/dual_matmul.cu",
             "qrec_tpu/ops/pallas_kernels.py:563",
-            counts["bipartite_dual_matmul"] + k1b_launches + k1_esrf, k1),
+            counts["bipartite_dual_matmul"] + k1b_launches + k1_esrf + k1_life, k1),
         row("masked_catalog_scores", "qrec_tpu_torch/csrc/masked_scores.cu",
             "qrec_tpu/ops/pallas_kernels.py:49", counts["masked_catalog_scores"], k2),
         row("masked_catalog_topk", "qrec_tpu_torch/csrc/masked_scores.cu",

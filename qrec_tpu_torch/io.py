@@ -1,11 +1,16 @@
 """Rating-file IO with the reference's parsing semantics (util/io.py).
 
-The pure-Python branch of the JAX package's ``io.load_ratings``: rating
-triples with configurable column order, delimiter and header
-(util/io.py:31-76), optional binarize-with-threshold (util/io.py:61-65), trust relations
-honouring ``social.setup`` (util/io.py:88-111), ``-predict`` user lists (util/io.py:79-85) and result-file writing
-(util/io.py:18-28). Records stay plain
-``[user, item, rating]`` lists so the split semantics match exactly.
+Rating triples with configurable column order, delimiter and header
+(util/io.py:31-76), optional binarize-with-threshold (util/io.py:61-65),
+trust relations honouring ``social.setup`` (util/io.py:88-111),
+``-predict`` user lists (util/io.py:79-85) and result-file writing
+(util/io.py:18-28). Records stay plain ``[user, item, rating]`` lists so
+the split semantics match exactly.
+
+``load_ratings`` takes the JAX package's two routes: with the default
+delimiter class the host library's tokenizer (``native.parse_ratings``,
+float32 ratings), with a custom ``-delim`` the regex parser
+(``parse_ratings_plain``), which is also the tokenizer's plain version.
 """
 
 from __future__ import annotations
@@ -38,7 +43,11 @@ def load_ratings(
 
     ``-columns a b [c]`` selects user/item/rating columns; a missing rating
     column defaults every rating to 1. With ``binarized`` the record is
-    dropped when ``rating < threshold`` and set to 1 otherwise.
+    dropped when ``rating < threshold`` and set to 1 otherwise. The default
+    delimiter class with non-negative columns goes through the host
+    library's tokenizer, as the JAX package's ``io.load_ratings`` does
+    (``qrec_tpu/io.py:59-73``); a custom ``-delim`` (or a negative column)
+    through the regex parser.
     """
     rating_conf = OptionConf(conf["ratings.setup"])
     order = rating_conf["-columns"].strip().split()
@@ -47,10 +56,27 @@ def load_ratings(
         raise DataFormatError("The rating file is not in a correct format (need >=2 columns).")
     u_col, i_col = int(order[0]), int(order[1])
     r_col = int(order[2]) if len(order) >= 3 else -1
+    header = rating_conf.contains("-header")
+    if delim == _DEFAULT_DELIM and min(u_col, i_col) >= 0:
+        from .native import parse_ratings
 
+        p = parse_ratings(path, u_col, i_col, r_col, binarize=binarized, threshold=threshold,
+                          skip_header=header)
+        unames, inames = p.user_names, p.item_names
+        return [[unames[u], inames[i], r]
+                for u, i, r in zip(p.users.tolist(), p.items.tolist(), p.ratings.tolist())]
+    return parse_ratings_plain(path, u_col, i_col, r_col, binarized, threshold, header, delim)
+
+
+def parse_ratings_plain(path: str, u_col: int, i_col: int, r_col: int, binarized: bool = False,
+                        threshold: float = 3.0, header: bool = False,
+                        delim: str = _DEFAULT_DELIM) -> List[list]:
+    """The regex parser (the JAX package's pure-Python branch): each line
+    stripped and split on ``delim``, float64 ratings. With ``binarized``
+    and no rating column the last field is the rating it tests."""
     with open(path) as f:
         lines = f.readlines()
-    if rating_conf.contains("-header"):
+    if header:
         lines = lines[1:]
     pattern = re.compile(delim)
     data: List[list] = []

@@ -14,6 +14,14 @@ several phases (NeuMF, APR) overrides ``fit_phases`` and calls
 (``score_form``; ``ops/topk.ScoreForm``, or ``ScoreBlock`` for a scorer
 that is not a dot product) and predicts ratings with the reference's mean
 fallbacks (``predict_ratings``).
+
+Persistence, as in the JAX package (``qrec_tpu/models/base.py:138-172,
+519-613``): ``save_model``/``load_model`` write and read an ``np.savez``
+file of ``U``, ``V`` and the model's ``_extra_state`` under the JAX
+package's keys, so a file of either package loads in the other; the
+generic loop (``run_training``) saves a checkpoint every ``-every``
+epochs under ``checkpoint.setup`` and resumes from the latest
+(``runtime/checkpoint.py``).
 """
 
 from __future__ import annotations
@@ -33,6 +41,7 @@ from ..errors import ConfigError
 from ..ops import sampling
 from ..ops.metrics import device_ranking_metrics
 from ..ops.topk import CatalogRanker, RandomScores, ScoreForm
+from ..runtime import checkpoint as C
 from ..runtime import trainer as T
 from ..runtime.profiling import StepTimer
 
@@ -183,6 +192,64 @@ class Recommender(nn.Module):
         else:
             dot = np.zeros(len(uids))
         return self._mean_fallback(uids, iids, dot)
+
+    # -- persistence (reference base/recommender.py:74-78; driven by
+    # ``model.setup=-save/-load <path>``, runtime/session.py)
+    def _extra_state(self) -> dict:
+        """The arrays besides ``U``/``V`` that the model's ``score_form``
+        and ``predict_ratings`` read, by their npz keys."""
+        return {}
+
+    def _set_extra_state(self, state: dict) -> None:
+        pass
+
+    def save_model(self, path: str) -> None:
+        """``np.savez(path, U=..., V=..., **extras)`` (numpy appends
+        ``.npz`` when ``path`` lacks it)."""
+        if self.U is None or self.V is None:
+            raise RuntimeError(f"{self.model_name}: nothing to save — fit() or load first")
+        d = os.path.dirname(path)
+        if d:
+            os.makedirs(d, exist_ok=True)
+        host = lambda t: t.detach().cpu().numpy()  # noqa: E731
+        np.savez(path, U=host(self.U), V=host(self.V),
+                 **{k: host(v) for k, v in self._extra_state().items()})
+
+    def load_model(self, path: str) -> None:
+        """The factors (and extras) of a saved model onto the device, in
+        place of training; ``FileNotFoundError`` for a missing file."""
+        if not path.endswith(".npz"):
+            path = path + ".npz"  # np.savez appends it on save
+        with np.load(path) as z:
+            arrays = {k: torch.from_numpy(z[k]).to(self.device) for k in z.files}
+        if "U" not in arrays or "V" not in arrays:
+            raise ValueError(f"{self.model_name}: {path} holds no U and V (it holds {sorted(arrays)})")
+        u, v = arrays.pop("U"), arrays.pop("V")
+        if u.shape[0] != self.num_users or v.shape[0] != self.num_items:
+            raise ValueError(
+                f"{self.model_name}: {path} holds {u.shape[0]} users and {v.shape[0]} items, "
+                f"the training data {self.num_users} and {self.num_items}"
+            )
+        try:
+            self._set_extra_state(arrays)
+        except KeyError as e:
+            raise ValueError(
+                f"{self.model_name}: {path} holds no {e.args[0]!r} (it holds U, V and "
+                f"{sorted(arrays)})"
+            ) from None
+        self.U, self.V = u, v
+
+
+class SavedBiases:
+    """Saves the final biases ``Bu``/``Bi`` beside the factors, under the
+    JAX package's SVD keys ``user_bias``/``item_bias``
+    (``qrec_tpu/models/mf.py:111-117``)."""
+
+    def _extra_state(self) -> dict:
+        return {"user_bias": self.Bu, "item_bias": self.Bi}
+
+    def _set_extra_state(self, state: dict) -> None:
+        self.Bu, self.Bi = state["user_bias"], state["item_bias"]
 
 
 class IterativeRecommender(Recommender):
@@ -442,6 +509,8 @@ class IterativeRecommender(Recommender):
         self.phase_timers: List[StepTimer] = []
         self.timer = StepTimer(self.train_size, self.device)
         self.tracker = None
+        # the checkpoint step a phase of this fit resumed from
+        self.resumed_step = None
 
     def fit_phases(self) -> None:
         """One phase from ``build()`` (the JAX package's single-spec
@@ -486,8 +555,11 @@ class IterativeRecommender(Recommender):
         parameters of the epoch that won its vote are restored at the end
         unless ``return_best`` is off (a phase that hands its last
         parameters and its tracker to the next, SEPT's warm-up).
-        ``after_step()`` runs after every optimizer step. Returns the
-        phase's epoch losses."""
+        ``after_step()`` runs after every optimizer step. Under
+        ``checkpoint.setup`` the phase saves its loop state every ``-every``
+        epochs under step ``_epochs_done + epoch + 1`` and first resumes
+        from the latest step past ``_epochs_done``. Returns the losses of
+        the epochs the phase ran."""
         max_epoch = max_epoch or self.max_epoch
         if mode == "bold" and self.eval_settings.contains("-tf"):
             mode = "adam"
@@ -498,6 +570,7 @@ class IterativeRecommender(Recommender):
         injected = None
         if self._epoch_batches is not None:
             injected = self._epoch_batches[done : done + max_epoch]
+        start_epoch, resume = self._restore_checkpoint(max_epoch)
         losses, timer = T.train(
             params, loss_fn, sampler,
             max_epoch=max_epoch, lr=self.lrate, device=self.device,
@@ -505,8 +578,9 @@ class IterativeRecommender(Recommender):
             generator=gen, examples_per_epoch=self.train_size,
             emit=self._emit, epoch_batches=injected,
             quick_eval=quick_eval, tracker=tracker, after_step=after_step,
+            start_epoch=start_epoch, resume=resume, checkpoint=self._make_checkpoint_cb(),
         )
-        self._epochs_done += len(losses)
+        self._epochs_done += start_epoch + len(losses)
         self.epoch_losses += losses
         self.phase_losses.append(losses)
         self.phase_timers.append(timer)
@@ -523,6 +597,57 @@ class IterativeRecommender(Recommender):
                     for p, best in zip(params, tracker.best_params):
                         p.copy_(best)
         return losses
+
+    # -- checkpoint/resume ------------------------------------------------
+    def _checkpointer(self) -> Optional[C.Checkpointer]:
+        """``checkpoint.setup``'s checkpointer, made once per model; a
+        cross-validation fold after the first keeps its steps in a
+        subdirectory of its own (``fold_<k>``)."""
+        if not hasattr(self, "_ckpt"):
+            self._ckpt = C.from_config(self.config)
+            self._ckpt_every = C.checkpoint_every(self.config)
+            if self._ckpt is not None and self.fold != "[1]":
+                self._ckpt = C.Checkpointer(
+                    os.path.join(self._ckpt.directory, "fold_" + self.fold.strip("[]")),
+                    self._ckpt.max_to_keep)
+        return self._ckpt
+
+    def _restore_checkpoint(self, max_epoch: int):
+        """(start epoch, loop state or None) of a phase of ``max_epoch``
+        epochs: with a checkpoint past the epochs already run, the phase
+        starts at ``min(latest - _epochs_done, max_epoch)``, from the
+        checkpoint's state when it falls inside the phase; a checkpoint of a
+        later phase skips this one whole (the later phase restores)."""
+        ckpt = self._checkpointer()
+        latest = ckpt.latest_step() if ckpt is not None else None
+        if latest is None or latest <= self._epochs_done:
+            return 0, None
+        start_epoch = min(latest - self._epochs_done, max_epoch)
+        if latest - self._epochs_done > max_epoch:
+            return start_epoch, None
+        state = ckpt.restore(latest)
+        with torch.no_grad():
+            for name, buf in self.named_buffers():
+                buf.copy_(state["buffers"][name])
+        self.resumed_step = latest
+        print(f"{self.model_name} {self.fold} resumed from checkpoint step {latest} "
+              f"(epoch {start_epoch}/{max_epoch})")
+        return start_epoch, state
+
+    def _make_checkpoint_cb(self) -> Optional[Callable]:
+        """The loop's callback: every ``-every`` epochs the loop state and
+        the model's buffers (BUIR's target) under step ``_epochs_done +
+        epoch + 1``."""
+        ckpt = self._checkpointer()
+        if ckpt is None or self._ckpt_every <= 0:
+            return None
+        done, every = self._epochs_done, self._ckpt_every
+
+        def save(epoch: int, state: dict) -> None:
+            if (epoch + 1) % every == 0:
+                ckpt.save(done + epoch + 1, dict(state, buffers=dict(self.named_buffers())))
+
+        return save
 
 
 GRAPH_BACKENDS = ("auto", "dense", "coo", "pallas")

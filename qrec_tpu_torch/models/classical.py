@@ -29,7 +29,7 @@ from ..errors import EvaluationError
 from ..ops.similarity import pairwise_cosine_sp, pairwise_euclidean_sp, pairwise_pearson
 from ..ops.spmm import segment_sum
 from ..ops.topk import ScoreBlock, ScoreForm
-from .base import IterativeRecommender, Recommender, TrainSpec
+from .base import IterativeRecommender, Recommender, SavedBiases, TrainSpec
 from .mf import _l2
 
 _SIM_FNS = {"pcc": pairwise_pearson, "cos": pairwise_cosine_sp, "euclidean": pairwise_euclidean_sp}
@@ -153,11 +153,13 @@ class SlopeOne(Recommender):
         return out
 
 
-class _BiasedRating(IterativeRecommender):
+class _BiasedRating(SavedBiases, IterativeRecommender):
     """The U(0, 1)/3 tables, biases and extra tables from numpy's
     ``RandomState(seed)`` (the JAX package's draws bit for bit), the rating
     sampler in the bold mode, and predictions on the host in numpy, as the
-    JAX package computes them."""
+    JAX package computes them. A saved model keeps its biases beside the
+    factors, which the JAX package does not (its loaded SVD++ and EE lack
+    them)."""
 
     bias_div = 1
 

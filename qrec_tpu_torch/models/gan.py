@@ -171,3 +171,11 @@ class IRGAN(IterativeRecommender):
         """The discriminator's ``U·Vᵀ + item_bias``: K2's top-k with its
         item-bias epilogue (offset 0, no user bias)."""
         return ScoreForm(self.U, self.V, item_bias=self.item_bias)
+
+    def _extra_state(self) -> dict:
+        """The item bias the ranking adds (the JAX package saves U and V
+        alone, and its loaded IRGAN has no bias to rank with)."""
+        return {"item_bias": self.item_bias}
+
+    def _set_extra_state(self, state: dict) -> None:
+        self.item_bias = state["item_bias"]

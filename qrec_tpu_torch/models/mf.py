@@ -20,7 +20,7 @@ from torch import nn
 
 from ..ops.losses import bpr_loss
 from ..ops.topk import ScoreForm
-from .base import IterativeRecommender, TrainSpec
+from .base import IterativeRecommender, SavedBiases, TrainSpec
 
 
 def _l2(x: torch.Tensor, w: torch.Tensor, y: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -82,10 +82,11 @@ class BasicMF(PMF):
     reg_in_loss = False
 
 
-class SVD(_MF):
+class SVD(SavedBiases, _MF):
     """Biased MF with the global mean (SVD.py:13-35,76-82): ``r̂ = p·q + μ
     + b_u + b_i``. The biases start as U(0, 1)/5 from numpy's
-    ``RandomState(seed)``, the JAX package's draws bit for bit."""
+    ``RandomState(seed)``, the JAX package's draws bit for bit; a saved
+    model keeps them as ``user_bias``/``item_bias``."""
 
     def __init__(self, conf, data, fold: str = "[1]", device=None):
         super().__init__(conf, data, fold=fold, device=device)

@@ -37,7 +37,7 @@ from ..errors import ConvergenceError
 from ..ops.similarity import edge_cosine_sp, edge_pearson_sp
 from ..ops.spmm import DeviceCOO, spmm
 from ..ops.topk import ScoreBlock
-from .base import SocialRecommender, TrainSpec
+from .base import SavedBiases, SocialRecommender, TrainSpec
 from .mf import _l2
 
 
@@ -273,10 +273,12 @@ class LOCABAL(_SocialMF):
         return self.fit_term(pu, qi, (pu * qi).sum(dim=1), r, w, self.coeff[u]) + social
 
 
-class _DistanceMF(_SocialMF):
+class _DistanceMF(SavedBiases, _SocialMF):
     """SREE's and SocialFD's prediction ``μ + b_u + b_i - dist(p_u, q_i)``
     and its score block, ``dist`` the squared distance after ``self.proj``
-    (the identity for SREE, SocialFD's ``H``)."""
+    (the identity for SREE, SocialFD's ``H``). A saved model keeps its
+    biases (and SocialFD its ``H``) beside the factors, which the JAX
+    package does not."""
 
     def finalize(self, spec: TrainSpec) -> None:
         super().finalize(spec)
@@ -378,6 +380,14 @@ class SocialFD(_DistanceMF):
 
     def projection(self) -> torch.Tensor:
         return self.H.detach()
+
+    def _extra_state(self) -> dict:
+        return dict(super()._extra_state(), H=self.H.detach())
+
+    def _set_extra_state(self, state: dict) -> None:
+        super()._set_extra_state(state)
+        with torch.no_grad():
+            self.H.copy_(state["H"])
 
     def loss(self, batch, gen=None) -> torch.Tensor:
         u, i, r, w = batch

@@ -4,13 +4,14 @@ model/ranking/CUNE_BPR.py:156-258).
 
 * ``cooccurrence_network`` and ``walk_pairs`` are numpy/scipy copies of the
   JAX package's, equal bit for bit;
-* ``random_walks`` is the JAX package's vectorised numpy walk: every walker
-  advances one step per iteration by a ``searchsorted`` over the globally
-  accumulated edge weights. It first makes the JAX package's draw of a seed
-  for its C++ walker, so that the same ``RandomState`` gives the same walks
-  as the JAX package's numpy path. The port has no C++ walker, so its walks
-  differ from the JAX package's where that package's native library built
-  (xorshift128+);
+* ``random_walks`` runs the host library's xorshift128+ walker
+  (``native.random_walks``) seeded with one ``randint(0, 2**31)`` draw of
+  the caller's ``RandomState``, as the JAX package runs its C++ walker by
+  default, so the same state gives the same walks bit for bit;
+  ``random_walks_numpy``, its plain version, is the JAX package's
+  vectorised numpy walk (every walker advances one step per iteration by a
+  ``searchsorted`` over the globally accumulated edge weights) after the
+  same seed draw, so the same state gives the JAX numpy path's walks;
 * ``train_skipgram`` is skip-gram with negative sampling (SGNS) under Adam,
   its random inputs drawn by a :class:`SkipgramDraws` that a caller can
   replace;
@@ -28,6 +29,7 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
+from .. import native
 from ..device import f32_products
 from ..runtime.profiling import StepTimer
 
@@ -51,9 +53,23 @@ def cooccurrence_network(data, min_raters: int = 2) -> sp.csr_matrix:
 def random_walks(net: sp.csr_matrix, walk_count: int, walk_length: int,
                  rng: np.random.RandomState) -> Tuple[np.ndarray, np.ndarray]:
     """Weighted random walks, ``walk_count`` from every non-isolated node:
-    (walks (n_walkers, walk_length) int32, active nodes int32)."""
-    # the JAX package draws its C++ walker's seed first, also when it walks
-    # in numpy; the same draw keeps the two streams in step
+    (walks (n_walkers, walk_length) int32, active nodes int32), by the host
+    library's walker seeded from ``rng`` (``qrec_tpu/ops/walks.py:61-67``)."""
+    seed = int(rng.randint(0, 2**31))
+    active = np.where(np.diff(net.indptr) > 0)[0].astype(np.int32)
+    if len(active) == 0:
+        return np.zeros((0, walk_length), dtype=np.int32), active
+    cum = np.cumsum(net.data.astype(np.float64))
+    starts = np.repeat(active, walk_count)
+    return native.random_walks(net.indptr, net.indices, cum, starts, walk_length, seed), active
+
+
+def random_walks_numpy(net: sp.csr_matrix, walk_count: int, walk_length: int,
+                       rng: np.random.RandomState) -> Tuple[np.ndarray, np.ndarray]:
+    """:func:`random_walks`' plain version: the same walks' distribution
+    from numpy's stream (the JAX package's numpy path bit for bit)."""
+    # the walker's seed draw first, as the JAX package makes it also when
+    # it walks in numpy; the same draw keeps the two streams in step
     rng.randint(0, 2**31)
     indptr = net.indptr
     deg = np.diff(indptr)

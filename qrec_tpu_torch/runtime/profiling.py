@@ -4,12 +4,17 @@
 ``StepTimer`` records per-epoch wall time and examples/s. On a CUDA device
 it synchronises before it reads the clock on entry and on exit, so an
 interval covers the device work launched inside it, not just its enqueue.
+``trace(log_dir)`` records what runs inside it with ``torch.profiler`` and
+writes a Chrome/Perfetto trace file into ``log_dir`` (the JAX package's
+``trace``, which writes a TensorBoard profile).
 """
 
 from __future__ import annotations
 
+import contextlib
+import os
 import time
-from typing import Dict, List, Optional
+from typing import Dict, Iterator, List, Optional
 
 import torch
 
@@ -55,3 +60,27 @@ class StepTimer:
                 self.examples_per_epoch / t if t > 0 else 0.0
             ),
         }
+
+
+@contextlib.contextmanager
+def trace(log_dir: str) -> Iterator:
+    """Profile the block: host activity, and the card's kernels when CUDA
+    is available; on exit (also by an exception) write ``trace-<pid>-<ns>.json`` (Chrome trace
+    format, opened by Perfetto or ``chrome://tracing``) into ``log_dir``.
+    Yields the profiler; its ``trace_path`` names the file once written."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    prof = profile(activities=activities)
+    prof.start()
+    try:
+        yield prof
+    finally:
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        prof.stop()
+        prof.trace_path = os.path.join(log_dir, f"trace-{os.getpid()}-{time.time_ns()}.json")
+        prof.export_chrome_trace(prof.trace_path)

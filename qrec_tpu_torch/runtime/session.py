@@ -9,7 +9,10 @@ without one raises); it runs on the CUDA device unless the caller passes
 :class:`DeviceUnavailableError` rather than falling back. Cross-validation
 folds run one after another on that device; their measures are averaged as
 strings and the summary file is written whatever ``output.setup`` says, as
-the reference does (QRec.py:91-107).
+the reference does (QRec.py:91-107). ``model.setup=-load <path>`` restores
+a saved model in place of training and ``-save <path>`` writes it after
+the evaluation (every fold of ``-cv`` writes the same path), as in the JAX
+package's ``run_fold``.
 """
 
 from __future__ import annotations
@@ -32,27 +35,14 @@ from . import evaluator
 # config keys the port does not run yet -> ROADMAP.md item
 _NOT_PORTED_KEYS = {
     "parallel.setup": "Queue 1 item 19, slice 7: multi-GPU",
-    "checkpoint.setup": "Queue 1 item 2, slice 6: checkpoint/resume",
-    "model.setup": "Queue 1 item 2, slice 6: model save/load",
 }
 
 
-def _asks_for(config: ModelConf, key: str) -> bool:
-    """Whether ``key`` asks for something, as the JAX package reads it: its
-    main switch on for ``parallel.setup`` and ``checkpoint.setup``
-    (``models/base.py`` mesh, ``runtime/checkpoint.from_config``), ``-save``
-    or ``-load`` for ``model.setup`` (``runtime/session.run_fold``)."""
-    if not config.contains(key):
-        return False
-    opts = config.options(key)
-    if key == "model.setup":
-        return opts.contains("-save") or opts.contains("-load")
-    return opts.isMainOn()
-
-
 def check_ported(config: ModelConf) -> None:
+    """Refuse a key the port does not run yet when its main switch is on,
+    as the JAX package reads it (its mesh, ``models/base.py``)."""
     for key, item in _NOT_PORTED_KEYS.items():
-        if _asks_for(config, key):
+        if config.contains(key) and config.options(key).isMainOn():
             raise ConfigError(f"{key} is not ported yet (ROADMAP.md {item})")
     check_graph_settings(config)
 
@@ -77,8 +67,13 @@ def run_fold(config: ModelConf, train, test, relation, fold: str, seed: int, dev
         log.add(k + "=" + config[k])
     if fold == "[1]":
         model.print_config()
-    print(f"Building Model {fold}...")
-    model.fit()
+    setup = config.options("model.setup") if config.contains("model.setup") else None
+    if setup is not None and setup.contains("-load"):
+        print(f"Loading model {fold}...")
+        model.load_model(setup["-load"])
+    else:
+        print(f"Building Model {fold}...")
+        model.fit()
     if model.timer is not None and model.timer.times:
         s = model.timer.summary()
         log.add(
@@ -89,6 +84,9 @@ def run_fold(config: ModelConf, train, test, relation, fold: str, seed: int, dev
         )
     print(f"Predicting {fold}...")
     measure = evaluator.evaluate(model, data, config, fold, log)
+    if setup is not None and setup.contains("-save"):
+        print(f"Saving model {fold}...")
+        model.save_model(setup["-save"])
     return measure, model
 
 

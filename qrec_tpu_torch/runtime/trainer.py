@@ -17,6 +17,16 @@ With a :class:`BestTracker`, a quick evaluation follows each epoch and the
 parameters of the epoch that wins the tracker's vote are kept
 (``EpochLoop.run``'s tracker branch); a ``quick_eval`` without a tracker
 only adds its measures to the epoch line (the rating models' MAE/RMSE).
+
+Resume: after every epoch (and after the bold driver's update) ``train``
+hands a ``checkpoint`` callback the loop's state (:func:`loop_state`: the
+parameters, the optimizer's state, the bold driver's rate and
+``last_loss``, the convergence monitor's ``last_loss``, the tracker's
+best so far and the generator's state); a run given such a state as
+``resume`` and its epoch as ``start_epoch`` goes on as the unbroken run
+would have, bit for bit. The generator's state stands for the JAX
+package's key fast-forward: the port's epochs draw from one running
+generator where the JAX package folds the epoch into its key.
 """
 
 from __future__ import annotations
@@ -140,6 +150,44 @@ def as_device_batches(batches: Sequence, device) -> tuple:
     return tuple(out)
 
 
+def loop_state(params, optimizer, bold, conv, tracker, generator) -> Dict:
+    """What a resumed run restores, by reference (``torch.save`` copies)."""
+    return {
+        "params": [p.detach() for p in params],
+        "optimizer": optimizer.state_dict(),
+        "lr": bold.lr if bold is not None else None,
+        "bold_last": bold.last_loss if bold is not None else None,
+        "conv_last": conv.last_loss if conv is not None else None,
+        "tracker": None if tracker is None else {
+            "best_epoch": tracker.best_epoch, "best_metrics": tracker.best_metrics,
+            "best_params": tracker.best_params},
+        "generator": generator.get_state(),
+    }
+
+
+def restore_loop_state(state: Dict, params, optimizer, bold, conv, tracker, generator) -> None:
+    """Put ``state`` (from :func:`loop_state`, on any device) back into a
+    fresh loop: the parameters copied in place, the optimizer's state
+    onto the parameters' device (``load_state_dict`` moves it), the bold
+    mode's rate onto the optimizer as the driver's update sets it."""
+    with torch.no_grad():
+        for p, saved in zip(params, state["params"]):
+            p.copy_(saved)
+    optimizer.load_state_dict(state["optimizer"])
+    if bold is not None:
+        bold.lr, bold.last_loss = state["lr"], state["bold_last"]
+        conv.last_loss = state["conv_last"]
+        for group in optimizer.param_groups:
+            group["lr"] = bold.lr
+    if tracker is not None and state["tracker"] is not None:
+        tracker.best_epoch = state["tracker"]["best_epoch"]
+        tracker.best_metrics = state["tracker"]["best_metrics"]
+        best = state["tracker"]["best_params"]
+        tracker.best_params = None if best is None else [
+            b.to(p.device) for b, p in zip(best, params)]
+    generator.set_state(state["generator"])
+
+
 def train(
     params: Sequence[torch.Tensor],
     loss_fn: Callable,
@@ -157,16 +205,21 @@ def train(
     quick_eval: Optional[Callable] = None,
     tracker: Optional[BestTracker] = None,
     after_step: Optional[Callable] = None,
+    start_epoch: int = 0,
+    resume: Optional[Dict] = None,
+    checkpoint: Optional[Callable[[int, Dict], None]] = None,
 ) -> Tuple[List[float], StepTimer]:
-    """Train ``params`` in place; return the per-epoch summed losses (fewer
-    than ``max_epoch`` when the bold mode converges) and the epoch timer.
+    """Train ``params`` in place; return the per-epoch summed losses of the
+    epochs run (fewer than ``max_epoch - start_epoch`` when the bold mode
+    converges) and the epoch timer.
 
     ``loss_fn(batch, generator) -> scalar`` for one batch of the sampler's
     tuple; a model that needs random numbers in its loss draws them from
     ``generator``, the stream the sampler also uses.
     ``sampler(generator)`` returns an epoch's batches shaped
     ``(num_batches, batch_size)``. ``epoch_batches``, when given, replaces
-    the sampler with one injected tuple of arrays per epoch. ``mode``:
+    the sampler with one injected tuple of arrays per epoch (indexed by the
+    epoch). ``mode``:
     ``adam`` at the fixed rate ``lr``, or ``bold`` (SGD from ``lr``, the
     bold driver capped at ``max_lr``, the convergence rule). With
     ``quick_eval() -> metrics``, the measures of each epoch (taken outside
@@ -174,14 +227,20 @@ def train(
     winning epoch are copied into ``tracker.best_params``.
     ``emit(epoch, loss, lr, seconds, metrics)`` prints the epoch line with
     the learning rate in force during the epoch. ``after_step()`` runs after
-    every optimizer step (BUIR's momentum target).
+    every optimizer step (BUIR's momentum target). ``resume`` (a
+    :func:`loop_state` saved after epoch ``start_epoch``) is restored
+    before the first epoch, which is then ``start_epoch``;
+    ``checkpoint(epoch, state)`` runs after every epoch that does not end
+    the bold mode's training, once its rate is updated.
     """
     optimizer = make_optimizer(params, mode, lr)
     bold = BoldDriver(lr, max_lr) if mode == "bold" else None
     conv = ConvergenceMonitor() if mode == "bold" else None
+    if resume is not None:
+        restore_loop_state(resume, params, optimizer, bold, conv, tracker, generator)
     timer = StepTimer(examples_per_epoch, device)
     losses: List[float] = []
-    for epoch in range(max_epoch):
+    for epoch in range(start_epoch, max_epoch):
         with timer:
             if epoch_batches is not None:
                 batches = as_device_batches(epoch_batches[epoch], device)
@@ -214,4 +273,6 @@ def train(
             bold.last_loss = loss_val
             for group in optimizer.param_groups:
                 group["lr"] = new_lr
+        if checkpoint is not None:
+            checkpoint(epoch, loop_state(params, optimizer, bold, conv, tracker, generator))
     return losses, timer

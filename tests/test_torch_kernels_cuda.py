@@ -1207,3 +1207,44 @@ def test_walk_rankers_rank_through_k2_on_card(cuda_device, tmp_path, name, floor
     counts = K.launch_counts()
     assert counts["masked_catalog_topk"] == 1 and sum(counts.values()) == 1
     assert recall > floor
+
+
+# the lifecycle slice: a LightGCN run stopped after epoch 3 (its checkpoint of epoch 2
+# the latest) and resumed to 6 on the card ends where the unbroken run
+# does, bit for bit: K1 repeats bit for bit, and the resumed run restores
+# the parameters, Adam's state and the CUDA generator's seed and offset
+@pytest.mark.cuda
+def test_lightgcn_resumed_on_card_repeats_the_unbroken_run(cuda_device, tmp_path):
+    from qrec_tpu_torch.data.dataset import Interactions
+    from qrec_tpu_torch.models import get_model
+
+    rng = np.random.RandomState(0)
+    path = tmp_path / "ratings.txt"
+    path.write_text("".join(f"u{u} i{i} 1\n" for u in range(60)
+                            for i in rng.choice(40, size=12, replace=False)))
+    base = {
+        "ratings": str(path), "ratings.setup": "-columns 0 1 2", "model.name": "LightGCN",
+        "evaluation.setup": "-ap 0.2", "item.ranking": "on -topN 10", "num.factors": "50",
+        "num.max.epoch": "6", "batch_size": "64", "learnRate": "-init 0.01 -max 1",
+        "reg.lambda": "-u 0.001 -i 0.001 -b 0.1 -s 0.1", "LightGCN": "-n_layer 2",
+        "output.setup": "off -dir ./results/", "seed": "7",
+    }
+    rec = QRec(ModelConf(base), device="cpu")
+    ckpt = f"on -dir {tmp_path / 'ck'} -every 2"
+
+    def fit(**extra):
+        conf = ModelConf(dict(base, **extra))
+        model = get_model("LightGCN")(conf, Interactions(conf, rec.training_data, rec.test_data))
+        before = K.DUAL.launches
+        model.fit()
+        return model, K.DUAL.launches - before
+
+    unbroken, _ = fit()
+    stopped, _ = fit(**{"num.max.epoch": "3", "checkpoint.setup": ckpt})
+    resumed, launches = fit(**{"checkpoint.setup": ckpt})
+    assert resumed.resumed_step == 2
+    steps = -(-resumed.train_size // resumed.batch_size)
+    assert launches == 2 * 2 * steps * (6 - 2) + 2  # 2n a step, n for the final factors
+    assert stopped.epoch_losses == unbroken.epoch_losses[:3]
+    assert resumed.epoch_losses == unbroken.epoch_losses[2:]
+    assert torch.equal(resumed.U, unbroken.U) and torch.equal(resumed.V, unbroken.V)

@@ -243,11 +243,33 @@ def test_qrec_without_a_card_raises(tmp_path):
         {"graph.dense.quant": "off", "parallel.setup": "on"},
     ],
 )
-def test_unported_settings_raise(tmp_path, extra):
+def test_unported_settings_raise(tmp_path, monkeypatch, extra):
+    """``parallel.setup`` (ROADMAP item 19) still raises; ``checkpoint.setup``
+    and ``model.setup`` are ported and the same configs run: the checkpoint
+    of epoch 10 (``-every``'s default) appears, ``-save`` writes its file,
+    ``-load`` ranks the saved model as the run that saved it did."""
+    monkeypatch.chdir(tmp_path)  # the relative ckpt and model.npz paths
     conf = _planted(tmp_path)
+    conf["num.max.epoch"] = "10" if "checkpoint.setup" in extra else "2"
     conf.update(extra)
-    with pytest.raises(ConfigError, match="ROADMAP"):
-        QRec(ModelConf(conf), device="cpu")
+    if "parallel.setup" in extra:
+        with pytest.raises(ConfigError, match="ROADMAP.md Queue 1 item 19"):
+            QRec(ModelConf(conf), device="cpu")
+        return
+    setup = extra.get("model.setup", "")
+    if "-load" in setup:
+        saved = dict(conf, **{"model.setup": setup.replace("-load", "-save")})
+        want = QRec(ModelConf(saved), device="cpu").execute()
+        assert (tmp_path / "model.npz").exists()
+    rec = QRec(ModelConf(conf), device="cpu")
+    measure = rec.execute()
+    assert metrics.parse_measure(measure)["Top 10"]["Recall"] >= 0
+    if "-load" in setup:
+        assert measure == want and rec.model.timer is None
+    if "-save" in setup:
+        assert (tmp_path / "model.npz").exists()
+    if "checkpoint.setup" in extra:
+        assert sorted(p.name for p in (tmp_path / "ckpt").iterdir()) == ["step_10.pt"]
 
 
 def _imported_roots(path):
@@ -273,9 +295,12 @@ def test_port_never_imports_jax():
             "qrec_tpu_torch/ops/similarity.py", "qrec_tpu_torch/ops/als.py",
             "qrec_tpu_torch/models/als.py", "qrec_tpu_torch/models/classical.py",
             "qrec_tpu_torch/ops/walks.py", "qrec_tpu_torch/models/walk.py",
-            "qrec_tpu_torch/models/ifbpr.py"} <= scanned
-    # networkx: the card's machine lacks it (LOCABAL's PageRank is the port's own)
-    banned = {"jax", "jaxlib", "optax", "flax", "qrec_tpu", "networkx"}
+            "qrec_tpu_torch/models/ifbpr.py", "qrec_tpu_torch/native.py",
+            "qrec_tpu_torch/runtime/checkpoint.py", "qrec_tpu_torch/runtime/profiling.py"} <= scanned
+    # networkx and orbax: the card's machine lacks them (LOCABAL's PageRank
+    # and the checkpoints are the port's own); qrec_tpu: the host library
+    # is the port's own source, not qrec_tpu.native
+    banned = {"jax", "jaxlib", "optax", "flax", "qrec_tpu", "networkx", "orbax"}
     for path in files:
         bad = banned & set(_imported_roots(path))
         assert not bad, f"{path.relative_to(REPO)} imports {sorted(bad)}"

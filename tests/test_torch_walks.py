@@ -1,8 +1,10 @@
 """The walk slice of the PyTorch port (``ops/walks`` and CUNE_MF, CUNE_BPR)
 against the JAX package, on the CPU: the co-rating network and the walk
-pairs bit for bit; the numpy walks bit for bit with the JAX package's C++
-walker patched out (``random_walks_native`` returning None, as where its
-library does not build) and by their properties; SGNS with the JAX
+pairs bit for bit; the port's default walks (its host library's walker)
+bit for bit against the JAX package's default (its C++ walker), and the
+plain numpy walks (``random_walks_numpy``) bit for bit with the JAX
+package's C++ walker patched out (``random_walks_native`` returning None,
+as where its library does not build), both by their properties too; SGNS with the JAX
 package's draws injected (``SkipgramDraws`` replaced); the friend top-k
 against the JAX package's on embeddings that tie at the k-th neighbour;
 the CUNE models' friend lists and friend-item table, their first step and
@@ -63,9 +65,10 @@ def _one_thread():
 
 @pytest.fixture
 def numpy_walks(monkeypatch):
-    """The JAX package walks in numpy, as where its C++ library does not
-    build."""
+    """Both packages walk in numpy: the JAX package as where its C++
+    library does not build, the port's models through the plain walker."""
     monkeypatch.setattr("qrec_tpu.native.random_walks_native", lambda *a: None)
+    monkeypatch.setattr("qrec_tpu_torch.models.walk.random_walks", W.random_walks_numpy)
 
 
 class JaxDraws(W.SkipgramDraws):
@@ -142,14 +145,14 @@ def test_cooccurrence_network_and_walk_pairs_equal_jax():
 @pytest.mark.parametrize("walk_count,walk_length", [(4, 6), (10, 10), (3, 1)])
 def test_random_walks_equal_jax_numpy_walks(numpy_walks, walk_count, walk_length):
     """The same ``RandomState`` gives the same walks and leaves the state
-    at the same place: the port makes the JAX package's seed draw for its
-    C++ walker first."""
+    at the same place: the port's numpy walk makes the JAX package's seed
+    draw for its C++ walker first."""
     jmodel, tmodel = _models("CUNE_BPR")
     net = W.cooccurrence_network(tmodel.data)
     # an isolated node
     net = sp.block_diag([net, sp.csr_matrix((1, 1), dtype=np.float32)]).tocsr()
     r1, r2 = np.random.RandomState(11), np.random.RandomState(11)
-    got, active = W.random_walks(net, walk_count, walk_length, r1)
+    got, active = W.random_walks_numpy(net, walk_count, walk_length, r1)
     want, jactive = jw.random_walks(net, walk_count, walk_length, r2)
     np.testing.assert_array_equal(got, want)
     np.testing.assert_array_equal(active, jactive)
@@ -157,18 +160,35 @@ def test_random_walks_equal_jax_numpy_walks(numpy_walks, walk_count, walk_length
     assert r1.randint(0, 2**31) == r2.randint(0, 2**31)
 
 
+@pytest.mark.parametrize("walk_count,walk_length", [(4, 6), (10, 10), (3, 1)])
+def test_random_walks_equal_jax_default_walks(walk_count, walk_length):
+    """The port's walker against the JAX package's as it runs by default
+    (its C++ library): the same walks from the same ``RandomState``, which
+    both leave at the same place."""
+    _, tmodel = _models("CUNE_BPR")
+    net = W.cooccurrence_network(tmodel.data)
+    net = sp.block_diag([net, sp.csr_matrix((1, 1), dtype=np.float32)]).tocsr()
+    r1, r2 = np.random.RandomState(11), np.random.RandomState(11)
+    got, active = W.random_walks(net, walk_count, walk_length, r1)
+    want, jactive = jw.random_walks(net, walk_count, walk_length, r2)
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(active, jactive)
+    assert r1.randint(0, 2**31) == r2.randint(0, 2**31)
+
+
 def test_random_walks_follow_edges_by_weight():
-    adj = _path_graph()
-    walks, active = W.random_walks(adj, 4, 6, np.random.RandomState(0))
-    assert list(active) == [0, 1, 2, 3] and walks.shape == (16, 6)
-    assert all(adj[a, b] > 0 for row in walks for a, b in zip(row[:-1], row[1:]))
-    # node 0 to 1 with weight 9, to 2 with weight 1
-    adj = sp.csr_matrix(np.array([[0, 9, 1], [9, 0, 0], [1, 0, 0]], dtype=np.float32))
-    walks, _ = W.random_walks(adj, 2000, 2, np.random.RandomState(1))
-    frac = (walks[walks[:, 0] == 0][:, 1] == 1).mean()
-    assert 0.82 < frac < 0.97
-    empty, act = W.random_walks(sp.csr_matrix((3, 3), dtype=np.float32), 2, 4, np.random.RandomState(0))
-    assert empty.shape == (0, 4) and len(act) == 0
+    for walks_of in (W.random_walks, W.random_walks_numpy):
+        adj = _path_graph()
+        walks, active = walks_of(adj, 4, 6, np.random.RandomState(0))
+        assert list(active) == [0, 1, 2, 3] and walks.shape == (16, 6)
+        assert all(adj[a, b] > 0 for row in walks for a, b in zip(row[:-1], row[1:]))
+        # node 0 to 1 with weight 9, to 2 with weight 1
+        adj = sp.csr_matrix(np.array([[0, 9, 1], [9, 0, 0], [1, 0, 0]], dtype=np.float32))
+        walks, _ = walks_of(adj, 2000, 2, np.random.RandomState(1))
+        frac = (walks[walks[:, 0] == 0][:, 1] == 1).mean()
+        assert 0.82 < frac < 0.97
+        empty, act = walks_of(sp.csr_matrix((3, 3), dtype=np.float32), 2, 4, np.random.RandomState(0))
+        assert empty.shape == (0, 4) and len(act) == 0
 
 
 # ---------------------------------------------------------------------------
@@ -249,11 +269,7 @@ def test_friend_topk_matches_jax_with_ties_at_k(chunk):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("name", ["CUNE_MF", "CUNE_BPR"])
-def test_implicit_friends_and_friend_items_match_jax(numpy_walks, name):
-    """The walks, pairs and SGNS of the JAX package's pipeline (its draws
-    injected), its top-k friends and the friend-item table bit for bit on
-    the same friends."""
+def _friends_match(name):
     jmodel, tmodel = _models(name)
     tmodel.skipgram_draws = JaxDraws
     want_ids, want_active = jmodel.implicit_friends()
@@ -266,6 +282,21 @@ def test_implicit_friends_and_friend_items_match_jax(numpy_walks, name):
     assert got.nnz > 0
     for key in ("indptr", "indices", "data"):
         np.testing.assert_array_equal(getattr(got, key), getattr(want, key))
+
+
+@pytest.mark.parametrize("name", ["CUNE_MF", "CUNE_BPR"])
+def test_implicit_friends_and_friend_items_match_jax(numpy_walks, name):
+    """The walks, pairs and SGNS of the JAX package's pipeline (its draws
+    injected), its top-k friends and the friend-item table bit for bit on
+    the same friends; both packages walk in numpy."""
+    _friends_match(name)
+
+
+@pytest.mark.parametrize("name", ["CUNE_MF", "CUNE_BPR"])
+def test_implicit_friends_with_default_walks_match_jax(name):
+    """As above, each package walking as it does by default: the port's
+    host walker, the JAX package's C++ one."""
+    _friends_match(name)
 
 
 def _spec_and_port(name, monkeypatch):
@@ -326,6 +357,29 @@ def test_three_bold_epochs_on_injected_batches_match_jax(monkeypatch, name):
     for key, p in tmodel.named_parameters():
         np.testing.assert_allclose(p.detach().numpy(), np.asarray(params[key]), atol=1e-4, err_msg=key)
     assert isinstance(tmodel.score_form(), ScoreForm)
+
+
+@pytest.mark.parametrize("name", ["CUNE_MF", "CUNE_BPR"])
+def test_three_bold_epochs_with_default_walks_match_jax(name):
+    """No walker patched: the JAX model builds its friends from its C++
+    walks, the port from its own host walker (the JAX SGNS draws
+    injected), and the friend lists agree; then three bold epochs on the
+    JAX sampler's batches, as above."""
+    jmodel, tmodel = _models(name)
+    friends = []
+    real = jmodel.implicit_friends
+    jmodel.implicit_friends = lambda: friends.append(real()) or friends[0]
+    spec = jmodel.build()
+    tmodel.skipgram_draws = JaxDraws
+    tmodel.load_state_dict(params_from_jax(jax.tree_util.tree_map(np.asarray, spec.params), "cpu"))
+    ids, active = tmodel.implicit_friends()
+    np.testing.assert_array_equal(ids, friends[0][0])
+    np.testing.assert_array_equal(active, friends[0][1])
+    batches, jlosses, params = _jax_bold_epochs(jmodel, spec, 3)
+    losses = tmodel.fit(epoch_batches=batches)
+    np.testing.assert_allclose(losses, jlosses, rtol=1e-3)
+    for key, p in tmodel.named_parameters():
+        np.testing.assert_allclose(p.detach().numpy(), np.asarray(params[key]), atol=1e-4, err_msg=key)
 
 
 def test_cune_bpr_sampler_by_its_properties():
