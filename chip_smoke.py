@@ -121,10 +121,23 @@ Phases, each of which exits non-zero on failure:
    itself; one LightGCN epoch and ranking under
    ``runtime.profiling.trace``, whose file must name K1's and K2's CUDA
    kernels;
-15. planted-block runs that must learn their blocks: LightGCN and SimGCL on
+15. multi-GPU (``parallel_phases``): ``config/LightGCN.conf`` (3 epochs)
+   and ``config/SimGCL.conf`` (2 epochs), each with ``graph.backend=pallas``
+   and ``parallel.setup=on -model 2``, once in one process (no mesh) and
+   once on four ranks on cuda:0 over a gloo group that the script makes
+   (data 2 x model 2): K5 on row blocks at width 25 (75 for SimGCL's fused
+   views), K3/K4 on 1,000 rows at offsets 0 and 1,000; every rank's
+   launches against ``expected_launches``, the ranks' tables equal bit for
+   bit, the measures within 2e-2 and the first epoch's loss within rtol
+   1e-4 of one process, each route against its plain twin, each route's
+   kernel timed on one rank's share; then a one-rank NCCL group from the
+   port's ``maybe_initialize_distributed``, whose routes must give the
+   one-device path's bits. Four ranks share one card: this shows the
+   routes right, not their scaling;
+16. planted-block runs that must learn their blocks: LightGCN and SimGCL on
    the dense adjacency, LightGCN and SGL on the sparse one, NGCF, and
    SBPR and ESRF with a trust relation;
-16. the ``kernels`` JSON line, the card line, and the final status line.
+17. the ``kernels`` JSON line, the card line, and the final status line.
 """
 
 from __future__ import annotations
@@ -1765,6 +1778,362 @@ def host_and_lifecycle_phases(torch, K, QRec, conf_of, tmp, card, unbroken):
     return k1, k2
 
 
+# ---------------------------------------------------------------------------
+# multi-GPU: the mesh on the one card (parallel_phases)
+# ---------------------------------------------------------------------------
+
+PARALLEL_RANKS = 4
+# (label, config, epochs) of the runs that every rank makes, each with
+# graph.backend=pallas and parallel.setup=on -model 2 (data 2 x model 2)
+PARALLEL_RUNS = (("lightgcn-pallas", "LightGCN", 3), ("simgcl-pallas", "SimGCL", 2))
+SHARED = "4 ranks sharing one H100"
+
+
+def rank_shares(model) -> str:
+    """What this rank's kernels take of the run: K5's row block and feature
+    width, K3/K4's contrastive rows (b_loc) and row offset."""
+    from qrec_tpu_torch.ops.spmm import feature_slice
+    from qrec_tpu_torch.parallel.collectives import split_range
+
+    mesh, adj = model.mesh, model.joint_adj
+    widths = [model.emb_size] + ([3 * model.emb_size] if model.model_name == "SimGCL" else [])
+    cuts = [feature_slice(mesh, w) for w in widths]
+    out = (f"K5 rows [{adj.row0}, {adj.row1}) of {adj.num_rows}, {adj.edge1 - adj.edge0} edges, "
+           f"width {' and '.join(str(w if c is None else c[1] - c[0]) for w, c in zip(widths, cuts))}")
+    if model.model_name == "SimGCL":
+        o0, o1 = split_range(model.batch_size, mesh.data, mesh.data_index)
+        out += f"; K3/K4 rows [{o0}, {o1}) of {model.batch_size}: b_loc {o1 - o0}, row_offset {o0}"
+    return out
+
+
+def parallel_route_checks(torch, K, model):
+    """One call of each route of ``model``'s run on its own operands against
+    the plain twin of the whole computation on the card: K5's row blocks on
+    the trained ego table (the order bound of ``segment_check``), and the
+    row-sharded InfoNCE on the first step's user views (its shares and
+    cotangents summed over ``data`` against the plain function's autograd).
+    Every rank calls it: the routes gather. Returns {route: max_abs_err}."""
+    from qrec_tpu_torch.data.graph import joint_normalized_adjacency
+    from qrec_tpu_torch.ops.losses import infonce_dispatch, masked_infonce
+    from qrec_tpu_torch.ops.spmm import SparseJoint, segment_operand, spmm
+    from qrec_tpu_torch.parallel.collectives import all_reduce_sum, reduce_gradients
+
+    mesh = model.mesh
+    errs = {}
+    whole = SparseJoint.from_host(joint_normalized_adjacency(model.data), "cuda",
+                                  check_symmetric=False)
+    with torch.no_grad():
+        x = torch.cat([model.user_emb, model.item_emb])
+        y = spmm(model.joint_adj, x)
+    xb = segment_operand(x)
+    plain = K.weighted_segment_matmul_plain(xb, whole.indptr, whole.cols, whole.vals)
+    absum = K.weighted_segment_matmul_plain(xb.abs(), whole.indptr, whole.cols, whole.vals.abs())
+    if not bool(((y - plain).abs() <= 2.0 * whole.indptr.diff().float()[:, None]
+                 * 2.0**-24 * absum).all()):
+        raise AssertionError("K5's row blocks disagree with the plain product")
+    errs["segment row blocks"] = (y - plain).abs().max().item()
+    if model.model_name == "SimGCL":
+        view1, view2, mask = first_step_views(torch, model)
+        a1, a2 = view1.clone().requires_grad_(True), view2.clone().requires_grad_(True)
+        loss = infonce_dispatch(a1, a2, mask, TEMP, mesh)
+        loss.backward()
+        reduce_gradients([a1, a2], mesh)
+        total = all_reduce_sum(loss.detach().clone(), mesh.data_group)
+        p1, p2 = view1.clone().requires_grad_(True), view2.clone().requires_grad_(True)
+        ploss = masked_infonce(p1, p2, mask, TEMP)
+        ploss.backward()
+        if not (torch.allclose(total, ploss.detach(), rtol=1e-5, atol=1e-5) and all(
+                torch.allclose(g, w, rtol=1e-4, atol=1e-5 * w.abs().max().item())
+                for g, w in ((a1.grad, p1.grad), (a2.grad, p2.grad)))):
+            raise AssertionError("the row-sharded InfoNCE disagrees with its plain twin")
+        errs["infonce row shards"] = max(abs(total.item() - ploss.item()),
+                                         (a1.grad - p1.grad).abs().max().item(),
+                                         (a2.grad - p2.grad).abs().max().item())
+    return errs
+
+
+def parallel_rank(rank, store, runs, out_dir):
+    """One rank of ``parallel_phases``: joins the gloo group that this script
+    makes on cuda:0, drives each run through ``QRec(conf).execute()`` with
+    its launch counts set to 0 just before and read just after, checks the
+    routes on the run's operands and writes what it read (its printed
+    output goes to ``rank<r>.log``)."""
+    import datetime
+    import pickle
+
+    import torch
+    import torch.distributed as dist
+
+    sys.stdout = open(os.path.join(out_dir, f"rank{rank}.log"), "w")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank,
+                            world_size=PARALLEL_RANKS, timeout=datetime.timedelta(seconds=300))
+    try:
+        from qrec_tpu_torch import ModelConf, QRec
+        from qrec_tpu_torch.ops import kernels as K
+
+        out = {}
+        for label, conf in runs:
+            K.reset_launch_counts()
+            rec = QRec(ModelConf(conf))
+            measure = rec.execute()
+            counts = K.launch_counts()
+            model = rec.model
+            out[label] = dict(
+                place=(model.mesh.data_index, model.mesh.model_index), counts=counts,
+                expect=expected_launches(model), losses=list(model.epoch_losses),
+                epoch_ms=[t * 1e3 for t in model.timer.times], measure=measure,
+                shares=rank_shares(model),
+                tables={n: p.detach().cpu().numpy() for n, p in model.named_parameters()},
+                U=model.U.cpu().numpy(), V=model.V.cpu().numpy(),
+                errs=parallel_route_checks(torch, K, model))
+        with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
+            pickle.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+        sys.stdout.flush()
+
+
+def shard_timings(torch, K, timer, lightgcn, simgcl):
+    """Each route's kernel on one rank's share at the shapes of
+    ``parallel_phases`` (data 2 x model 2), on the one-process runs'
+    operands, timed in turns with its library call, its plain twin alone,
+    with its bound: K5 on data rank 0's row block at model rank 0's feature
+    slice (width 25); K3 then K4 on data rank 1's 1,000 rows at offset
+    1,000 of SimGCL's first-step user views (B=2,000)."""
+    import types
+
+    import torch.nn.functional as F
+
+    from qrec_tpu_torch.data.graph import joint_normalized_adjacency
+    from qrec_tpu_torch.ops.losses import _l2n
+    from qrec_tpu_torch.ops.spmm import ShardedSparseJoint, segment_operand
+
+    out = {}
+    rank0 = types.SimpleNamespace(data=2, data_index=0, model=2, model_index=0)
+    adj = ShardedSparseJoint.from_host(joint_normalized_adjacency(lightgcn.data), "cuda", rank0)
+    with torch.no_grad():
+        x = torch.cat([lightgcn.user_emb, lightgcn.item_emb])
+    d = x.shape[1] // 2
+    xb = segment_operand(x[:, :d])
+    n, big_n, e = adj.row1 - adj.row0, x.shape[0], adj.edge1 - adj.edge0
+    vals = adj.vals[adj.edge0: adj.edge1]
+    call = lambda: K.weighted_segment_matmul(xb, adj.indptr, adj.cols, vals,  # noqa: E731
+                                             adj.schedule, rows=n)
+    with warnings.catch_warnings():  # sparse CSR tensors are "beta" in PyTorch
+        warnings.simplefilter("ignore")
+        library = torch.sparse_csr_tensor(adj.indptr, adj.cols, vals.bfloat16().float(),
+                                          size=(n, big_n))
+    xf = xb.float()
+    ms, library_ms = timer.paired([call, lambda: torch.sparse.mm(library, xf)])
+    plain_ms = timer.ms(lambda: K.weighted_segment_matmul_plain(xb, adj.indptr, adj.cols, vals),
+                        iters=5)
+    read_rows = int(torch.unique(adj.cols).numel())  # the rows of x the block gathers
+    moved = e * 8 + (n + 1) * 4 + read_rows * d * 2 + n * d * 4
+    bound_ms, bound_by = bound(moved, 2 * e * d, PEAK_F32)
+    out["segment"] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+                          bound_by=bound_by)
+    print(f"[K5 row block] rows={n} of {big_n} edges={e} d={d} rows of x read={read_rows} "
+          f"ms={ms:.4f} library_ms={library_ms:.4f} (torch.sparse.mm of the block's CSR, timed in "
+          f"turns) plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} by {bound_by}", flush=True)
+
+    view1, view2, mask = first_step_views(torch, simgcl)
+    with torch.no_grad():
+        v1, v2 = _l2n(view1).contiguous(), _l2n(view2).contiguous()
+    m = mask.float().contiguous()
+    big_b = v1.shape[0]
+    o0 = big_b // 2
+    s1, rm = v1[o0:].contiguous(), m[o0:].contiguous()
+    b, d = s1.shape
+    _, lse = K.infonce_fwd(s1, v2, m, rm, TEMP, o0)
+    target = torch.arange(o0, big_b, device="cuda")
+    cm = (m == 0)[None, :]
+
+    def library_loss(a, c):
+        logits = (torch.matmul(a, c.T) / TEMP).masked_fill(cm, -1e30)
+        return (F.cross_entropy(logits, target, reduction="none") * rm).sum()
+
+    a1, a2 = s1.clone().requires_grad_(True), v2.clone().requires_grad_(True)
+    lib = library_loss(a1, a2)
+    k3_ms, k3_lib = timer.paired([lambda: K.infonce_fwd(s1, v2, m, rm, TEMP, o0),
+                                  lambda: library_loss(s1, v2)])
+    k4_ms, k4_lib = timer.paired([lambda: K.infonce_bwd(s1, v2, m, rm, lse, TEMP, o0),
+                                  lambda: torch.autograd.grad(lib, (a1, a2), retain_graph=True)])
+    k3_plain = timer.ms(lambda: K.infonce_fwd_plain(s1, v2, m, rm, TEMP, o0))
+    k4_plain = timer.ms(lambda: K.infonce_bwd_plain(s1, v2, m, rm, lse, TEMP, o0))
+    views, masks = (b + big_b) * d * 4, (b + big_b) * 4
+    k3_bound, _ = bound(views + masks + b * 4 + 4, 2 * b * big_b * d, PEAK_F32)
+    k4_bound, by = bound(views + masks + b * 4 + views, 6 * b * big_b * d, PEAK_F32)
+    out["infonce"] = dict(ms=k3_ms + k4_ms, plain_ms=k3_plain + k4_plain,
+                          library_ms=k3_lib + k4_lib, bound_ms=k3_bound + k4_bound, bound_by=by)
+    print(f"[K3 row shard] b_loc={b} of B={big_b} row_offset={o0} d={d} ms={k3_ms:.4f} "
+          f"library_ms={k3_lib:.4f} plain_ms={k3_plain:.4f} bound_ms={k3_bound:.4f}; "
+          f"[K4 row shard] ms={k4_ms:.4f} library_ms={k4_lib:.4f} plain_ms={k4_plain:.4f} "
+          f"bound_ms={k4_bound:.4f} (by operations)", flush=True)
+    return out
+
+
+def nccl_phase(torch, lightgcn, simgcl):
+    """Run B: a one-rank NCCL group made through the port's own
+    ``maybe_initialize_distributed`` from the ``QREC_*`` triplet (the code
+    path of a user's multi-GPU run), and one forward and backward of each
+    route on its one-rank mesh, against the one-device path: the bits must
+    be equal (a block of every row, a shard of every contrastive row, and
+    collectives over one rank, which copy)."""
+    import socket
+
+    import torch.distributed as dist
+
+    from qrec_tpu_torch.data.graph import joint_normalized_adjacency
+    from qrec_tpu_torch.ops.losses import infonce_dispatch
+    from qrec_tpu_torch.ops.spmm import ShardedSparseJoint, SparseJoint, spmm
+    from qrec_tpu_torch.parallel import mesh as M
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    triplet = {"QREC_COORDINATOR": f"localhost:{port}", "QREC_NUM_PROCESSES": "1",
+               "QREC_PROCESS_ID": "0"}
+    os.environ.update(triplet)
+    try:
+        if not M.maybe_initialize_distributed(None, "cuda"):
+            fail("nccl: maybe_initialize_distributed made no group from the QREC_* triplet")
+        backend = dist.get_backend()
+        if backend != "nccl":
+            fail(f"nccl: the port chose {backend} for a CUDA device")
+        mesh = M.make_mesh()
+        coo = joint_normalized_adjacency(lightgcn.data)
+        g = torch.Generator(device="cuda").manual_seed(0)
+        with torch.no_grad():
+            ego = torch.cat([lightgcn.user_emb, lightgcn.item_emb])
+        w = torch.randn(ego.shape, generator=g, device="cuda")
+        got = []
+        for adj in (SparseJoint.from_host(coo, "cuda", check_symmetric=False),
+                    ShardedSparseJoint.from_host(coo, "cuda", mesh)):
+            x = ego.clone().requires_grad_(True)
+            y = spmm(adj, spmm(adj, x))
+            (y * w).sum().backward()
+            got.append((y.detach(), x.grad))
+        same4 = all(torch.equal(a, b) for a, b in zip(*got))
+        view1, view2, mask = first_step_views(torch, simgcl)
+        got = []
+        for on in (None, mesh):
+            a1, a2 = view1.clone().requires_grad_(True), view2.clone().requires_grad_(True)
+            loss = infonce_dispatch(a1, a2, mask, TEMP, on)
+            loss.backward()
+            got.append((loss.detach(), a1.grad, a2.grad))
+        same5 = all(torch.equal(a, b) for a, b in zip(*got))
+        print(f"[parallel nccl] a {dist.get_world_size()}-rank {backend} group from the QREC_* "
+              f"triplet, mesh {mesh.shape}: route 4 (two layers, forward and backward) bit-equal "
+              f"to the one-device path={same4}; route 5 (B={view1.shape[0]}) bit-equal={same5}",
+              flush=True)
+        if not (same4 and same5):
+            fail("nccl: a route on the one-rank mesh is not bit-equal to the one-device path")
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for key in triplet:
+            os.environ.pop(key, None)
+
+
+def parallel_phases(torch, K, QRec, conf_of, tmp):
+    """Slice 7a on the card. Run A: each run of ``PARALLEL_RUNS`` in one
+    process (where ``parallel.setup`` builds no mesh), then on four ranks
+    on cuda:0 over a gloo group that this script makes (``parallel_rank``):
+    data 2 x model 2, so K5 runs on row blocks at width 25 (75 for SimGCL's
+    fused views) and K3/K4 on 1,000 rows at offsets 0 and 1,000. Holds
+    every rank's launches against ``expected_launches``, the ranks' tables
+    equal bit for bit, the measures within 2e-2 and the first epoch's loss
+    within rtol 1e-4 of the one-process run, and each route against its
+    plain twin; times each route's kernel on one rank's share
+    (``shard_timings``). The four ranks share one card and gloo carries
+    their collectives through host memory: this checks the routes, not
+    their scaling. Run B: ``nccl_phase``. Returns (kernels-line entries,
+    launches summed over the ranks)."""
+    import pickle
+
+    import torch.multiprocessing as mp
+
+    from qrec_tpu_torch.ops.metrics import parse_measure
+
+    t_phase = time.perf_counter()
+    runs, one = [], {}
+    for label, name, epochs in PARALLEL_RUNS:
+        conf = conf_of(name, epochs)
+        conf["graph.backend"] = "pallas"
+        conf["parallel.setup"] = "on -model 2"
+        runs.append((label, dict(conf.config)))
+        model, _, parsed = drive(torch, K, QRec, conf, f"parallel {label} one process")
+        if model.mesh is not None:
+            fail(f"parallel {label}: one process built a mesh")
+        one[label] = dict(model=model, parsed=parsed)
+    out_dir = os.path.join(tmp, "ranks")
+    os.makedirs(out_dir)
+    print(f"[parallel] this script makes a gloo group of {PARALLEL_RANKS} ranks on cuda:0 "
+          f"(NCCL refuses two ranks on one device; the port itself picks NCCL for a CUDA "
+          f"device): {SHARED}, gloo carrying the collectives through host memory", flush=True)
+    t0 = time.perf_counter()
+    try:
+        mp.spawn(parallel_rank, args=(os.path.join(out_dir, "store"), runs, out_dir),
+                 nprocs=PARALLEL_RANKS, join=True)
+    except mp.ProcessException as e:
+        for r in range(PARALLEL_RANKS):
+            log = os.path.join(out_dir, f"rank{r}.log")
+            if os.path.exists(log):
+                with open(log) as f:
+                    print(f"[parallel rank {r} log tail]\n" + f.read()[-3000:], flush=True)
+        fail(f"parallel_phases: a rank failed: {e}")
+    spawn_s = time.perf_counter() - t0
+    ranks = []
+    for r in range(PARALLEL_RANKS):
+        with open(os.path.join(out_dir, f"rank{r}.pkl"), "rb") as f:
+            ranks.append(pickle.load(f))
+    launches = {k.name: 0 for k in K.KERNELS}
+    errs = {}
+    for label, _ in runs:
+        first = ranks[0][label]
+        for r, got in enumerate(ranks):
+            g = got[label]
+            print(f"[parallel {label} rank {r}] place (data, model)={g['place']}; {g['shares']}; "
+                  f"epoch ms ({SHARED}): {[round(t, 1) for t in g['epoch_ms']]}; losses "
+                  f"{g['losses']}", flush=True)
+            check_counts(f"parallel {label} rank {r}", g["counts"], g["expect"])
+            for k, n in g["counts"].items():
+                launches[k] += n
+            for route, err in g["errs"].items():
+                errs[route] = max(errs.get(route, 0.0), err)
+            same = all(np.array_equal(g[k], first[k]) for k in ("U", "V")) and all(
+                np.array_equal(g["tables"][n], first["tables"][n]) for n in first["tables"])
+            if not same or g["losses"] != first["losses"] or g["measure"] != first["measure"]:
+                fail(f"parallel {label}: rank {r}'s tables, losses or measures differ from "
+                     f"rank 0's")
+        got = parse_measure(first["measure"])
+        top = next(k for k in got if k.startswith("Top "))
+        want = one[label]["parsed"]
+        gap = max(abs(got[top][m] - want[m]) for m in ("Precision", "Recall", "NDCG"))
+        loss1 = one[label]["model"].epoch_losses[0]
+        print(f"[parallel {label}] the ranks' tables, losses and measures equal bit for bit; "
+              f"{top} on 4 ranks {got[top]} one process {want}: largest gap {gap:.3e} (bound "
+              f"2e-2); first epoch loss 4 ranks {first['losses'][0]:.4f} one process "
+              f"{loss1:.4f} (rtol 1e-4)", flush=True)
+        if not gap < 2e-2:
+            fail(f"parallel {label}: the measures on 4 ranks are {gap} from one process's")
+        if not math.isclose(first["losses"][0], loss1, rel_tol=1e-4):
+            fail(f"parallel {label}: the first epoch's loss is not the one process's")
+    print(f"[parallel] routes against their plain twins on the card, max_abs_err "
+          f"{json.dumps(errs)}; launches summed over the ranks {json.dumps(launches)}; spawn to "
+          f"join {spawn_s:.1f} s ({SHARED})", flush=True)
+    timings = shard_timings(torch, K, Timer(torch), one["lightgcn-pallas"]["model"],
+                            one["simgcl-pallas"]["model"])
+    timings["segment"]["max_abs_err"] = errs["segment row blocks"]
+    timings["infonce"]["max_abs_err"] = errs["infonce row shards"]
+    nccl_phase(torch, one["lightgcn-pallas"]["model"], one["simgcl-pallas"]["model"])
+    print(f"[parallel] phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return timings, launches
+
+
 def write_yelp_file(path: str) -> None:
     """The :func:`yelp_matrix` interactions as a rating file."""
     rows, cols, _, _ = yelp_matrix()
@@ -1827,11 +2196,13 @@ def first_step_views(torch, model):
 
 def _joint_kernel(adj):
     """The kernel that propagates over a joint adjacency: K1 on a dense
-    form, K5 on the sparse one, none on a ``DeviceCOO`` (torch ops)."""
-    from qrec_tpu_torch.ops.spmm import DenseJoint, SparseJoint
+    form, K5 on the sparse one (or on a rank's row block of it), none on a
+    ``DeviceCOO`` (torch ops)."""
+    from qrec_tpu_torch.ops.spmm import DenseJoint, ShardedSparseJoint, SparseJoint
 
     return ("bipartite_dual_matmul" if isinstance(adj, DenseJoint) else
-            "weighted_segment_matmul" if isinstance(adj, SparseJoint) else None)
+            "weighted_segment_matmul" if isinstance(adj, (SparseJoint, ShardedSparseJoint))
+            else None)
 
 
 def expected_launches(model):
@@ -1870,7 +2241,10 @@ def expected_launches(model):
     solves, similarity blocks, segment sums, walks' skip-gram and friend
     top-k are torch ops), for Rand (torch ops) nor for
     the score blocks of NeuMF, DMF, CDAE, CFGAN, SREE, SocialFD and EE
-    (torch ops, as the JAX package ranks them through XLA)."""
+    (torch ops, as the JAX package ranks them through XLA). On a mesh
+    (``parallel_phases``) every rank launches where one device does: K5
+    once a propagation on its row block, K3 and K4 once a loss on its rows,
+    K2 once a batch of the whole ranking."""
     from qrec_tpu_torch.models.adversarial_social import ESRF
     from qrec_tpu_torch.models.graph import LightGCN
     from qrec_tpu_torch.models.social_graph import BUIR, SEPT, _GraphModel
@@ -2266,7 +2640,11 @@ def main() -> None:
         mf_launches.update(life_launches)
         del unbroken
 
-        # 15. planted blocks
+        # 15. multi-GPU: LightGCN-pallas and SimGCL-pallas on four ranks on
+        # the card, and the one-rank NCCL group
+        par, par_launches = parallel_phases(torch, K, QRec, conf_of, tmp)
+
+        # 16. planted blocks
         planted_check(torch, tmp, ModelConf, QRec, parse_measure, "LightGCN", "-n_layer 2")
         planted_check(torch, tmp, ModelConf, QRec, parse_measure, "SimGCL",
                       "-n_layer 2 -lambda 0.05 -eps 0.1")
@@ -2282,7 +2660,7 @@ def main() -> None:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
-    # 16. results
+    # 17. results
     print(f"[K5 yelp2018] launches {yelp_counts['weighted_segment_matmul']} ms={k5['ms']:.4f} "
           f"plain_ms={k5['plain_ms']:.4f} library_ms={k5['library_ms']:.4f} "
           f"bound_ms={k5['bound_ms']:.4f} gather_floor_ms={k5['floor_ms']:.4f}", flush=True)
@@ -2339,6 +2717,13 @@ def main() -> None:
             "qrec_tpu/ops/pallas_kernels.py:242", sim_counts["infonce_bwd"], k4),
         row("weighted_segment_matmul", "qrec_tpu_torch/csrc/segment_matmul.cu",
             "qrec_tpu/ops/pallas_kernels.py:478", yelp_counts["weighted_segment_matmul"], k5),
+        # the mesh routes: launches summed over the four ranks, ms on one
+        # rank's share (K3 + K4 for the InfoNCE)
+        row("sharded_infonce_loss", "qrec_tpu_torch/csrc/infonce.cu",
+            "qrec_tpu/ops/pallas_kernels.py:366",
+            par_launches["infonce_fwd"] + par_launches["infonce_bwd"], par["infonce"]),
+        row("ShardedPaddedCOO._apply", "qrec_tpu_torch/csrc/segment_matmul.cu",
+            "qrec_tpu/ops/spmm.py:855", par_launches["weighted_segment_matmul"], par["segment"]),
     ]
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

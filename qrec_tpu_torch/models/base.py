@@ -41,6 +41,7 @@ from ..errors import ConfigError
 from ..ops import sampling
 from ..ops.metrics import device_ranking_metrics
 from ..ops.topk import CatalogRanker, RandomScores, ScoreForm
+from ..parallel.mesh import mesh_from_config
 from ..runtime import checkpoint as C
 from ..runtime import trainer as T
 from ..runtime.profiling import StepTimer
@@ -80,6 +81,9 @@ class Recommender(nn.Module):
     # a model that needs the trust relation (SocialRecommender) gets it as
     # ``social``; the session refuses to run it without one
     requires_social = False
+    # LightGCN, SimGCL and BPR train on a mesh, the models that the JAX
+    # package's mesh tests train; every other model refuses one
+    trains_on_mesh = False
 
     def __init__(self, conf: ModelConf, data: Interactions, fold: str = "[1]", device=None,
                  social=None):
@@ -130,6 +134,36 @@ class Recommender(nn.Module):
 
     def fit(self) -> None:
         pass
+
+    @property
+    def mesh(self):
+        """The ('data', 'model') mesh that ``parallel.setup=on [-model K]``
+        asks for over more than one rank (``parallel/mesh.py``; the JAX
+        package's ``Recommender.mesh``, ``models/base.py:366-400``), else
+        None: in one process the setting changes nothing. On a mesh, what
+        does not run there yet raises a ConfigError: a model other than
+        LightGCN, SimGCL and BPR, ``checkpoint.setup``, ``model.setup``'s
+        ``-save`` and ``-load``, and ``-cv k -p``."""
+        if not hasattr(self, "_mesh"):
+            mesh = mesh_from_config(self.config, self.device)
+            if mesh is not None:
+                setup = (self.config.options("model.setup")
+                         if self.config.contains("model.setup") else None)
+                refused = [
+                    (not self.trains_on_mesh, f"model {self.model_name}"),
+                    (self.config.contains("checkpoint.setup")
+                     and self.config.options("checkpoint.setup").isMainOn(), "checkpoint.setup"),
+                    (setup is not None and (setup.contains("-save") or setup.contains("-load")),
+                     "model.setup -save/-load"),
+                    (self.eval_settings.contains("-cv") and self.eval_settings.contains("-p"),
+                     "-cv k -p"),
+                ]
+                for bad, what in refused:
+                    if bad:
+                        raise ConfigError(f"{what} on a mesh (parallel.setup) is not ported yet "
+                                          "(ROADMAP.md Queue 1 item 19)")
+            self._mesh = mesh
+        return self._mesh
 
     @property
     def rated_bitmask(self) -> torch.Tensor:
@@ -398,6 +432,16 @@ class IterativeRecommender(Recommender):
         return sampling.sample_negatives(gen, users, self.num_items, ta["indices"], ta["indptr"],
                                          self.rated_bitmask, 8, row_iters, also_exclude)
 
+    def batch_share(self, batch):
+        """This data rank's rows of a batch's tensors on a mesh
+        (``torch.tensor_split``'s block), for the loss terms that are sums
+        over the rows: its share of the step's loss (``parallel/mesh.py``);
+        the whole batch without a mesh."""
+        mesh = self.mesh
+        if mesh is None:
+            return batch
+        return tuple(torch.tensor_split(t, mesh.data)[mesh.data_index] for t in batch)
+
     def _batched(self, *tensors):
         shape = (-1, self.batch_size)
         return tuple(t.view(shape) for t in tensors)
@@ -579,6 +623,7 @@ class IterativeRecommender(Recommender):
             emit=self._emit, epoch_batches=injected,
             quick_eval=quick_eval, tracker=tracker, after_step=after_step,
             start_epoch=start_epoch, resume=resume, checkpoint=self._make_checkpoint_cb(),
+            mesh=self.mesh,
         )
         self._epochs_done += start_epoch + len(losses)
         self.epoch_losses += losses
@@ -689,13 +734,26 @@ class GraphRecommender(IterativeRecommender):
     ``auto`` past the limit, builds the sparse one on the segment kernel
     (the JAX package's single-device choice on a TPU); ``coo`` builds the
     f32 :class:`~qrec_tpu_torch.ops.spmm.DeviceCOO` (the JAX package's
-    ``auto`` off a TPU)."""
+    ``auto`` off a TPU).
+
+    On a mesh (``parallel.setup``): the sparse form is its row blocks
+    (:class:`~qrec_tpu_torch.ops.spmm.ShardedSparseJoint`); ``coo`` keeps
+    the whole ``DeviceCOO`` on every rank, whose f32 backward is linear in
+    the cotangent, so the ranks' shares keep the gradient invariant with no
+    collective; a dense form raises (ROADMAP.md Queue 1 item 19: the JAX
+    package takes XLA's partitioned product there, not a kernel)."""
 
     @property
     def joint_adj(self):
         if not hasattr(self, "_joint_adj"):
             from ..data.graph import joint_normalized_adjacency
-            from ..ops.spmm import DENSE_JOINT_LIMIT, DenseJoint, DeviceCOO, SparseJoint
+            from ..ops.spmm import (
+                DENSE_JOINT_LIMIT,
+                DenseJoint,
+                DeviceCOO,
+                ShardedSparseJoint,
+                SparseJoint,
+            )
 
             check_graph_settings(self.config)
             try:
@@ -709,6 +767,13 @@ class GraphRecommender(IterativeRecommender):
             dense = backend == "dense" or (
                 backend == "auto" and self.num_users * self.num_items <= limit
             )
+            mesh = self.mesh
+            if dense and mesh is not None:
+                raise ConfigError(
+                    f"a dense adjacency (graph.backend={backend}) on a mesh (parallel.setup) "
+                    "is not ported yet (ROADMAP.md Queue 1 item 19); use graph.backend=pallas "
+                    "or coo"
+                )
             if dense:
                 quant = self.config.get("graph.dense.quant", "auto")
                 quant = "factored" if quant == "auto" else quant
@@ -719,6 +784,11 @@ class GraphRecommender(IterativeRecommender):
                     joint_normalized_adjacency(self.data), self.device
                 )
                 built = "DeviceCOO f32 gather and segment sum"
+            elif mesh is not None:
+                self._joint_adj = ShardedSparseJoint.from_host(
+                    joint_normalized_adjacency(self.data), self.device, mesh
+                )
+                built = "ShardedSparseJoint CSR row blocks over data, segment kernel"
             else:
                 self._joint_adj = SparseJoint.from_host(
                     joint_normalized_adjacency(self.data), self.device, check_symmetric=False

@@ -55,6 +55,7 @@ class LightGCN(GraphRecommender):
     (LightGCN.py:11-41). Parameters: ``user_emb`` (U, d), ``item_emb`` (I, d)."""
 
     track_best = False
+    trains_on_mesh = True
 
     def __init__(self, conf, data, fold: str = "[1]", device=None):
         super().__init__(conf, data, fold=fold, device=device)
@@ -74,8 +75,9 @@ class LightGCN(GraphRecommender):
         return out[: self.num_users], out[self.num_users :]
 
     def rec_loss(self, users, items, batch) -> torch.Tensor:
-        """BPR on the batch's (user, pos, neg) triples + their L2."""
-        u, i, j, w = batch
+        """BPR on the batch's (user, pos, neg) triples + their L2: sums over
+        the rows, so on a mesh this data rank's rows (``batch_share``)."""
+        u, i, j, w = self.batch_share(batch)
         pu, qi, qj = users[u], items[i], items[j]
         pos = (pu * qi).sum(dim=1)
         neg = (pu * qj).sum(dim=1)
@@ -112,6 +114,7 @@ class NGCF(LightGCN):
     ``W_{k}_1``, ``W_{k}_2``; the two transforms are plain products."""
 
     keep_prob = 0.9  # message dropout keep (NGCF.py:37)
+    trains_on_mesh = False
 
     def __init__(self, conf, data, fold: str = "[1]", device=None):
         super().__init__(conf, data, fold=fold, device=device)
@@ -175,6 +178,7 @@ class SGL(LightGCN):
     ``graph.backend=coo``)."""
 
     track_best = True
+    trains_on_mesh = False
 
     def read_configuration(self) -> None:
         super().read_configuration()
@@ -359,13 +363,19 @@ class SimGCL(LightGCN):
         return [(o[:nu], o[nu:]) for o in (a / self.n_layers for a in accs)]
 
     def step_loss(self, batch, noise) -> torch.Tensor:
+        """BPR and L2 on the batch's rows, and the InfoNCE of the distinct
+        users and items of the WHOLE batch: on a mesh ``rec_loss`` takes
+        this data rank's rows, and the contrastive sets, built from the whole
+        batch on every rank, go to the row-sharded InfoNCE (splitting the
+        batch first would change the sets, and so the function)."""
         u, i, _, _ = batch
         (users, items), (p1u, p1i), (p2u, p2i) = self.encode_all(noise)
         rec = self.rec_loss(users, items, batch)
         uu, um = unique_padded(u)
         iu, im = unique_padded(i)
-        cl = infonce_dispatch(_rows(p1u, uu), _rows(p2u, uu), um, self.cl_temp)
-        cl = cl + infonce_dispatch(_rows(p1i, iu), _rows(p2i, iu), im, self.cl_temp)
+        mesh = self.mesh
+        cl = infonce_dispatch(_rows(p1u, uu), _rows(p2u, uu), um, self.cl_temp, mesh)
+        cl = cl + infonce_dispatch(_rows(p1i, iu), _rows(p2i, iu), im, self.cl_temp, mesh)
         return rec + self.cl_rate * cl
 
     def loss(self, batch, gen: Optional[torch.Generator] = None) -> torch.Tensor:

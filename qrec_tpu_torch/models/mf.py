@@ -137,6 +137,8 @@ class BPR(_MF):
     FULL tables, the training pairs come in file order (fresh negatives
     every epoch), and Adam trains it."""
 
+    trains_on_mesh = True
+
     def read_configuration(self) -> None:
         super().read_configuration()
         self.tf_path = self.eval_settings.contains("-tf")
@@ -148,12 +150,17 @@ class BPR(_MF):
         return self.pairwise_sampler(shuffle=not self.tf_path)
 
     def loss(self, batch, gen=None) -> torch.Tensor:
-        u, i, j, w = batch
+        """On a mesh, this data rank's share: its rows of the batch's sums
+        (``batch_share``), and the ``-tf`` regulariser over the full tables,
+        which is no sum over the rows, on data rank 0 alone."""
+        u, i, j, w = self.batch_share(batch)
         pu, qi, qj = self.user_emb[u], self.item_emb[i], self.item_emb[j]
         pos = (pu * qi).sum(dim=1)
         neg = (pu * qj).sum(dim=1)
         if self.tf_path:
             loss = -(w * torch.log(torch.sigmoid(pos - neg) + 1e-6)).sum()
+            if self.mesh is not None and self.mesh.data_index != 0:
+                return loss
             reg = self.reg_u * 0.5 * ((self.user_emb**2).sum() + (self.item_emb**2).sum())
         else:
             loss = bpr_loss(pos, neg, w)

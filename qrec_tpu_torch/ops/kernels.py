@@ -37,6 +37,7 @@ flags (a changed source or header builds anew), and loads with
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import functools
 import hashlib
 import os
@@ -153,12 +154,18 @@ def nvcc_path() -> str:
 def build(kernels: Sequence[Kernel] = KERNELS) -> Dict[str, Path]:
     """Compile every source whose library is missing, one ``nvcc`` process per
     source, all started together. Each writes a temporary file that is
-    renamed into place, so a concurrent build never loads half a library."""
-    with _build_lock:
+    renamed into place, so a concurrent build never loads half a library;
+    the ranks of a multi-GPU run that start at once build under a file
+    lock, as the host library does (``native.py``), so each source
+    compiles once."""
+    if all(k.library_path().exists() for k in kernels):
+        return {k.name: k.library_path() for k in kernels}
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with _build_lock, open(BUILD_DIR / "kernels.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
         # kernels of one source share its library
         todo = {k.library_path(): k for k in kernels if not k.library_path().exists()}
         if todo:
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
             nvcc = nvcc_path()
             procs = []
             for out, k in todo.items():
@@ -932,6 +939,8 @@ def weighted_segment_matmul(
     cols: torch.Tensor,
     vals: torch.Tensor,
     schedule: Optional[SegmentSchedule] = None,
+    *,
+    rows: Optional[int] = None,
 ) -> torch.Tensor:
     """(N, d) f32 ``out[r] = Σ_{e in row r} f32(bf16(vals[e])) · f32(x[cols[e]])``
     over a row-sorted CSR matrix, every row written (an empty one as 0).
@@ -941,7 +950,12 @@ def weighted_segment_matmul(
     gathers 16 bytes a lane); ``indptr`` (N+1,) and ``cols`` (E,) int32;
     ``vals`` (E,) f32. ``schedule`` is :func:`segment_schedule` of
     ``indptr``, which a caller that applies one matrix many times keeps;
-    it is computed here when None. One kernel launch."""
+    it is computed here when None. One kernel launch.
+
+    ``rows``, when given, is N for a shard of a matrix's rows
+    (``ops/spmm.ShardedSparseJoint``): ``indptr`` is then (rows + 1,), and
+    ``x`` may hold more rows than N, which ``cols`` index (the kernel bounds
+    only ``out`` by N)."""
     if x.dtype != torch.bfloat16:
         raise TypeError(f"x: dtype {x.dtype} not in {(torch.bfloat16,)}")
     if x.dim() != 2 or x.stride(-1) != 1 or x.stride(0) < x.shape[1]:
@@ -950,7 +964,12 @@ def weighted_segment_matmul(
     _check(indptr, "indptr", (torch.int32,), 1)
     _check(cols, "cols", (torch.int32,), 1)
     _check(vals, "vals", (torch.float32,), 1)
-    n, d = x.shape
+    if rows is None:
+        n, d = x.shape
+    else:
+        n, d = int(rows), x.shape[1]
+        if x.shape[0] < 1:
+            raise ValueError(f"x: a row shard reads x's rows; got shape {tuple(x.shape)}")
     if indptr.shape != (n + 1,) or vals.shape != cols.shape:
         raise ValueError(
             f"shape mismatch: x {tuple(x.shape)}, indptr {tuple(indptr.shape)}, "

@@ -12,6 +12,7 @@ from typing import Optional, Tuple
 import torch
 
 from ..errors import ConfigError
+from ..parallel.collectives import split_range
 from .kernels import INFONCE_MASKED, infonce_bwd, infonce_fwd
 
 SSL_BACKENDS = ("auto", "xla", "pallas")
@@ -102,14 +103,55 @@ class InfoNCELoss(torch.autograd.Function):
         return _l2n_bwd(view1, g * dv1), _l2n_bwd(view2, g * dv2), None, None
 
 
+class ShardedInfoNCELoss(torch.autograd.Function):
+    """:class:`InfoNCELoss` with its rows sharded over a mesh's ``data`` axis
+    (the JAX package's ``sharded_infonce_loss``,
+    ``qrec_tpu/ops/pallas_kernels.py:366-470``). Data rank r takes
+    ``torch.tensor_split``'s block r of the B rows, ``[o0, o1)``, and K3
+    computes their loss against every column with ``row_offset`` o0. The
+    value is the rank's *share* of the loss (``parallel/mesh.py``): the
+    JAX package's ``psum`` of the loss is the trainer's sum of the epoch's
+    shares. Backward: K4 with the same offset gives dv1 of the rank's rows
+    (zero elsewhere) and its share of dv2; the JAX package's ``psum`` of
+    dv2 is left to the step's one gradient reduction. K3 and K4 take any
+    row count, so the rows are not padded to the JAX kernel's
+    ``ROW_TILE``."""
+
+    @staticmethod
+    def forward(ctx, view1, view2, mask, temperature, mesh):
+        o0, o1 = split_range(view1.shape[0], mesh.data, mesh.data_index)
+        v1, v2 = _l2n(view1[o0:o1]), _l2n(view2)
+        m = mask.to(torch.float32).contiguous()
+        rm = m[o0:o1].contiguous()
+        loss, lse = infonce_fwd(v1, v2, m, rm, temperature, row_offset=o0)
+        ctx.save_for_backward(view1, view2, v1, v2, m, rm, lse)
+        ctx.rows, ctx.temperature = (o0, o1), temperature
+        return loss
+
+    @staticmethod
+    def backward(ctx, g):
+        view1, view2, v1, v2, m, rm, lse = ctx.saved_tensors
+        o0, o1 = ctx.rows
+        dv1, dv2 = infonce_bwd(v1, v2, m, rm, lse, ctx.temperature, row_offset=o0)
+        dview1 = torch.zeros_like(view1)
+        dview1[o0:o1] = _l2n_bwd(view1[o0:o1], g * dv1)
+        return dview1, _l2n_bwd(view2, g * dv2), None, None, None
+
+
 def infonce_dispatch(
-    view1: torch.Tensor, view2: torch.Tensor, mask: torch.Tensor, temperature: float
+    view1: torch.Tensor, view2: torch.Tensor, mask: torch.Tensor, temperature: float,
+    mesh=None,
 ) -> torch.Tensor:
     """The SSL models' InfoNCE. The JAX package picks between its plain
     function and the fused kernel by ``ssl.backend`` and pads rows to the
     kernel's tile; here every ``ssl.backend`` takes :class:`InfoNCELoss`,
-    whose kernels take any B >= 1, so the value does not depend on it."""
-    return InfoNCELoss.apply(view1.contiguous(), view2.contiguous(), mask, float(temperature))
+    whose kernels take any B >= 1, so the value does not depend on it. On
+    a ``mesh`` the rows are sharded over ``data``
+    (:class:`ShardedInfoNCELoss`) and the value is the rank's share."""
+    view1, view2 = view1.contiguous(), view2.contiguous()
+    if mesh is not None:
+        return ShardedInfoNCELoss.apply(view1, view2, mask, float(temperature), mesh)
+    return InfoNCELoss.apply(view1, view2, mask, float(temperature))
 
 
 def check_ssl_backend(config) -> None:

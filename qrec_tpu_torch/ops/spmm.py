@@ -23,7 +23,9 @@ of the JAX package's ``ops/spmm.py``):
   CSR, the counterpart of ``PaddedCOO``; every application runs through the
   segment kernel
   (:func:`~qrec_tpu_torch.ops.kernels.weighted_segment_matmul`), with
-  per-edge values that a caller may replace (SGL's views).
+  per-edge values that a caller may replace (SGL's views);
+  :class:`ShardedSparseJoint` is its row shards on a mesh, the counterpart
+  of ``ShardedPaddedCOO``.
 * :class:`DeviceCOO` — any row-sorted COO matrix, square or not, symmetric
   or not, in f32: a gather, a multiply by the edge values and a sum per
   row (``graph.backend=coo``, the social models' auxiliary matrices,
@@ -50,6 +52,7 @@ import numpy as np
 import torch
 
 from ..data.graph import COO, factored_adjacency
+from ..parallel.collectives import all_reduce_sum, gather_cols, gather_rows, split_sizes
 from .kernels import (
     SegmentSchedule,
     aligned_width,
@@ -258,6 +261,127 @@ class SegmentMatmul(torch.autograd.Function):
         return dx, dvals, None
 
 
+class ShardedSparseJoint(NamedTuple):
+    """The symmetric joint adjacency of :class:`SparseJoint` on a mesh
+    (``parallel/mesh.py``), the port's counterpart of the JAX package's
+    ``ShardedPaddedCOO`` (``ops/spmm.py:710-928``). The rows are cut in
+    even blocks over ``data`` (``torch.tensor_split``'s cut; the JAX
+    package's blocks of ceil(N / shards) rows are rounded up to its 512-row
+    tile, a TPU layout). Each rank keeps the CSR of its block: ``indptr``
+    rebased to the block's first edge, the block's ``cols``, global, so
+    that K5 computes the block's rows of ``A @ x`` from the whole x
+    (:class:`ShardedSegmentMatmul`), and the block's own segment schedule.
+    ``vals`` holds every edge's value, in the CSR's order, as
+    :func:`spmm` takes per-edge values; the block's edges are ``[edge0,
+    edge1)``."""
+
+    mesh: object
+    num_rows: int
+    row0: int  # the block's rows are [row0, row1)
+    row1: int
+    edge0: int
+    edge1: int
+    indptr: torch.Tensor  # (row1 - row0 + 1,) int32, from 0
+    cols: torch.Tensor  # (edge1 - edge0,) int32, global columns
+    vals: torch.Tensor  # (E,) f32, every edge
+    schedule: SegmentSchedule  # the block's tiles
+    row_sizes: Tuple[int, ...]  # every data rank's row count, in rank order
+
+    @classmethod
+    def from_host(cls, coo: COO, device, mesh) -> "ShardedSparseJoint":
+        rows = np.asarray(coo.rows)
+        n_rows = int(coo.shape[0])
+        assert n_rows == int(coo.shape[1]), "ShardedSparseJoint requires a square matrix"
+        assert np.all(np.diff(rows) >= 0), "ShardedSparseJoint requires row-sorted edges"
+        if n_rows < mesh.data:
+            raise ValueError(f"{n_rows} rows cannot be cut into {mesh.data} row blocks")
+        indptr = np.zeros(n_rows + 1, dtype=np.int64)
+        np.cumsum(np.bincount(rows, minlength=n_rows), out=indptr[1:])
+        sizes = split_sizes(n_rows, mesh.data)
+        r0 = sum(sizes[: mesh.data_index])
+        r1 = r0 + sizes[mesh.data_index]
+        e0, e1 = int(indptr[r0]), int(indptr[r1])
+        local = indptr[r0: r1 + 1] - e0
+        as_t = lambda a, dt: torch.as_tensor(np.asarray(a).astype(dt), device=device)  # noqa: E731
+        return cls(
+            mesh, n_rows, r0, r1, e0, e1, as_t(local, np.int32),
+            as_t(np.asarray(coo.cols)[e0:e1], np.int32), as_t(coo.vals, np.float32),
+            segment_schedule(local, device=device), tuple(sizes),
+        )
+
+
+def feature_slice(mesh, d: int) -> Optional[Tuple[int, int]]:
+    """[c0, c1) of this rank's feature columns over ``model`` when the model
+    axis divides the width d (``qrec_tpu/ops/spmm.py:866-873``), else None:
+    every model rank then computes the whole width."""
+    if mesh.model == 1 or d % mesh.model:
+        return None
+    c0 = mesh.model_index * (d // mesh.model)
+    return c0, c0 + d // mesh.model
+
+
+def _block_call(adj: ShardedSparseJoint, x: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
+    """The block's rows of ``A @ x`` on bf16 x: one K5 launch on the block's
+    CSR, gathering from every row of x."""
+    return weighted_segment_matmul(segment_operand(x), adj.indptr, adj.cols,
+                                   vals[adj.edge0: adj.edge1], adj.schedule,
+                                   rows=adj.row1 - adj.row0)
+
+
+class ShardedSegmentMatmul(torch.autograd.Function):
+    """``y = A @ x`` over a :class:`ShardedSparseJoint` (the JAX package's
+    ``_sharded_spmm`` custom VJP), x and y whole on every rank.
+
+    Forward: K5 computes this data rank's row block from the whole x, or
+    from x's feature slice over ``model`` (:func:`feature_slice`); the
+    result is gathered over ``model`` (columns), then over ``data``
+    (rows).
+
+    Backward, under the gradient invariant of ``parallel/mesh.py``: the
+    cotangent is a share on each data rank. The rank's feature columns of
+    it are summed over ``data`` first, in f32, since K5 rounds its input to
+    bf16 and shares rounded apart would part from one process; K5 applies
+    the block's rows to the sum (``dx = Aᵀ g = A g``: A is symmetric), the
+    columns are gathered over ``model``, and the result fills the rank's
+    rows of a zero dx, whose sum over ``data`` the step's reduction
+    completes (adding zeros is exact). ``dvals``, where ``vals`` needs a
+    gradient, follows the same rule: the block's edges, zero elsewhere."""
+
+    @staticmethod
+    def forward(ctx, x, vals, adj):
+        mesh = adj.mesh
+        ctx.adj = adj
+        ctx.save_for_backward(x, vals)
+        cut = feature_slice(mesh, x.shape[1])
+        y = _block_call(adj, x if cut is None else x[:, cut[0]: cut[1]], vals)
+        if cut is not None:
+            y = gather_cols(y, mesh)
+        return gather_rows(y, mesh, adj.row_sizes)
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, vals = ctx.saved_tensors
+        adj = ctx.adj
+        mesh = adj.mesh
+        cut = feature_slice(mesh, grad.shape[1])
+        g = grad if cut is None else grad[:, cut[0]: cut[1]]
+        g = g.clone(memory_format=torch.contiguous_format)
+        all_reduce_sum(g, mesh.data_group)
+        dx = dvals = None
+        if ctx.needs_input_grad[0]:
+            block = _block_call(adj, g, vals)
+            dx = torch.zeros_like(x)
+            dx[adj.row0: adj.row1] = block if cut is None else gather_cols(block, mesh)
+        if ctx.needs_input_grad[1]:
+            if cut is not None:
+                g = gather_cols(g, mesh)
+            e0, e1 = adj.edge0, adj.edge1
+            dvals = torch.zeros_like(vals)
+            dvals[e0:e1] = (g[adj.schedule.edge_row.long() + adj.row0]
+                            * x[adj.cols.long()]).sum(dim=1)
+        return dx, dvals, None
+
+
 class DeviceCOO(NamedTuple):
     """A (num_rows, num_cols) matrix as a row-sorted COO with f32 values
     (the JAX package's ``DeviceCOO``, ``ops/spmm.py:25-41``), kept as a CSR
@@ -392,7 +516,8 @@ class DenseMatmul(torch.autograd.Function):
 def spmm(adj, x: torch.Tensor, vals: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``A @ x`` for every form (the JAX package's ``spmm``,
     ``ops/spmm.py:419-457``): a :class:`DenseJoint` through the dual
-    kernel, a :class:`SparseJoint` through the segment kernel, a
+    kernel, a :class:`SparseJoint` through the segment kernel (its row
+    blocks on a mesh, :class:`ShardedSparseJoint`), a
     :class:`DeviceCOO` or :class:`DenseMat` through torch ops. ``vals``
     replaces the stored edge values (views) and needs a sparse form."""
     if isinstance(adj, (DenseJoint, DenseMat)):
@@ -404,6 +529,8 @@ def spmm(adj, x: torch.Tensor, vals: Optional[torch.Tensor] = None) -> torch.Ten
     v = adj.vals if vals is None else vals
     if isinstance(adj, DeviceCOO):
         return CooMatmul.apply(x, v, adj)
+    if isinstance(adj, ShardedSparseJoint):
+        return ShardedSegmentMatmul.apply(x, v, adj)
     return SegmentMatmul.apply(x, v, adj)
 
 

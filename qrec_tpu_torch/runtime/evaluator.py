@@ -5,7 +5,8 @@ evalRanking :127-179 and evalRatings :96-125; the JAX package's
 Writes the top-N recommendation list with ``*`` hit markers, the
 rating-prediction file and the measure file in the reference's format, and
 records the measures in the run log. A ``-predict`` run writes the list and
-measures nothing.
+measures nothing. In a multi-GPU run rank 0 alone writes the files
+(``parallel/mesh.is_writer``).
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ from ..io import write_file
 from ..log import Log, timestamp
 from ..ops import metrics as M
 from ..ops.topk import CatalogRanker
+from ..parallel.mesh import is_writer
 
 
 def clamp_rating(pred: float, r_scale) -> float:
@@ -42,7 +44,7 @@ def _write_measure(measure, conf, fold, log, current_time) -> None:
     """The measure file (when ``output.setup`` is on), the log and the
     printed result, for either evaluation."""
     output = conf.options("output.setup")
-    if output.isMainOn():
+    if output.isMainOn() and is_writer():
         file_name = conf["model.name"] + "@" + current_time + "-measure" + fold + ".txt"
         write_file(output["-dir"], file_name, measure)
     if log is not None:
@@ -86,7 +88,7 @@ def eval_ranking(model, data, conf, fold="[1]", log=None) -> List[str]:
         rec_output.append(line + "\n")
 
     current_time = timestamp()
-    if output.isMainOn():
+    if output.isMainOn() and is_writer():
         out_dir = output["-dir"]
         file_name = (
             conf["model.name"] + "@" + current_time + "-top-" + str(n)
@@ -119,7 +121,7 @@ def eval_ratings(model, data, conf, fold="[1]", log=None) -> List[str]:
         records.append([u, i, r, pred])
         res.append(f"{u} {i} {r} {pred}\n")
     current_time = timestamp()
-    if output.isMainOn():
+    if output.isMainOn() and is_writer():
         out_dir = output["-dir"]
         file_name = (
             conf["model.name"] + "@" + current_time

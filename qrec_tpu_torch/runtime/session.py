@@ -13,6 +13,14 @@ the reference does (QRec.py:91-107). ``model.setup=-load <path>`` restores
 a saved model in place of training and ``-save <path>`` writes it after
 the evaluation (every fold of ``-cv`` writes the same path), as in the JAX
 package's ``run_fold``.
+
+``parallel.setup=on [-model K]`` (``parallel/mesh.py``): the process joins
+its process group before any device work, and with more than one rank
+LightGCN, SimGCL and BPR train data-parallel on the mesh
+(``Recommender.mesh``); ``-cv k`` then runs its folds in turn on it. Rank 0
+alone writes the result files, the run log and the ``-cv`` summary (the
+JAX package writes them from every process). In one process the setting
+changes nothing.
 """
 
 from __future__ import annotations
@@ -30,21 +38,8 @@ from ..errors import ConfigError, EvaluationError
 from ..log import Log, timestamp
 from ..models import get_model
 from ..models.base import check_graph_settings
+from ..parallel.mesh import is_writer, maybe_initialize_distributed
 from . import evaluator
-
-# config keys the port does not run yet -> ROADMAP.md item
-_NOT_PORTED_KEYS = {
-    "parallel.setup": "Queue 1 item 19, slice 7: multi-GPU",
-}
-
-
-def check_ported(config: ModelConf) -> None:
-    """Refuse a key the port does not run yet when its main switch is on,
-    as the JAX package reads it (its mesh, ``models/base.py``)."""
-    for key, item in _NOT_PORTED_KEYS.items():
-        if config.contains(key) and config.options(key).isMainOn():
-            raise ConfigError(f"{key} is not ported yet (ROADMAP.md {item})")
-    check_graph_settings(config)
 
 
 def run_fold(config: ModelConf, train, test, relation, fold: str, seed: int, device):
@@ -61,10 +56,14 @@ def run_fold(config: ModelConf, train, test, relation, fold: str, seed: int, dev
             )
         kwargs["social"] = SocialGraph(relation, data)
     model = model_cls(config, data, fold=fold, device=device, **kwargs)
-    log = Log(model.model_name, model.model_name + fold + " " + timestamp())
-    log.add("### model configuration ###")
-    for k in config:
-        log.add(k + "=" + config[k])
+    # on a mesh, what does not run there raises before training
+    model.mesh
+    log = None
+    if is_writer():
+        log = Log(model.model_name, model.model_name + fold + " " + timestamp())
+        log.add("### model configuration ###")
+        for k in config:
+            log.add(k + "=" + config[k])
     if fold == "[1]":
         model.print_config()
     setup = config.options("model.setup") if config.contains("model.setup") else None
@@ -74,7 +73,7 @@ def run_fold(config: ModelConf, train, test, relation, fold: str, seed: int, dev
     else:
         print(f"Building Model {fold}...")
         model.fit()
-    if model.timer is not None and model.timer.times:
+    if log is not None and model.timer is not None and model.timer.times:
         s = model.timer.summary()
         log.add(
             "### training throughput ###\n"
@@ -101,7 +100,9 @@ class QRec:
         self.measure: List[str] = []
         if not config.contains("evaluation.setup"):
             raise ConfigError("Wrong configuration of evaluation!")
-        check_ported(config)
+        check_graph_settings(config)
+        if config.contains("parallel.setup") and config.options("parallel.setup").isMainOn():
+            maybe_initialize_distributed(config, self.device)
         self.evaluation = OptionConf(config["evaluation.setup"])
         binarized = False
         bottom = 0.0
@@ -172,9 +173,11 @@ class QRec:
         self.measure = average_folds(fold_measures)
         # the summary is written whatever output.setup's main switch says
         # (QRec.py:103-106)
-        output = OptionConf(self.config["output.setup"])
-        file_name = self.config["model.name"] + "@" + timestamp() + "-" + str(k) + "-fold-cv.txt"
-        qio.write_file(output.get("-dir", "./results/"), file_name, self.measure)
+        if is_writer():
+            output = OptionConf(self.config["output.setup"])
+            file_name = (self.config["model.name"] + "@" + timestamp() + "-" + str(k)
+                         + "-fold-cv.txt")
+            qio.write_file(output.get("-dir", "./results/"), file_name, self.measure)
         print("The result of %d-fold cross validation:\n%s" % (k, "".join(self.measure)))
         return self.measure
 

@@ -38,6 +38,7 @@ import numpy as np
 import torch
 
 from ..errors import ConvergenceError
+from ..parallel.collectives import all_reduce_sum, reduce_gradients
 from .profiling import StepTimer
 
 
@@ -208,6 +209,7 @@ def train(
     start_epoch: int = 0,
     resume: Optional[Dict] = None,
     checkpoint: Optional[Callable[[int, Dict], None]] = None,
+    mesh=None,
 ) -> Tuple[List[float], StepTimer]:
     """Train ``params`` in place; return the per-epoch summed losses of the
     epochs run (fewer than ``max_epoch - start_epoch`` when the bold mode
@@ -232,6 +234,13 @@ def train(
     before the first epoch, which is then ``start_epoch``;
     ``checkpoint(epoch, state)`` runs after every epoch that does not end
     the bold mode's training, once its rate is updated.
+
+    On a ``mesh`` (``parallel/mesh.py``) each step's loss is this rank's
+    share: the gradients are summed over ``data`` between the backward and
+    the optimizer's step (GSPMD's gradient psum in the JAX package), and the
+    epoch's total is summed over ``data`` before it reaches the host, so
+    that every rank's bold driver, convergence rule and epoch line read the
+    one-process loss, the same bits on every rank.
     """
     optimizer = make_optimizer(params, mode, lr)
     bold = BoldDriver(lr, max_lr) if mode == "bold" else None
@@ -251,10 +260,14 @@ def train(
                 loss = loss_fn(tuple(t[step] for t in batches), generator)
                 optimizer.zero_grad(set_to_none=True)
                 loss.backward()
+                if mesh is not None:
+                    reduce_gradients(params, mesh)
                 optimizer.step()
                 if after_step is not None:
                     after_step()
                 total = total + loss.detach()
+            if mesh is not None:
+                all_reduce_sum(total, mesh.data_group)
             loss_val = float(total)
         if conv is None:
             # the bold mode checks inside conv.check below

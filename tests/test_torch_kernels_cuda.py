@@ -15,7 +15,14 @@ import torch
 from qrec_tpu_torch import ModelConf, QRec
 from qrec_tpu_torch.ops import kernels as K
 from qrec_tpu_torch.ops.metrics import parse_measure
-from qrec_tpu_torch.ops.spmm import DenseJoint, SparseJoint, lightgcn_propagate, spmm
+from qrec_tpu_torch.ops.spmm import (
+    DenseJoint,
+    SparseJoint,
+    lightgcn_propagate,
+    segment_operand,
+    spmm,
+)
+from qrec_tpu_torch.parallel.collectives import split_range
 
 CONFIG = Path(__file__).resolve().parents[1] / "config"
 
@@ -832,6 +839,64 @@ def test_segment_autograd_on_card_matches_cpu(cuda_device):
     # difference can flip one rounding: the bf16 bound of the dense test
     for got, want in zip(outs[1], outs[0]):
         torch.testing.assert_close(got, want, rtol=5e-3, atol=5e-3)
+
+
+# a data rank's row block of a larger CSR, as ops/spmm.ShardedSparseJoint
+# cuts it: K5 with rows= gathers from every row of x and writes the block
+# only; against the plain twin of the block and the whole product's rows.
+# Widths: a feature slice of d=50 over two model ranks (25), d=50 and 64
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [25, 50, 64])
+@pytest.mark.parametrize("parts", [2, 3])
+def test_segment_kernel_row_block(cuda_device, d, parts):
+    n = 3000
+    indptr, c, v, _ = _segment_graph(cuda_device, n, 12, heavy=(7, 1500), empty=(0, 2999), seed=d)
+    g = torch.Generator(device=cuda_device).manual_seed(parts)
+    x = segment_operand(torch.randn((n, d), generator=g, device=cuda_device))
+    whole = K.weighted_segment_matmul_plain(x.cpu(), indptr.cpu(), c.cpu(), v.cpu())
+    for p in range(parts):
+        r0, r1 = split_range(n, parts, p)
+        e0, e1 = int(indptr[r0]), int(indptr[r1])
+        local = (indptr[r0: r1 + 1] - e0).contiguous()
+        cc, vv = c[e0:e1].contiguous(), v[e0:e1].contiguous()
+        s = K.segment_schedule(local)
+        before = K.SEGMM.launches
+        out = K.weighted_segment_matmul(x, local, cc, vv, s, rows=r1 - r0)
+        assert K.SEGMM.launches == before + 1 and out.shape == (r1 - r0, d)
+        _check_segment(out, x, local, cc, vv, s)
+        assert ((out.cpu() - whole[r0:r1]).abs() <= _order_bound(local, x, cc, vv)).all()
+        assert torch.equal(K.weighted_segment_matmul(x, local, cc, vv, s, rows=r1 - r0), out)
+
+
+# the row-sharded InfoNCE's two data ranks (ops/losses.ShardedInfoNCELoss):
+# K3 and K4 on each half of the rows at its row_offset against their plain
+# twins, and the halves' losses and dv2 shares summed against the whole
+# batch's, at the tolerance of test_infonce_kernels_match_plain
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [16, 50, 150])
+@pytest.mark.parametrize("b", [2000, 2001])
+def test_infonce_kernels_on_row_halves(cuda_device, b, d):
+    v1, v2, m = _infonce_inputs(cuda_device, b, d, masked=tuple(range(3, b, 13)), zero_row=7,
+                                seed=b + d)
+    loss, lse = K.infonce_fwd(v1, v2, m, m, 0.2)
+    d1, d2 = K.infonce_bwd(v1, v2, m, m, lse, 0.2)
+    total, d2_sum = torch.zeros_like(loss), torch.zeros_like(d2)
+    for half in range(2):
+        o0, o1 = split_range(b, 2, half)
+        a, rm = v1[o0:o1].contiguous(), m[o0:o1].contiguous()
+        part, plse = K.infonce_fwd(a, v2, m, rm, 0.2, row_offset=o0)
+        p1, p2 = K.infonce_bwd(a, v2, m, rm, plse, 0.2, row_offset=o0)
+        want, wlse = K.infonce_fwd_plain(a, v2, m, rm, 0.2, row_offset=o0)
+        w1, w2 = K.infonce_bwd_plain(a, v2, m, rm, wlse, 0.2, row_offset=o0)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(part, want, rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(plse, wlse, rtol=1e-5, atol=1e-5)
+        for got, ref in ((p1, w1), (p2, w2), (p1, d1[o0:o1])):
+            torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-5 * float(ref.abs().max()))
+        total += part
+        d2_sum += p2
+    torch.testing.assert_close(total, loss, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(d2_sum, d2, rtol=1e-4, atol=1e-5 * float(d2.abs().max()))
 
 
 @pytest.mark.cuda

@@ -244,18 +244,24 @@ def test_qrec_without_a_card_raises(tmp_path):
     ],
 )
 def test_unported_settings_raise(tmp_path, monkeypatch, extra):
-    """``parallel.setup`` (ROADMAP item 19) still raises; ``checkpoint.setup``
-    and ``model.setup`` are ported and the same configs run: the checkpoint
-    of epoch 10 (``-every``'s default) appears, ``-save`` writes its file,
-    ``-load`` ranks the saved model as the run that saved it did."""
+    """These settings are ported and the configs run. ``parallel.setup`` in
+    one process builds no mesh (``model.mesh is None``) and gives the
+    measure lines of the same run without it, as the JAX package does on
+    one device (``qrec_tpu/models/base.py:390``); on more than one rank
+    ``tests/test_torch_parallel.py`` runs it. ``checkpoint.setup`` writes
+    the checkpoint of epoch 10 (``-every``'s default), ``-save`` writes its
+    file, ``-load`` ranks the saved model as the run that saved it did."""
     monkeypatch.chdir(tmp_path)  # the relative ckpt and model.npz paths
     conf = _planted(tmp_path)
     conf["num.max.epoch"] = "10" if "checkpoint.setup" in extra else "2"
-    conf.update(extra)
     if "parallel.setup" in extra:
-        with pytest.raises(ConfigError, match="ROADMAP.md Queue 1 item 19"):
-            QRec(ModelConf(conf), device="cpu")
+        without = dict(conf, **{k: v for k, v in extra.items() if k != "parallel.setup"})
+        want = QRec(ModelConf(without), device="cpu").execute()
+        rec = QRec(ModelConf(dict(without, **extra)), device="cpu")
+        assert rec.execute() == want
+        assert rec.model.mesh is None
         return
+    conf.update(extra)
     setup = extra.get("model.setup", "")
     if "-load" in setup:
         saved = dict(conf, **{"model.setup": setup.replace("-load", "-save")})
@@ -284,7 +290,7 @@ def _imported_roots(path):
 
 def test_port_never_imports_jax():
     files = (sorted((REPO / "qrec_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
-             + sorted(REPO.glob("k*_p*.py")))
+             + sorted(REPO.glob("k*_p*.py")) + [REPO / "tests" / "test_torch_parallel_ranks.py"])
     assert len(files) > 15
     # the social, ALS, classical and walk slices' modules are among them
     scanned = {str(p.relative_to(REPO)) for p in files}
@@ -296,7 +302,10 @@ def test_port_never_imports_jax():
             "qrec_tpu_torch/models/als.py", "qrec_tpu_torch/models/classical.py",
             "qrec_tpu_torch/ops/walks.py", "qrec_tpu_torch/models/walk.py",
             "qrec_tpu_torch/models/ifbpr.py", "qrec_tpu_torch/native.py",
-            "qrec_tpu_torch/runtime/checkpoint.py", "qrec_tpu_torch/runtime/profiling.py"} <= scanned
+            "qrec_tpu_torch/runtime/checkpoint.py", "qrec_tpu_torch/runtime/profiling.py",
+            "qrec_tpu_torch/parallel/__init__.py", "qrec_tpu_torch/parallel/mesh.py",
+            "qrec_tpu_torch/parallel/collectives.py",
+            "tests/test_torch_parallel_ranks.py"} <= scanned
     # networkx and orbax: the card's machine lacks them (LOCABAL's PageRank
     # and the checkpoints are the port's own); qrec_tpu: the host library
     # is the port's own source, not qrec_tpu.native

@@ -1,0 +1,160 @@
+"""Rank workers of ``tests/test_torch_parallel.py``. Each runs in a spawned
+process of a gloo group on the CPU and returns what the test holds against
+the JAX package and against one process. This module holds no test: a
+spawned rank imports it, and it imports no JAX, as the port imports none.
+"""
+
+import datetime
+import os
+import pickle
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from qrec_tpu_torch import ModelConf, QRec
+from qrec_tpu_torch.convert import params_from_jax
+from qrec_tpu_torch.data.dataset import Interactions
+from qrec_tpu_torch.data.graph import COO
+from qrec_tpu_torch.errors import ConfigError
+from qrec_tpu_torch.models import get_model
+from qrec_tpu_torch.ops.losses import infonce_dispatch
+from qrec_tpu_torch.ops.spmm import ShardedSparseJoint, spmm
+from qrec_tpu_torch.parallel.collectives import all_reduce_sum, reduce_gradients, split_range
+from qrec_tpu_torch.parallel.mesh import make_mesh
+
+
+def spawn(target, world: int, store_dir, *args) -> list:
+    """``target(rank, *args)`` in ``world`` spawned processes joined by a gloo
+    group through a file store in ``store_dir`` (no TCP port for parallel
+    test workers to race for); each rank's return value, in rank order."""
+    torch.multiprocessing.spawn(_entry, args=(target, world, str(store_dir), args),
+                                nprocs=world, join=True)
+    out = []
+    for rank in range(world):
+        with open(os.path.join(store_dir, f"rank{rank}.pkl"), "rb") as f:
+            out.append(pickle.load(f))
+    return out
+
+
+def _entry(rank, target, world, store_dir, args):
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{store_dir}/store", rank=rank,
+                            world_size=world, timeout=datetime.timedelta(seconds=120))
+    try:
+        result = target(rank, *args)
+        with open(os.path.join(store_dir, f"rank{rank}.pkl"), "wb") as f:
+            pickle.dump(result, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def _t(a):
+    return torch.from_numpy(np.asarray(a))
+
+
+def routes(rank, inputs):
+    """Routes 4 and 5 on a data 2 x model 2 mesh, each with the step's
+    gradient reduction over ``data`` as the trainer makes it: K5's row
+    blocks (the forward, and a loss whose share is this data rank's rows of
+    ``sum(y * w)``) and the row-sharded InfoNCE."""
+    mesh = make_mesh(2)
+    out = {"shape": mesh.shape, "place": (mesh.data_index, mesh.model_index)}
+    g = inputs["graph"]
+    coo = COO(g["rows"], g["cols"], g["vals"], (g["n"], g["n"]))
+    adj = ShardedSparseJoint.from_host(coo, "cpu", mesh)
+    out["block"] = (adj.row0, adj.row1, adj.edge0, adj.edge1)
+    out["graph"] = {}
+    r0, r1 = split_range(g["n"], mesh.data, mesh.data_index)
+    for x_np, w_np in zip(g["x"], g["w"]):
+        x = _t(x_np).requires_grad_(True)
+        vals = _t(g["vals2"]).requires_grad_(True)
+        y, y2 = spmm(adj, x), spmm(adj, x, vals)
+        w = _t(w_np)
+        ((y * w)[r0:r1].sum() + (y2 * w)[r0:r1].sum()).backward()
+        reduce_gradients([x, vals], mesh)
+        out["graph"][x_np.shape[1]] = (y.detach().numpy(), y2.detach().numpy(),
+                                       x.grad.numpy(), vals.grad.numpy())
+    out["infonce"] = {}
+    for b, case in inputs["infonce"].items():
+        v1 = _t(case["view1"]).requires_grad_(True)
+        v2 = _t(case["view2"]).requires_grad_(True)
+        loss = infonce_dispatch(v1, v2, _t(case["mask"]), case["temp"], mesh)
+        loss.backward()
+        reduce_gradients([v1, v2], mesh)
+        total = all_reduce_sum(loss.detach().clone(), mesh.data_group)
+        out["infonce"][b] = (float(loss), float(total), v1.grad.numpy(), v2.grad.numpy())
+    return out
+
+
+def fit_case(case) -> dict:
+    """One model fit on injected batches (and SimGCL's draws) from the JAX
+    package's initial parameters: the losses, the tables, the final factors
+    and every parameter's gradient at the first optimizer step."""
+    conf = ModelConf(case["conf"])
+    data = Interactions(conf, case["train"], case["test"])
+    model = get_model(case["conf"]["model.name"])(conf, data, device="cpu")
+    model.load_state_dict(params_from_jax(case["params"], "cpu"))
+    if case.get("draws") is not None:
+        stream = iter(case["draws"])
+        model.draw = lambda gen: next(stream)
+    first = []
+    originals = {cls: cls.step for cls in (torch.optim.Adam, torch.optim.SGD)}
+
+    def spy(cls):
+        def step(opt, *a, **k):
+            if not first:
+                first.append({n: p.grad.clone().numpy() for n, p in model.named_parameters()})
+            return originals[cls](opt, *a, **k)
+        return step
+
+    for cls in originals:
+        cls.step = spy(cls)
+    try:
+        losses = model.fit(epoch_batches=case["batches"])
+    finally:
+        for cls, step in originals.items():
+            cls.step = step
+    mesh = model.mesh
+    return {
+        "losses": losses, "grads": first[0],
+        "params": {n: p.detach().numpy().copy() for n, p in model.named_parameters()},
+        "U": model.U.numpy(), "V": model.V.numpy(),
+        "mesh": None if mesh is None else mesh.shape,
+        "adj": type(model.joint_adj).__name__ if hasattr(model, "joint_adj") else None,
+        "best": None if model.tracker is None else model.tracker.best_epoch,
+    }
+
+
+def session(conf: dict) -> dict:
+    """``QRec(conf).execute()`` on the CPU: the measure lines, the mesh and
+    the files the run wrote under its ``-dir``."""
+    rec = QRec(ModelConf(conf), seed=3, device="cpu")
+    measure = rec.execute()
+    out_dir = conf["output.setup"].split("-dir ")[1].strip()
+    files = sorted(os.listdir(out_dir)) if os.path.isdir(out_dir) else []
+    mesh = rec.model.mesh
+    return {"measure": measure, "files": files, "U": rec.model.U.numpy(),
+            "mesh": None if mesh is None else mesh.shape}
+
+
+def training(rank, cases, sessions):
+    """The fit cases, then the sessions, each rank with its own ``-dir``."""
+    out = {name: fit_case(case) for name, case in cases.items()}
+    for name, conf in sessions.items():
+        conf = dict(conf, **{"output.setup": f"on -dir {conf['out_dir']}/{name}/rank{rank}"})
+        out[name] = session({k: v for k, v in conf.items() if k != "out_dir"})
+    return out
+
+
+def refusals(rank, confs):
+    """Each conf through ``QRec(conf).execute()``: the ConfigError's message,
+    or None when the run went through."""
+    out = {}
+    for name, conf in confs.items():
+        try:
+            QRec(ModelConf(conf), device="cpu").execute()
+            out[name] = None
+        except ConfigError as e:
+            out[name] = str(e)
+    return out
