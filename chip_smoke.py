@@ -1783,56 +1783,97 @@ def host_and_lifecycle_phases(torch, K, QRec, conf_of, tmp, card, unbroken):
 # ---------------------------------------------------------------------------
 
 PARALLEL_RANKS = 4
-# (label, config, epochs) of the runs that every rank makes, each with
-# graph.backend=pallas and parallel.setup=on -model 2 (data 2 x model 2)
-PARALLEL_RUNS = (("lightgcn-pallas", "LightGCN", 3), ("simgcl-pallas", "SimGCL", 2))
+# (label, config, epochs, keys set on the published config) of the runs
+# that every rank makes under parallel.setup=on -model 2 (data 2 x model
+# 2): K5's row blocks (pallas), K1's item-column blocks (the configs' own
+# auto: the factored dense form), SGL's dense and sparse views
+PARALLEL_RUNS = (
+    ("lightgcn-pallas", "LightGCN", 2, {"graph.backend": "pallas"}),
+    ("simgcl-pallas", "SimGCL", 2, {"graph.backend": "pallas"}),
+    ("lightgcn", "LightGCN", 3, {}),
+    ("sgl", "SGL", 2, {}),
+    ("sgl-pallas", "SGL", 1, {"graph.backend": "pallas"}),
+    ("ngcf", "NGCF", 2, {}),
+)
 SHARED = "4 ranks sharing one H100"
 
 
 def rank_shares(model) -> str:
-    """What this rank's kernels take of the run: K5's row block and feature
-    width, K3/K4's contrastive rows (b_loc) and row offset."""
-    from qrec_tpu_torch.ops.spmm import feature_slice
+    """What this rank's kernels take of the run: K1's item-column block or
+    K5's row block and their feature width, K3/K4's contrastive rows
+    (b_loc) and row offset, K2's test users."""
+    import torch.distributed as dist
+
+    from qrec_tpu_torch.ops.spmm import ShardedDenseJoint, feature_slice
     from qrec_tpu_torch.parallel.collectives import split_range
 
     mesh, adj = model.mesh, model.joint_adj
     widths = [model.emb_size] + ([3 * model.emb_size] if model.model_name == "SimGCL" else [])
     cuts = [feature_slice(mesh, w) for w in widths]
-    out = (f"K5 rows [{adj.row0}, {adj.row1}) of {adj.num_rows}, {adj.edge1 - adj.edge0} edges, "
-           f"width {' and '.join(str(w if c is None else c[1] - c[0]) for w, c in zip(widths, cuts))}")
-    if model.model_name == "SimGCL":
-        o0, o1 = split_range(model.batch_size, mesh.data, mesh.data_index)
-        out += f"; K3/K4 rows [{o0}, {o1}) of {model.batch_size}: b_loc {o1 - o0}, row_offset {o0}"
-    return out
+    width = " and ".join(str(w if c is None else c[1] - c[0]) for w, c in zip(widths, cuts))
+    if isinstance(adj, ShardedDenseJoint):
+        out = (f"K1 item columns [{adj.col0}, {adj.col1}) of {adj.num_items}, "
+               f"{int((adj.r != 0).sum())} nonzeros, width {width}")
+    else:
+        out = (f"K5 rows [{adj.row0}, {adj.row1}) of {adj.num_rows}, {adj.edge1 - adj.edge0} "
+               f"edges, width {width}")
+    if model.model_name in ("SimGCL", "SGL"):
+        b = model.batch_size * (1 if model.model_name == "SimGCL" else 2)
+        o0, o1 = split_range(b, mesh.data, mesh.data_index)
+        out += f"; K3/K4 rows [{o0}, {o1}) of {b}: b_loc {o1 - o0}, row_offset {o0}"
+    n = len(model.data.test_set_u)
+    s0, s1 = split_range(n, dist.get_world_size(), dist.get_rank())
+    return out + f"; K2 test users [{s0}, {s1}) of {n}"
 
 
 def parallel_route_checks(torch, K, model):
     """One call of each route of ``model``'s run on its own operands against
-    the plain twin of the whole computation on the card: K5's row blocks on
-    the trained ego table (the order bound of ``segment_check``), and the
-    row-sharded InfoNCE on the first step's user views (its shares and
-    cotangents summed over ``data`` against the plain function's autograd).
-    Every rank calls it: the routes gather. Returns {route: max_abs_err}."""
+    the plain twin of the whole computation on the card: K1's item-column
+    blocks (route 6) or K5's row blocks (route 4) on the trained ego table
+    (the tolerance of ``factored_phase``, the order bound of
+    ``segment_check``); the row-sharded InfoNCE (route 5) on the first
+    step's contrastive views (SimGCL's users, SGL's merged set: its shares
+    and cotangents summed over ``data`` against the plain function's
+    autograd); the ranking cut by test user (route 7) on the final factors,
+    bit for bit against K2 on every test user in one process and against
+    the plain top-k (a row may differ where near-equal scores swap). Every
+    rank calls it: the routes gather. Returns {route: max_abs_err}."""
     from qrec_tpu_torch.data.graph import joint_normalized_adjacency
     from qrec_tpu_torch.ops.losses import infonce_dispatch, masked_infonce
-    from qrec_tpu_torch.ops.spmm import SparseJoint, segment_operand, spmm
+    from qrec_tpu_torch.ops.spmm import (
+        DenseJoint,
+        ShardedDenseJoint,
+        SparseJoint,
+        segment_operand,
+        spmm,
+    )
+    from qrec_tpu_torch.ops.topk import CatalogRanker, ScoreForm
     from qrec_tpu_torch.parallel.collectives import all_reduce_sum, reduce_gradients
 
-    mesh = model.mesh
+    mesh, adj = model.mesh, model.joint_adj
     errs = {}
-    whole = SparseJoint.from_host(joint_normalized_adjacency(model.data), "cuda",
-                                  check_symmetric=False)
     with torch.no_grad():
         x = torch.cat([model.user_emb, model.item_emb])
-        y = spmm(model.joint_adj, x)
-    xb = segment_operand(x)
-    plain = K.weighted_segment_matmul_plain(xb, whole.indptr, whole.cols, whole.vals)
-    absum = K.weighted_segment_matmul_plain(xb.abs(), whole.indptr, whole.cols, whole.vals.abs())
-    if not bool(((y - plain).abs() <= 2.0 * whole.indptr.diff().float()[:, None]
-                 * 2.0**-24 * absum).all()):
-        raise AssertionError("K5's row blocks disagree with the plain product")
-    errs["segment row blocks"] = (y - plain).abs().max().item()
-    if model.model_name == "SimGCL":
+        y = spmm(adj, x)
+    if isinstance(adj, ShardedDenseJoint):
+        whole = DenseJoint.from_interactions(model.data, "cuda", adj.form)
+        plain = K.factored_dual_matmul_plain(whole.r, x, whole.row_scale, whole.col_scale)
+        del whole
+        if not torch.allclose(y, plain, rtol=1e-5, atol=1e-5 * plain.abs().max().item()):
+            raise AssertionError("K1's item-column blocks disagree with the plain product")
+        errs["dense column blocks"] = (y - plain).abs().max().item()
+    else:
+        whole = SparseJoint.from_host(joint_normalized_adjacency(model.data), "cuda",
+                                      check_symmetric=False)
+        xb = segment_operand(x)
+        plain = K.weighted_segment_matmul_plain(xb, whole.indptr, whole.cols, whole.vals)
+        absum = K.weighted_segment_matmul_plain(xb.abs(), whole.indptr, whole.cols,
+                                                whole.vals.abs())
+        if not bool(((y - plain).abs() <= 2.0 * whole.indptr.diff().float()[:, None]
+                     * 2.0**-24 * absum).all()):
+            raise AssertionError("K5's row blocks disagree with the plain product")
+        errs["segment row blocks"] = (y - plain).abs().max().item()
+    if model.model_name in ("SimGCL", "SGL"):
         view1, view2, mask = first_step_views(torch, model)
         a1, a2 = view1.clone().requires_grad_(True), view2.clone().requires_grad_(True)
         loss = infonce_dispatch(a1, a2, mask, TEMP, mesh)
@@ -1849,6 +1890,21 @@ def parallel_route_checks(torch, K, model):
         errs["infonce row shards"] = max(abs(total.item() - ploss.item()),
                                          (a1.grad - p1.grad).abs().max().item(),
                                          (a2.grad - p2.grad).abs().max().item())
+    form, bm = ScoreForm(model.U, model.V), model.rated_bitmask
+    on_mesh = CatalogRanker(model.data, 10, "cuda", bm, model.eval_batch_size, mesh=mesh)
+    ids, scores = on_mesh.topk_device(form)
+    one_ids, one_scores = CatalogRanker(model.data, 10, "cuda", bm,
+                                        model.eval_batch_size).topk_device(form)
+    plain_ids, plain_scores = K.masked_catalog_topk_plain(model.U, model.V, bm, on_mesh._uids,
+                                                          on_mesh.global_mean, 10)
+    same = (ids == plain_ids).all(dim=1)
+    close = (scores - plain_scores).abs().max(dim=1).values <= 1e-5
+    if not (torch.equal(ids, one_ids) and torch.equal(scores.view(torch.int32),
+                                                      one_scores.view(torch.int32))):
+        raise AssertionError("the ranking cut by test user differs from one process's")
+    if not bool((same | close).all()):
+        raise AssertionError("the ranking cut by test user disagrees with the plain top-k")
+    errs["topk user shards"] = (scores - plain_scores).abs().max().item()
     return errs
 
 
@@ -1889,6 +1945,7 @@ def parallel_rank(rank, store, runs, out_dir):
                 tables={n: p.detach().cpu().numpy() for n, p in model.named_parameters()},
                 U=model.U.cpu().numpy(), V=model.V.cpu().numpy(),
                 errs=parallel_route_checks(torch, K, model))
+            del rec, model
         with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
             pickle.dump(out, f)
     finally:
@@ -1896,13 +1953,16 @@ def parallel_rank(rank, store, runs, out_dir):
         sys.stdout.flush()
 
 
-def shard_timings(torch, K, timer, lightgcn, simgcl):
+def shard_timings(torch, K, timer, lightgcn, simgcl, dense):
     """Each route's kernel on one rank's share at the shapes of
     ``parallel_phases`` (data 2 x model 2), on the one-process runs'
     operands, timed in turns with its library call, its plain twin alone,
     with its bound: K5 on data rank 0's row block at model rank 0's feature
     slice (width 25); K3 then K4 on data rank 1's 1,000 rows at offset
-    1,000 of SimGCL's first-step user views (B=2,000)."""
+    1,000 of SimGCL's first-step user views (B=2,000); K1 on data rank 0's
+    item-column block of the factored R at width 25 (``dense``: the
+    one-process LightGCN run on it); K2's top-k on rank 0's share of the
+    test users of that run's final factors."""
     import types
 
     import torch.nn.functional as F
@@ -1972,23 +2032,110 @@ def shard_timings(torch, K, timer, lightgcn, simgcl):
           f"library_ms={k3_lib:.4f} plain_ms={k3_plain:.4f} bound_ms={k3_bound:.4f}; "
           f"[K4 row shard] ms={k4_ms:.4f} library_ms={k4_lib:.4f} plain_ms={k4_plain:.4f} "
           f"bound_ms={k4_bound:.4f} (by operations)", flush=True)
+    out["dense"] = column_block_timing(torch, K, timer, dense, rank0)
+    out["topk"] = user_shard_timing(torch, K, timer, dense)
     return out
 
 
-def nccl_phase(torch, lightgcn, simgcl):
+def column_block_timing(torch, K, timer, model, rank):
+    """Route 6's call on ``rank``'s item-column block of ``model``'s
+    factored R at its feature slice over ``model`` (width 25): K1's scaled
+    entry on the block's operands as ``ops/spmm._block_dual_call`` builds
+    them (x_u scaled, the unit row scale), against its plain twin, timed in
+    turns with the library (two bf16 ``torch.mm`` of the block's Ŝ with f32
+    results, the JAX package's partitioned products on a mesh), the plain
+    twin alone, and the byte bound of the block's R, x and the result."""
+    from qrec_tpu_torch.ops.spmm import ShardedDenseJoint
+
+    block = ShardedDenseJoint.from_joint(model.joint_adj, rank)
+    u, c0, c1 = block.num_users, block.col0, block.col1
+    n_b = c1 - c0
+    with torch.no_grad():
+        x = torch.cat([model.user_emb, model.item_emb])
+    d = x.shape[1] // 2
+    x = x[:, :d]
+    xb = torch.cat([x[:u] * block.row_scale[:, None], x[u + c0: u + c1]]).contiguous()
+    call = lambda: K.factored_dual_matmul(block.r, xb, block.unit, block.col_scale)  # noqa: E731
+    y = call()
+    plain = K.factored_dual_matmul_plain(block.r, xb, block.unit, block.col_scale)
+    torch.cuda.synchronize()
+    err = (y - plain).abs().max().item()
+    if not torch.allclose(y, plain, rtol=1e-5, atol=1e-5 * plain.abs().max().item()):
+        fail("K1 on an item-column block disagrees with its plain twin")
+    s_hat = (block.row_scale[:, None] * block.r[:, :n_b].float()
+             * block.col_scale[None, :]).bfloat16()
+    xu, xi = x[:u].bfloat16(), x[u + c0: u + c1].bfloat16()
+    library = lambda: (torch.mm(s_hat, xi, out_dtype=torch.float32),  # noqa: E731
+                       torch.mm(s_hat.T, xu, out_dtype=torch.float32))
+    ms, library_ms = timer.paired([call, library])
+    plain_ms = timer.ms(lambda: K.factored_dual_matmul_plain(block.r, xb, block.unit,
+                                                             block.col_scale), iters=5)
+    moved = u * n_b + (u + n_b) * d * 4 * 2 + (u + n_b) * 4
+    bound_ms, bound_by = bound(moved, 2 * 2 * u * n_b * d, PEAK_BF16)
+    print(f"[K1 column block] data rank {rank.data_index}'s items [{c0}, {c1}) of "
+          f"{block.num_items} (stored {block.r.shape[1]}), U={u} d={d} "
+          f"nnz={int((block.r != 0).sum())} ms={ms:.4f} library_ms={library_ms:.4f} (2x "
+          f"torch.mm of the block's bf16 S-hat to f32, timed in turns) plain_ms={plain_ms:.4f} "
+          f"bound_ms={bound_ms:.4f} by {bound_by} max_abs_err vs plain={err:.3e}", flush=True)
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+                bound_by=bound_by)
+
+
+def user_shard_timing(torch, K, timer, model, k: int = 10):
+    """Route 7's call on rank 0's ``tensor_split`` share of the test users
+    over the four ranks: K2's fused top-k of ``model``'s final factors,
+    timed in turns with the library (``matmul`` of the share's rows,
+    ``masked_fill`` with the mask already expanded, ``topk``), its plain
+    twin alone, and the operation bound."""
+    from qrec_tpu_torch.ops.topk import CatalogRanker
+    from qrec_tpu_torch.parallel.collectives import split_range
+
+    U, V, bm = model.U, model.V, model.rated_bitmask
+    ranker = CatalogRanker(model.data, k=k, device="cuda", bitmask=bm)
+    n = len(ranker.uids)
+    s0, s1 = split_range(n, PARALLEL_RANKS, 0)
+    uids, gm = ranker._uids[s0:s1], ranker.global_mean
+    B, (I, d) = uids.shape[0], V.shape
+    safe = uids.clamp(min=0)
+    rated = K.expand_bitmask(bm[safe].contiguous(), I)
+    ub = U[safe].contiguous()
+    fused = lambda: K.masked_catalog_topk(U, V, bm, uids, gm, k)  # noqa: E731
+    library = lambda: torch.topk(torch.matmul(ub, V.T).masked_fill_(rated, 0.0), k)  # noqa: E731
+    ms, library_ms = timer.paired([fused, library])
+    plain_ms = timer.ms(lambda: K.masked_catalog_topk_plain(U, V, bm, uids, gm, k))
+    moved = B * d * 4 + I * d * 4 + B * bm.shape[1] * 4 + B * 8 + B * k * 12
+    bound_ms, bound_by = bound(moved, 2 * B * I * d, PEAK_F32)
+    print(f"[K2 topk user shard] rank 0's test users [{s0}, {s1}) of {n}: B={B} I={I} d={d} "
+          f"k={k} ms={ms:.4f} library_ms={library_ms:.4f} (torch.matmul + masked_fill + "
+          f"torch.topk, timed in turns) plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} by "
+          f"{bound_by}", flush=True)
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+                bound_by=bound_by)
+
+
+def nccl_phase(torch, lightgcn, simgcl, dense):
     """Run B: a one-rank NCCL group made through the port's own
     ``maybe_initialize_distributed`` from the ``QREC_*`` triplet (the code
-    path of a user's multi-GPU run), and one forward and backward of each
-    route on its one-rank mesh, against the one-device path: the bits must
-    be equal (a block of every row, a shard of every contrastive row, and
-    collectives over one rank, which copy)."""
+    path of a user's multi-GPU run), and each route on its one-rank mesh,
+    against the one-device path: two layers forward and backward of routes
+    4 and 6, the InfoNCE of route 5, the ranking of route 7. The bits must
+    be equal (a block of every row, of every item column, a shard of every
+    contrastive row and of every test user, and collectives over one rank,
+    which copy; route 6 scales the user half after its sum, as K1 scales
+    it in-kernel)."""
     import socket
 
     import torch.distributed as dist
 
     from qrec_tpu_torch.data.graph import joint_normalized_adjacency
     from qrec_tpu_torch.ops.losses import infonce_dispatch
-    from qrec_tpu_torch.ops.spmm import ShardedSparseJoint, SparseJoint, spmm
+    from qrec_tpu_torch.ops.spmm import (
+        ShardedDenseJoint,
+        ShardedSparseJoint,
+        SparseJoint,
+        spmm,
+    )
+    from qrec_tpu_torch.ops.topk import CatalogRanker, ScoreForm
     from qrec_tpu_torch.parallel import mesh as M
 
     with socket.socket() as s:
@@ -2009,14 +2156,26 @@ def nccl_phase(torch, lightgcn, simgcl):
         with torch.no_grad():
             ego = torch.cat([lightgcn.user_emb, lightgcn.item_emb])
         w = torch.randn(ego.shape, generator=g, device="cuda")
-        got = []
-        for adj in (SparseJoint.from_host(coo, "cuda", check_symmetric=False),
-                    ShardedSparseJoint.from_host(coo, "cuda", mesh)):
-            x = ego.clone().requires_grad_(True)
-            y = spmm(adj, spmm(adj, x))
-            (y * w).sum().backward()
-            got.append((y.detach(), x.grad))
-        same4 = all(torch.equal(a, b) for a, b in zip(*got))
+        def two_layers(adjs, ego, w):
+            got = []
+            for adj in adjs:
+                x = ego.clone().requires_grad_(True)
+                y = spmm(adj, spmm(adj, x))
+                (y * w).sum().backward()
+                got.append((y.detach(), x.grad))
+            return all(torch.equal(a, b) for a, b in zip(*got))
+
+        same4 = two_layers((SparseJoint.from_host(coo, "cuda", check_symmetric=False),
+                            ShardedSparseJoint.from_host(coo, "cuda", mesh)), ego, w)
+        whole = dense.joint_adj
+        with torch.no_grad():
+            ego = torch.cat([dense.user_emb, dense.item_emb])
+        same6 = two_layers((whole, ShardedDenseJoint.from_joint(whole, mesh)), ego, w)
+        form = ScoreForm(dense.U, dense.V)
+        ranked = [CatalogRanker(dense.data, 10, "cuda", dense.rated_bitmask,
+                                mesh=on).topk_device(form) for on in (None, mesh)]
+        same7 = torch.equal(ranked[0][0], ranked[1][0]) and torch.equal(
+            ranked[0][1].view(torch.int32), ranked[1][1].view(torch.int32))
         view1, view2, mask = first_step_views(torch, simgcl)
         got = []
         for on in (None, mesh):
@@ -2027,9 +2186,10 @@ def nccl_phase(torch, lightgcn, simgcl):
         same5 = all(torch.equal(a, b) for a, b in zip(*got))
         print(f"[parallel nccl] a {dist.get_world_size()}-rank {backend} group from the QREC_* "
               f"triplet, mesh {mesh.shape}: route 4 (two layers, forward and backward) bit-equal "
-              f"to the one-device path={same4}; route 5 (B={view1.shape[0]}) bit-equal={same5}",
-              flush=True)
-        if not (same4 and same5):
+              f"to the one-device path={same4}; route 5 (B={view1.shape[0]}) bit-equal={same5}; "
+              f"route 6 (two layers, forward and backward) bit-equal={same6}; route 7 "
+              f"({len(dense.data.test_set_u)} test users) bit-equal={same7}", flush=True)
+        if not (same4 and same5 and same6 and same7):
             fail("nccl: a route on the one-rank mesh is not bit-equal to the one-device path")
     finally:
         if dist.is_initialized():
@@ -2039,15 +2199,16 @@ def nccl_phase(torch, lightgcn, simgcl):
 
 
 def parallel_phases(torch, K, QRec, conf_of, tmp):
-    """Slice 7a on the card. Run A: each run of ``PARALLEL_RUNS`` in one
-    process (where ``parallel.setup`` builds no mesh), then on four ranks
-    on cuda:0 over a gloo group that this script makes (``parallel_rank``):
-    data 2 x model 2, so K5 runs on row blocks at width 25 (75 for SimGCL's
-    fused views) and K3/K4 on 1,000 rows at offsets 0 and 1,000. Holds
-    every rank's launches against ``expected_launches``, the ranks' tables
-    equal bit for bit, the measures within 2e-2 and the first epoch's loss
-    within rtol 1e-4 of the one-process run, and each route against its
-    plain twin; times each route's kernel on one rank's share
+    """Slices 7a and 7b on the card. Run A: each run of ``PARALLEL_RUNS`` in
+    one process (where ``parallel.setup`` builds no mesh), then on four
+    ranks on cuda:0 over a gloo group that this script makes
+    (``parallel_rank``): data 2 x model 2, so K5 runs on row blocks and K1
+    on item-column blocks at width 25 (75 for SimGCL's fused views), K3/K4
+    on half the contrastive rows and K2 on a quarter of the test users.
+    Holds every rank's launches against ``expected_launches``, the ranks'
+    tables equal bit for bit, the measures within 2e-2 and the first
+    epoch's loss within rtol 1e-4 of the one-process run, and each route
+    against its plain twin; times each route's kernel on one rank's share
     (``shard_timings``). The four ranks share one card and gloo carries
     their collectives through host memory: this checks the routes, not
     their scaling. Run B: ``nccl_phase``. Returns (kernels-line entries,
@@ -2060,9 +2221,10 @@ def parallel_phases(torch, K, QRec, conf_of, tmp):
 
     t_phase = time.perf_counter()
     runs, one = [], {}
-    for label, name, epochs in PARALLEL_RUNS:
+    for label, name, epochs, extra in PARALLEL_RUNS:
         conf = conf_of(name, epochs)
-        conf["graph.backend"] = "pallas"
+        for key, value in extra.items():
+            conf[key] = value
         conf["parallel.setup"] = "on -model 2"
         runs.append((label, dict(conf.config)))
         model, _, parsed = drive(torch, K, QRec, conf, f"parallel {label} one process")
@@ -2126,10 +2288,12 @@ def parallel_phases(torch, K, QRec, conf_of, tmp):
           f"{json.dumps(errs)}; launches summed over the ranks {json.dumps(launches)}; spawn to "
           f"join {spawn_s:.1f} s ({SHARED})", flush=True)
     timings = shard_timings(torch, K, Timer(torch), one["lightgcn-pallas"]["model"],
-                            one["simgcl-pallas"]["model"])
-    timings["segment"]["max_abs_err"] = errs["segment row blocks"]
-    timings["infonce"]["max_abs_err"] = errs["infonce row shards"]
-    nccl_phase(torch, one["lightgcn-pallas"]["model"], one["simgcl-pallas"]["model"])
+                            one["simgcl-pallas"]["model"], one["lightgcn"]["model"])
+    for key, route in (("segment", "segment row blocks"), ("infonce", "infonce row shards"),
+                       ("dense", "dense column blocks"), ("topk", "topk user shards")):
+        timings[key]["max_abs_err"] = errs[route]
+    nccl_phase(torch, one["lightgcn-pallas"]["model"], one["simgcl-pallas"]["model"],
+               one["lightgcn"]["model"])
     print(f"[parallel] phase {time.perf_counter() - t_phase:.1f} s", flush=True)
     return timings, launches
 
@@ -2196,11 +2360,16 @@ def first_step_views(torch, model):
 
 def _joint_kernel(adj):
     """The kernel that propagates over a joint adjacency: K1 on a dense
-    form, K5 on the sparse one (or on a rank's row block of it), none on a
-    ``DeviceCOO`` (torch ops)."""
-    from qrec_tpu_torch.ops.spmm import DenseJoint, ShardedSparseJoint, SparseJoint
+    form (or on a rank's item-column block of it), K5 on the sparse one (or
+    on a rank's row block of it), none on a ``DeviceCOO`` (torch ops)."""
+    from qrec_tpu_torch.ops.spmm import (
+        DenseJoint,
+        ShardedDenseJoint,
+        ShardedSparseJoint,
+        SparseJoint,
+    )
 
-    return ("bipartite_dual_matmul" if isinstance(adj, DenseJoint) else
+    return ("bipartite_dual_matmul" if isinstance(adj, (DenseJoint, ShardedDenseJoint)) else
             "weighted_segment_matmul" if isinstance(adj, (SparseJoint, ShardedSparseJoint))
             else None)
 
@@ -2242,17 +2411,25 @@ def expected_launches(model):
     top-k are torch ops), for Rand (torch ops) nor for
     the score blocks of NeuMF, DMF, CDAE, CFGAN, SREE, SocialFD and EE
     (torch ops, as the JAX package ranks them through XLA). On a mesh
-    (``parallel_phases``) every rank launches where one device does: K5
-    once a propagation on its row block, K3 and K4 once a loss on its rows,
-    K2 once a batch of the whole ranking."""
+    (``parallel_phases``) every rank launches where one device does: K1
+    once a propagation on its item-column block (and once a node-drop
+    view's degrees), K5 once a propagation on its row block, K3 and K4 once
+    a loss on its rows; K2 once a batch of its own share of the test users
+    (ceil(n_loc / eval_batch_size) a ranking)."""
+    import torch.distributed as dist
+
     from qrec_tpu_torch.models.adversarial_social import ESRF
     from qrec_tpu_torch.models.graph import LightGCN
     from qrec_tpu_torch.models.social_graph import BUIR, SEPT, _GraphModel
     from qrec_tpu_torch.ops.kernels import KERNELS
     from qrec_tpu_torch.ops.spmm import SparseJoint
     from qrec_tpu_torch.ops.topk import ScoreForm
+    from qrec_tpu_torch.parallel.collectives import split_sizes
 
-    evals = math.ceil(len(model.data.test_set_u) / model.eval_batch_size)
+    test_users = len(model.data.test_set_u)
+    if model.mesh is not None:
+        test_users = split_sizes(test_users, dist.get_world_size())[dist.get_rank()]
+    evals = math.ceil(test_users / model.eval_batch_size)
     name = model.model_name
     counts = {k.name: 0 for k in KERNELS}
     if isinstance(model, ESRF):
@@ -2640,8 +2817,8 @@ def main() -> None:
         mf_launches.update(life_launches)
         del unbroken
 
-        # 15. multi-GPU: LightGCN-pallas and SimGCL-pallas on four ranks on
-        # the card, and the one-rank NCCL group
+        # 15. multi-GPU: the LightGCN family on four ranks on the card, in
+        # the sparse and the dense forms, and the one-rank NCCL group
         par, par_launches = parallel_phases(torch, K, QRec, conf_of, tmp)
 
         # 16. planted blocks
@@ -2724,6 +2901,14 @@ def main() -> None:
             par_launches["infonce_fwd"] + par_launches["infonce_bwd"], par["infonce"]),
         row("ShardedPaddedCOO._apply", "qrec_tpu_torch/csrc/segment_matmul.cu",
             "qrec_tpu/ops/spmm.py:855", par_launches["weighted_segment_matmul"], par["segment"]),
+        # route 6: K1 on a data rank's item-column block (on a mesh the JAX
+        # package takes XLA's products over its DenseJoint, no kernel)
+        row("ShardedDenseJoint (dense joint on a mesh)", "qrec_tpu_torch/csrc/dual_matmul.cu",
+            "qrec_tpu/ops/pallas_kernels.py:635", par_launches["bipartite_dual_matmul"],
+            par["dense"]),
+        # route 7: K2's top-k on a rank's share of the test users
+        row("pallas_catalog_topk(mesh=)", "qrec_tpu_torch/csrc/masked_scores.cu",
+            "qrec_tpu/ops/topk.py:263", par_launches["masked_catalog_topk"], par["topk"]),
     ]
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

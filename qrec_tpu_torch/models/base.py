@@ -81,8 +81,8 @@ class Recommender(nn.Module):
     # a model that needs the trust relation (SocialRecommender) gets it as
     # ``social``; the session refuses to run it without one
     requires_social = False
-    # LightGCN, SimGCL and BPR train on a mesh, the models that the JAX
-    # package's mesh tests train; every other model refuses one
+    # the four models of models/graph.py and BPR train on a mesh; every
+    # other model refuses one
     trains_on_mesh = False
 
     def __init__(self, conf: ModelConf, data: Interactions, fold: str = "[1]", device=None,
@@ -142,8 +142,8 @@ class Recommender(nn.Module):
         package's ``Recommender.mesh``, ``models/base.py:366-400``), else
         None: in one process the setting changes nothing. On a mesh, what
         does not run there yet raises a ConfigError: a model other than
-        LightGCN, SimGCL and BPR, ``checkpoint.setup``, ``model.setup``'s
-        ``-save`` and ``-load``, and ``-cv k -p``."""
+        LightGCN, NGCF, SGL, SimGCL and BPR, ``checkpoint.setup``,
+        ``model.setup``'s ``-save`` and ``-load``, and ``-cv k -p``."""
         if not hasattr(self, "_mesh"):
             mesh = mesh_from_config(self.config, self.device)
             if mesh is not None:
@@ -489,7 +489,7 @@ class IterativeRecommender(Recommender):
             self._top_n = n
             self._ranker = CatalogRanker(
                 self.data, k=n, device=self.device, bitmask=self.rated_bitmask,
-                batch_size=self.eval_batch_size,
+                batch_size=self.eval_batch_size, mesh=self.mesh,
             )
         return self._ranker
 
@@ -736,12 +736,14 @@ class GraphRecommender(IterativeRecommender):
     f32 :class:`~qrec_tpu_torch.ops.spmm.DeviceCOO` (the JAX package's
     ``auto`` off a TPU).
 
-    On a mesh (``parallel.setup``): the sparse form is its row blocks
+    On a mesh (``parallel.setup``): a dense form is its item-column blocks
+    over ``data`` on K1 (:class:`~qrec_tpu_torch.ops.spmm.ShardedDenseJoint`;
+    the JAX package takes XLA's partitioned products there, not a kernel);
+    the sparse form is its row blocks
     (:class:`~qrec_tpu_torch.ops.spmm.ShardedSparseJoint`); ``coo`` keeps
     the whole ``DeviceCOO`` on every rank, whose f32 backward is linear in
     the cotangent, so the ranks' shares keep the gradient invariant with no
-    collective; a dense form raises (ROADMAP.md Queue 1 item 19: the JAX
-    package takes XLA's partitioned product there, not a kernel)."""
+    collective."""
 
     @property
     def joint_adj(self):
@@ -751,6 +753,7 @@ class GraphRecommender(IterativeRecommender):
                 DENSE_JOINT_LIMIT,
                 DenseJoint,
                 DeviceCOO,
+                ShardedDenseJoint,
                 ShardedSparseJoint,
                 SparseJoint,
             )
@@ -768,17 +771,14 @@ class GraphRecommender(IterativeRecommender):
                 backend == "auto" and self.num_users * self.num_items <= limit
             )
             mesh = self.mesh
-            if dense and mesh is not None:
-                raise ConfigError(
-                    f"a dense adjacency (graph.backend={backend}) on a mesh (parallel.setup) "
-                    "is not ported yet (ROADMAP.md Queue 1 item 19); use graph.backend=pallas "
-                    "or coo"
-                )
             if dense:
                 quant = self.config.get("graph.dense.quant", "auto")
                 quant = "factored" if quant == "auto" else quant
                 self._joint_adj = DenseJoint.from_interactions(self.data, self.device, quant)
                 built = _DENSE_BUILT[quant]
+                if mesh is not None:
+                    self._joint_adj = ShardedDenseJoint.from_joint(self._joint_adj, mesh)
+                    built = f"ShardedDenseJoint item-column blocks over data, {built}"
             elif backend == "coo":
                 self._joint_adj = DeviceCOO.from_host(
                     joint_normalized_adjacency(self.data), self.device

@@ -8,7 +8,10 @@ adjacency, or on the segment kernel over the sparse one
 (``GraphRecommender.joint_adj`` picks); the contrastive losses run on the
 InfoNCE kernels (``ops/losses.infonce_dispatch``). As in the JAX package,
 SGL's views, SimGCL's noise and NGCF's message dropout are drawn afresh for
-every step, from the trainer's generator.
+every step, from the trainer's generator. All four train on a mesh
+(``parallel/mesh.py``): the adjacency, SGL's views of it and the InfoNCE
+are sharded over ``data`` (``GraphRecommender.joint_adj``), every rank
+draws the same numbers, and each rank's loss is its share.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ from ..data.graph import joint_bipartite_coo
 from ..ops.losses import bpr_loss, check_ssl_backend, infonce_dispatch, unique_padded
 from ..ops.spmm import (
     DenseJoint,
+    ShardedDenseJoint,
     factored_edge_drop_view,
     factored_node_drop_view,
     lightgcn_propagate,
@@ -114,7 +118,6 @@ class NGCF(LightGCN):
     ``W_{k}_1``, ``W_{k}_2``; the two transforms are plain products."""
 
     keep_prob = 0.9  # message dropout keep (NGCF.py:37)
-    trains_on_mesh = False
 
     def __init__(self, conf, data, fold: str = "[1]", device=None):
         super().__init__(conf, data, fold=fold, device=device)
@@ -178,7 +181,6 @@ class SGL(LightGCN):
     ``graph.backend=coo``)."""
 
     track_best = True
-    trains_on_mesh = False
 
     def read_configuration(self) -> None:
         super().read_configuration()
@@ -203,11 +205,12 @@ class SGL(LightGCN):
         package's ``dense_views``: a ``DenseJoint`` with a column scale);
         every other form takes edge values over ``view_adjacency``."""
         adj = self.joint_adj
-        return isinstance(adj, DenseJoint) and adj.form == "factored"
+        return isinstance(adj, (DenseJoint, ShardedDenseJoint)) and adj.form == "factored"
 
     @property
     def edges(self) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Dense views: (rows, cols) of R's nonzeros, row-major."""
+        """Dense views: (rows, cols) of R's nonzeros, row-major (on a mesh,
+        of the rank's item-column block, with local columns)."""
         if not hasattr(self, "_edges"):
             self._edges = torch.nonzero(self.joint_adj.r, as_tuple=True)
         return self._edges
@@ -215,16 +218,19 @@ class SGL(LightGCN):
     @property
     def view_structure(self):
         """Sparse views: the joint structure of ``joint_bipartite_coo`` (on
-        the segment kernel, or a ``DeviceCOO`` under ``graph.backend=coo``),
-        the interaction id of every edge and the number of interactions.
-        Built from the host's CSR: never the (U, I) R."""
+        the segment kernel, its row blocks on a mesh, or a ``DeviceCOO``
+        under ``graph.backend=coo``), the interaction id of every edge, the
+        number of interactions and the (rows, cols) of every edge. Built
+        from the host's CSR: never the (U, I) R."""
         if not hasattr(self, "_view_structure"):
             rows, cols, edge_ids, n = joint_bipartite_coo(self.data)
             backend = self.config.get("graph.backend", "auto")
+            as_t = lambda a: torch.as_tensor(a, device=self.device)  # noqa: E731
             self._view_structure = (
-                view_adjacency(rows, cols, n, self.device, backend),
-                torch.as_tensor(edge_ids, device=self.device),
+                view_adjacency(rows, cols, n, self.device, backend, self.mesh),
+                as_t(edge_ids),
                 len(self.data.csr_sel),
+                (as_t(rows), as_t(cols)),
             )
         return self._view_structure
 
@@ -263,10 +269,9 @@ class SGL(LightGCN):
                 layers = [(factored_edge_drop_view(adj, self.edges, ru, ci, self.drop_rate), None)
                           for ru, ci in bits]
         else:
-            adj, edge_ids, _ = self.view_structure
+            adj, edge_ids, _, (rows, cols) = self.view_structure
             n, aug = adj.num_rows, self.aug_type
-            layers = [(adj, subgraph_vals(adj.rows, adj.cols, edge_ids, n, aug, keep))
-                      for keep in bits]
+            layers = [(adj, subgraph_vals(rows, cols, edge_ids, n, aug, keep)) for keep in bits]
         return layers * (self.n_layers // len(layers))
 
     def encode_view(self, bits) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -288,7 +293,8 @@ class SGL(LightGCN):
         merge1 = torch.cat([_rows(s1u, uu), _rows(s1i, iu)])
         merge2 = torch.cat([_rows(s2u, uu), _rows(s2i, iu)])
         mask = torch.cat([um, im])
-        return rec + self.ssl_reg * infonce_dispatch(merge1, merge2, mask, self.ssl_temp)
+        ssl = infonce_dispatch(merge1, merge2, mask, self.ssl_temp, self.mesh)
+        return rec + self.ssl_reg * ssl
 
     def loss(self, batch, gen: Optional[torch.Generator] = None) -> torch.Tensor:
         return self.step_loss(batch, self.draw(gen))

@@ -561,6 +561,16 @@ def biased_scores(scores, uids, item_bias=None, user_bias=None, offset: float = 
     return scores
 
 
+def _row_products(u: torch.Tensor, items: torch.Tensor) -> torch.Tensor:
+    """``u @ items.T`` with every row summed as in a batch of several rows:
+    the CPU's product of a single row takes a matrix-vector path that sums
+    in another order, so a row's scores would depend on its batch (a mesh's
+    shares of the test users can end in a batch of one)."""
+    if u.shape[0] == 1:
+        return (torch.cat([u, u]) @ items.T)[:1]
+    return u @ items.T
+
+
 def masked_catalog_topk_plain(user_emb, items, bitmask, uids, global_mean: float, k: int,
                               mask_value: float = 0.0, item_bias=None, user_bias=None,
                               offset: float = 0.0):
@@ -569,7 +579,8 @@ def masked_catalog_topk_plain(user_emb, items, bitmask, uids, global_mean: float
     set to ``mask_value``, the global mean for unseen users, a stable
     descending sort, the first k columns."""
     safe = uids.clamp(min=0)
-    scores = biased_scores(user_emb[safe] @ items.T, safe, item_bias, user_bias, offset)
+    scores = biased_scores(_row_products(user_emb[safe], items), safe, item_bias, user_bias,
+                           offset)
     rated = expand_bitmask(bitmask[safe], items.shape[0])
     scores = torch.where(rated, torch.full_like(scores, mask_value), scores)
     scores = torch.where((uids < 0)[:, None], torch.full_like(scores, global_mean), scores)

@@ -52,7 +52,13 @@ import numpy as np
 import torch
 
 from ..data.graph import COO, factored_adjacency
-from ..parallel.collectives import all_reduce_sum, gather_cols, gather_rows, split_sizes
+from ..parallel.collectives import (
+    all_reduce_sum,
+    gather_cols,
+    gather_rows,
+    split_range,
+    split_sizes,
+)
 from .kernels import (
     SegmentSchedule,
     aligned_width,
@@ -164,6 +170,126 @@ class JointMatmul(torch.autograd.Function):
 
 def joint_matmul(adj: DenseJoint, x: torch.Tensor) -> torch.Tensor:
     return JointMatmul.apply(x, adj.r, adj.row_scale, adj.col_scale)
+
+
+class ShardedDenseJoint(NamedTuple):
+    """A dense joint adjacency of :class:`DenseJoint` on a mesh
+    (``parallel/mesh.py``), in any of its forms: R cut by **item
+    columns** into ``torch.tensor_split``'s blocks over ``data``. Each rank
+    keeps only its block ``r[:, col0:col1]``, copied once into a table of
+    its own padded to 16 columns (:func:`pad_table`: K1 reads rows whose
+    length is a multiple of 16, which a column slice of the whole table is
+    not), with the whole row scale and the block's column scale.
+
+    The JAX package has no kernel here: on a mesh its ``DenseJoint`` takes
+    XLA's two products, which GSPMD partitions. Cut by columns, the half of
+    ``M @ x`` that must be summed over ``data`` is the user half (U x d),
+    and dense blocks are the same size whatever the degrees
+    (:class:`ShardedJointMatmul`). SGL's factored views of it are
+    ``ShardedDenseJoint``s too (``factored_*_view``)."""
+
+    mesh: object
+    r: torch.Tensor  # (U, aligned(col1 - col0)) int8 or bf16; padding columns zero
+    row_scale: torch.Tensor  # (U,) f32, whole
+    col_scale: torch.Tensor  # (col1 - col0,) f32, the block's
+    col0: int  # the block's items are [col0, col1)
+    col1: int
+    num_items: int  # the whole catalog's I
+    col_sizes: Tuple[int, ...]  # every data rank's column count, in rank order
+    unit: torch.Tensor  # (U,) f32 ones: K1's row scale (row_scale is applied around it)
+    form: str = "factored"
+
+    @property
+    def num_users(self) -> int:
+        return self.r.shape[0]
+
+    @property
+    def num_rows(self) -> int:
+        return self.num_users + self.num_items
+
+    @classmethod
+    def from_joint(cls, adj: DenseJoint, mesh) -> "ShardedDenseJoint":
+        """This data rank's block of the whole ``adj``, which the caller
+        then drops."""
+        sizes = split_sizes(adj.num_items, mesh.data)
+        if min(sizes) < 1:
+            raise ValueError(f"{adj.num_items} items cannot be cut into {mesh.data} column blocks")
+        c0, c1 = split_range(adj.num_items, mesh.data, mesh.data_index)
+        block = adj.r[:, c0:c1]
+        r = pad_table(block.clone(memory_format=torch.contiguous_format))
+        return cls(mesh, r, adj.row_scale, adj.col_scale[c0:c1].clone(), c0, c1,
+                   adj.num_items, tuple(sizes), torch.ones_like(adj.row_scale), adj.form)
+
+
+def _block_dual_call(adj: ShardedDenseJoint, x: torch.Tensor) -> torch.Tensor:
+    """K1 on the block with ``x``'s user rows and the block's item rows:
+    (U + col1 - col0, d) f32, the block's partial of the user half before
+    its row scale, ``r_b @ bf16(si_b · x_i,b)``, and its whole rows of the
+    item half ``Ŝᵀ x_u``. The row scale multiplies x_u here (K1 then
+    multiplies by 1.0, which changes no bit, before its bf16 cast) and the
+    summed user half after the sum (:class:`ShardedJointMatmul`), so that
+    the partials are summed as one process's K1 sums its column regions
+    and scaled once. K1's partials live in a scratch buffer per device and
+    stream (``ops/kernels._scratch``); ranks that share one card are
+    separate processes, each with its own."""
+    u = adj.num_users
+    xb = torch.cat([x[:u] * adj.row_scale[:, None], x[u + adj.col0: u + adj.col1]])
+    return factored_dual_matmul(adj.r, xb, adj.unit, adj.col_scale)
+
+
+class ShardedJointMatmul(torch.autograd.Function):
+    """``y = M @ x`` over a :class:`ShardedDenseJoint`, x and y whole on
+    every rank; every call of either direction is one K1 launch on the
+    rank's block (:func:`_block_dual_call`), on x's feature slice over
+    ``model`` where the width divides (:func:`feature_slice`), the columns
+    gathered over ``model`` before either collective over ``data``.
+
+    Forward: the user half of K1's output is this block's partial of ``r
+    @ bf16(si · x_i)``; it is summed over ``data`` (every rank receives the
+    same bits) and then scaled by the row scale. The item half holds the
+    block's rows of ``Ŝᵀ x_u``, whole, gathered over ``data`` with the
+    blocks' column counts. The all-reduce sums the partials in another
+    order than one process's K1 sums its column regions: where an f32 sum
+    rounds, the user half parts by an ulp, which the next layer's bf16 cast
+    can turn into one bf16 step of an element (a sum of bf16 values times
+    0/1 is mostly exact in f32).
+
+    Backward, under the gradient invariant of ``parallel/mesh.py``: the
+    rank's feature columns of the cotangent are summed over ``data`` in
+    f32 first (K1 rounds its input to bf16, and shares rounded apart would
+    part from one process); K1 on the block (``dx = M g``: M is
+    symmetric) gives this block's partial of ``dx_u``, which fills
+    ``dx[:U]`` scaled by the row scale, and its whole rows of ``dx_i``,
+    which fill ``dx[U + col0 : U + col1]``; every other row is zero, and
+    the step's one reduction over ``data`` completes the sum. No other
+    collective touches dx, so the user rows' shares are scaled before they
+    are summed: f32 rounding again."""
+
+    @staticmethod
+    def forward(ctx, x, adj):
+        ctx.adj = adj
+        mesh, u = adj.mesh, adj.num_users
+        cut = feature_slice(mesh, x.shape[1])
+        out = _block_dual_call(adj, x if cut is None else x[:, cut[0]: cut[1]])
+        if cut is not None:
+            out = gather_cols(out, mesh)
+        ou = all_reduce_sum(out[:u].contiguous(), mesh.data_group) * adj.row_scale[:, None]
+        return torch.cat([ou, gather_rows(out[u:], mesh, adj.col_sizes)])
+
+    @staticmethod
+    def backward(ctx, grad):
+        adj = ctx.adj
+        mesh, u = adj.mesh, adj.num_users
+        cut = feature_slice(mesh, grad.shape[1])
+        g = grad if cut is None else grad[:, cut[0]: cut[1]]
+        g = all_reduce_sum(g.clone(memory_format=torch.contiguous_format), mesh.data_group)
+        out = _block_dual_call(adj, g)
+        if cut is not None:
+            out = gather_cols(out, mesh)
+        dx = torch.zeros_like(grad)
+        dx[:u] = out[:u] * adj.row_scale[:, None]
+        dx[u + adj.col0: u + adj.col1] = out[u:]
+        return dx, None
 
 
 class SparseJoint(NamedTuple):
@@ -516,15 +642,18 @@ class DenseMatmul(torch.autograd.Function):
 def spmm(adj, x: torch.Tensor, vals: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``A @ x`` for every form (the JAX package's ``spmm``,
     ``ops/spmm.py:419-457``): a :class:`DenseJoint` through the dual
-    kernel, a :class:`SparseJoint` through the segment kernel (its row
-    blocks on a mesh, :class:`ShardedSparseJoint`), a
+    kernel (its item-column blocks on a mesh, :class:`ShardedDenseJoint`),
+    a :class:`SparseJoint` through the segment kernel (its row blocks on a
+    mesh, :class:`ShardedSparseJoint`), a
     :class:`DeviceCOO` or :class:`DenseMat` through torch ops. ``vals``
     replaces the stored edge values (views) and needs a sparse form."""
-    if isinstance(adj, (DenseJoint, DenseMat)):
+    if isinstance(adj, (DenseJoint, ShardedDenseJoint, DenseMat)):
         if vals is not None:
             raise ValueError("per-edge values need a sparse adjacency")
         if isinstance(adj, DenseMat):
             return DenseMatmul.apply(x, adj.mat)
+        if isinstance(adj, ShardedDenseJoint):
+            return ShardedJointMatmul.apply(x, adj)
         return joint_matmul(adj, x)
     v = adj.vals if vals is None else vals
     if isinstance(adj, DeviceCOO):
@@ -581,21 +710,26 @@ def subgraph_vals(
     return renormalize_vals(rows, cols, kept.float(), num_nodes)
 
 
-def view_adjacency(rows, cols, n_nodes: int, device, backend: str = "auto"):
+def view_adjacency(rows, cols, n_nodes: int, device, backend: str = "auto", mesh=None):
     """Adjacency of per-edge-value views (SGL's and BUIR's dropout
     subgraphs): the structure is fixed and the values change every step, so
     the stored values are placeholders and callers pass ``vals`` to
-    :func:`spmm`. The single-device part of the JAX package's
-    ``view_adjacency`` (``ops/spmm.py:931-978``): a :class:`DeviceCOO`
-    under ``graph.backend=coo``, else the segment kernel's
-    :class:`SparseJoint` (the JAX package's ``PaddedCOO``; its
-    ``VIEW_PALLAS_MIN_EDGES`` rule is a TPU choice that the port does not
-    take). ``rows``/``cols`` describe a symmetric structure in lexsorted
-    order, as ``joint_bipartite_coo`` returns it."""
+    :func:`spmm`. The JAX package's ``view_adjacency``
+    (``ops/spmm.py:931-978``): a :class:`DeviceCOO` under
+    ``graph.backend=coo``, whole on every rank of a ``mesh`` too; else the
+    segment kernel's :class:`SparseJoint` (the JAX package's ``PaddedCOO``;
+    its ``VIEW_PALLAS_MIN_EDGES`` rule is a TPU choice that the port does
+    not take), or on a ``mesh`` its row blocks, :class:`ShardedSparseJoint`
+    (the JAX package's mesh branch, ``ShardedPaddedCOO``), which takes
+    every edge's value on every rank. ``rows``/``cols`` describe a
+    symmetric structure in lexsorted order, as ``joint_bipartite_coo``
+    returns it."""
     ones = np.ones(len(rows), dtype=np.float32)
     coo = COO(np.asarray(rows, np.int32), np.asarray(cols, np.int32), ones, (n_nodes, n_nodes))
     if backend == "coo":
         return DeviceCOO.from_host(coo, device)
+    if mesh is not None:
+        return ShardedSparseJoint.from_host(coo, device, mesh)
     return SparseJoint.from_host(coo, device, check_symmetric=False)
 
 
@@ -630,42 +764,51 @@ def _renormalize(deg: torch.Tensor) -> torch.Tensor:
     return torch.where(deg > 0, torch.rsqrt(torch.clamp_min(deg, 1e-12)), torch.zeros_like(deg))
 
 
-def factored_edge_drop_view(
-    adj: DenseJoint,
-    edges: Tuple[torch.Tensor, torch.Tensor],
-    ru: torch.Tensor,
-    ci: torch.Tensor,
-    drop_rate: float,
-) -> DenseJoint:
+def factored_edge_drop_view(adj, edges: Tuple[torch.Tensor, torch.Tensor], ru: torch.Tensor,
+                            ci: torch.Tensor, drop_rate: float):
     """Edge-dropout view (SGL.py:128-141, aug types 1/2): ``R · keep(ru, ci)``
     in R's padded layout, one int8 table, renormalized by the kept degrees,
     which are exact f32 row and column sums of it. ``edges`` holds the
     (rows, cols) of R's nonzeros; the hash is evaluated there only, since
     the product is 0 elsewhere whatever the hash says (the padding's
-    columns among them)."""
+    columns among them).
+
+    On a :class:`ShardedDenseJoint` ``edges`` are the block's nonzeros,
+    their columns local: the hash reads ``ci`` at the global item ``col0 +
+    col`` (``ci`` is drawn for every item, the same on every rank). A
+    block's item degrees are whole; the user degrees are integer counts
+    summed over ``data``, exact. So the view's scales equal one process's
+    bit for bit."""
     rows, cols = edges
-    keep = pair_hash_keep(ru[rows], ci[cols], drop_rate)
+    sharded = isinstance(adj, ShardedDenseJoint)
+    keep = pair_hash_keep(ru[rows], ci[cols + adj.col0 if sharded else cols], drop_rate)
     r = torch.zeros_like(adj.r)
     r[rows, cols] = keep.to(torch.int8)
     deg_u = r.sum(dim=1, dtype=torch.float32)
-    deg_i = r[:, : adj.num_items].sum(dim=0, dtype=torch.float32)
-    return DenseJoint(r, _renormalize(deg_u), _renormalize(deg_i))
+    if sharded:
+        deg_u = all_reduce_sum(deg_u, adj.mesh.data_group)
+    deg_i = r[:, : adj.col_scale.shape[0]].sum(dim=0, dtype=torch.float32)
+    return adj._replace(r=r, row_scale=_renormalize(deg_u), col_scale=_renormalize(deg_i))
 
 
-def factored_node_drop_view(adj: DenseJoint, keep_u: torch.Tensor, keep_i: torch.Tensor) -> DenseJoint:
+def factored_node_drop_view(adj, keep_u: torch.Tensor, keep_i: torch.Tensor):
     """Node-dropout view (SGL.py:113-126, aug type 0): R stays unmasked; a
     dropped node's scale is 0, which removes its edges. The kept degrees
     are the binary matvecs ``R @ keep_i`` and ``Rᵀ @ keep_u`` (one dual
     product at width 1 over the padded R, with zero keeps for the padding's
     columns; exact: 0/1 operands, f32 sums), masked by the node's own keep
-    flag."""
-    ni = adj.num_items
+    flag. On a :class:`ShardedDenseJoint` the product runs on the block
+    with its items' keeps: ``Rᵀ keep_u`` is the block's whole, ``R keep_i``
+    a partial that is summed over ``data`` (integer counts, exact)."""
+    ni = adj.col_scale.shape[0]
+    sharded = isinstance(adj, ShardedDenseJoint)
+    ki_block = keep_i[adj.col0: adj.col1] if sharded else keep_i
     ku = keep_u.to(torch.bfloat16)[:, None].contiguous()
     ki = torch.zeros((adj.r.shape[1], 1), dtype=torch.bfloat16, device=keep_i.device)
-    ki[:ni, 0] = keep_i.to(torch.bfloat16)
+    ki[:ni, 0] = ki_block.to(torch.bfloat16)
     deg_u, deg_i = bipartite_dual_matmul(adj.r, ku, ki)
-    return DenseJoint(
-        adj.r,
-        _renormalize(deg_u[:, 0] * keep_u),
-        _renormalize(deg_i[:ni, 0] * keep_i),
-    )
+    deg_u = deg_u[:, 0]
+    if sharded:
+        deg_u = all_reduce_sum(deg_u.contiguous(), adj.mesh.data_group)
+    return adj._replace(row_scale=_renormalize(deg_u * keep_u),
+                        col_scale=_renormalize(deg_i[:ni, 0] * ki_block))

@@ -26,6 +26,13 @@ base/iterativeRecommender.py:75-80):
 * users unseen in training (uid -1) score ``global_mean`` everywhere;
 * ties go to the lowest item index first, like ``lax.top_k``: the ranking
   is a stable descending sort, so equal scores keep index order.
+
+On a mesh (``parallel/mesh.py``) a score form is ranked as the JAX
+package's ``pallas_catalog_topk(mesh=)`` ranks it
+(``qrec_tpu/ops/topk.py:263-364``): the test users are cut over all ranks
+and each rank runs K2 on its own; no merge is needed, since users
+partition the output exactly. The port then gathers the lists, so every
+rank holds the whole ranking (the JAX package's sharded result).
 """
 
 from __future__ import annotations
@@ -34,7 +41,9 @@ from typing import Callable, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from ..parallel.collectives import gather_shards, split_range, split_sizes
 from .kernels import expand_bitmask, masked_catalog_topk
 
 # rated items score 0, as the reference zeroes them (base/recommender.py:147-149)
@@ -71,9 +80,20 @@ class RandomScores(NamedTuple):
 class CatalogRanker:
     """Top-k over the whole catalog for a fixed test-user set, in user
     batches of ``batch_size`` (one kernel launch per batch). ``bitmask``
-    (U, ceil(I/32)) int32 on ``device`` holds the train-rated items."""
+    (U, ceil(I/32)) int32 on ``device`` holds the train-rated items.
 
-    def __init__(self, data, k: int, device, bitmask: torch.Tensor, batch_size: int = 1024):
+    With a ``mesh`` the test users of a :class:`ScoreForm` are cut over all
+    W ranks of the default group in world-rank order, as
+    ``torch.tensor_split`` cuts them (the JAX package shards its user
+    blocks over every device): each rank runs K2 on its share only, in
+    batches of ``batch_size`` (``ceil(n_loc / batch_size)`` launches), and
+    the (n_loc, k) ids and scores are gathered over the default group in
+    rank order, exactly, so every rank returns one process's lists. Score
+    blocks and random scores, which no mesh model ranks, stay whole on
+    every rank."""
+
+    def __init__(self, data, k: int, device, bitmask: torch.Tensor, batch_size: int = 1024,
+                 mesh=None):
         self.data = data
         self.k = int(k)
         self.device = torch.device(device)
@@ -86,6 +106,13 @@ class CatalogRanker:
         self.test_ids = torch.as_tensor(ev["test_ids"], dtype=torch.int64, device=self.device)
         self.test_counts = torch.as_tensor(ev["test_counts"], dtype=torch.int64, device=self.device)
         self._uids = torch.as_tensor(self.uids, dtype=torch.int64, device=self.device)
+        # this rank's test users and every rank's count, on a mesh
+        self.mesh = mesh
+        if mesh is not None:
+            world, rank = dist.get_world_size(), dist.get_rank()
+            self.user_sizes = split_sizes(len(self.uids), world)
+            s0, s1 = split_range(len(self.uids), world, rank)
+            self._local_uids = self._uids[s0:s1]
         # float32 like the JAX ranker's global-mean constant
         self.global_mean = float(np.float32(data.global_mean))
 
@@ -99,26 +126,38 @@ class CatalogRanker:
         ``self.device``, with no host copy; the form's tensors lie there."""
         num_items = self.data.num_items
         k = min(self.k, num_items)
-        batches = [self._uids[s : s + self.batch_size] for s in range(0, len(self.uids), self.batch_size)]
-        if not batches:
-            return (torch.empty((0, k), dtype=torch.int64, device=self.device),
-                    torch.empty((0, k), dtype=torch.float32, device=self.device))
+        empty = (torch.empty((0, k), dtype=torch.int64, device=self.device),
+                 torch.empty((0, k), dtype=torch.float32, device=self.device))
+        if not len(self.uids):
+            return empty
         if isinstance(form, RandomScores):
-            out = [self._block_topk(torch.rand((uids.shape[0], num_items), generator=form.generator,
-                                               device=self.device), uids, k)
-                   for uids in batches]
-        elif isinstance(form, ScoreBlock):
+            return self._cat([
+                self._block_topk(torch.rand((uids.shape[0], num_items), generator=form.generator,
+                                            device=self.device), uids, k)
+                for uids in self._batches(self._uids)])
+        if isinstance(form, ScoreBlock):
             with torch.no_grad():
-                out = [self._block_topk(form.fn(uids.clamp(min=0)), uids, k) for uids in batches]
-        else:
-            user_emb, item_emb = form.user_emb.contiguous(), form.item_emb.contiguous()
-            out = [
-                masked_catalog_topk(
-                    user_emb, item_emb, self.bitmask, uids, self.global_mean, k, MASK_VALUE,
-                    item_bias=form.item_bias, user_bias=form.user_bias, offset=form.offset,
-                )
-                for uids in batches
-            ]
+                return self._cat([self._block_topk(form.fn(uids.clamp(min=0)), uids, k)
+                                  for uids in self._batches(self._uids)])
+        user_emb, item_emb = form.user_emb.contiguous(), form.item_emb.contiguous()
+        local = self._uids if self.mesh is None else self._local_uids
+        out = [
+            masked_catalog_topk(
+                user_emb, item_emb, self.bitmask, uids, self.global_mean, k, MASK_VALUE,
+                item_bias=form.item_bias, user_bias=form.user_bias, offset=form.offset,
+            )
+            for uids in self._batches(local)
+        ]
+        ids, scores = self._cat(out) if out else empty
+        if self.mesh is None:
+            return ids, scores
+        return gather_shards(ids, self.user_sizes), gather_shards(scores, self.user_sizes)
+
+    def _batches(self, uids: torch.Tensor):
+        return [uids[s: s + self.batch_size] for s in range(0, uids.shape[0], self.batch_size)]
+
+    @staticmethod
+    def _cat(out):
         return torch.cat([o[0] for o in out]), torch.cat([o[1] for o in out])
 
     def _block_topk(self, scores: torch.Tensor, uids: torch.Tensor, k: int):

@@ -3,9 +3,11 @@ calls on a mesh's groups (``parallel/mesh.py``).
 
 They carry values. Autograd reaches them only inside the
 ``torch.autograd.Function``s of the sharded routes
-(``ops/spmm.ShardedSegmentMatmul``, ``ops/losses.ShardedInfoNCELoss``),
-whose backward each writes under the mesh's gradient invariant, and the
-trainer reduces the gradients once a step (:func:`reduce_gradients`). A
+(``ops/spmm.ShardedSegmentMatmul``, ``ops/spmm.ShardedJointMatmul``,
+``ops/losses.ShardedInfoNCELoss``), whose backward each writes under the
+mesh's gradient invariant, and the trainer reduces the gradients once a
+step (:func:`reduce_gradients`); the ranking gathers its lists of ids and
+scores over the default group (``ops/topk.CatalogRanker``). A
 gather with a generic backward would not keep the invariant: the rule
 depends on what the route computed from its shard. Every call enters the
 collective, on a group of one rank too, so that a run on one GPU takes
@@ -36,18 +38,25 @@ def split_range(n: int, parts: int, index: int) -> Tuple[int, int]:
     return start, start + sizes[index]
 
 
-def gather_rows(x: torch.Tensor, mesh, sizes: Sequence[int]) -> torch.Tensor:
-    """The data ranks' row shards, ``sizes[r]`` rows on data rank r,
-    concatenated in rank order over the mesh's ``data`` group. A shorter
-    shard travels padded to the longest (the list form of ``all_gather``
-    takes equal shapes). Exact: the bits travel unchanged."""
+def gather_shards(x: torch.Tensor, sizes: Sequence[int], group=None) -> torch.Tensor:
+    """The row shards of the ranks of ``group`` (the default group's when
+    None), ``sizes[r]`` rows on its rank r, concatenated in rank order. A
+    shorter shard travels padded to the longest (the list form of
+    ``all_gather`` takes equal shapes). Exact: the bits travel unchanged."""
     full = max(sizes)
     if x.shape[0] < full:
         x = torch.cat([x, x.new_zeros((full - x.shape[0], *x.shape[1:]))])
     x = x.contiguous()
     parts = [torch.empty_like(x) for _ in sizes]
-    dist.all_gather(parts, x, group=mesh.data_group)
+    dist.all_gather(parts, x, group=group)
     return torch.cat([p[:s] for p, s in zip(parts, sizes)])
+
+
+def gather_rows(x: torch.Tensor, mesh, sizes: Sequence[int]) -> torch.Tensor:
+    """The data ranks' row shards, ``sizes[r]`` rows on data rank r,
+    concatenated in rank order over the mesh's ``data`` group
+    (:func:`gather_shards`)."""
+    return gather_shards(x, sizes, mesh.data_group)
 
 
 def gather_cols(x: torch.Tensor, mesh) -> torch.Tensor:

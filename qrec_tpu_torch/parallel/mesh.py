@@ -14,9 +14,13 @@ row-shards its ``emb`` tables over ``model`` where the rows divide, which
 moves rows and changes no result. What each axis splits:
 
 * ``data``: the rows of a batch in the loss terms that are sums over them,
-  the rows of the joint adjacency (``ops/spmm.ShardedSparseJoint``) and
+  the rows of the sparse joint adjacency (``ops/spmm.ShardedSparseJoint``),
+  the item columns of a dense one (``ops/spmm.ShardedDenseJoint``) and
   the rows of the contrastive loss (``ops/losses.ShardedInfoNCELoss``);
 * ``model``: the propagation's feature columns, where the width divides.
+
+The ranking cuts its test users over all the ranks of the default group
+(``ops/topk.CatalogRanker``) and gathers the lists: no gradient.
 
 The gradient invariant. Each data rank's loss is its *share* of the step's
 loss: the shares of the ranks of a ``data`` group sum to the one-process

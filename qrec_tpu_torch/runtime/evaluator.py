@@ -5,7 +5,8 @@ evalRanking :127-179 and evalRatings :96-125; the JAX package's
 Writes the top-N recommendation list with ``*`` hit markers, the
 rating-prediction file and the measure file in the reference's format, and
 records the measures in the run log. A ``-predict`` run writes the list and
-measures nothing. In a multi-GPU run rank 0 alone writes the files
+measures nothing. In a multi-GPU run the ranking is cut by test user over
+the ranks (``ops/topk.CatalogRanker``) and rank 0 alone writes the files
 (``parallel/mesh.is_writer``).
 """
 
@@ -64,8 +65,10 @@ def eval_ranking(model, data, conf, fold="[1]", log=None) -> List[str]:
         n = 10
     output = conf.options("output.setup")
 
+    # on a mesh each rank ranks its share of the test users, and every
+    # rank receives the whole lists
     ranker = CatalogRanker(data, k=n, device=model.device, bitmask=model.rated_bitmask,
-                           batch_size=model.eval_batch_size)
+                           batch_size=model.eval_batch_size, mesh=model.mesh)
     t0 = time.perf_counter()
     ids, scores = ranker.topk(model.score_form())
     model.rank_seconds = time.perf_counter() - t0  # topk ends in a host copy

@@ -16,8 +16,9 @@ package's ``run_fold``.
 
 ``parallel.setup=on [-model K]`` (``parallel/mesh.py``): the process joins
 its process group before any device work, and with more than one rank
-LightGCN, SimGCL and BPR train data-parallel on the mesh
-(``Recommender.mesh``); ``-cv k`` then runs its folds in turn on it. Rank 0
+LightGCN, NGCF, SGL, SimGCL and BPR train data-parallel on the mesh
+(``Recommender.mesh``) and rank their test users cut over the ranks;
+``-cv k`` then runs its folds in turn on it. Rank 0
 alone writes the result files, the run log and the ``-cv`` summary (the
 JAX package writes them from every process). In one process the setting
 changes nothing.

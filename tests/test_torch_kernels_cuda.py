@@ -1313,3 +1313,65 @@ def test_lightgcn_resumed_on_card_repeats_the_unbroken_run(cuda_device, tmp_path
     assert stopped.epoch_losses == unbroken.epoch_losses[:3]
     assert resumed.epoch_losses == unbroken.epoch_losses[2:]
     assert torch.equal(resumed.U, unbroken.U) and torch.equal(resumed.V, unbroken.V)
+
+
+# route 6 (ops/spmm.ShardedDenseJoint): K1 on each data rank's block of
+# R's item columns, as the route calls it (x_u scaled before, the unit row
+# scale in K1, the user half scaled after the sum). The item half is the
+# whole product's rows bit for bit where the block's plan cuts the rows
+# into the same regions as the whole table's (its rows are then summed in
+# the same order), else within f32 rounding; the blocks' user halves
+# summed in rank order are the whole user half within f32 rounding
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [1, 25, 50, 150])
+@pytest.mark.parametrize("parts", [2, 3])
+def test_dual_kernel_on_item_column_blocks(cuda_device, d, parts):
+    import types
+
+    from qrec_tpu_torch.ops.spmm import ShardedDenseJoint, _block_dual_call
+
+    u, i = 1892, 16591
+    adj, x = _factored_operands(cuda_device, u, i, d, seed=d + parts)
+    whole = K.factored_dual_matmul(adj.r, x, adj.row_scale, adj.col_scale)
+    limits = K._dual_limits(adj.r.device, d, True)
+    rows = K._dual_plan(u, adj.r.shape[1], d, limits[0], limits[2], limits[1])[0]
+    user = torch.zeros((u, d), device=cuda_device)
+    for p in range(parts):
+        rank = types.SimpleNamespace(data=parts, data_index=p)
+        block = ShardedDenseJoint.from_joint(adj, rank)
+        c0, c1 = block.col0, block.col1
+        before = K.DUAL.launches
+        out = _block_dual_call(block, x)
+        assert K.DUAL.launches == before + 1 and out.shape == (u + c1 - c0, d)
+        user += out[:u]
+        got, want = out[u:], whole[u + c0: u + c1]
+        block_rows = K._dual_plan(u, block.r.shape[1], d, limits[0], limits[2], limits[1])[0]
+        if block_rows == rows:
+            assert torch.equal(got, want), (p, block_rows)
+        else:
+            torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(user * adj.row_scale[:, None], whole[:u], rtol=1e-5, atol=1e-6)
+
+
+# route 7 (ops/topk.CatalogRanker on a mesh): K2's fused top-k on each
+# rank's tensor_split share of the test users gives the whole ranking's
+# rows bit for bit, plain and biased: a user's scores do not depend on its
+# batch
+@pytest.mark.cuda
+@pytest.mark.parametrize("biased", [False, True])
+@pytest.mark.parametrize("parts", [3, 4])
+def test_topk_kernel_on_user_shards(cuda_device, parts, biased):
+    b, i, d, k = 1892, 16591, 50, 10
+    user, items, bitmask, uids = _topk_inputs(cuda_device, b, i, d, seed=parts)
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    bias = dict(item_bias=torch.randn(i, generator=g, device=cuda_device),
+                user_bias=torch.randn(user.shape[0], generator=g, device=cuda_device),
+                offset=0.25) if biased else {}
+    whole_ids, whole = K.masked_catalog_topk(user, items, bitmask, uids, 0.125, k, **bias)
+    for p in range(parts):
+        s0, s1 = split_range(b, parts, p)
+        before = K.TOPK.launches
+        ids, vals = K.masked_catalog_topk(user, items, bitmask, uids[s0:s1].contiguous(), 0.125,
+                                          k, **bias)
+        assert K.TOPK.launches == before + 1
+        assert torch.equal(ids, whole_ids[s0:s1]) and _same_bits(vals, whole[s0:s1])

@@ -27,23 +27,38 @@ import torch
 
 import test_torch_parallel_ranks as R
 from qrec_tpu import config as jconfig
+from qrec_tpu.ops import spmm as jspmm_mod
 from qrec_tpu.data.dataset import Interactions as JInteractions
 from qrec_tpu.data.graph import COO as JCOO
 from qrec_tpu.data.split import data_split
-from qrec_tpu.models.graph import LightGCN as JLightGCN, SimGCL as JSimGCL
+from qrec_tpu.models.graph import NGCF as JNGCF, SGL as JSGL, LightGCN as JLightGCN, SimGCL as JSimGCL
 from qrec_tpu.models.mf import BPR as JBPR
 from qrec_tpu.ops.losses import infonce_dispatch as jinfonce
 from qrec_tpu.ops.spmm import ShardedPaddedCOO, spmm as jspmm
 from qrec_tpu.parallel.mesh import make_mesh as jmake_mesh
 from qrec_tpu.runtime import trainer as jtrainer
+from qrec_tpu_torch import ModelConf
+from qrec_tpu_torch.data.dataset import Interactions
 from qrec_tpu_torch.ops import metrics
 from qrec_tpu_torch.ops.kernels import weighted_segment_matmul
 from qrec_tpu_torch.ops.losses import InfoNCELoss
-from qrec_tpu_torch.ops.spmm import segment_operand
+from qrec_tpu_torch.ops.spmm import (
+    DenseJoint,
+    factored_edge_drop_view,
+    factored_node_drop_view,
+    segment_operand,
+    spmm,
+)
+from qrec_tpu_torch.models import get_model
+from qrec_tpu_torch.ops.topk import CatalogRanker, ScoreForm
 from qrec_tpu_torch.parallel import mesh as M
+from test_torch_lightgcn import _conf as _lconf, _split
+from test_torch_sparse import _draws as _sparse_slice_draws
 
 WORLD = 4
 MESH = "on -model 2"  # four ranks: data 2 x model 2
+# bf16-rounded layer inputs: the bound of the dual-vs-XLA JAX test
+BF16 = dict(rtol=5e-3, atol=5e-3)
 
 
 @pytest.fixture(autouse=True)
@@ -159,6 +174,49 @@ def test_segment_row_shard_equals_the_whole_products_rows(r0, r1):
 INFONCE_B = (64, 63)
 
 
+def _dense_data():
+    """Route 6's graph (24 users, the items they rate in training) and the
+    ranking's split, with two test users unseen in training; the JAX
+    package's and the port's ``Interactions`` of it."""
+    unseen = [["new1", "i3", 1.0], ["new2", "i5", 1.0]]
+    train, test = _split(users=24, items=34, per_user=8, unseen=unseen)
+    conf = _lconf()
+    return (train, test, conf, JInteractions(jconfig.ModelConf(conf), train, test),
+            Interactions(ModelConf(conf), train, test))
+
+
+DENSE_FORMS = ("factored", "off", "int8")
+
+
+def _dense_inputs():
+    """Route 6 in each dense form as the port builds it (R unpadded; the
+    bf16 table as its f32 values, numpy having no bf16), the
+    views' draws on the factored form, and the ranking's plain and biased
+    score forms (K2 in batches of 4 users)."""
+    rng = np.random.RandomState(8)
+    train, test, conf, _, td = _dense_data()
+    n, u, i = td.num_users + td.num_items, td.num_users, td.num_items
+    forms = {}
+    for form in DENSE_FORMS:
+        adj = DenseJoint.from_interactions(td, "cpu", form)
+        r = adj.r[:, :i]
+        forms[form] = tuple(t.numpy().copy() for t in (
+            r.float() if r.dtype == torch.bfloat16 else r, adj.row_scale, adj.col_scale))
+    r, su, si = forms["factored"]
+    views = {"r": r, "su": su, "si": si, "p": 0.4,
+             "ru": rng.randint(0, 2**32, u, dtype=np.uint64).astype(np.int64),
+             "ci": rng.randint(0, 2**32, i, dtype=np.uint64).astype(np.int64),
+             "keep_u": rng.rand(u) < 0.6, "keep_i": rng.rand(i) < 0.6}
+    d = 6
+    plain = (rng.randn(u, d).astype(np.float32), rng.randn(i, d).astype(np.float32))
+    biased = plain + (rng.randn(i).astype(np.float32), rng.randn(u).astype(np.float32), 0.25)
+    ranking = {"conf": conf, "train": train, "test": test, "k": 5, "batch": 4,
+               "forms": {"plain": plain, "biased": biased}}
+    return {"n": n, "forms": forms, "views": views, "ranking": ranking,
+            "x": [rng.randn(n, w).astype(np.float32) for w in (16, 15)],
+            "w": [rng.randn(n, w).astype(np.float32) for w in (16, 15)]}
+
+
 def _route_inputs():
     rng = np.random.RandomState(6)
     rows, cols, vals, n = _random_symmetric_coo()
@@ -174,7 +232,7 @@ def _route_inputs():
         view1[2] = 0.0  # a zero row
         infonce[b] = {"view1": view1, "view2": rng.randn(b, 16).astype(np.float32),
                       "mask": mask, "temp": 0.2}
-    return {"graph": graph, "infonce": infonce}
+    return {"graph": graph, "infonce": infonce, "dense": _dense_inputs()}
 
 
 @pytest.fixture(scope="module")
@@ -268,6 +326,163 @@ def test_row_sharded_infonce_matches_jax(routes, jax_routes, b):
 
 
 # ---------------------------------------------------------------------------
+# routes 6 and 7: in the spawn of four ranks (data 2 x model 2) and in one
+# of three (data 3 x model 1), where the items and the test users are cut
+# unevenly
+# ---------------------------------------------------------------------------
+
+WORLDS = (4, 3)
+
+
+@pytest.fixture(scope="module")
+def uneven_routes(tmp_path_factory):
+    return R.spawn(R.uneven, 3, tmp_path_factory.mktemp("uneven"), _dense_inputs())
+
+
+@pytest.fixture(scope="module")
+def dense_ranks(routes, uneven_routes):
+    return {4: routes[1], 3: uneven_routes}
+
+
+@pytest.fixture(scope="module")
+def dense_refs():
+    """Route 6's and the views' one-process references: the port's
+    ``joint_matmul`` and views on the whole table, and the JAX package's
+    ``DenseJoint`` product (the product it partitions on a mesh), two
+    layers forward and the gradient of ``sum(y * w)``; the ranking in one
+    process."""
+    inputs = _dense_inputs()
+    *_, jd, td = _dense_data()
+    out = {"port": {}, "jax": {}}
+    for form, (r, su, si) in inputs["forms"].items():
+        adj = DenseJoint.from_tables(R.dense_table(r, form), torch.from_numpy(su),
+                                     torch.from_numpy(si), form)
+        jadj = jspmm_mod.DenseJoint.from_interactions(jd, quant=form)
+        for x_np, w_np in zip(inputs["x"], inputs["w"]):
+            port, ref = [], []
+            for layers in (1, 2):
+                x = torch.from_numpy(x_np).requires_grad_(True)
+                y = x
+                for _ in range(layers):
+                    y = spmm(adj, y)
+                (y * torch.from_numpy(w_np)).sum().backward()
+                port += [y.detach().numpy(), x.grad.numpy()]
+
+                def jprop(a, layers=layers):
+                    for _ in range(layers):
+                        a = jspmm(jadj, a)
+                    return a
+
+                w = jnp.asarray(w_np)
+                ref += [np.asarray(jprop(jnp.asarray(x_np))),
+                        np.asarray(jax.grad(lambda a: jnp.sum(jprop(a) * w))(jnp.asarray(x_np)))]
+            out["port"][form, x_np.shape[1]] = tuple(port)
+            out["jax"][form, x_np.shape[1]] = tuple(ref)
+    v = inputs["views"]
+    adj = DenseJoint.from_tables(*map(torch.from_numpy, (v["r"], v["su"], v["si"])))
+    t = torch.from_numpy
+    out["views"] = {
+        "edge": factored_edge_drop_view(adj, torch.nonzero(adj.r, as_tuple=True), t(v["ru"]),
+                                        t(v["ci"]), v["p"]),
+        "node": factored_node_drop_view(adj, t(v["keep_u"]), t(v["keep_i"])),
+    }
+    case = inputs["ranking"]
+    ranker = CatalogRanker(td, case["k"], "cpu", torch.from_numpy(R.rated_bitmask(td)),
+                           batch_size=case["batch"])
+    out["ranking"] = {name: ranker.topk(ScoreForm(*(
+        torch.from_numpy(a) if isinstance(a, np.ndarray) else a for a in form)))
+        for name, form in case["forms"].items()}
+    out["test_users"] = len(ranker.uids)
+    return out
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_dense_column_blocks_tile_the_items(dense_ranks, world):
+    """Each data rank holds ``torch.tensor_split``'s block of the item
+    columns in a table of its own, padded to 16 columns; model replicas
+    hold the same block."""
+    ranks = dense_ranks[world]
+    data = 2 if world == 4 else 3
+    assert [o["shape"] for o in ranks] == [{"data": data, "model": world // data}] * world
+    i = _dense_data()[-1].num_items
+    sizes = tuple(len(b) for b in np.array_split(np.arange(i), data))
+    starts = np.cumsum((0,) + sizes)
+    for rank, out in enumerate(ranks):
+        c0, c1, ld, col_sizes = out["cols"]
+        d = rank // (world // data)
+        assert (c0, c1, col_sizes) == (starts[d], starts[d + 1], sizes)
+        assert ld == -(-(c1 - c0) // 16) * 16
+    assert len(set(sizes)) == (1 if i % data == 0 else 2)
+
+
+@pytest.mark.parametrize("width", [16, 15])
+@pytest.mark.parametrize("form", DENSE_FORMS)
+@pytest.mark.parametrize("world", WORLDS)
+def test_sharded_dense_joint_matches_jax_and_one_process(dense_ranks, dense_refs, world, form,
+                                                         width):
+    """Route 6 (R's item columns over ``data``; features over ``model`` at
+    width 16 on four ranks, the whole width at 15) in each dense form, one
+    and two layers forward and the gradient summed by the step's reduction.
+    Against the JAX package's ``DenseJoint`` product: within the bf16 bound
+    (bf16-rounded layer inputs, ``tests/test_torch_graph_forms.py``).
+    Against the port's one-process ``joint_matmul``: one application, both
+    ways, and two layers forward within 1e-6 of each output's largest
+    entry (the partials of the user half are summed over ``data`` before
+    the row scale); two layers backward within the bf16 bound, because the
+    user rows of a layer's dx are shares scaled before the step sums them,
+    an ulp off one process's sum, which the next layer's bf16 cast can
+    turn into one bf16 step (``ShardedJointMatmul``). The same bits on
+    every rank."""
+    ranks = dense_ranks[world]
+    _same_on_every_rank([o["dense"][form, width] for o in ranks])
+    got = ranks[0]["dense"][form, width]
+    names = ("y 1 layer", "dx 1 layer", "y 2 layers", "dx 2 layers")
+    for what, g, one, ref in zip(names, got, dense_refs["port"][form, width],
+                                 dense_refs["jax"][form, width]):
+        np.testing.assert_allclose(g, ref, **BF16, err_msg=what)
+        if what == "dx 2 layers":
+            np.testing.assert_allclose(g, one, **BF16, err_msg=what)
+        else:
+            np.testing.assert_allclose(g, one, rtol=0, atol=1e-6 * np.abs(one).max(),
+                                       err_msg=what)
+
+
+@pytest.mark.parametrize("view", ["edge", "node"])
+@pytest.mark.parametrize("world", WORLDS)
+def test_sharded_views_equal_one_process_bit_for_bit(dense_ranks, dense_refs, world, view):
+    """SGL's factored views of a rank's block (edge drop hashed at the
+    global item ids, node drop's degrees from K1 on the block) have one
+    process's scales and table, bit for bit: the user degrees summed over
+    ``data`` are integer counts."""
+    want = dense_refs["views"][view]
+    for out in dense_ranks[world]:
+        c0, c1, _, _ = out["cols"]
+        row_scale, col_scale, table = out["views"][view]
+        np.testing.assert_array_equal(row_scale, want.row_scale.numpy())
+        np.testing.assert_array_equal(col_scale, want.col_scale[c0:c1].numpy())
+        np.testing.assert_array_equal(table, want.r[:, c0:c1].numpy())
+    if view == "edge":  # the view drops some edges, not all
+        assert 0 < (want.r != 0).sum() < (dense_refs["views"]["node"].r != 0).sum()
+
+
+@pytest.mark.parametrize("form", ["plain", "biased"])
+@pytest.mark.parametrize("world", WORLDS)
+def test_mesh_ranking_equals_one_process(dense_ranks, dense_refs, world, form):
+    """Route 7: each rank runs K2 on its ``tensor_split`` share of the test
+    users only, in batches of 4, and every rank returns the lists of one
+    process bit for bit (unseen users at the global mean included)."""
+    n = dense_refs["test_users"]
+    want_ids, want_scores = dense_refs["ranking"][form]
+    assert (want_scores == np.float32(_dense_data()[-1].global_mean)).all(axis=1).sum() >= 2
+    for rank, out in enumerate(dense_ranks[world]):
+        ids, scores, calls = out["ranking"][form]
+        np.testing.assert_array_equal(ids, want_ids)
+        np.testing.assert_array_equal(scores, want_scores)
+        share = len(np.array_split(np.arange(n), world)[rank])
+        assert sum(calls) == share and len(calls) == -(-share // 4) and max(calls) <= 4
+
+
+# ---------------------------------------------------------------------------
 # training on four ranks: one spawn
 # ---------------------------------------------------------------------------
 
@@ -294,16 +509,9 @@ def _conf(name, args, extra=None):
     return base
 
 
-def _simgcl_draws(step_rng, n_layers, shape):
-    """SimGCL's noise of one step as the JAX loss draws it
-    (``tests/test_torch_ssl.py``)."""
-    ra, rb = jax.random.split(step_rng)
-    return [tuple(torch.from_numpy(np.array(jax.random.uniform(jax.random.fold_in(r, k), shape)))
-                  for r in (ra, rb))
-            for k in range(n_layers)]
-
-
-def _jax_adam_epochs(jmodel, spec, simgcl):
+def _jax_adam_epochs(jmodel, spec, draw):
+    """Three epochs of the JAX package's Adam loop; ``draw(step_rng)`` gives
+    the port's draws of a step as the JAX loss makes them, or is None."""
     optimizer = optax.adam(jmodel.lrate)
     run_epoch = jtrainer.make_epoch_runner(spec.loss_fn, optimizer)
     params, opt_state = spec.params, optimizer.init(spec.params)
@@ -313,10 +521,8 @@ def _jax_adam_epochs(jmodel, spec, simgcl):
         rng, rs, rt = jax.random.split(rng, 3)
         b = spec.sampler(rs)
         batches.append(tuple(np.asarray(a) for a in b))
-        if simgcl:
-            shape = (jmodel.num_users + jmodel.num_items, jmodel.emb_size)
-            draws += [_simgcl_draws(r, jmodel.n_layers, shape)
-                      for r in jax.random.split(rt, b[0].shape[0])]
+        if draw is not None:
+            draws += [draw(r) for r in jax.random.split(rt, b[0].shape[0])]
         params, opt_state, loss = run_epoch(params, opt_state, b, rt, spec.consts)
         losses.append(float(loss))
         tables.append({k: np.asarray(v) for k, v in params.items()})
@@ -347,14 +553,42 @@ def _jax_bold_epochs(jmodel, spec):
     return batches, losses, tables, None
 
 
-# name -> (model, JAX class, model args, extra keys)
+# name -> (model, JAX class, model args, extra keys, the JAX package's
+# extra keys where they differ: off a TPU its ``auto`` quant is bf16, the
+# port's factored)
+FACTORED = {"graph.dense.quant": "factored"}
+SGL_ARGS = "-n_layer 2 -lambda 0.02 -droprate 0.5 -augtype {} -temp 0.2"
 FITS = {
-    "LightGCN-pallas": ("LightGCN", JLightGCN, "-n_layer 2", {"graph.backend": "pallas"}),
-    "LightGCN-coo": ("LightGCN", JLightGCN, "-n_layer 2", {"graph.backend": "coo"}),
+    "LightGCN-pallas": ("LightGCN", JLightGCN, "-n_layer 2", {"graph.backend": "pallas"}, None),
+    "LightGCN-coo": ("LightGCN", JLightGCN, "-n_layer 2", {"graph.backend": "coo"}, None),
     "SimGCL-pallas": ("SimGCL", JSimGCL, "-n_layer 2 -lambda 0.1 -eps 0.1",
-                      {"graph.backend": "pallas"}),
+                      {"graph.backend": "pallas"}, None),
     "BPR": ("BPR", JBPR, None, {"learnRate": "-init 0.05 -max 1",
-                                "reg.lambda": "-u 0.01 -i 0.01 -b 0.1 -s 0.1"}),
+                                "reg.lambda": "-u 0.01 -i 0.01 -b 0.1 -s 0.1"}, None),
+}
+# slice 7b: the dense forms on route 6 (graph.backend unset: auto), SGL's
+# factored views on it and its sparse views on route 4, NGCF; at lr 0.001,
+# where ``tests/test_torch_lightgcn.py`` set the port's drift bounds
+# against the JAX package (tables 1e-4, losses rtol 1e-3): at lr 0.01 the
+# one-process port itself parts from the JAX package's tables by up to
+# 3e-3 on these forms (a flipped bf16 rounding moves a table further).
+# The bf16 form is held against the JAX package's dual kernel
+# (``graph.dense.dual=on``, interpret mode), the kernel that K1 ports: on
+# this data its two XLA products part from the port by 2.9e-4 in one
+# process already (one flipped bf16 rounding)
+LR = {"learnRate": "-init 0.001 -max 1"}
+BF16_S = {"graph.dense.quant": "off"}
+DENSE_FITS = {
+    "LightGCN-auto": ("LightGCN", JLightGCN, "-n_layer 2", LR, LR | FACTORED),
+    "LightGCN-off": ("LightGCN", JLightGCN, "-n_layer 2", LR | BF16_S,
+                     LR | BF16_S | {"graph.dense.dual": "on"}),
+    "LightGCN-int8": ("LightGCN", JLightGCN, "-n_layer 2", LR | {"graph.dense.quant": "int8"},
+                      None),
+    "SimGCL-auto": ("SimGCL", JSimGCL, "-n_layer 2 -lambda 0.1 -eps 0.1", LR, LR | FACTORED),
+    "NGCF": ("NGCF", JNGCF, "-n_layer 2", LR, LR | FACTORED),
+    "SGL-aug0": ("SGL", JSGL, SGL_ARGS.format(0), LR, LR | FACTORED),
+    "SGL-aug1": ("SGL", JSGL, SGL_ARGS.format(1), LR, LR | FACTORED),
+    "SGL-pallas": ("SGL", JSGL, SGL_ARGS.format(1), LR | {"graph.backend": "pallas"}, None),
 }
 
 
@@ -364,13 +598,15 @@ def _planted_file(tmp):
     return path
 
 
-SESSIONS = ("BPR-session", "LightGCN-pallas-session", "BPR-cv")
+SESSIONS = ("BPR-session", "LightGCN-pallas-session", "LightGCN-session", "BPR-cv")
 
 
 def _session_confs(tmp):
     """``tests/test_parallel.py``'s end-to-end runs: BPR 30 epochs and
     LightGCN-pallas 15 epochs past the dense budget, on the planted file;
-    and BPR under ``-cv 2``, its folds in turn on the mesh."""
+    LightGCN at ``config/LightGCN.conf``'s settings (``graph.backend``
+    unset: the factored dense form on route 6) for 15 epochs; and BPR
+    under ``-cv 2``, its folds in turn on the mesh."""
     ratings = str(_planted_file(tmp))
     bpr = _conf("BPR", None, {"ratings": ratings, "num.max.epoch": "30",
                               "learnRate": "-init 0.05 -max 1",
@@ -378,8 +614,9 @@ def _session_confs(tmp):
     lightgcn = _conf("LightGCN", "-n_layer 2", {
         "ratings": ratings, "num.max.epoch": "15", "learnRate": "-init 0.05 -max 1",
         "graph.backend": "pallas", "graph.dense.limit": "1"})
+    dense = {k: v for k, v in lightgcn.items() if not k.startswith("graph.")}
     cv = dict(bpr, **{"evaluation.setup": "-cv 2", "num.max.epoch": "3"})
-    return dict(zip(SESSIONS, (bpr, lightgcn, cv)))
+    return dict(zip(SESSIONS, (bpr, lightgcn, dense, cv)))
 
 
 @pytest.fixture(scope="module")
@@ -388,15 +625,22 @@ def trained(tmp_path_factory):
     port's on four ranks, on the same batches (and SimGCL's draws)."""
     train, test = data_split(_block_records(), 0.2, rng=random.Random(2))
     cases, jax_runs = {}, {}
-    for label, (name, jcls, args, extra) in FITS.items():
+    for label, (name, jcls, args, extra, jextra) in (FITS | DENSE_FITS).items():
         conf = _conf(name, args, extra)
-        jmodel = jcls(jconfig.ModelConf(conf), JInteractions(jconfig.ModelConf(conf), train, test))
+        jconf = jconfig.ModelConf(_conf(name, args, extra if jextra is None else jextra))
+        jmodel = jcls(jconf, JInteractions(jconf, train, test))
         spec = jmodel.build()
         init = {k: np.asarray(v) for k, v in spec.params.items()}
         if name == "BPR":
             batches, losses, tables, draws = _jax_bold_epochs(jmodel, spec)
         else:
-            batches, losses, tables, draws = _jax_adam_epochs(jmodel, spec, name == "SimGCL")
+            draw = None
+            if name != "LightGCN":
+                # the port's draws of a step, as ``tests/test_torch_sparse.py`` makes them
+                tmodel = get_model(name)(ModelConf(conf), Interactions(ModelConf(conf), train, test),
+                                         device="cpu")
+                draw = lambda r, m=tmodel: _sparse_slice_draws(m, r)  # noqa: E731
+            batches, losses, tables, draws = _jax_adam_epochs(jmodel, spec, draw)
         cases[label] = {"conf": conf, "train": train, "test": test, "params": init,
                         "batches": batches, "draws": draws}
         jax_runs[label] = {"losses": losses, "tables": tables}
@@ -448,16 +692,49 @@ def test_first_step_gradients_match_one_process(trained, label):
                                        atol=1e-6 * np.abs(ref).max(), err_msg=key)
 
 
+@pytest.mark.parametrize("label", list(DENSE_FITS))
+def test_four_ranks_train_the_lightgcn_family_in_every_form(trained, label):
+    """Three epochs on the JAX sampler's batches and draws on four ranks:
+    LightGCN on route 6 in each dense form (``graph.backend`` unset, so
+    ``auto`` takes the factored one), SimGCL on it with the row-sharded
+    InfoNCE, NGCF on it, SGL on its factored views (aug types 0 and 1) and
+    on its sparse views over route 4, SimGCL and SGL ranking after every
+    epoch through route 7. The first step's loss (the data ranks' shares
+    summed) within rtol 1e-5 of one process's; the losses within rtol 1e-3
+    and the tables within 1e-4 of one process's and the JAX package's (the
+    drift bounds of ``tests/test_torch_lightgcn.py``: route 6 sums the user
+    half's partials in another f32 order, which a layer's bf16 cast can
+    turn into one bf16 step); the first step's gradients within the bf16
+    bound of one process's."""
+    jax_run, one, ranks = trained[0][label], trained[1][label], trained[2]
+    got = ranks[0][label]
+    assert got["mesh"] == {"data": 2, "model": 2} and one["mesh"] is None
+    sparse = label == "SGL-pallas"
+    assert (got["adj"], one["adj"]) == (("ShardedSparseJoint", "SparseJoint") if sparse else
+                                        ("ShardedDenseJoint", "DenseJoint"))
+    first = sum(r[label]["first_loss"] for r in ranks[::2])  # model index 0: one per data rank
+    np.testing.assert_allclose(first, one["first_loss"], rtol=1e-5)
+    np.testing.assert_allclose(got["losses"], one["losses"], rtol=1e-3)
+    np.testing.assert_allclose(got["losses"], jax_run["losses"], rtol=1e-3)
+    assert got["best"] == one["best"]
+    want = jax_run["tables"][(got["best"] or len(got["losses"])) - 1]
+    for key, value in got["params"].items():
+        np.testing.assert_allclose(value, one["params"][key], atol=1e-4, err_msg=key)
+        np.testing.assert_allclose(value, want[key], atol=1e-4, err_msg=key)
+    for key, ref in one["grads"].items():
+        np.testing.assert_allclose(got["grads"][key], ref, **BF16, err_msg=key)
+
+
 def test_ranks_stay_equal_bit_for_bit(trained):
     ranks = trained[2]
-    for label in FITS:
+    for label in FITS | DENSE_FITS:
         _same_on_every_rank([(r[label]["losses"], r[label]["params"], r[label]["U"],
                               r[label]["V"], r[label]["grads"]) for r in ranks])
     for label in SESSIONS:
         _same_on_every_rank([(r[label]["U"], r[label]["measure"]) for r in ranks])
 
 
-@pytest.mark.parametrize("label", SESSIONS[:2])
+@pytest.mark.parametrize("label", SESSIONS[:3])
 def test_session_on_four_ranks(trained, label):
     """``parallel.setup=on -model 2`` through ``QRec(conf).execute()``: the
     planted blocks learnt (Recall@10 > 0.5) and the measures within 2e-2 of
@@ -498,12 +775,17 @@ def test_cross_validation_folds_run_in_turn_on_the_mesh(trained):
 def test_mesh_refuses_what_is_not_ported(tmp_path):
     """On two ranks (``parallel.setup=on``: data 1 x model 2) each of these
     raises the ConfigError that names ROADMAP.md Queue 1 item 19 on every
-    rank: NGCF, a dense adjacency, ``checkpoint.setup`` and ``-cv 3 -p``."""
+    rank: a model outside the ported five (MHCN, with its trust file),
+    ``model.setup -save``, ``checkpoint.setup`` and ``-cv 3 -p``."""
     ratings = str(_planted_file(tmp_path))
+    trust = tmp_path / "trust.txt"
+    trust.write_text("".join(f"u{u} u{(u + 1) % 40}\n" for u in range(40)))
     base = {"ratings": ratings, "parallel.setup": "on", "num.max.epoch": "1"}
     confs = {
-        "NGCF": _conf("NGCF", "", base),
-        "dense": _conf("LightGCN", "-n_layer 2", dict(base, **{"graph.backend": "dense"})),
+        "MHCN": _conf("MHCN", "-n_layer 2 -ss_rate 0.01", dict(base, **{
+            "social": str(trust), "social.setup": "-columns 0 1"})),
+        "save": _conf("LightGCN", "-n_layer 2", dict(base, **{
+            "model.setup": f"-save {tmp_path / 'model'}"})),
         "checkpoint": _conf("BPR", None, dict(base, **{
             "checkpoint.setup": f"on -dir {tmp_path / 'ckpt'}"})),
         "cv -p": _conf("BPR", None, dict(base, **{"evaluation.setup": "-cv 3 -p"})),

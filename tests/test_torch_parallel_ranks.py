@@ -18,8 +18,17 @@ from qrec_tpu_torch.data.dataset import Interactions
 from qrec_tpu_torch.data.graph import COO
 from qrec_tpu_torch.errors import ConfigError
 from qrec_tpu_torch.models import get_model
+from qrec_tpu_torch.ops import topk
+from qrec_tpu_torch.ops.sampling import pack_bitmask
 from qrec_tpu_torch.ops.losses import infonce_dispatch
-from qrec_tpu_torch.ops.spmm import ShardedSparseJoint, spmm
+from qrec_tpu_torch.ops.spmm import (
+    DenseJoint,
+    ShardedDenseJoint,
+    ShardedSparseJoint,
+    factored_edge_drop_view,
+    factored_node_drop_view,
+    spmm,
+)
 from qrec_tpu_torch.parallel.collectives import all_reduce_sum, reduce_gradients, split_range
 from qrec_tpu_torch.parallel.mesh import make_mesh
 
@@ -45,6 +54,8 @@ def _entry(rank, target, world, store_dir, args):
         result = target(rank, *args)
         with open(os.path.join(store_dir, f"rank{rank}.pkl"), "wb") as f:
             pickle.dump(result, f)
+        # no rank tears its connections down while another still uses them
+        dist.barrier()
     finally:
         dist.destroy_process_group()
 
@@ -84,13 +95,98 @@ def routes(rank, inputs):
         reduce_gradients([v1, v2], mesh)
         total = all_reduce_sum(loss.detach().clone(), mesh.data_group)
         out["infonce"][b] = (float(loss), float(total), v1.grad.numpy(), v2.grad.numpy())
+    out.update(dense_routes(mesh, inputs["dense"]))
     return out
 
 
+def dense_routes(mesh, inputs) -> dict:
+    """Route 6 (K1 on the rank's item-column block) in each dense form: one
+    and two layers forward, and the gradient of a loss whose share is this
+    data rank's rows of ``sum(y * w)``, after the step's reduction; SGL's
+    factored views of the block (their scales, and the block of the
+    edge-drop table); the ranking cut by test user (route 7), with K2's
+    calls on this rank."""
+    out = {"dense": {}, "views": {}}
+    n = inputs["n"]
+    r0, r1 = split_range(n, mesh.data, mesh.data_index)
+    for form, (r, su, si) in inputs["forms"].items():
+        adj = ShardedDenseJoint.from_joint(
+            DenseJoint.from_tables(dense_table(r, form), _t(su), _t(si), form), mesh)
+        out["cols"] = (adj.col0, adj.col1, adj.r.shape[1], adj.col_sizes)
+        for x_np, w_np in zip(inputs["x"], inputs["w"]):
+            got = []
+            for layers in (1, 2):
+                x = _t(x_np).requires_grad_(True)
+                y = x
+                for _ in range(layers):
+                    y = spmm(adj, y)
+                ((y * _t(w_np))[r0:r1].sum()).backward()
+                reduce_gradients([x], mesh)
+                got += [y.detach().numpy(), x.grad.numpy()]
+            out["dense"][form, x_np.shape[1]] = tuple(got)
+    v = inputs["views"]
+    adj = ShardedDenseJoint.from_joint(DenseJoint.from_tables(
+        _t(v["r"]), _t(v["su"]), _t(v["si"])), mesh)
+    edges = torch.nonzero(adj.r, as_tuple=True)
+    edge = factored_edge_drop_view(adj, edges, _t(v["ru"]), _t(v["ci"]), v["p"])
+    node = factored_node_drop_view(adj, _t(v["keep_u"]), _t(v["keep_i"]))
+    for name, view in (("edge", edge), ("node", node)):
+        out["views"][name] = (view.row_scale.numpy(), view.col_scale.numpy(),
+                              view.r[:, : adj.col1 - adj.col0].numpy())
+    out["ranking"] = ranking(mesh, inputs["ranking"])
+    return out
+
+
+def dense_table(r: np.ndarray, form: str) -> torch.Tensor:
+    """A dense form's R from its numpy array: the bf16 table travels as its
+    f32 values (exact)."""
+    t = _t(r)
+    return t.to(torch.bfloat16) if form == "off" else t
+
+
+def ranking(mesh, case) -> dict:
+    """``CatalogRanker(mesh=)`` on a plain and a biased score form: the
+    gathered lists and the rows of every K2 call this rank made."""
+    data = Interactions(ModelConf(case["conf"]), case["train"], case["test"])
+    bitmask = torch.from_numpy(rated_bitmask(data))
+    calls = []
+    kernel = topk.masked_catalog_topk
+
+    def counted(user_emb, items, bitmask, uids, *a, **k):
+        calls.append(int(uids.shape[0]))
+        return kernel(user_emb, items, bitmask, uids, *a, **k)
+
+    topk.masked_catalog_topk = counted
+    try:
+        ranker = topk.CatalogRanker(data, case["k"], "cpu", bitmask, batch_size=case["batch"],
+                                    mesh=mesh)
+        out = {}
+        for name, form in case["forms"].items():
+            calls.clear()
+            ids, scores = ranker.topk(topk.ScoreForm(*(
+                _t(a) if isinstance(a, np.ndarray) else a for a in form)))
+            out[name] = (ids, scores, list(calls))
+    finally:
+        topk.masked_catalog_topk = kernel
+    return out
+
+
+def rated_bitmask(data) -> np.ndarray:
+    return pack_bitmask(data.u_indptr, data.u_indices, data.num_users, data.num_items)
+
+
+def uneven(rank, inputs):
+    """Route 6, the views and the ranking on three ranks (data 3 x model
+    1): the items and the test users cut unevenly."""
+    mesh = make_mesh()
+    return dict(dense_routes(mesh, inputs), shape=mesh.shape)
+
+
 def fit_case(case) -> dict:
-    """One model fit on injected batches (and SimGCL's draws) from the JAX
-    package's initial parameters: the losses, the tables, the final factors
-    and every parameter's gradient at the first optimizer step."""
+    """One model fit on injected batches (and the models' draws) from the
+    JAX package's initial parameters: the losses, the first step's loss
+    (this data rank's share on a mesh), the tables, the final factors and
+    every parameter's gradient at the first optimizer step."""
     conf = ModelConf(case["conf"])
     data = Interactions(conf, case["train"], case["test"])
     model = get_model(case["conf"]["model.name"])(conf, data, device="cpu")
@@ -98,6 +194,16 @@ def fit_case(case) -> dict:
     if case.get("draws") is not None:
         stream = iter(case["draws"])
         model.draw = lambda gen: next(stream)
+    step_losses = []
+    loss = model.loss
+
+    def first_loss(batch, gen=None):
+        value = loss(batch, gen)
+        if not step_losses:
+            step_losses.append(value.item())
+        return value
+
+    model.loss = first_loss
     first = []
     originals = {cls: cls.step for cls in (torch.optim.Adam, torch.optim.SGD)}
 
@@ -117,7 +223,7 @@ def fit_case(case) -> dict:
             cls.step = step
     mesh = model.mesh
     return {
-        "losses": losses, "grads": first[0],
+        "losses": losses, "grads": first[0], "first_loss": step_losses[0],
         "params": {n: p.detach().numpy().copy() for n, p in model.named_parameters()},
         "U": model.U.numpy(), "V": model.V.numpy(),
         "mesh": None if mesh is None else mesh.shape,
