@@ -121,19 +121,24 @@ Phases, each of which exits non-zero on failure:
    itself; one LightGCN epoch and ranking under
    ``runtime.profiling.trace``, whose file must name K1's and K2's CUDA
    kernels;
-15. multi-GPU (``parallel_phases``): ``config/LightGCN.conf`` (3 epochs)
-   and ``config/SimGCL.conf`` (2 epochs), each with ``graph.backend=pallas``
-   and ``parallel.setup=on -model 2``, once in one process (no mesh) and
-   once on four ranks on cuda:0 over a gloo group that the script makes
-   (data 2 x model 2): K5 on row blocks at width 25 (75 for SimGCL's fused
-   views), K3/K4 on 1,000 rows at offsets 0 and 1,000; every rank's
-   launches against ``expected_launches``, the ranks' tables equal bit for
-   bit, the measures within 2e-2 and the first epoch's loss within rtol
-   1e-4 of one process, each route against its plain twin, each route's
-   kernel timed on one rank's share; then a one-rank NCCL group from the
-   port's ``maybe_initialize_distributed``, whose routes must give the
-   one-device path's bits. Four ranks share one card: this shows the
-   routes right, not their scaling;
+15. multi-GPU (``parallel_phases``): the runs of ``PARALLEL_RUNS`` (the
+   LightGCN family in every adjacency form; MHCN, SEPT, BUIR, DiffNet and
+   DHCF with ``lastfm_trust``), each with ``parallel.setup=on -model 2``,
+   once in one process (no mesh) and once on four ranks on cuda:0 over a
+   gloo group that the script makes (data 2 x model 2): K5 on row blocks
+   at width 25 (75 for SimGCL's fused views), K1 on item-column blocks,
+   K3/K4 on 1,000 rows at offsets 0 and 1,000, K2 on a quarter of the test
+   users; every rank's launches against ``expected_launches``, the ranks'
+   tables equal bit for bit, the measures within 2e-2 and the first
+   epoch's loss within rtol 1e-4 of one process, each route against its
+   plain twin, each route's kernel timed on one rank's share; LightGCN's
+   lifecycle on the four ranks (``PARALLEL_LIFECYCLE``: stopped after
+   epoch 1 of 2 under ``checkpoint.setup``, resumed bit for bit against
+   the unbroken mesh run, rank 0 alone writing the step files and the
+   ``-save``d model, a ``-load`` of it ranking to the same measures); then
+   a one-rank NCCL group from the port's ``maybe_initialize_distributed``,
+   whose routes must give the one-device path's bits. Four ranks share one
+   card: this shows the routes right, not their scaling;
 16. planted-block runs that must learn their blocks: LightGCN and SimGCL on
    the dense adjacency, LightGCN and SGL on the sparse one, NGCF, and
    SBPR and ESRF with a trust relation;
@@ -1573,6 +1578,31 @@ def walk_distribution(net, walks, active, walk_count) -> float:
     return float(0.5 * np.abs(seen / seen.sum() - expected / expected.sum()).sum())
 
 
+def lifecycle_launches(model, kind=None):
+    """The launches of a lifecycle run of LightGCN or SVD, in one process or
+    on a mesh (``host_and_lifecycle_phases``, ``PARALLEL_LIFECYCLE``): a
+    stopped run's are a run's; a resumed run's leave out the K1 launches of
+    the epochs it did not train; a model loaded (``kind`` ``-load``) runs
+    K2 alone, once a batch of its test users (on a mesh, of this rank's
+    share)."""
+    import torch.distributed as dist
+
+    from qrec_tpu_torch.ops.kernels import KERNELS
+    from qrec_tpu_torch.parallel.collectives import split_sizes
+
+    if kind == "-load":
+        users = len(model.data.test_set_u)
+        if model.mesh is not None:
+            users = split_sizes(users, dist.get_world_size())[dist.get_rank()]
+        return {k.name: 0 for k in KERNELS} | {
+            "masked_catalog_topk": math.ceil(users / model.eval_batch_size)}
+    counts = expected_launches(model)
+    if model.resumed_step is not None:
+        steps = math.ceil(model.train_size / model.batch_size)
+        counts["bipartite_dual_matmul"] -= 2 * model.n_layers * steps * model.resumed_step
+    return counts
+
+
 def host_and_lifecycle_phases(torch, K, QRec, conf_of, tmp, card, unbroken):
     """The lifecycle slice: the host library, resume, save/load and the trace.
 
@@ -1663,24 +1693,17 @@ def host_and_lifecycle_phases(torch, K, QRec, conf_of, tmp, card, unbroken):
         check_counts(label, counts, expect(rec.model))
         return rec.model, measure, counts
 
-    zero = {k.name: 0 for k in K.KERNELS}
-    evals = lambda m: math.ceil(len(m.data.test_set_u) / m.eval_batch_size)  # noqa: E731
+    loaded_launches = lambda m: lifecycle_launches(m, "-load")  # noqa: E731
     saved = os.path.join(tmp, "lifecycle", "lightgcn")
     ckpt = f"on -dir {os.path.join(tmp, 'lifecycle', 'ck')} -every 2"
     conf = conf_of("LightGCN", 3)
     conf["checkpoint.setup"] = ckpt
     stopped, _, stopped_counts = checked_run("lightgcn stopped", conf, expected_launches)
 
-    def resumed_launches(model):
-        counts = expected_launches(model)
-        steps = math.ceil(model.train_size / model.batch_size)
-        counts["bipartite_dual_matmul"] -= 2 * model.n_layers * steps * model.resumed_step
-        return counts
-
     conf = conf_of("LightGCN", 5)
     conf["checkpoint.setup"] = ckpt
     conf["model.setup"] = f"-save {saved}"
-    resumed, measure, counts = checked_run("lightgcn resumed", conf, resumed_launches)
+    resumed, measure, counts = checked_run("lightgcn resumed", conf, lifecycle_launches)
     same = (resumed.resumed_step == 2 and stopped.epoch_losses == unbroken["losses"][:3]
             and resumed.epoch_losses == unbroken["losses"][2:]
             and torch.equal(resumed.U, unbroken["U"]) and torch.equal(resumed.V, unbroken["V"]))
@@ -1696,8 +1719,7 @@ def host_and_lifecycle_phases(torch, K, QRec, conf_of, tmp, card, unbroken):
     del stopped, resumed
     conf = conf_of("LightGCN", 5)
     conf["model.setup"] = f"-load {saved}"
-    _, loaded, counts = checked_run("lightgcn loaded", conf,
-                                    lambda m: zero | {"masked_catalog_topk": evals(m)})
+    _, loaded, counts = checked_run("lightgcn loaded", conf, loaded_launches)
     if loaded != measure:
         fail("lightgcn loaded: the measure lines differ from the saving run's")
     print(f"[lightgcn loaded] measure lines equal to the saving run's ({counts['masked_catalog_topk']} "
@@ -1712,8 +1734,7 @@ def host_and_lifecycle_phases(torch, K, QRec, conf_of, tmp, card, unbroken):
     svd, measure, counts = checked_run("svd saved", conf, expected_launches)
     k2["svd saved"] = counts["masked_catalog_topk"]
     conf["model.setup"] = f"-load {saved}"
-    loaded_svd, loaded, counts = checked_run("svd loaded", conf,
-                                             lambda m: zero | {"masked_catalog_topk": evals(m)})
+    loaded_svd, loaded, counts = checked_run("svd loaded", conf, loaded_launches)
     biased = loaded_svd.score_form().user_bias is not None
     if loaded != measure or not biased or not torch.equal(loaded_svd.Bu, svd.Bu):
         fail("svd loaded: the measure lines or the biases differ from the saving run's")
@@ -1786,44 +1807,77 @@ PARALLEL_RANKS = 4
 # (label, config, epochs, keys set on the published config) of the runs
 # that every rank makes under parallel.setup=on -model 2 (data 2 x model
 # 2): K5's row blocks (pallas), K1's item-column blocks (the configs' own
-# auto: the factored dense form), SGL's dense and sparse views
+# auto: the factored dense form), SGL's dense and sparse views; the social
+# and hypergraph models with lastfm_trust as published (graph.backend
+# unset: SEPT's rec view and BUIR's scoring on K1's column blocks, BUIR's
+# views on K5's row blocks, MHCN's, DiffNet's and DHCF's operators whole on
+# every rank). The lightgcn run is the unbroken run of the lifecycle
 PARALLEL_RUNS = (
-    ("lightgcn-pallas", "LightGCN", 2, {"graph.backend": "pallas"}),
+    ("lightgcn-pallas", "LightGCN", 1, {"graph.backend": "pallas"}),
     ("simgcl-pallas", "SimGCL", 2, {"graph.backend": "pallas"}),
-    ("lightgcn", "LightGCN", 3, {}),
+    ("lightgcn", "LightGCN", 2, {}),
     ("sgl", "SGL", 2, {}),
     ("sgl-pallas", "SGL", 1, {"graph.backend": "pallas"}),
     ("ngcf", "NGCF", 2, {}),
+    ("mhcn", "MHCN", 1, {}),
+    ("sept", "SEPT", 2, {}),
+    ("buir", "BUIR", 1, {}),
+    ("diffnet", "DiffNet", 1, {}),
+    ("dhcf", "DHCF", 1, {}),
+)
+# the lifecycle on the four ranks: (label, epochs, checkpoint.setup on,
+# model.setup) after the unbroken "lightgcn" run, in this order
+PARALLEL_LIFECYCLE = (
+    ("lightgcn stopped", 1, True, None),
+    ("lightgcn resumed", 2, True, "-save"),
+    ("lightgcn loaded", 2, False, "-load"),
 )
 SHARED = "4 ranks sharing one H100"
 
 
 def rank_shares(model) -> str:
     """What this rank's kernels take of the run: K1's item-column block or
-    K5's row block and their feature width, K3/K4's contrastive rows
-    (b_loc) and row offset, K2's test users."""
+    K5's row block of the joint adjacency and their feature width, K5's
+    row block of BUIR's views, the auxiliary operators every rank holds
+    whole, K3/K4's contrastive rows (b_loc) and row offset, K2's test
+    users."""
     import torch.distributed as dist
 
-    from qrec_tpu_torch.ops.spmm import ShardedDenseJoint, feature_slice
+    from qrec_tpu_torch.ops.spmm import DenseMat, DeviceCOO, ShardedDenseJoint, feature_slice
     from qrec_tpu_torch.parallel.collectives import split_range
 
-    mesh, adj = model.mesh, model.joint_adj
+    mesh = model.mesh
+    # the joint adjacency only where the model built it (MHCN, DiffNet and
+    # DHCF propagate over auxiliary operators alone)
+    adj, view = vars(model).get("_joint_adj"), getattr(model, "view_adj", None)
+
+    def width(w):
+        cut = feature_slice(mesh, w)
+        return str(w if cut is None else cut[1] - cut[0])
+
     widths = [model.emb_size] + ([3 * model.emb_size] if model.model_name == "SimGCL" else [])
-    cuts = [feature_slice(mesh, w) for w in widths]
-    width = " and ".join(str(w if c is None else c[1] - c[0]) for w, c in zip(widths, cuts))
+    widths = " and ".join(width(w) for w in widths)
+    parts = []
     if isinstance(adj, ShardedDenseJoint):
-        out = (f"K1 item columns [{adj.col0}, {adj.col1}) of {adj.num_items}, "
-               f"{int((adj.r != 0).sum())} nonzeros, width {width}")
-    else:
-        out = (f"K5 rows [{adj.row0}, {adj.row1}) of {adj.num_rows}, {adj.edge1 - adj.edge0} "
-               f"edges, width {width}")
+        parts.append(f"K1 item columns [{adj.col0}, {adj.col1}) of {adj.num_items}, "
+                     f"{int((adj.r != 0).sum())} nonzeros, width {widths}")
+    elif adj is not None:
+        parts.append(f"K5 rows [{adj.row0}, {adj.row1}) of {adj.num_rows}, "
+                     f"{adj.edge1 - adj.edge0} edges, width {widths}")
+    if view is not None and not isinstance(view, DeviceCOO):
+        parts.append(f"K5 view rows [{view.row0}, {view.row1}) of {view.num_rows}, "
+                     f"{view.edge1 - view.edge0} edges, width {width(model.emb_size)}")
+    aux = [k for k, v in vars(model).items() if isinstance(v, (DenseMat, DeviceCOO))
+           and k != "view_adj"]
+    if aux:
+        parts.append(f"whole on every rank (torch ops): {', '.join(aux)}")
     if model.model_name in ("SimGCL", "SGL"):
         b = model.batch_size * (1 if model.model_name == "SimGCL" else 2)
         o0, o1 = split_range(b, mesh.data, mesh.data_index)
-        out += f"; K3/K4 rows [{o0}, {o1}) of {b}: b_loc {o1 - o0}, row_offset {o0}"
+        parts.append(f"K3/K4 rows [{o0}, {o1}) of {b}: b_loc {o1 - o0}, row_offset {o0}")
     n = len(model.data.test_set_u)
     s0, s1 = split_range(n, dist.get_world_size(), dist.get_rank())
-    return out + f"; K2 test users [{s0}, {s1}) of {n}"
+    return "; ".join(parts + [f"K2 test users [{s0}, {s1}) of {n}"])
 
 
 def parallel_route_checks(torch, K, model):
@@ -1836,26 +1890,39 @@ def parallel_route_checks(torch, K, model):
     and cotangents summed over ``data`` against the plain function's
     autograd); the ranking cut by test user (route 7) on the final factors,
     bit for bit against K2 on every test user in one process and against
-    the plain top-k (a row may differ where near-equal scores swap). Every
-    rank calls it: the routes gather. Returns {route: max_abs_err}."""
+    the plain top-k (a row may differ where near-equal scores swap); BUIR's
+    views (route 4 with per-edge values) with every edge kept, against the
+    plain segment product of the whole view. A model with no joint
+    adjacency (MHCN, DiffNet, DHCF) has route 7 alone. Every rank calls
+    it: the routes gather. Returns {route: max_abs_err}."""
     from qrec_tpu_torch.data.graph import joint_normalized_adjacency
     from qrec_tpu_torch.ops.losses import infonce_dispatch, masked_infonce
     from qrec_tpu_torch.ops.spmm import (
         DenseJoint,
         ShardedDenseJoint,
         SparseJoint,
+        ShardedSparseJoint,
+        renormalize_vals,
         segment_operand,
         spmm,
     )
     from qrec_tpu_torch.ops.topk import CatalogRanker, ScoreForm
     from qrec_tpu_torch.parallel.collectives import all_reduce_sum, reduce_gradients
 
-    mesh, adj = model.mesh, model.joint_adj
+    def segment_close(y, plain, xb, indptr, cols, vals):
+        """K5's order bound: 2 ulp of f32 a term of a row's sum of |v x|."""
+        absum = K.weighted_segment_matmul_plain(xb.abs(), indptr, cols, vals.abs())
+        return bool(((y - plain).abs() <= 2.0 * indptr.diff().float()[:, None] * 2.0**-24
+                     * absum).all())
+
+    mesh, adj = model.mesh, vars(model).get("_joint_adj")
     errs = {}
     with torch.no_grad():
         x = torch.cat([model.user_emb, model.item_emb])
-        y = spmm(adj, x)
-    if isinstance(adj, ShardedDenseJoint):
+        y = None if adj is None else spmm(adj, x)
+    if adj is None:
+        pass
+    elif isinstance(adj, ShardedDenseJoint):
         whole = DenseJoint.from_interactions(model.data, "cuda", adj.form)
         plain = K.factored_dual_matmul_plain(whole.r, x, whole.row_scale, whole.col_scale)
         del whole
@@ -1867,12 +1934,23 @@ def parallel_route_checks(torch, K, model):
                                       check_symmetric=False)
         xb = segment_operand(x)
         plain = K.weighted_segment_matmul_plain(xb, whole.indptr, whole.cols, whole.vals)
-        absum = K.weighted_segment_matmul_plain(xb.abs(), whole.indptr, whole.cols,
-                                                whole.vals.abs())
-        if not bool(((y - plain).abs() <= 2.0 * whole.indptr.diff().float()[:, None]
-                     * 2.0**-24 * absum).all()):
+        if not segment_close(y, plain, xb, whole.indptr, whole.cols, whole.vals):
             raise AssertionError("K5's row blocks disagree with the plain product")
         errs["segment row blocks"] = (y - plain).abs().max().item()
+    view = getattr(model, "view_adj", None)
+    if isinstance(view, ShardedSparseJoint):
+        rows, cols = model.view_edges
+        n = view.num_rows
+        vals = renormalize_vals(rows, cols, torch.ones(rows.shape[0], device="cuda"), n)
+        with torch.no_grad():
+            y = spmm(view, x, vals)
+        indptr = torch.searchsorted(rows.long(), torch.arange(n + 1, device="cuda")).int()
+        xb = segment_operand(x)
+        plain = K.weighted_segment_matmul_plain(xb, indptr, cols.int(), vals)
+        if not segment_close(y, plain, xb, indptr, cols.int(), vals):
+            raise AssertionError("K5's row blocks of BUIR's view disagree with the plain product")
+        errs["segment row blocks"] = max(errs.get("segment row blocks", 0.0),
+                                         (y - plain).abs().max().item())
     if model.model_name in ("SimGCL", "SGL"):
         view1, view2, mask = first_step_views(torch, model)
         a1, a2 = view1.clone().requires_grad_(True), view2.clone().requires_grad_(True)
@@ -1908,12 +1986,13 @@ def parallel_route_checks(torch, K, model):
     return errs
 
 
-def parallel_rank(rank, store, runs, out_dir):
+def parallel_rank(rank, store, runs, lifecycle, out_dir):
     """One rank of ``parallel_phases``: joins the gloo group that this script
     makes on cuda:0, drives each run through ``QRec(conf).execute()`` with
     its launch counts set to 0 just before and read just after, checks the
     routes on the run's operands and writes what it read (its printed
-    output goes to ``rank<r>.log``)."""
+    output goes to ``rank<r>.log``); then the lifecycle runs, recording
+    the checkpoint steps and the ``np.savez`` calls that this rank made."""
     import datetime
     import pickle
 
@@ -1946,6 +2025,30 @@ def parallel_rank(rank, store, runs, out_dir):
                 U=model.U.cpu().numpy(), V=model.V.cpu().numpy(),
                 errs=parallel_route_checks(torch, K, model))
             del rec, model
+        from qrec_tpu_torch.runtime import checkpoint as C
+
+        steps, savez = [], []
+        real_save, real_savez = C.Checkpointer.save, np.savez
+        C.Checkpointer.save = lambda ck, step, state: (steps.append(step),
+                                                       real_save(ck, step, state))[1]
+        np.savez = lambda path, *a, **k: (savez.append(str(path)), real_savez(path, *a, **k))[1]
+        try:
+            for label, conf, kind in lifecycle:
+                K.reset_launch_counts()
+                rec = QRec(ModelConf(conf))
+                measure = rec.execute()
+                counts = K.launch_counts()
+                model = rec.model
+                out[label] = dict(
+                    counts=counts, expect=lifecycle_launches(model, kind), measure=measure,
+                    losses=list(getattr(model, "epoch_losses", [])),
+                    resumed=getattr(model, "resumed_step", None),
+                    tables={n: p.detach().cpu().numpy() for n, p in model.named_parameters()},
+                    U=model.U.cpu().numpy(), V=model.V.cpu().numpy())
+                del rec, model
+        finally:
+            C.Checkpointer.save, np.savez = real_save, real_savez
+        out["lifecycle writes"] = dict(steps=steps, savez=savez)
         with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
             pickle.dump(out, f)
     finally:
@@ -2198,21 +2301,23 @@ def nccl_phase(torch, lightgcn, simgcl, dense):
             os.environ.pop(key, None)
 
 
-def parallel_phases(torch, K, QRec, conf_of, tmp):
-    """Slices 7a and 7b on the card. Run A: each run of ``PARALLEL_RUNS`` in
+def parallel_phases(torch, K, QRec, conf_of, tmp, trust_path):
+    """Slices 7a-7c on the card. Run A: each run of ``PARALLEL_RUNS`` in
     one process (where ``parallel.setup`` builds no mesh), then on four
     ranks on cuda:0 over a gloo group that this script makes
     (``parallel_rank``): data 2 x model 2, so K5 runs on row blocks and K1
     on item-column blocks at width 25 (75 for SimGCL's fused views), K3/K4
-    on half the contrastive rows and K2 on a quarter of the test users.
-    Holds every rank's launches against ``expected_launches``, the ranks'
-    tables equal bit for bit, the measures within 2e-2 and the first
-    epoch's loss within rtol 1e-4 of the one-process run, and each route
-    against its plain twin; times each route's kernel on one rank's share
-    (``shard_timings``). The four ranks share one card and gloo carries
-    their collectives through host memory: this checks the routes, not
-    their scaling. Run B: ``nccl_phase``. Returns (kernels-line entries,
-    launches summed over the ranks)."""
+    on half the contrastive rows and K2 on a quarter of the test users; the
+    social models read ``trust_path``. Holds every rank's launches against
+    ``expected_launches``, the ranks' tables equal bit for bit, the
+    measures within 2e-2 and the first epoch's loss within rtol 1e-4 of the
+    one-process run, and each route against its plain twin; then the
+    lifecycle runs (``PARALLEL_LIFECYCLE``) against the unbroken
+    ``lightgcn`` run, bit for bit, with rank 0 alone writing; times each
+    route's kernel on one rank's share (``shard_timings``). The four ranks
+    share one card and gloo carries their collectives through host memory:
+    this checks the routes, not their scaling. Run B: ``nccl_phase``.
+    Returns (kernels-line entries, launches summed over the ranks)."""
     import pickle
 
     import torch.multiprocessing as mp
@@ -2225,12 +2330,24 @@ def parallel_phases(torch, K, QRec, conf_of, tmp):
         conf = conf_of(name, epochs)
         for key, value in extra.items():
             conf[key] = value
+        if conf.contains("social"):
+            conf["social"] = trust_path
         conf["parallel.setup"] = "on -model 2"
         runs.append((label, dict(conf.config)))
         model, _, parsed = drive(torch, K, QRec, conf, f"parallel {label} one process")
         if model.mesh is not None:
             fail(f"parallel {label}: one process built a mesh")
         one[label] = dict(model=model, parsed=parsed)
+    life_dir = os.path.join(tmp, "parallel_lifecycle")
+    saved = os.path.join(life_dir, "lightgcn")
+    lifecycle = []
+    for label, epochs, ckpt, setup in PARALLEL_LIFECYCLE:
+        conf = dict(dict(runs)["lightgcn"], **{"num.max.epoch": str(epochs)})
+        if ckpt:
+            conf["checkpoint.setup"] = f"on -dir {os.path.join(life_dir, 'ck')} -every 1"
+        if setup:
+            conf["model.setup"] = f"{setup} {saved}"
+        lifecycle.append((label, conf, setup))
     out_dir = os.path.join(tmp, "ranks")
     os.makedirs(out_dir)
     print(f"[parallel] this script makes a gloo group of {PARALLEL_RANKS} ranks on cuda:0 "
@@ -2238,7 +2355,7 @@ def parallel_phases(torch, K, QRec, conf_of, tmp):
           f"device): {SHARED}, gloo carrying the collectives through host memory", flush=True)
     t0 = time.perf_counter()
     try:
-        mp.spawn(parallel_rank, args=(os.path.join(out_dir, "store"), runs, out_dir),
+        mp.spawn(parallel_rank, args=(os.path.join(out_dir, "store"), runs, lifecycle, out_dir),
                  nprocs=PARALLEL_RANKS, join=True)
     except mp.ProcessException as e:
         for r in range(PARALLEL_RANKS):
@@ -2284,6 +2401,36 @@ def parallel_phases(torch, K, QRec, conf_of, tmp):
             fail(f"parallel {label}: the measures on 4 ranks are {gap} from one process's")
         if not math.isclose(first["losses"][0], loss1, rel_tol=1e-4):
             fail(f"parallel {label}: the first epoch's loss is not the one process's")
+    for r, got in enumerate(ranks):
+        unbroken, (stopped, resumed, loaded) = got["lightgcn"], (
+            got[label] for label, _, _, _ in PARALLEL_LIFECYCLE)
+        for label, _, _, _ in PARALLEL_LIFECYCLE:
+            check_counts(f"parallel {label} rank {r}", got[label]["counts"], got[label]["expect"])
+            for k, n in got[label]["counts"].items():
+                launches[k] += n
+        same = (stopped["resumed"] is None and resumed["resumed"] == 1
+                and stopped["losses"] == unbroken["losses"][:1]
+                and resumed["losses"] == unbroken["losses"][1:]
+                and resumed["measure"] == unbroken["measure"]
+                and all(np.array_equal(resumed[k], unbroken[k]) for k in ("U", "V"))
+                and all(np.array_equal(v, unbroken["tables"][n])
+                        for n, v in resumed["tables"].items()))
+        same_load = loaded["measure"] == resumed["measure"] and all(
+            np.array_equal(loaded[k], resumed[k]) for k in ("U", "V"))
+        writes = got["lifecycle writes"]
+        writer = writes == (dict(steps=[1, 2], savez=[saved]) if r == 0 else
+                            dict(steps=[], savez=[]))
+        print(f"[parallel lifecycle rank {r}] stopped losses {stopped['losses']}, resumed from "
+              f"step {resumed['resumed']} losses {resumed['losses']}, unbroken "
+              f"{unbroken['losses']}: tables, U, V, losses and measures bit-equal={same}; "
+              f"-load measures and factors equal the saving run's={same_load}; this rank wrote "
+              f"steps {writes['steps']} and {len(writes['savez'])} npz", flush=True)
+        if not (same and same_load and writer):
+            fail(f"parallel lifecycle: rank {r} resumed, loaded or wrote otherwise than "
+                 f"expected")
+    steps = sorted(os.listdir(os.path.join(life_dir, "ck")))
+    if steps != ["step_1.pt", "step_2.pt"] or not os.path.exists(saved + ".npz"):
+        fail(f"parallel lifecycle: the shared directory holds {steps}")
     print(f"[parallel] routes against their plain twins on the card, max_abs_err "
           f"{json.dumps(errs)}; launches summed over the ranks {json.dumps(launches)}; spawn to "
           f"join {spawn_s:.1f} s ({SHARED})", flush=True)
@@ -2413,16 +2560,18 @@ def expected_launches(model):
     (torch ops, as the JAX package ranks them through XLA). On a mesh
     (``parallel_phases``) every rank launches where one device does: K1
     once a propagation on its item-column block (and once a node-drop
-    view's degrees), K5 once a propagation on its row block, K3 and K4 once
-    a loss on its rows; K2 once a batch of its own share of the test users
-    (ceil(n_loc / eval_batch_size) a ranking)."""
+    view's degrees), K5 once a propagation on its row block (BUIR's views:
+    3n a step, as on one device), K3 and K4 once a loss on its rows; K2
+    once a batch of its own share of the test users (ceil(n_loc /
+    eval_batch_size) a ranking); MHCN, DiffNet and DHCF hold their
+    operators whole on every rank, so K2 alone."""
     import torch.distributed as dist
 
     from qrec_tpu_torch.models.adversarial_social import ESRF
     from qrec_tpu_torch.models.graph import LightGCN
     from qrec_tpu_torch.models.social_graph import BUIR, SEPT, _GraphModel
     from qrec_tpu_torch.ops.kernels import KERNELS
-    from qrec_tpu_torch.ops.spmm import SparseJoint
+    from qrec_tpu_torch.ops.spmm import ShardedSparseJoint, SparseJoint
     from qrec_tpu_torch.ops.topk import ScoreForm
     from qrec_tpu_torch.parallel.collectives import split_sizes
 
@@ -2452,7 +2601,7 @@ def expected_launches(model):
         if isinstance(model, SEPT) and joint:
             counts[joint] = 2 * n * steps * e + n * rankings
         if isinstance(model, BUIR):
-            if isinstance(model.view_adj, SparseJoint):
+            if isinstance(model.view_adj, (SparseJoint, ShardedSparseJoint)):
                 counts["weighted_segment_matmul"] += 3 * n * steps * e
             if joint:
                 counts[joint] += n
@@ -2819,7 +2968,7 @@ def main() -> None:
 
         # 15. multi-GPU: the LightGCN family on four ranks on the card, in
         # the sparse and the dense forms, and the one-rank NCCL group
-        par, par_launches = parallel_phases(torch, K, QRec, conf_of, tmp)
+        par, par_launches = parallel_phases(torch, K, QRec, conf_of, tmp, trust)
 
         # 16. planted blocks
         planted_check(torch, tmp, ModelConf, QRec, parse_measure, "LightGCN", "-n_layer 2")

@@ -21,14 +21,16 @@ file of ``U``, ``V`` and the model's ``_extra_state`` under the JAX
 package's keys, so a file of either package loads in the other; the
 generic loop (``run_training``) saves a checkpoint every ``-every``
 epochs under ``checkpoint.setup`` and resumes from the latest
-(``runtime/checkpoint.py``).
+(``runtime/checkpoint.py``). On a mesh rank 0 alone writes a saved model
+or a step file and every rank waits for it; a resumed phase restores the
+step that rank 0 saw, broadcast, on every rank.
 """
 
 from __future__ import annotations
 
 import os
 import time
-from typing import Callable, List, Optional, Sequence, Union
+from typing import Callable, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -41,7 +43,8 @@ from ..errors import ConfigError
 from ..ops import sampling
 from ..ops.metrics import device_ranking_metrics
 from ..ops.topk import CatalogRanker, RandomScores, ScoreForm
-from ..parallel.mesh import mesh_from_config
+from ..parallel.collectives import barrier, broadcast_int, split_range
+from ..parallel.mesh import is_writer, mesh_from_config
 from ..runtime import checkpoint as C
 from ..runtime import trainer as T
 from ..runtime.profiling import StepTimer
@@ -81,8 +84,9 @@ class Recommender(nn.Module):
     # a model that needs the trust relation (SocialRecommender) gets it as
     # ``social``; the session refuses to run it without one
     requires_social = False
-    # the four models of models/graph.py and BPR train on a mesh; every
-    # other model refuses one
+    # the four models of models/graph.py, the five of
+    # models/social_graph.py and BPR train on a mesh; every other model
+    # refuses one
     trains_on_mesh = False
 
     def __init__(self, conf: ModelConf, data: Interactions, fold: str = "[1]", device=None,
@@ -140,28 +144,17 @@ class Recommender(nn.Module):
         """The ('data', 'model') mesh that ``parallel.setup=on [-model K]``
         asks for over more than one rank (``parallel/mesh.py``; the JAX
         package's ``Recommender.mesh``, ``models/base.py:366-400``), else
-        None: in one process the setting changes nothing. On a mesh, what
-        does not run there yet raises a ConfigError: a model other than
-        LightGCN, NGCF, SGL, SimGCL and BPR, ``checkpoint.setup``,
-        ``model.setup``'s ``-save`` and ``-load``, and ``-cv k -p``."""
+        None: in one process the setting changes nothing. On a mesh a model
+        that does not train there yet (``trains_on_mesh`` off) raises a
+        ConfigError. Checkpoints, ``model.setup``'s ``-save`` and
+        ``-load`` and ``-cv k -p`` run there: rank 0 alone writes a step
+        file or a saved model, every rank reads them, and ``-cv``'s folds
+        run in turn on the mesh."""
         if not hasattr(self, "_mesh"):
             mesh = mesh_from_config(self.config, self.device)
-            if mesh is not None:
-                setup = (self.config.options("model.setup")
-                         if self.config.contains("model.setup") else None)
-                refused = [
-                    (not self.trains_on_mesh, f"model {self.model_name}"),
-                    (self.config.contains("checkpoint.setup")
-                     and self.config.options("checkpoint.setup").isMainOn(), "checkpoint.setup"),
-                    (setup is not None and (setup.contains("-save") or setup.contains("-load")),
-                     "model.setup -save/-load"),
-                    (self.eval_settings.contains("-cv") and self.eval_settings.contains("-p"),
-                     "-cv k -p"),
-                ]
-                for bad, what in refused:
-                    if bad:
-                        raise ConfigError(f"{what} on a mesh (parallel.setup) is not ported yet "
-                                          "(ROADMAP.md Queue 1 item 19)")
+            if mesh is not None and not self.trains_on_mesh:
+                raise ConfigError(f"model {self.model_name} on a mesh (parallel.setup) is not "
+                                  "ported yet (ROADMAP.md Queue 1 item 19)")
             self._mesh = mesh
         return self._mesh
 
@@ -239,19 +232,26 @@ class Recommender(nn.Module):
 
     def save_model(self, path: str) -> None:
         """``np.savez(path, U=..., V=..., **extras)`` (numpy appends
-        ``.npz`` when ``path`` lacks it)."""
+        ``.npz`` when ``path`` lacks it). On a mesh rank 0 alone writes the
+        file, whose arrays every rank holds bit for bit, and every rank then
+        waits for it (:func:`~qrec_tpu_torch.parallel.collectives.barrier`)."""
         if self.U is None or self.V is None:
             raise RuntimeError(f"{self.model_name}: nothing to save — fit() or load first")
-        d = os.path.dirname(path)
-        if d:
-            os.makedirs(d, exist_ok=True)
-        host = lambda t: t.detach().cpu().numpy()  # noqa: E731
-        np.savez(path, U=host(self.U), V=host(self.V),
-                 **{k: host(v) for k, v in self._extra_state().items()})
+        mesh = self.mesh
+        if mesh is None or is_writer():
+            d = os.path.dirname(path)
+            if d:
+                os.makedirs(d, exist_ok=True)
+            host = lambda t: t.detach().cpu().numpy()  # noqa: E731
+            np.savez(path, U=host(self.U), V=host(self.V),
+                     **{k: host(v) for k, v in self._extra_state().items()})
+        if mesh is not None:
+            barrier()
 
     def load_model(self, path: str) -> None:
         """The factors (and extras) of a saved model onto the device, in
-        place of training; ``FileNotFoundError`` for a missing file."""
+        place of training; ``FileNotFoundError`` for a missing file. Every
+        rank of a mesh reads the same file."""
         if not path.endswith(".npz"):
             path = path + ".npz"  # np.savez appends it on save
         with np.load(path) as z:
@@ -441,6 +441,25 @@ class IterativeRecommender(Recommender):
         if mesh is None:
             return batch
         return tuple(torch.tensor_split(t, mesh.data)[mesh.data_index] for t in batch)
+
+    def row_share(self, n: int) -> Tuple[int, int]:
+        """[start, stop) of this data rank's ``torch.tensor_split`` block of
+        n rows on a mesh, for a loss term that sums over rows other than a
+        batch's (MHCN's users, SEPT's distinct users); (0, n) without a
+        mesh."""
+        mesh = self.mesh
+        if mesh is None:
+            return 0, n
+        return split_range(n, mesh.data, mesh.data_index)
+
+    @property
+    def adds_table_terms(self) -> bool:
+        """Whether this rank adds the loss terms over whole weight tables
+        (the regularisers that are no sum over a batch's rows): every rank
+        computes them whole, so on a mesh data rank 0 alone adds them, once,
+        as one process does; every rank without a mesh."""
+        mesh = self.mesh
+        return mesh is None or mesh.data_index == 0
 
     def _batched(self, *tensors):
         shape = (-1, self.batch_size)
@@ -657,14 +676,25 @@ class IterativeRecommender(Recommender):
                     self._ckpt.max_to_keep)
         return self._ckpt
 
+    def _latest_step(self, ckpt: C.Checkpointer) -> Optional[int]:
+        """The checkpointer's latest step; on a mesh rank 0's, broadcast, so
+        that every rank restores the step that the writer saw."""
+        latest = ckpt.latest_step()
+        if self.mesh is None:
+            return latest
+        step = broadcast_int(-1 if latest is None else latest)
+        return None if step < 0 else step
+
     def _restore_checkpoint(self, max_epoch: int):
         """(start epoch, loop state or None) of a phase of ``max_epoch``
         epochs: with a checkpoint past the epochs already run, the phase
         starts at ``min(latest - _epochs_done, max_epoch)``, from the
         checkpoint's state when it falls inside the phase; a checkpoint of a
-        later phase skips this one whole (the later phase restores)."""
+        later phase skips this one whole (the later phase restores). On a
+        mesh every rank restores the one file that rank 0 wrote: the loop
+        state is the same on every rank."""
         ckpt = self._checkpointer()
-        latest = ckpt.latest_step() if ckpt is not None else None
+        latest = self._latest_step(ckpt) if ckpt is not None else None
         if latest is None or latest <= self._epochs_done:
             return 0, None
         start_epoch = min(latest - self._epochs_done, max_epoch)
@@ -682,15 +712,20 @@ class IterativeRecommender(Recommender):
     def _make_checkpoint_cb(self) -> Optional[Callable]:
         """The loop's callback: every ``-every`` epochs the loop state and
         the model's buffers (BUIR's target) under step ``_epochs_done +
-        epoch + 1``."""
+        epoch + 1``. On a mesh rank 0 alone writes the step (and prunes the
+        old ones), and every rank waits for it."""
         ckpt = self._checkpointer()
         if ckpt is None or self._ckpt_every <= 0:
             return None
         done, every = self._epochs_done, self._ckpt_every
+        mesh = self.mesh
 
         def save(epoch: int, state: dict) -> None:
             if (epoch + 1) % every == 0:
-                ckpt.save(done + epoch + 1, dict(state, buffers=dict(self.named_buffers())))
+                if mesh is None or is_writer():
+                    ckpt.save(done + epoch + 1, dict(state, buffers=dict(self.named_buffers())))
+                if mesh is not None:
+                    barrier()
 
         return save
 

@@ -159,7 +159,7 @@ class BPR(_MF):
         neg = (pu * qj).sum(dim=1)
         if self.tf_path:
             loss = -(w * torch.log(torch.sigmoid(pos - neg) + 1e-6)).sum()
-            if self.mesh is not None and self.mesh.data_index != 0:
+            if not self.adds_table_terms:
                 return loss
             reg = self.reg_u * 0.5 * ((self.user_emb**2).sum() + (self.item_emb**2).sum())
         else:

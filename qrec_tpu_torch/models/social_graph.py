@@ -16,6 +16,20 @@ Each model's random inputs of a step come from its ``draw(generator)``
 (MHCN's permutations, SEPT's group keeps, BUIR's edge keeps, DHCF's
 dropout masks) and go into ``step_loss(batch, draws)``, so a caller can
 inject other draws.
+
+All five train on a mesh (``parallel/mesh.py``). Every rank draws the same
+numbers and holds every auxiliary operator whole, so the forward through
+them is replicated (the JAX package leaves these products to GSPMD, no
+Pallas route); the joint adjacency and BUIR's views are sharded over
+``data`` as ``GraphRecommender.joint_adj`` and ``view_adjacency`` make
+them. Each rank's loss is its share: a sum over a batch's rows takes this
+data rank's rows (``batch_share``), a sum over user rows its block of them
+(``row_share``: MHCN's mutual information, SEPT's neighbour
+discrimination), and a term over a whole table is added on data rank 0
+alone (``adds_table_terms``). The backward through a replicated
+``DeviceCOO`` is linear in the cotangent, so the shares' gradients sum to
+one process's; a ``DenseMat``'s rounds its result to bf16, so it sums the
+shares over ``data`` first (``ops/spmm.DenseMatmul``).
 """
 
 from __future__ import annotations
@@ -81,19 +95,19 @@ class DenseBudget:
         return False
 
 
-def aux_operator(m: sp.spmatrix, budget: Optional[DenseBudget], mode: str, device):
+def aux_operator(m: sp.spmatrix, budget: Optional[DenseBudget], mode: str, device, mesh=None):
     """The device operator of an auxiliary matrix (the JAX package's
     ``_dev``). ``mode`` is ``graph.aux.dense``: ``on`` makes a bf16
     ``DenseMat`` of every matrix within ``AUX_DENSE_LIMIT`` and the budget,
     ``off`` and ``auto`` a ``DeviceCOO``. The JAX package's ``auto`` goes
     dense on a TPU only, where a random gather runs at a small share of the
     memory rate; on a card ``auto`` takes its choice for every other
-    device."""
+    device. Either is whole on every rank of a ``mesh``."""
     if mode not in ("auto", "on", "off"):
         raise ConfigError(f"graph.aux.dense must be auto|on|off, got {mode!r}")
     entries = m.shape[0] * m.shape[1]
     if mode == "on" and entries <= AUX_DENSE_LIMIT and (budget is None or budget.take(entries)):
-        return DenseMat.from_scipy(m, device)
+        return DenseMat.from_scipy(m, device, mesh)
     return DeviceCOO.from_scipy(m, device)
 
 
@@ -106,26 +120,32 @@ def _log_sigmoid_loss(x: torch.Tensor) -> torch.Tensor:
     return -torch.log(torch.sigmoid(x) + 1e-12)
 
 
-def mhcn_channel_mim(em: torch.Tensor, edge: torch.Tensor, perms) -> torch.Tensor:
+def mhcn_channel_mim(em: torch.Tensor, edge: torch.Tensor, perms,
+                     rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """MHCN's hierarchical mutual-information term of one channel
     (MHCN.py hierarchical_self_supervision; the JAX package's
     ``mhcn_channel_mim``): pairwise-ranking MIM between the gated users
     ``em`` and their propagation ``edge``, locally against row-shuffled
     rows and globally against the channel's mean readout. ``perms`` = (r1,
     (c2, r2), (c3, r3)): a row permutation, then two column-then-row
-    permutations."""
+    permutations. ``rows`` = [start, stop) sums the term over those user
+    rows only (a data rank's share on a mesh), all of them by default; the
+    readout is the mean of every row."""
     r1, (c2, r2), (c3, r3) = perms
-    pos = (em * edge).sum(dim=1)
-    neg1 = (em[r1] * edge).sum(dim=1)
-    neg2 = (edge[:, c2][r2] * em).sum(dim=1)
+    a, b = rows if rows is not None else (0, em.shape[0])
+    e, g = em[a:b], edge[a:b]
+    pos = (e * g).sum(dim=1)
+    neg1 = (em[r1[a:b]] * g).sum(dim=1)
+    neg2 = (edge[:, c2][r2[a:b]] * e).sum(dim=1)
     local = (_log_sigmoid_loss(pos - neg1) + _log_sigmoid_loss(neg1 - neg2)).sum()
     graph = edge.mean(dim=0)
-    pos_g = edge @ graph
-    neg_g = edge[:, c3][r3] @ graph
+    pos_g = g @ graph
+    neg_g = edge[:, c3][r3[a:b]] @ graph
     return local + _log_sigmoid_loss(pos_g - neg_g).sum()
 
 
-def sept_neighbor_ssl(aug_n, friend_n, share_n, rec_n, um, ins_cnt: int) -> torch.Tensor:
+def sept_neighbor_ssl(aug_n, friend_n, share_n, rec_n, um, ins_cnt: int,
+                      rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """SEPT's pseudo-label neighbour discrimination (SEPT.py:220-268; the
     JAX package's ``sept_neighbor_ssl``): each view's softmax over its
     similarities to the augmented encoding labels the users, the other two
@@ -133,8 +153,14 @@ def sept_neighbor_ssl(aug_n, friend_n, share_n, rec_n, um, ins_cnt: int) -> torc
     0.1 pulls each view's users to their voted neighbours. The inputs are
     row-normalized encodings of the batch's distinct users; ``um`` masks the
     pad slots (copies of user 0) out of the softmax, the top-k and the
-    denominator, where they would take the positives."""
+    denominator, where they would take the positives. ``rows`` = [start,
+    stop) sums the term over those users' rows only (a data rank's share
+    on a mesh), all of them by default: a row's softmaxes, positives and
+    InfoNCE read only its own similarities, and the columns (the augmented
+    encodings and the pad mask) stay whole."""
     col_bias = torch.where(um > 0, 0.0, -1e30)[None, :]
+    a, b = rows if rows is not None else (0, friend_n.shape[0])
+    friend_n, share_n, rec_n, row_mask = friend_n[a:b], share_n[a:b], rec_n[a:b], um[a:b]
 
     def label_prob(emb):
         return torch.softmax(emb @ aug_n.T + col_bias, dim=1)
@@ -146,7 +172,7 @@ def sept_neighbor_ssl(aug_n, friend_n, share_n, rec_n, um, ins_cnt: int) -> torc
         ttl = emb @ aug_n.T + col_bias
         pos_sum = torch.exp(pos_scores / 0.1).sum(dim=1)
         ttl_sum = torch.exp(ttl / 0.1).sum(dim=1)
-        return -(um * torch.log(pos_sum / ttl_sum + 1e-12)).sum()
+        return -(row_mask * torch.log(pos_sum / ttl_sum + 1e-12)).sum()
 
     def top(p1, p2):
         return torch.topk((p1 + p2) / 2, ins_cnt, dim=1).indices
@@ -211,9 +237,11 @@ class _GraphModel(GraphRecommender):
     """What the five models share: construction with an optional trust
     graph, the auxiliary-matrix mode and the BPR-style rec loss; each
     builds its host matrices in ``build_graph`` (timed by
-    ``prepare_graph``)."""
+    ``prepare_graph``). All five train on a mesh (the module's docstring
+    gives the rule of each loss term)."""
 
     track_best = False
+    trains_on_mesh = True
 
     def __init__(self, conf, data, fold: str = "[1]", device=None, social=None):
         super().__init__(conf, data, fold=fold, device=device, social=social)
@@ -330,7 +358,7 @@ class MHCN(SocialRecommender, _GraphModel):
 
     def build_graph(self) -> None:
         budget = DenseBudget()
-        aux = lambda m: aux_operator(m, budget, self.aux_mode, self.device)  # noqa: E731
+        aux = lambda m: aux_operator(m, budget, self.aux_mode, self.device, self.mesh)  # noqa: E731
         self.h_s, self.h_j, self.h_p = (aux(m) for m in self.motif_matrices())
         r = self.joint_r()
         self.r_op = aux(r)
@@ -376,17 +404,23 @@ class MHCN(SocialRecommender, _GraphModel):
         return [(perm(u), (perm(d), perm(u)), (perm(d), perm(u))) for _ in range(3)]
 
     def step_loss(self, batch, perms) -> torch.Tensor:
-        u, i, j, w = batch
+        """On a mesh this data rank's share: the BPR term over its rows of
+        the batch, the mutual information over its block of the user rows,
+        and the L2 of the weights and tables, which is no sum over rows, on
+        data rank 0 alone."""
+        u, i, j, w = self.batch_share(batch)
         users, items = self()
         pu, qi, qj = users[u], items[i], items[j]
-        rec = bpr_loss((pu * qi).sum(dim=1), (pu * qj).sum(dim=1), w)
-        reg = 0.001 * sum(_l2(getattr(self, k)) for k in self.weight_keys)
-        reg = reg + self.reg_u * (_l2(self.user_emb) + _l2(self.item_emb))
+        loss = bpr_loss((pu * qi).sum(dim=1), (pu * qj).sum(dim=1), w)
+        if self.adds_table_terms:
+            reg = 0.001 * sum(_l2(getattr(self, k)) for k in self.weight_keys)
+            loss = loss + (reg + self.reg_u * (_l2(self.user_emb) + _l2(self.item_emb)))
+        rows = self.row_share(self.num_users)
         ss = 0.0
         for c, h in enumerate((self.h_s, self.h_j, self.h_p)):
             em = self.gate(users, c, "s")
-            ss = ss + mhcn_channel_mim(em, spmm(h, em), perms[c])
-        return rec + reg + self.ss_rate * ss
+            ss = ss + mhcn_channel_mim(em, spmm(h, em), perms[c], rows)
+        return loss + self.ss_rate * ss
 
     def build(self) -> TrainSpec:
         self.prepare_graph()
@@ -454,7 +488,7 @@ class SEPT(SocialRecommender, _GraphModel):
     def build_graph(self) -> None:
         budget = DenseBudget()
         self.social_op, self.sharing_op = (
-            aux_operator(m, budget, self.aux_mode, self.device) for m in self.views()
+            aux_operator(m, budget, self.aux_mode, self.device, self.mesh) for m in self.views()
         )
         self.joint_adj
         rows, cols, ids, self.n_groups, n = self.combined_graph()
@@ -494,9 +528,13 @@ class SEPT(SocialRecommender, _GraphModel):
         return acc[: self.num_users]
 
     def _rec(self, users, items, batch) -> torch.Tensor:
-        u, i, j, w = batch
+        """BPR over the batch's rows (this data rank's on a mesh) and the
+        tables' L2 (data rank 0 alone on a mesh)."""
+        u, i, j, w = self.batch_share(batch)
         pu, qi, qj = users[u], items[i], items[j]
         rec = bpr_loss((pu * qi).sum(dim=1), (pu * qj).sum(dim=1), w)
+        if not self.adds_table_terms:
+            return rec
         return rec + self.reg_u * (_l2(self.user_emb) + _l2(self.item_emb))
 
     def rec_loss(self, batch, gen: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -510,14 +548,17 @@ class SEPT(SocialRecommender, _GraphModel):
         return torch.rand(self.n_groups, generator=gen, device=self.device) < 1.0 - self.drop_rate
 
     def step_loss(self, batch, keep) -> torch.Tensor:
-        """The joint phase's loss."""
+        """The joint phase's loss. The distinct users come from the WHOLE
+        batch, the same set on every rank of a mesh (splitting the batch
+        first would change the set, and so the function); each data rank
+        sums the neighbour discrimination over its block of them."""
         friend, share, users, items = self.encode_views()
         rec = self._rec(users, items, batch)
         aug_u = self.encode_aug(keep)
         uu, um = unique_padded(batch[0])
         ssl = sept_neighbor_ssl(
             _l2n(aug_u[uu]), _l2n(friend[uu]), _l2n(share[uu]), _l2n(users[uu]), um,
-            self.instance_cnt,
+            self.instance_cnt, self.row_share(len(uu)),
         )
         return rec + self.ss_rate * ssl
 
@@ -570,16 +611,22 @@ class BUIR(_GraphModel):
         self.drop_rate = args.get_float("-drop_rate")
 
     def build_graph(self) -> None:
+        """The views' structure (on a mesh the row blocks of the segment
+        kernel, or a whole ``DeviceCOO`` under ``coo``), with every edge's
+        (rows, cols) kept on the model: a row block holds no rows, and each
+        view's values are renormalized over every edge."""
         rows, cols, edge_ids, n = joint_bipartite_coo(self.data)
         backend = self.config.get("graph.backend", "auto")
-        self.view_adj = view_adjacency(rows, cols, n, self.device, backend)
+        self.view_adj = view_adjacency(rows, cols, n, self.device, backend, self.mesh)
+        as_t = lambda a: torch.as_tensor(a, device=self.device)  # noqa: E731
+        self.view_edges = (as_t(rows), as_t(cols))
         self.edge_ids = torch.as_tensor(edge_ids.astype(np.int64), device=self.device)
         self.n_edges = len(self.data.csr_sel)
         self.joint_adj
 
     def dropped_propagate(self, emb_u, emb_i, keep) -> torch.Tensor:
         adj = self.view_adj
-        vals = renormalize_vals(adj.rows, adj.cols, keep[self.edge_ids].float(), adj.num_rows)
+        vals = renormalize_vals(*self.view_edges, keep[self.edge_ids].float(), adj.num_rows)
         return lightgcn_propagate(adj, torch.cat([emb_u, emb_i]), self.n_layers, vals)
 
     def predict(self, e: torch.Tensor) -> torch.Tensor:
@@ -593,7 +640,9 @@ class BUIR(_GraphModel):
                      for _ in range(2))
 
     def step_loss(self, batch, draws) -> torch.Tensor:
-        u, i, _, w = batch
+        """The cosine loss over the batch's rows (this data rank's on a
+        mesh); both views propagate whole on every rank."""
+        u, i, _, w = self.batch_share(batch)
         keep_o, keep_t = draws
         nu = self.num_users
         online = self.dropped_propagate(self.user_emb, self.item_emb, keep_o)
@@ -660,8 +709,8 @@ class DiffNet(SocialRecommender, _GraphModel):
             (1.0 / du[d.train_u], (d.train_u, d.train_i)), shape=(self.num_users, self.num_items)
         )
         budget = DenseBudget()
-        self.s_op = aux_operator(s_mat, budget, self.aux_mode, self.device)
-        self.a_op = aux_operator(a_mat, budget, self.aux_mode, self.device)
+        self.s_op = aux_operator(s_mat, budget, self.aux_mode, self.device, self.mesh)
+        self.a_op = aux_operator(a_mat, budget, self.aux_mode, self.device, self.mesh)
 
     def encode(self) -> torch.Tensor:
         u = self.user_emb
@@ -673,7 +722,9 @@ class DiffNet(SocialRecommender, _GraphModel):
         return self.encode(), self.item_emb.detach()
 
     def step_loss(self, batch, draws=None) -> torch.Tensor:
-        return self.dot_loss(self.encode(), self.item_emb, batch, self.reg_u)
+        """Every term a sum over the batch's rows (this data rank's on a
+        mesh)."""
+        return self.dot_loss(self.encode(), self.item_emb, self.batch_share(batch), self.reg_u)
 
     def build(self) -> TrainSpec:
         self.prepare_graph()
@@ -710,8 +761,10 @@ class DHCF(_GraphModel):
     def build_graph(self) -> None:
         a = _binary_interactions(self.data)
         budget = DenseBudget()
-        self.a_u = aux_operator(self.hyper_norm(a), budget, self.aux_mode, self.device)
-        self.a_i = aux_operator(self.hyper_norm(a.T.tocsr()), budget, self.aux_mode, self.device)
+        mesh = self.mesh
+        self.a_u = aux_operator(self.hyper_norm(a), budget, self.aux_mode, self.device, mesh)
+        self.a_i = aux_operator(self.hyper_norm(a.T.tocsr()), budget, self.aux_mode, self.device,
+                                mesh)
 
     def encode(self, masks: Optional[Sequence] = None):
         """(users (U, 3d), items (I, 3d)); ``masks`` holds a (U, d) and an
@@ -746,8 +799,13 @@ class DHCF(_GraphModel):
                 for _ in range(self.n_layers)]
 
     def step_loss(self, batch, masks) -> torch.Tensor:
+        """The batch's terms over its rows (this data rank's on a mesh), the
+        layers' L2 on data rank 0 alone; the dropout masks are whole and the
+        same on every rank."""
         users, items = self.encode(masks)
-        loss = self.dot_loss(users, items, batch, self.reg_u)
+        loss = self.dot_loss(users, items, self.batch_share(batch), self.reg_u)
+        if not self.adds_table_terms:
+            return loss
         return loss + self.reg_u * sum(_l2(getattr(self, f"layer{k}")) for k in range(self.n_layers))
 
     def build(self) -> TrainSpec:

@@ -599,18 +599,20 @@ class CooMatmul(torch.autograd.Function):
 class DenseMat(NamedTuple):
     """A small auxiliary matrix stored bf16 (the JAX package's ``DenseMat``,
     ``ops/spmm.py:161-181``): ``mat @ bf16(x)`` with f32 sums and an f32
-    result."""
+    result. On a ``mesh`` every rank holds it whole and computes the whole
+    product; its backward keeps the gradient invariant (:class:`DenseMatmul`)."""
 
     mat: torch.Tensor  # (m, n) bf16
+    mesh: object = None
 
     @property
     def num_rows(self) -> int:
         return self.mat.shape[0]
 
     @classmethod
-    def from_scipy(cls, m, device) -> "DenseMat":
+    def from_scipy(cls, m, device, mesh=None) -> "DenseMat":
         return cls(torch.from_numpy(m.toarray().astype(np.float32)).to(device=device,
-                                                                      dtype=torch.bfloat16))
+                                                                      dtype=torch.bfloat16), mesh)
 
 
 def _bf16_product(mat: torch.Tensor, xb: torch.Tensor) -> torch.Tensor:
@@ -626,17 +628,32 @@ def _bf16_product(mat: torch.Tensor, xb: torch.Tensor) -> torch.Tensor:
 class DenseMatmul(torch.autograd.Function):
     """``y = mat @ bf16(x)``. The gradient reaches x through the bf16 cast
     as JAX's autodiff of the dot takes it: ``dx = bf16(matᵀ @ dy)`` in f32,
-    returned as f32."""
+    returned as f32.
+
+    On a ``mesh`` the cotangent is a share on each data rank (the gradient
+    invariant of ``parallel/mesh.py``). Rounded apart, shares whose sum
+    is 0 would leave a nonzero gradient, which Adam's first step turns into
+    a move of the whole rate; so the shares are summed over ``data`` in f32
+    first, data rank 0 returns the one rounding of the whole product and
+    the others zeros, which the step's reduction completes."""
 
     @staticmethod
-    def forward(ctx, x, mat):
+    def forward(ctx, x, mat, mesh=None):
         ctx.save_for_backward(mat)
+        ctx.mesh = mesh
         return _bf16_product(mat, x.to(torch.bfloat16))
 
     @staticmethod
     def backward(ctx, grad):
         (mat,) = ctx.saved_tensors
-        return (mat.T.float() @ grad).to(torch.bfloat16).float(), None
+        mesh = ctx.mesh
+        if mesh is not None:
+            grad = all_reduce_sum(grad.clone(memory_format=torch.contiguous_format),
+                                  mesh.data_group)
+            if mesh.data_index != 0:
+                return torch.zeros((mat.shape[1], grad.shape[1]), dtype=grad.dtype,
+                                   device=grad.device), None, None
+        return (mat.T.float() @ grad).to(torch.bfloat16).float(), None, None
 
 
 def spmm(adj, x: torch.Tensor, vals: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -651,7 +668,7 @@ def spmm(adj, x: torch.Tensor, vals: Optional[torch.Tensor] = None) -> torch.Ten
         if vals is not None:
             raise ValueError("per-edge values need a sparse adjacency")
         if isinstance(adj, DenseMat):
-            return DenseMatmul.apply(x, adj.mat)
+            return DenseMatmul.apply(x, adj.mat, adj.mesh)
         if isinstance(adj, ShardedDenseJoint):
             return ShardedJointMatmul.apply(x, adj)
         return joint_matmul(adj, x)

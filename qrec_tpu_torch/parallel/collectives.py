@@ -77,13 +77,58 @@ def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
 
 def reduce_gradients(params: Sequence[torch.Tensor], mesh) -> None:
     """The step's one reduction: the gradients of ``params`` summed over the
-    mesh's ``data`` group in one flattened buffer (every rank holds a
-    gradient for the same parameters: the ranks run the same graph)."""
-    grads = [p.grad for p in params if p.grad is not None]
-    if not grads:
+    mesh's ``data`` group in one flattened buffer. A rank may hold no
+    gradient for a parameter that only a term of another rank reaches (a
+    table's regulariser, which data rank 0 alone adds): its gradient
+    travels as zeros, so that the buffer has one layout on every rank, and
+    one flag a parameter, summed with it, tells whether any rank held a
+    gradient. A parameter that no rank reached keeps ``grad`` None, as in
+    one process, where the optimizer then skips it."""
+    if not params:
         return
-    flat = all_reduce_sum(torch.cat([g.reshape(-1) for g in grads]), mesh.data_group)
+    held_here = [p.grad is not None for p in params]
+    # the flags are filled on the device: a tensor built from a host list
+    # would copy, and a blocking copy waits for the step's backward
+    flags = params[0].new_ones(len(params))
+    for k, held in enumerate(held_here):
+        if not held:
+            flags[k] = 0.0
+    flat = torch.cat([p.grad.reshape(-1) if held else p.new_zeros(p.numel())
+                      for p, held in zip(params, held_here)] + [flags])
+    all_reduce_sum(flat, mesh.data_group)
+    # the flags reach the host only where this rank lacks a gradient: a
+    # rank that holds every one needs no sync
+    any_rank = None
     offset = 0
-    for g in grads:
-        g.copy_(flat[offset: offset + g.numel()].view_as(g))
-        offset += g.numel()
+    for k, (p, held) in enumerate(zip(params, held_here)):
+        g = flat[offset: offset + p.numel()].view_as(p)
+        offset += p.numel()
+        if held:
+            p.grad.copy_(g)
+            continue
+        if any_rank is None:
+            any_rank = flat[-len(params):].tolist()
+        if any_rank[k] > 0:
+            p.grad = g.clone()
+
+
+def barrier() -> None:
+    """Every rank of the default group waits for the others (a writer's
+    file is whole before any rank reads it); nothing outside a process
+    group."""
+    if dist.is_initialized():
+        dist.barrier()
+
+
+def broadcast_int(value: int) -> int:
+    """Rank 0's ``value`` on every rank of the default group (exact); the
+    value itself outside a process group. The integer travels as an int64
+    tensor on the CPU under gloo and on the current CUDA device under
+    NCCL."""
+    if not dist.is_initialized():
+        return value
+    device = torch.device("cuda", torch.cuda.current_device()) if (
+        dist.get_backend() == "nccl") else torch.device("cpu")
+    t = torch.tensor([value], dtype=torch.int64, device=device)
+    dist.broadcast(t, src=0)
+    return int(t.item())

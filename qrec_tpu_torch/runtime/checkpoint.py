@@ -8,6 +8,12 @@ directories are not read. Opt-in through the config surface, as in the
 JAX package:
 
     checkpoint.setup=on -dir ./checkpoints/ -every 10
+
+On a mesh the directory is shared by every rank, as the ratings file is,
+and one file serves them all: the loop state is the same on every rank.
+``Checkpointer.save`` (and its pruning) is called by rank 0 alone, the
+writer, and every rank then passes a barrier; every rank reads the step
+that rank 0 found (``models/base.py``, ``_restore_checkpoint``).
 """
 
 from __future__ import annotations

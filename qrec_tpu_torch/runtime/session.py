@@ -16,12 +16,14 @@ package's ``run_fold``.
 
 ``parallel.setup=on [-model K]`` (``parallel/mesh.py``): the process joins
 its process group before any device work, and with more than one rank
-LightGCN, NGCF, SGL, SimGCL and BPR train data-parallel on the mesh
-(``Recommender.mesh``) and rank their test users cut over the ranks;
-``-cv k`` then runs its folds in turn on it. Rank 0
-alone writes the result files, the run log and the ``-cv`` summary (the
-JAX package writes them from every process). In one process the setting
-changes nothing.
+LightGCN, NGCF, SGL, SimGCL, MHCN, SEPT, BUIR, DiffNet, DHCF and BPR train
+data-parallel on the mesh (``Recommender.mesh``) and rank their test users
+cut over the ranks; ``-cv k``, with or without ``-p``, then runs its folds
+in turn on it. Rank 0 alone writes the result files, the run log, the
+``-cv`` summary, a ``-save``d model and the checkpoints' step files (the
+JAX package writes the result files from every process); every rank reads
+a ``-load``ed model and restores the checkpoint step that rank 0 finds. In
+one process the setting changes nothing.
 """
 
 from __future__ import annotations
@@ -86,6 +88,7 @@ def run_fold(config: ModelConf, train, test, relation, fold: str, seed: int, dev
     measure = evaluator.evaluate(model, data, config, fold, log)
     if setup is not None and setup.contains("-save"):
         print(f"Saving model {fold}...")
+        # rank 0 of a mesh alone writes the file
         model.save_model(setup["-save"])
     return measure, model
 
@@ -161,6 +164,7 @@ class QRec:
         if k < 2 or k > 10:
             raise EvaluationError("k for cross-validation should be between 2 and 10")
         if self.evaluation.contains("-p"):
+            # on a mesh too: its folds run in turn on the mesh
             print(
                 "-p parallel folds need one device per process; a single card "
                 "cannot be shared — running folds sequentially"

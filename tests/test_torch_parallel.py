@@ -775,23 +775,21 @@ def test_cross_validation_folds_run_in_turn_on_the_mesh(trained):
 def test_mesh_refuses_what_is_not_ported(tmp_path):
     """On two ranks (``parallel.setup=on``: data 1 x model 2) each of these
     raises the ConfigError that names ROADMAP.md Queue 1 item 19 on every
-    rank: a model outside the ported five (MHCN, with its trust file),
-    ``model.setup -save``, ``checkpoint.setup`` and ``-cv 3 -p``."""
+    rank: one model of each group that a mesh still refuses, NeuMF (the
+    generic loop), CFGAN (its own loop), WRMF (ALS) and ItemKNN (no
+    training)."""
     ratings = str(_planted_file(tmp_path))
-    trust = tmp_path / "trust.txt"
-    trust.write_text("".join(f"u{u} u{(u + 1) % 40}\n" for u in range(40)))
     base = {"ratings": ratings, "parallel.setup": "on", "num.max.epoch": "1"}
     confs = {
-        "MHCN": _conf("MHCN", "-n_layer 2 -ss_rate 0.01", dict(base, **{
-            "social": str(trust), "social.setup": "-columns 0 1"})),
-        "save": _conf("LightGCN", "-n_layer 2", dict(base, **{
-            "model.setup": f"-save {tmp_path / 'model'}"})),
-        "checkpoint": _conf("BPR", None, dict(base, **{
-            "checkpoint.setup": f"on -dir {tmp_path / 'ckpt'}"})),
-        "cv -p": _conf("BPR", None, dict(base, **{"evaluation.setup": "-cv 3 -p"})),
+        "NeuMF": _conf("NeuMF", None, base),
+        "CFGAN": _conf("CFGAN", None, base),
+        "WRMF": _conf("WRMF", None, base),
+        "ItemKNN": _conf("ItemKNN", None, dict(base, **{
+            "similarity": "cos", "num.neighbors": "40", "item.ranking": "off -topN 10"})),
     }
     out = R.spawn(R.refusals, 2, tmp_path, confs)
     for rank in out:
         assert sorted(rank) == sorted(confs)
         for name, message in rank.items():
             assert message is not None and "ROADMAP.md Queue 1 item 19" in message, (name, message)
+            assert f"model {name} " in message, (name, message)

@@ -1,4 +1,5 @@
-"""Rank workers of ``tests/test_torch_parallel.py``. Each runs in a spawned
+"""Rank workers of ``tests/test_torch_parallel.py`` and
+``tests/test_torch_parallel_social.py``. Each runs in a spawned
 process of a gloo group on the CPU and returns what the test holds against
 the JAX package and against one process. This module holds no test: a
 spawned rank imports it, and it imports no JAX, as the port imports none.
@@ -15,6 +16,7 @@ import torch.distributed as dist
 from qrec_tpu_torch import ModelConf, QRec
 from qrec_tpu_torch.convert import params_from_jax
 from qrec_tpu_torch.data.dataset import Interactions
+from qrec_tpu_torch.data.social import SocialGraph
 from qrec_tpu_torch.data.graph import COO
 from qrec_tpu_torch.errors import ConfigError
 from qrec_tpu_torch.models import get_model
@@ -31,6 +33,7 @@ from qrec_tpu_torch.ops.spmm import (
 )
 from qrec_tpu_torch.parallel.collectives import all_reduce_sum, reduce_gradients, split_range
 from qrec_tpu_torch.parallel.mesh import make_mesh
+from qrec_tpu_torch.runtime import checkpoint as C
 
 
 def spawn(target, world: int, store_dir, *args) -> list:
@@ -182,28 +185,56 @@ def uneven(rank, inputs):
     return dict(dense_routes(mesh, inputs), shape=mesh.shape)
 
 
+def as_numpy(x):
+    """Tensors (in nested tuples and lists) as numpy arrays: a spawn passes
+    each tensor through shared memory, which costs seconds for a few
+    thousand draws, and an array is pickled with its bytes."""
+    if isinstance(x, torch.Tensor):
+        return x.numpy().copy()
+    if isinstance(x, (tuple, list)):
+        return type(x)(as_numpy(v) for v in x)
+    return x
+
+
+def as_tensors(x):
+    """The inverse of :func:`as_numpy`."""
+    if isinstance(x, np.ndarray):
+        return torch.from_numpy(x)
+    if isinstance(x, (tuple, list)):
+        return type(x)(as_tensors(v) for v in x)
+    return x
+
+
 def fit_case(case) -> dict:
     """One model fit on injected batches (and the models' draws) from the
-    JAX package's initial parameters: the losses, the first step's loss
-    (this data rank's share on a mesh), the tables, the final factors and
-    every parameter's gradient at the first optimizer step."""
+    JAX package's initial parameters (and BUIR's target, under ``target``):
+    the losses, the first step's loss (this data rank's share on a mesh),
+    the tables and buffers, the final factors and every parameter's
+    gradient at the first optimizer step. A case with a ``relation`` gives
+    the model its trust graph."""
     conf = ModelConf(case["conf"])
     data = Interactions(conf, case["train"], case["test"])
-    model = get_model(case["conf"]["model.name"])(conf, data, device="cpu")
+    kwargs = {}
+    if case.get("relation") is not None:
+        kwargs["social"] = SocialGraph(case["relation"], data)
+    model = get_model(case["conf"]["model.name"])(conf, data, device="cpu", **kwargs)
     model.load_state_dict(params_from_jax(case["params"], "cpu"))
     if case.get("draws") is not None:
         stream = iter(case["draws"])
-        model.draw = lambda gen: next(stream)
+        model.draw = lambda gen: as_tensors(next(stream))
     step_losses = []
-    loss = model.loss
 
-    def first_loss(batch, gen=None):
-        value = loss(batch, gen)
-        if not step_losses:
-            step_losses.append(value.item())
-        return value
+    def first_loss(loss):
+        def wrapped(batch, gen=None):
+            value = loss(batch, gen)
+            if not step_losses:
+                step_losses.append(value.item())
+            return value
+        return wrapped
 
-    model.loss = first_loss
+    model.loss = first_loss(model.loss)
+    if model.model_name == "SEPT":  # its warm-up phase's loss
+        model.rec_loss = first_loss(model.rec_loss)
     first = []
     originals = {cls: cls.step for cls in (torch.optim.Adam, torch.optim.SGD)}
 
@@ -225,6 +256,7 @@ def fit_case(case) -> dict:
     return {
         "losses": losses, "grads": first[0], "first_loss": step_losses[0],
         "params": {n: p.detach().numpy().copy() for n, p in model.named_parameters()},
+        "buffers": {n: b.numpy().copy() for n, b in model.named_buffers()},
         "U": model.U.numpy(), "V": model.V.numpy(),
         "mesh": None if mesh is None else mesh.shape,
         "adj": type(model.joint_adj).__name__ if hasattr(model, "joint_adj") else None,
@@ -263,4 +295,71 @@ def refusals(rank, confs):
             out[name] = None
         except ConfigError as e:
             out[name] = str(e)
+    return out
+
+
+def social(rank, cases, lifecycle_confs):
+    """The social and hypergraph fit cases on the mesh that their confs ask
+    for; on four ranks also the step's reduction with a gradient that only
+    data rank 0 holds (:func:`none_gradients`) and the run's lifecycle
+    (:func:`lifecycle`)."""
+    out = {"fits": {name: fit_case(case) for name, case in cases.items()}}
+    if lifecycle_confs:
+        out["none_gradients"] = none_gradients(make_mesh(2))
+        out["lifecycle"] = lifecycle(lifecycle_confs)
+    return out
+
+
+def none_gradients(mesh) -> dict:
+    """``reduce_gradients`` over a step whose loss reaches ``a`` on every
+    rank (scaled by the data index + 1), ``b`` on data rank 0 alone (a
+    table's regulariser) and ``c`` on none: every rank's gradients
+    after the reduction."""
+    a = torch.arange(6.0).view(2, 3).requires_grad_(True)
+    b = torch.linspace(-1.0, 1.0, 4).requires_grad_(True)
+    c = torch.ones(2, requires_grad=True)
+    loss = (a * (mesh.data_index + 1)).sum()
+    if mesh.data_index == 0:
+        loss = loss + (b**2).sum()
+    loss.backward()
+    held = (a.grad is not None, b.grad is not None, c.grad is not None)
+    reduce_gradients([a, b, c], mesh)
+    return {"held": held, "a": a.grad.numpy(), "b": None if b.grad is None else b.grad.numpy(),
+            "c": None if c.grad is None else c.grad.numpy()}
+
+
+def lifecycle(confs) -> dict:
+    """Each conf through ``QRec(conf).execute()`` in order (their
+    checkpoint directories, saved models and result directories shared by
+    every rank): the measures, final factors, losses, buffers and the step
+    it resumed from, with the checkpoint steps and the ``np.savez`` calls
+    that THIS rank made."""
+    steps, savez = [], []
+    real_save, real_savez = C.Checkpointer.save, np.savez
+
+    def save(self, step, state):
+        steps.append((self.directory, step))
+        return real_save(self, step, state)
+
+    def spy_savez(path, *a, **k):
+        savez.append(str(path))
+        return real_savez(path, *a, **k)
+
+    C.Checkpointer.save, np.savez = save, spy_savez
+    out = {}
+    try:
+        for name, conf in confs.items():
+            rec = QRec(ModelConf(conf), seed=3, device="cpu")
+            measure = rec.execute()
+            model = rec.model
+            out[name] = {
+                "measure": measure, "U": model.U.numpy(), "V": model.V.numpy(),
+                "losses": list(getattr(model, "epoch_losses", [])),
+                "buffers": {n: b.numpy().copy() for n, b in model.named_buffers()},
+                "resumed": getattr(model, "resumed_step", None),
+                "mesh": None if model.mesh is None else model.mesh.shape,
+            }
+    finally:
+        C.Checkpointer.save, np.savez = real_save, real_savez
+    out["steps"], out["savez"] = steps, savez
     return out
