@@ -123,15 +123,22 @@ Phases, each of which exits non-zero on failure:
    kernels;
 15. multi-GPU (``parallel_phases``): the runs of ``PARALLEL_RUNS`` (the
    LightGCN family in every adjacency form; MHCN, SEPT, BUIR, DiffNet and
-   DHCF with ``lastfm_trust``), each with ``parallel.setup=on -model 2``,
-   once in one process (no mesh) and once on four ranks on cuda:0 over a
+   DHCF with ``lastfm_trust``; the 15 models trained whole on every rank,
+   CFGAN, IRGAN, RSGAN, IF_BPR, WRMF, ExpoMF, CoFactor, SERec,
+   MostPopular and Rand on the lastfm-shaped file, UserMean, ItemMean,
+   UserKNN, ItemKNN and SlopeOne on the FilmTrust-shaped one), each with
+   ``parallel.setup=on -model 2``, and WRMF with the setting absent (the
+   mesh that forms by itself on a CUDA group), once in one process (no
+   mesh) and once on four ranks on cuda:0 over a
    gloo group that the script makes (data 2 x model 2): K5 on row blocks
    at width 25 (75 for SimGCL's fused views), K1 on item-column blocks,
    K3/K4 on 1,000 rows at offsets 0 and 1,000, K2 on a quarter of the test
-   users; every rank's launches against ``expected_launches``, the ranks'
-   tables equal bit for bit, the measures within 2e-2 and the first
-   epoch's loss within rtol 1e-4 of one process, each route against its
-   plain twin, each route's kernel timed on one rank's share; LightGCN's
+   users; every rank's launches against ``expected_launches``, its mesh,
+   the result files rank 0 alone writes, the ranks' digests of what each
+   model scores from equal bit for bit, the measures within 2e-2 and the
+   first epoch's loss within rtol 1e-4 of one process, each route against
+   its plain twin, each route's kernel timed on one rank's share (route 7
+   also on IRGAN's biased form); LightGCN's
    lifecycle on the four ranks (``PARALLEL_LIFECYCLE``: stopped after
    epoch 1 of 2 under ``checkpoint.setup``, resumed bit for bit against
    the unbroken mesh run, rank 0 alone writing the step files and the
@@ -1493,7 +1500,9 @@ def walk_phases(torch, K, QRec, conf_of, tmp, trust_path):
     CUNE_MF), its walk, SGNS and friend top-k numbers, its steady epoch and
     its measures; the rankings checked as the main path's
     (``ranking_phase``); one more RSGAN epoch under torch.profiler. Returns
-    (K2 launches per path, K2 checks)."""
+    (K2 launches per path, K2 checks, IF_BPR's and RSGAN's one-process
+    conf, measures, losses, epoch ms and host build s, which the mesh phase
+    holds its four ranks against)."""
     users, items, ratings = filmtrust_records()
     filmtrust = os.path.join(tmp, "filmtrust_walk.txt")
     with open(filmtrust, "w") as f:
@@ -1503,7 +1512,7 @@ def walk_phases(torch, K, QRec, conf_of, tmp, trust_path):
         conf = conf_of(name, 1)
         conf["ratings"] = filmtrust
         _, _, baseline[name] = drive(torch, K, QRec, conf, name.lower())
-    launches, k2r, summary = {}, {}, {}
+    launches, k2r, summary, ones = {}, {}, {}, {}
     negative = None
     for key in ("CUNE_MF", "CUNE_BPR", "IF_BPR", "IF_BPR negative", "RSGAN"):
         name = key.split()[0]
@@ -1523,6 +1532,11 @@ def walk_phases(torch, K, QRec, conf_of, tmp, trust_path):
               f"before the epochs) steady epoch ms={steady:.3f} (mean after the first epoch)",
               flush=True)
         summary[key] = dict(steady_ms=steady, graph_s=model.graph_seconds, **measures)
+        if key in ("IF_BPR", "RSGAN"):
+            ones[label] = dict(conf=dict(conf.config), parsed=measures,
+                               losses=list(model.epoch_losses),
+                               epoch_ms=[t * 1e3 for t in model.timer.times],
+                               graph_s=model.graph_seconds)
         if name == "CUNE_MF":
             print(f"[{label}] MAE={measures['MAE']} RMSE={measures['RMSE']} beside UserMean "
                   f"{baseline['UserMean']['MAE']}/{baseline['UserMean']['RMSE']} and ItemMean "
@@ -1552,7 +1566,7 @@ def walk_phases(torch, K, QRec, conf_of, tmp, trust_path):
     print("[walk] " + " ".join(
         f"{k}: " + " ".join(f"{m}={v:.4f}" if isinstance(v, float) else f"{m}={v}"
                             for m, v in d.items()) + ";" for k, d in summary.items()), flush=True)
-    return launches, k2r
+    return launches, k2r, ones
 
 
 def walk_distribution(net, walks, active, walk_count) -> float:
@@ -1814,17 +1828,45 @@ PARALLEL_RANKS = 4
 # every rank). The lightgcn run is the unbroken run of the lifecycle
 PARALLEL_RUNS = (
     ("lightgcn-pallas", "LightGCN", 1, {"graph.backend": "pallas"}),
-    ("simgcl-pallas", "SimGCL", 2, {"graph.backend": "pallas"}),
+    ("simgcl-pallas", "SimGCL", 1, {"graph.backend": "pallas"}),
     ("lightgcn", "LightGCN", 2, {}),
-    ("sgl", "SGL", 2, {}),
+    ("sgl", "SGL", 1, {}),
     ("sgl-pallas", "SGL", 1, {"graph.backend": "pallas"}),
-    ("ngcf", "NGCF", 2, {}),
+    ("ngcf", "NGCF", 1, {}),
     ("mhcn", "MHCN", 1, {}),
     ("sept", "SEPT", 2, {}),
     ("buir", "BUIR", 1, {}),
     ("diffnet", "DiffNet", 1, {}),
     ("dhcf", "DHCF", 1, {}),
+    # slice 7d: trained whole on every rank, each config/ file at its
+    # published widths (epochs cut: CFGAN 500 -> 2, IRGAN 30 -> 2, RSGAN and
+    # IF_BPR 30 -> 3, the walk slice's, whose one-process runs of the same
+    # configs this phase reuses, WRMF 30 -> 2, ExpoMF, CoFactor, SERec 20 ->
+    # 2; the untrained models have none), the lastfm-shaped file (SERec,
+    # IF_BPR, RSGAN with lastfm_trust; IF_BPR without negative feedback, one
+    # SGNS channel) or the FilmTrust-shaped one (FILMTRUST)
+    ("mostpopular", "MostPopular", 1, {}),
+    ("rand", "Rand", 1, {}),
+    ("wrmf", "WRMF", 2, {}),
+    ("expomf", "ExpoMF", 2, {}),
+    ("cofactor", "CoFactor", 2, {}),
+    ("serec", "SERec", 2, {}),
+    ("cfgan", "CFGAN", 2, {}),
+    ("irgan", "IRGAN", 2, {}),
+    ("if_bpr", "IF_BPR", WALK_EPOCHS["IF_BPR"], {}),
+    ("rsgan", "RSGAN", WALK_EPOCHS["RSGAN"], {}),
+    ("usermean", "UserMean", 1, {"ratings": "FILMTRUST"}),
+    ("itemmean", "ItemMean", 1, {"ratings": "FILMTRUST"}),
+    ("userknn", "UserKNN", 1, {"ratings": "FILMTRUST"}),
+    ("itemknn", "ItemKNN", 1, {"ratings": "FILMTRUST"}),
+    ("slopeone", "SlopeOne", 1, {"ratings": "FILMTRUST"}),
+    # the mesh that forms by itself: parallel.setup absent on the four
+    # ranks of a CUDA group (ROADMAP Queue 3 item 55)
+    ("wrmf auto", "WRMF", 1, {"parallel.setup": None}),
 )
+# the models of slice 7d, which train whole on every rank
+REPLICATED = {"MostPopular", "Rand", "WRMF", "ExpoMF", "CoFactor", "SERec", "CFGAN", "IRGAN",
+              "IF_BPR", "RSGAN", "UserMean", "ItemMean", "UserKNN", "ItemKNN", "SlopeOne"}
 # the lifecycle on the four ranks: (label, epochs, checkpoint.setup on,
 # model.setup) after the unbroken "lightgcn" run, in this order
 PARALLEL_LIFECYCLE = (
@@ -1840,13 +1882,24 @@ def rank_shares(model) -> str:
     K5's row block of the joint adjacency and their feature width, K5's
     row block of BUIR's views, the auxiliary operators every rank holds
     whole, K3/K4's contrastive rows (b_loc) and row offset, K2's test
-    users."""
+    users; of a model trained whole on every rank, what it ranks or
+    predicts."""
     import torch.distributed as dist
 
     from qrec_tpu_torch.ops.spmm import DenseMat, DeviceCOO, ShardedDenseJoint, feature_slice
     from qrec_tpu_torch.parallel.collectives import split_range
 
     mesh = model.mesh
+    n = len(model.data.test_set_u)
+    s0, s1 = split_range(n, dist.get_world_size(), dist.get_rank())
+    if model.model_name in REPLICATED:
+        if not model.ranking.isMainOn():
+            what = f"every one of {len(model.data.test_data)} test ratings predicted"
+        elif model.model_name in ("CFGAN", "Rand"):
+            what = "every test user ranked whole (torch ops)"
+        else:
+            what = f"K2 test users [{s0}, {s1}) of {n}"
+        return f"trained whole on every rank; {what}"
     # the joint adjacency only where the model built it (MHCN, DiffNet and
     # DHCF propagate over auxiliary operators alone)
     adj, view = vars(model).get("_joint_adj"), getattr(model, "view_adj", None)
@@ -1875,8 +1928,6 @@ def rank_shares(model) -> str:
         b = model.batch_size * (1 if model.model_name == "SimGCL" else 2)
         o0, o1 = split_range(b, mesh.data, mesh.data_index)
         parts.append(f"K3/K4 rows [{o0}, {o1}) of {b}: b_loc {o1 - o0}, row_offset {o0}")
-    n = len(model.data.test_set_u)
-    s0, s1 = split_range(n, dist.get_world_size(), dist.get_rank())
     return "; ".join(parts + [f"K2 test users [{s0}, {s1}) of {n}"])
 
 
@@ -1968,13 +2019,27 @@ def parallel_route_checks(torch, K, model):
         errs["infonce row shards"] = max(abs(total.item() - ploss.item()),
                                          (a1.grad - p1.grad).abs().max().item(),
                                          (a2.grad - p2.grad).abs().max().item())
-    form, bm = ScoreForm(model.U, model.V), model.rated_bitmask
-    on_mesh = CatalogRanker(model.data, 10, "cuda", bm, model.eval_batch_size, mesh=mesh)
+    errs["topk user shards"] = user_shard_check(torch, K, model, ScoreForm(model.U, model.V))
+    return errs
+
+
+def user_shard_check(torch, K, model, form) -> float:
+    """Route 7 on ``form`` (a ``ScoreForm``, plain or biased): the ranking
+    cut by test user over the mesh, bit for bit against K2 on every test
+    user in one process and against the plain top-k (a row may differ
+    where near-equal scores swap). Every rank calls it: the route gathers.
+    Returns the largest score gap to the plain top-k."""
+    from qrec_tpu_torch.ops.topk import CatalogRanker
+
+    bm = model.rated_bitmask
+    extra = dict(item_bias=form.item_bias, user_bias=form.user_bias, offset=form.offset)
+    on_mesh = CatalogRanker(model.data, 10, "cuda", bm, model.eval_batch_size, mesh=model.mesh)
     ids, scores = on_mesh.topk_device(form)
     one_ids, one_scores = CatalogRanker(model.data, 10, "cuda", bm,
                                         model.eval_batch_size).topk_device(form)
-    plain_ids, plain_scores = K.masked_catalog_topk_plain(model.U, model.V, bm, on_mesh._uids,
-                                                          on_mesh.global_mean, 10)
+    plain_ids, plain_scores = K.masked_catalog_topk_plain(form.user_emb, form.item_emb, bm,
+                                                          on_mesh._uids, on_mesh.global_mean, 10,
+                                                          **extra)
     same = (ids == plain_ids).all(dim=1)
     close = (scores - plain_scores).abs().max(dim=1).values <= 1e-5
     if not (torch.equal(ids, one_ids) and torch.equal(scores.view(torch.int32),
@@ -1982,17 +2047,65 @@ def parallel_route_checks(torch, K, model):
         raise AssertionError("the ranking cut by test user differs from one process's")
     if not bool((same | close).all()):
         raise AssertionError("the ranking cut by test user disagrees with the plain top-k")
-    errs["topk user shards"] = (scores - plain_scores).abs().max().item()
-    return errs
+    return (scores - plain_scores).abs().max().item()
+
+
+def replicated_route_check(torch, K, model):
+    """A model trained whole on every rank reaches one route, route 7, where
+    it ranks a ``ScoreForm`` (:func:`user_shard_check` on its own form:
+    IRGAN's and MostPopular's biased, the others' plain). CFGAN's score
+    block, Rand's draws and a rating run reach none. Returns {route:
+    max_abs_err}."""
+    from qrec_tpu_torch.ops.topk import ScoreForm
+
+    if not model.ranking.isMainOn():
+        return {}
+    form = model.score_form()
+    if not isinstance(form, ScoreForm):
+        return {}
+    biased = form.item_bias is not None or form.user_bias is not None or form.offset != 0
+    return {"topk user shards" + (" biased" if biased else ""):
+            user_shard_check(torch, K, model, form)}
+
+
+def held_digests(model) -> dict:
+    """sha256 of everything ``model`` scores or predicts from, by name: its
+    parameters and buffers (MostPopular's popularity scores), its ALS
+    tables and IF_BPR's tier tables, ``U``, ``V`` and IRGAN's item bias,
+    and a rating run's prediction of every test rating. Digests, not the
+    arrays: CFGAN's generator is 1.1 GB a rank."""
+    import hashlib
+
+    import torch
+
+    arrays = {f"parameter {n}": p for n, p in model.named_parameters()}
+    arrays.update({f"buffer {n}": b for n, b in model.named_buffers()})
+    tables = getattr(model, "tables", None)
+    if isinstance(tables, dict):
+        arrays.update({f"table {n}": t for n, t in tables.items()})
+    elif tables is not None:
+        arrays.update({f"tier {i} {j}": t for i, tier in enumerate(tables)
+                       for j, t in enumerate(tier)})
+    for name in ("U", "V", "item_bias"):
+        if getattr(model, name, None) is not None:
+            arrays[name] = getattr(model, name)
+    if not model.ranking.isMainOn():
+        test = model.data.test_data
+        arrays["predictions"] = model.predict_ratings([e[0] for e in test], [e[1] for e in test])
+    host = lambda t: t.detach().cpu().numpy() if isinstance(t, torch.Tensor) else t  # noqa: E731
+    return {n: hashlib.sha256(np.ascontiguousarray(host(t)).tobytes()).hexdigest()
+            for n, t in arrays.items()}
 
 
 def parallel_rank(rank, store, runs, lifecycle, out_dir):
     """One rank of ``parallel_phases``: joins the gloo group that this script
     makes on cuda:0, drives each run through ``QRec(conf).execute()`` with
     its launch counts set to 0 just before and read just after, checks the
-    routes on the run's operands and writes what it read (its printed
-    output goes to ``rank<r>.log``); then the lifecycle runs, recording
-    the checkpoint steps and the ``np.savez`` calls that this rank made."""
+    routes on the run's operands and writes what it read: the digests of
+    what the model scores from (:func:`held_digests`) and the result files
+    this rank wrote (its printed output goes to ``rank<r>.log``); then the
+    lifecycle runs, recording the checkpoint steps and the ``np.savez``
+    calls that this rank made."""
     import datetime
     import pickle
 
@@ -2008,23 +2121,36 @@ def parallel_rank(rank, store, runs, lifecycle, out_dir):
     try:
         from qrec_tpu_torch import ModelConf, QRec
         from qrec_tpu_torch.ops import kernels as K
+        from qrec_tpu_torch.runtime import evaluator
 
+        # the result files this rank writes, run by run
+        writes, real_write = [], evaluator.write_file
+        evaluator.write_file = lambda d, name, lines: (writes.append(name),
+                                                       real_write(d, name, lines))[1]
         out = {}
         for label, conf in runs:
             K.reset_launch_counts()
+            writes.clear()
             rec = QRec(ModelConf(conf))
             measure = rec.execute()
             counts = K.launch_counts()
             model = rec.model
+            checks = (replicated_route_check if model.model_name in REPLICATED
+                      else parallel_route_checks)
             out[label] = dict(
-                place=(model.mesh.data_index, model.mesh.model_index), counts=counts,
-                expect=expected_launches(model), losses=list(model.epoch_losses),
-                epoch_ms=[t * 1e3 for t in model.timer.times], measure=measure,
-                shares=rank_shares(model),
-                tables={n: p.detach().cpu().numpy() for n, p in model.named_parameters()},
-                U=model.U.cpu().numpy(), V=model.V.cpu().numpy(),
-                errs=parallel_route_checks(torch, K, model))
+                mesh=None if model.mesh is None else model.mesh.shape,
+                place=None if model.mesh is None else (model.mesh.data_index,
+                                                       model.mesh.model_index),
+                counts=counts, expect=expected_launches(model),
+                losses=list(getattr(model, "epoch_losses", [])),
+                epoch_ms=[t * 1e3 for t in model.timer.times] if model.timer else [],
+                graph_s=getattr(model, "graph_seconds", None), measure=measure,
+                shares=rank_shares(model), writes=list(writes), held=held_digests(model),
+                errs=checks(torch, K, model))
             del rec, model
+            gc.collect()
+            torch.cuda.empty_cache()
+        evaluator.write_file = real_write
         from qrec_tpu_torch.runtime import checkpoint as C
 
         steps, savez = [], []
@@ -2042,9 +2168,7 @@ def parallel_rank(rank, store, runs, lifecycle, out_dir):
                 out[label] = dict(
                     counts=counts, expect=lifecycle_launches(model, kind), measure=measure,
                     losses=list(getattr(model, "epoch_losses", [])),
-                    resumed=getattr(model, "resumed_step", None),
-                    tables={n: p.detach().cpu().numpy() for n, p in model.named_parameters()},
-                    U=model.U.cpu().numpy(), V=model.V.cpu().numpy())
+                    resumed=getattr(model, "resumed_step", None), held=held_digests(model))
                 del rec, model
         finally:
             C.Checkpointer.save, np.savez = real_save, real_savez
@@ -2184,16 +2308,20 @@ def column_block_timing(torch, K, timer, model, rank):
                 bound_by=bound_by)
 
 
-def user_shard_timing(torch, K, timer, model, k: int = 10):
+def user_shard_timing(torch, K, timer, model, k: int = 10, label: str = ""):
     """Route 7's call on rank 0's ``tensor_split`` share of the test users
-    over the four ranks: K2's fused top-k of ``model``'s final factors,
-    timed in turns with the library (``matmul`` of the share's rows,
-    ``masked_fill`` with the mask already expanded, ``topk``), its plain
-    twin alone, and the operation bound."""
+    over the four ranks: K2's fused top-k of ``model``'s score form (its
+    final factors, and its biases where it has them: IRGAN's item bias),
+    timed in turns with the library (``matmul`` of the share's rows, the
+    form's adds, ``masked_fill`` with the mask already expanded, ``topk``),
+    its plain twin alone, and the operation bound; the call held against
+    the plain twin (ids equal but where near-equal scores swap)."""
     from qrec_tpu_torch.ops.topk import CatalogRanker
     from qrec_tpu_torch.parallel.collectives import split_range
 
-    U, V, bm = model.U, model.V, model.rated_bitmask
+    form, bm = model.score_form(), model.rated_bitmask
+    U, V = form.user_emb, form.item_emb
+    extra = dict(item_bias=form.item_bias, user_bias=form.user_bias, offset=form.offset)
     ranker = CatalogRanker(model.data, k=k, device="cuda", bitmask=bm)
     n = len(ranker.uids)
     s0, s1 = split_range(n, PARALLEL_RANKS, 0)
@@ -2202,18 +2330,33 @@ def user_shard_timing(torch, K, timer, model, k: int = 10):
     safe = uids.clamp(min=0)
     rated = K.expand_bitmask(bm[safe].contiguous(), I)
     ub = U[safe].contiguous()
-    fused = lambda: K.masked_catalog_topk(U, V, bm, uids, gm, k)  # noqa: E731
-    library = lambda: torch.topk(torch.matmul(ub, V.T).masked_fill_(rated, 0.0), k)  # noqa: E731
+    fused = lambda: K.masked_catalog_topk(U, V, bm, uids, gm, k, **extra)  # noqa: E731
+
+    def library():
+        s = K.biased_scores(torch.matmul(ub, V.T), safe, **extra)
+        return torch.topk(s.masked_fill_(rated, 0.0), k)
+
     ms, library_ms = timer.paired([fused, library])
-    plain_ms = timer.ms(lambda: K.masked_catalog_topk_plain(U, V, bm, uids, gm, k))
-    moved = B * d * 4 + I * d * 4 + B * bm.shape[1] * 4 + B * 8 + B * k * 12
-    bound_ms, bound_by = bound(moved, 2 * B * I * d, PEAK_F32)
-    print(f"[K2 topk user shard] rank 0's test users [{s0}, {s1}) of {n}: B={B} I={I} d={d} "
-          f"k={k} ms={ms:.4f} library_ms={library_ms:.4f} (torch.matmul + masked_fill + "
-          f"torch.topk, timed in turns) plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} by "
-          f"{bound_by}", flush=True)
+    plain = lambda: K.masked_catalog_topk_plain(U, V, bm, uids, gm, k, **extra)  # noqa: E731
+    plain_ms = timer.ms(plain)
+    (ids, scores), (pids, pscores) = fused(), plain()
+    gap = (scores - pscores).abs().max(dim=1).values
+    err = gap.max().item()
+    if not bool(((ids == pids).all(dim=1) | (gap <= 1e-5)).all()):
+        fail(f"route 7{label}: K2 on rank 0's share disagrees with its plain twin")
+    adds = (form.item_bias is not None) + (form.user_bias is not None) + (form.offset != 0)
+    moved = (B * d * 4 + I * d * 4 + B * bm.shape[1] * 4 + B * 8 + B * k * 12
+             + (I * 4 if form.item_bias is not None else 0)
+             + (B * 4 if form.user_bias is not None else 0))
+    bound_ms, bound_by = bound(moved, 2 * B * I * d + adds * B * I, PEAK_F32)
+    biases = " with the item bias" if form.item_bias is not None else ""
+    print(f"[K2 topk user shard{label}] {model.model_name}{biases}: rank 0's test users "
+          f"[{s0}, {s1}) of {n}: B={B} I={I} d={d} k={k} ms={ms:.4f} library_ms={library_ms:.4f} "
+          f"(torch.matmul{' + the bias' if adds else ''} + masked_fill + torch.topk, timed in "
+          f"turns) plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} by {bound_by} max_abs_err vs "
+          f"plain={err:.3e}", flush=True)
     return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
-                bound_by=bound_by)
+                bound_by=bound_by, max_abs_err=err)
 
 
 def nccl_phase(torch, lightgcn, simgcl, dense):
@@ -2301,43 +2444,75 @@ def nccl_phase(torch, lightgcn, simgcl, dense):
             os.environ.pop(key, None)
 
 
-def parallel_phases(torch, K, QRec, conf_of, tmp, trust_path):
-    """Slices 7a-7c on the card. Run A: each run of ``PARALLEL_RUNS`` in
+def parallel_phases(torch, K, QRec, conf_of, tmp, trust_path, one_process=None):
+    """Slices 7a-7d on the card. Run A: each run of ``PARALLEL_RUNS`` in
     one process (where ``parallel.setup`` builds no mesh), then on four
     ranks on cuda:0 over a gloo group that this script makes
     (``parallel_rank``): data 2 x model 2, so K5 runs on row blocks and K1
     on item-column blocks at width 25 (75 for SimGCL's fused views), K3/K4
     on half the contrastive rows and K2 on a quarter of the test users; the
-    social models read ``trust_path``. Holds every rank's launches against
-    ``expected_launches``, the ranks' tables equal bit for bit, the
-    measures within 2e-2 and the first epoch's loss within rtol 1e-4 of the
-    one-process run, and each route against its plain twin; then the
-    lifecycle runs (``PARALLEL_LIFECYCLE``) against the unbroken
-    ``lightgcn`` run, bit for bit, with rank 0 alone writing; times each
-    route's kernel on one rank's share (``shard_timings``). The four ranks
-    share one card and gloo carries their collectives through host memory:
-    this checks the routes, not their scaling. Run B: ``nccl_phase``.
-    Returns (kernels-line entries, launches summed over the ranks)."""
+    social models read ``trust_path``, the rating models a FilmTrust-shaped
+    file; the models of ``REPLICATED`` train whole on every rank, and
+    "wrmf auto" leaves ``parallel.setup`` out. Holds every rank's launches
+    against ``expected_launches``, its mesh (data 2 x model 2, "wrmf auto"
+    too), rank 0 alone writing the result files, the ranks' digests of what
+    each model scores from equal bit for bit, the measures within 2e-2 and
+    the first epoch's loss within rtol 1e-4 of the one-process run, and
+    each route against its plain twin; then the lifecycle runs
+    (``PARALLEL_LIFECYCLE``) against the unbroken ``lightgcn`` run, bit for
+    bit, with rank 0 alone writing; times each route's kernel on one rank's
+    share (``shard_timings``, and route 7 on IRGAN's biased form). The four
+    ranks share one card and gloo carries their collectives through host
+    memory: this checks the routes, not their scaling. Run B:
+    ``nccl_phase``. Returns (kernels-line entries, launches summed over the
+    ranks, the K2 launches of the biased forms among them)."""
     import pickle
 
     import torch.multiprocessing as mp
+    from torch.multiprocessing.spawn import ProcessException
 
     from qrec_tpu_torch.ops.metrics import parse_measure
 
     t_phase = time.perf_counter()
+    users, items, ratings = filmtrust_records()
+    filmtrust = os.path.join(tmp, "filmtrust_parallel.txt")
+    with open(filmtrust, "w") as f:
+        f.writelines(f"{a} {b} {r}\n" for a, b, r in zip(users, items, ratings))
     runs, one = [], {}
     for label, name, epochs, extra in PARALLEL_RUNS:
         conf = conf_of(name, epochs)
+        conf["parallel.setup"] = "on -model 2"
         for key, value in extra.items():
-            conf[key] = value
+            if value is None:
+                conf.config.pop(key)
+            else:
+                conf[key] = filmtrust if value == "FILMTRUST" else value
         if conf.contains("social"):
             conf["social"] = trust_path
-        conf["parallel.setup"] = "on -model 2"
         runs.append((label, dict(conf.config)))
+        if label in (one_process or {}):
+            # the walk slice ran the same config in one process: reuse it
+            # (its SGNS host build is most of the run)
+            one[label] = one_process[label]
+            if one[label].pop("conf") != {k: v for k, v in conf.config.items()
+                                          if k != "parallel.setup"}:
+                fail(f"parallel {label}: the walk slice's one-process run had another config")
+            print(f"[parallel {label} one process] the walk slice's run of the same config: "
+                  f"losses {one[label]['losses']}", flush=True)
+            continue
         model, _, parsed = drive(torch, K, QRec, conf, f"parallel {label} one process")
         if model.mesh is not None:
             fail(f"parallel {label}: one process built a mesh")
-        one[label] = dict(model=model, parsed=parsed)
+        if name not in REPLICATED or name == "IRGAN":  # IRGAN's form times route 7 biased
+            one[label] = dict(model=model, parsed=parsed)
+        else:
+            one[label] = dict(parsed=parsed)
+        one[label].update(losses=list(getattr(model, "epoch_losses", [])),
+                          epoch_ms=[t * 1e3 for t in model.timer.times] if model.timer else [],
+                          graph_s=getattr(model, "graph_seconds", None))
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
     life_dir = os.path.join(tmp, "parallel_lifecycle")
     saved = os.path.join(life_dir, "lightgcn")
     lifecycle = []
@@ -2357,7 +2532,7 @@ def parallel_phases(torch, K, QRec, conf_of, tmp, trust_path):
     try:
         mp.spawn(parallel_rank, args=(os.path.join(out_dir, "store"), runs, lifecycle, out_dir),
                  nprocs=PARALLEL_RANKS, join=True)
-    except mp.ProcessException as e:
+    except ProcessException as e:
         for r in range(PARALLEL_RANKS):
             log = os.path.join(out_dir, f"rank{r}.log")
             if os.path.exists(log):
@@ -2370,36 +2545,46 @@ def parallel_phases(torch, K, QRec, conf_of, tmp, trust_path):
         with open(os.path.join(out_dir, f"rank{r}.pkl"), "rb") as f:
             ranks.append(pickle.load(f))
     launches = {k.name: 0 for k in K.KERNELS}
-    errs = {}
+    errs, biased = {}, 0
     for label, _ in runs:
         first = ranks[0][label]
         for r, got in enumerate(ranks):
             g = got[label]
-            print(f"[parallel {label} rank {r}] place (data, model)={g['place']}; {g['shares']}; "
-                  f"epoch ms ({SHARED}): {[round(t, 1) for t in g['epoch_ms']]}; losses "
-                  f"{g['losses']}", flush=True)
+            print(f"[parallel {label} rank {r}] mesh {g['mesh']} place (data, model)="
+                  f"{g['place']}; {g['shares']}; epoch ms ({SHARED}): "
+                  f"{[round(t, 1) for t in g['epoch_ms']]}; losses {g['losses']}; host build s="
+                  f"{g['graph_s']}; result files written {len(g['writes'])}", flush=True)
             check_counts(f"parallel {label} rank {r}", g["counts"], g["expect"])
             for k, n in g["counts"].items():
                 launches[k] += n
             for route, err in g["errs"].items():
                 errs[route] = max(errs.get(route, 0.0), err)
-            same = all(np.array_equal(g[k], first[k]) for k in ("U", "V")) and all(
-                np.array_equal(g["tables"][n], first["tables"][n]) for n in first["tables"])
-            if not same or g["losses"] != first["losses"] or g["measure"] != first["measure"]:
+            if "topk user shards biased" in g["errs"]:
+                biased += g["counts"]["masked_catalog_topk"]
+            if g["mesh"] != {"data": 2, "model": 2}:
+                fail(f"parallel {label}: rank {r} built the mesh {g['mesh']}")
+            if len(g["writes"]) != (2 if r == 0 else 0):
+                fail(f"parallel {label}: rank {r} wrote {g['writes']}")
+            if g["held"] != first["held"] or g["losses"] != first["losses"] or (
+                    g["measure"] != first["measure"]):
                 fail(f"parallel {label}: rank {r}'s tables, losses or measures differ from "
                      f"rank 0's")
-        got = parse_measure(first["measure"])
-        top = next(k for k in got if k.startswith("Top "))
-        want = one[label]["parsed"]
-        gap = max(abs(got[top][m] - want[m]) for m in ("Precision", "Recall", "NDCG"))
-        loss1 = one[label]["model"].epoch_losses[0]
-        print(f"[parallel {label}] the ranks' tables, losses and measures equal bit for bit; "
-              f"{top} on 4 ranks {got[top]} one process {want}: largest gap {gap:.3e} (bound "
-              f"2e-2); first epoch loss 4 ranks {first['losses'][0]:.4f} one process "
-              f"{loss1:.4f} (rtol 1e-4)", flush=True)
+        got, want = parse_measure(first["measure"]), one[label]["parsed"]
+        top = next((k for k in got if k.startswith("Top ")), "global")
+        names = ("Precision", "Recall", "NDCG") if top != "global" else ("MAE", "RMSE")
+        gap = max(abs(got[top][m] - want[m]) for m in names)
+        loss1 = one[label]["losses"][0] if one[label]["losses"] else None
+        steady = lambda ms: [round(t, 1) for t in ms]  # noqa: E731
+        print(f"[parallel {label}] the ranks' held tables ({len(first['held'])} digests), "
+              f"losses and measures equal bit for bit; {top} on 4 ranks {got[top]} one process "
+              f"{want}: largest gap {gap:.3e} (bound 2e-2); first epoch loss 4 ranks "
+              f"{first['losses'][0] if first['losses'] else None} one process {loss1} (rtol "
+              f"1e-4); epoch ms 4 ranks {steady(first['epoch_ms'])} one process "
+              f"{steady(one[label]['epoch_ms'])}; host build s 4 ranks {first['graph_s']} one "
+              f"process {one[label]['graph_s']}", flush=True)
         if not gap < 2e-2:
             fail(f"parallel {label}: the measures on 4 ranks are {gap} from one process's")
-        if not math.isclose(first["losses"][0], loss1, rel_tol=1e-4):
+        if loss1 is not None and not math.isclose(first["losses"][0], loss1, rel_tol=1e-4):
             fail(f"parallel {label}: the first epoch's loss is not the one process's")
     for r, got in enumerate(ranks):
         unbroken, (stopped, resumed, loaded) = got["lightgcn"], (
@@ -2412,11 +2597,10 @@ def parallel_phases(torch, K, QRec, conf_of, tmp, trust_path):
                 and stopped["losses"] == unbroken["losses"][:1]
                 and resumed["losses"] == unbroken["losses"][1:]
                 and resumed["measure"] == unbroken["measure"]
-                and all(np.array_equal(resumed[k], unbroken[k]) for k in ("U", "V"))
-                and all(np.array_equal(v, unbroken["tables"][n])
-                        for n, v in resumed["tables"].items()))
+                and resumed["held"] == unbroken["held"])
+        # a loaded model holds the saved U and V, its parameters untrained
         same_load = loaded["measure"] == resumed["measure"] and all(
-            np.array_equal(loaded[k], resumed[k]) for k in ("U", "V"))
+            loaded["held"][k] == resumed["held"][k] for k in ("U", "V"))
         writes = got["lifecycle writes"]
         writer = writes == (dict(steps=[1, 2], savez=[saved]) if r == 0 else
                             dict(steps=[], savez=[]))
@@ -2434,15 +2618,21 @@ def parallel_phases(torch, K, QRec, conf_of, tmp, trust_path):
     print(f"[parallel] routes against their plain twins on the card, max_abs_err "
           f"{json.dumps(errs)}; launches summed over the ranks {json.dumps(launches)}; spawn to "
           f"join {spawn_s:.1f} s ({SHARED})", flush=True)
-    timings = shard_timings(torch, K, Timer(torch), one["lightgcn-pallas"]["model"],
+    timer = Timer(torch)
+    timings = shard_timings(torch, K, timer, one["lightgcn-pallas"]["model"],
                             one["simgcl-pallas"]["model"], one["lightgcn"]["model"])
+    # route 7 on a biased form: IRGAN's item bias at d=20
+    timings["topk biased"] = user_shard_timing(torch, K, timer, one["irgan"]["model"],
+                                               label=" biased")
     for key, route in (("segment", "segment row blocks"), ("infonce", "infonce row shards"),
-                       ("dense", "dense column blocks"), ("topk", "topk user shards")):
-        timings[key]["max_abs_err"] = errs[route]
+                       ("dense", "dense column blocks"), ("topk", "topk user shards"),
+                       ("topk biased", "topk user shards biased")):
+        timings[key]["max_abs_err"] = max(errs[route], timings[key].get("max_abs_err", 0.0))
+    del timer
     nccl_phase(torch, one["lightgcn-pallas"]["model"], one["simgcl-pallas"]["model"],
                one["lightgcn"]["model"])
     print(f"[parallel] phase {time.perf_counter() - t_phase:.1f} s", flush=True)
-    return timings, launches
+    return timings, launches, biased
 
 
 def write_yelp_file(path: str) -> None:
@@ -2564,7 +2754,9 @@ def expected_launches(model):
     3n a step, as on one device), K3 and K4 once a loss on its rows; K2
     once a batch of its own share of the test users (ceil(n_loc /
     eval_batch_size) a ranking); MHCN, DiffNet and DHCF hold their
-    operators whole on every rank, so K2 alone."""
+    operators whole on every rank, so K2 alone; the models trained whole
+    on every rank (slice 7d) launch K2 alone, on their share, where one
+    device ranks through it."""
     import torch.distributed as dist
 
     from qrec_tpu_torch.models.adversarial_social import ESRF
@@ -2956,7 +3148,7 @@ def main() -> None:
 
         # 13. the walk slice: CUNE_MF, CUNE_BPR, IF_BPR (without and with
         # negative feedback) and RSGAN
-        walk_launches, walk_k2r = walk_phases(torch, K, QRec, conf_of, tmp, trust)
+        walk_launches, walk_k2r, walk_ones = walk_phases(torch, K, QRec, conf_of, tmp, trust)
         mf_launches.update(walk_launches)
         k2r.update(walk_k2r)
 
@@ -2968,7 +3160,8 @@ def main() -> None:
 
         # 15. multi-GPU: the LightGCN family on four ranks on the card, in
         # the sparse and the dense forms, and the one-rank NCCL group
-        par, par_launches = parallel_phases(torch, K, QRec, conf_of, tmp, trust)
+        par, par_launches, par_biased_launches = parallel_phases(torch, K, QRec, conf_of, tmp,
+                                                                 trust, walk_ones)
 
         # 16. planted blocks
         planted_check(torch, tmp, ModelConf, QRec, parse_measure, "LightGCN", "-n_layer 2")
@@ -3055,9 +3248,14 @@ def main() -> None:
         row("ShardedDenseJoint (dense joint on a mesh)", "qrec_tpu_torch/csrc/dual_matmul.cu",
             "qrec_tpu/ops/pallas_kernels.py:635", par_launches["bipartite_dual_matmul"],
             par["dense"]),
-        # route 7: K2's top-k on a rank's share of the test users
+        # route 7: K2's top-k on a rank's share of the test users, each
+        # form's launches on its row: plain (LightGCN's factors timed) and
+        # biased (MostPopular's and IRGAN's runs; IRGAN's item bias timed)
         row("pallas_catalog_topk(mesh=)", "qrec_tpu_torch/csrc/masked_scores.cu",
-            "qrec_tpu/ops/topk.py:263", par_launches["masked_catalog_topk"], par["topk"]),
+            "qrec_tpu/ops/topk.py:263", par_launches["masked_catalog_topk"] - par_biased_launches,
+            par["topk"]),
+        row("pallas_catalog_topk(mesh=), biased", "qrec_tpu_torch/csrc/masked_scores.cu",
+            "qrec_tpu/ops/topk.py:263", par_biased_launches, par["topk biased"]),
     ]
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

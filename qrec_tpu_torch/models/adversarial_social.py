@@ -249,7 +249,11 @@ class ESRF(SocialRecommender, GraphRecommender):
 
 class RSGAN(SocialRecommender):
     """Social GAN with a Gumbel-softmax CDAE generator of virtual friends
-    (RSGAN.py), its friends seeded by IF_BPR's meta-path pipeline."""
+    (RSGAN.py), its friends seeded by IF_BPR's meta-path pipeline. On a
+    mesh its training is replicated: every rank builds the friends and
+    trains the whole model from the same seed."""
+
+    trains_on_mesh = True
 
     hidden = 200
     seed_top_k = 100

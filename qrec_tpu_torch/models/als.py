@@ -82,7 +82,10 @@ class _ALS(IterativeRecommender):
 
 class WRMF(_ALS):
     """Implicit ALS with confidence ``1 + 10r`` (WRMF.py:17-67); each epoch
-    prints the squared error over the rated entries."""
+    prints the squared error over the rated entries. On a mesh its training
+    is replicated: every rank solves the whole tables from the same seed."""
+
+    trains_on_mesh = True
 
     def init_tables(self) -> Dict[str, torch.Tensor]:
         return self._uniform_tables(torch.Generator().manual_seed(self.seed))
@@ -106,7 +109,10 @@ class WRMF(_ALS):
 class ExpoMF(_ALS):
     """Exposure-aware probabilistic MF trained by EM (ExpoMF.py): the
     exposure posterior weighs both solves, and the per-item prior ``mu``
-    (I,) follows the summed posterior."""
+    (I,) follows the summed posterior. On a mesh its training is
+    replicated: every rank solves the whole tables from the same seed."""
+
+    trains_on_mesh = True
 
     factors = ("theta", "beta")
     lam_theta = 1e-5
@@ -151,7 +157,10 @@ class SERec(SocialRecommender, ExpoMF):
     """Social-exposure ExpoMF, the reference's boost variant
     (SERec.py:15-100): the prior ``mu`` (U, I) of (u, i) grows with how much
     u's followees were exposed to i, through the dense ``trust (U, U) @
-    a_sum (U, I)`` product."""
+    a_sum (U, I)`` product. On a mesh its training is replicated: every
+    rank solves the whole tables from the same seed."""
+
+    trains_on_mesh = True
 
     lam_y = 0.01
     s_boost = 2.2
@@ -184,7 +193,10 @@ class CoFactor(_ALS):
     item's solve adds its context blocks ``Σ_j g_j g_jᵀ`` and ``Σ_j (m_ij −
     w_i − c_j) g_j`` over its SPPMI neighbours j; the context factors ``g``
     (I, d) and biases ``w``, ``c`` (I,) follow, an item without context
-    keeping its old values."""
+    keeping its old values. On a mesh its training is replicated: every
+    rank solves the whole tables from the same seed."""
+
+    trains_on_mesh = True
 
     def read_configuration(self) -> None:
         super().read_configuration()

@@ -85,8 +85,9 @@ class Recommender(nn.Module):
     # ``social``; the session refuses to run it without one
     requires_social = False
     # the four models of models/graph.py, the five of
-    # models/social_graph.py and BPR train on a mesh; every other model
-    # refuses one
+    # models/social_graph.py and BPR train data-parallel on a mesh; the
+    # own-loop, ALS and untrained models train whole on every rank; every
+    # other model refuses one
     trains_on_mesh = False
 
     def __init__(self, conf: ModelConf, data: Interactions, fold: str = "[1]", device=None,
@@ -141,15 +142,29 @@ class Recommender(nn.Module):
 
     @property
     def mesh(self):
-        """The ('data', 'model') mesh that ``parallel.setup=on [-model K]``
-        asks for over more than one rank (``parallel/mesh.py``; the JAX
-        package's ``Recommender.mesh``, ``models/base.py:366-400``), else
-        None: in one process the setting changes nothing. On a mesh a model
-        that does not train there yet (``trains_on_mesh`` off) raises a
-        ConfigError. Checkpoints, ``model.setup``'s ``-save`` and
-        ``-load`` and ``-cv k -p`` run there: rank 0 alone writes a step
-        file or a saved model, every rank reads them, and ``-cv``'s folds
-        run in turn on the mesh."""
+        """The ('data', 'model') mesh that the run asks for over more than
+        one rank (``parallel/mesh.py``: ``parallel.setup=on [-model K]``,
+        or on a CUDA device a launcher of more than one process with the
+        setting absent; the JAX package's ``Recommender.mesh``,
+        ``models/base.py:366-400``), else None: in one process the setting
+        changes nothing. Which families run there:
+
+        * data-parallel, each data rank's loss its share of the step's:
+          LightGCN, NGCF, SGL, SimGCL, MHCN, SEPT, BUIR, DiffNet, DHCF
+          and BPR;
+        * whole on every rank, from the same seed and with no collective
+          in the loop (the JAX package's own loops read no mesh either):
+          CFGAN, IRGAN, RSGAN, IF_BPR, WRMF, ExpoMF, CoFactor, SERec,
+          UserMean, ItemMean, MostPopular, Rand, UserKNN, ItemKNN and
+          SlopeOne.
+
+        Either way a ``ScoreForm`` ranks each rank's share of the test
+        users through K2 and gathers the lists; score blocks and random
+        scores rank whole on every rank. A model that does not run there
+        yet (``trains_on_mesh`` off) raises a ConfigError. Checkpoints,
+        ``model.setup``'s ``-save`` and ``-load`` and ``-cv k -p`` run
+        there: rank 0 alone writes a step file or a saved model, every rank
+        reads them, and ``-cv``'s folds run in turn on the mesh."""
         if not hasattr(self, "_mesh"):
             mesh = mesh_from_config(self.config, self.device)
             if mesh is not None and not self.trains_on_mesh:

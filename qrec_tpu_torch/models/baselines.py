@@ -13,7 +13,10 @@ from .base import Recommender
 
 class UserMean(Recommender):
     """Each user's training mean, the global mean for an unknown user
-    (UserMean.py:7-11). Rating only."""
+    (UserMean.py:7-11). Rating only. On a mesh its training (none) is
+    replicated: every rank predicts every test rating."""
+
+    trains_on_mesh = True
 
     def predict_ratings(self, users, items) -> np.ndarray:
         uids, _ = self._ids(users, items)
@@ -23,7 +26,10 @@ class UserMean(Recommender):
 
 class ItemMean(Recommender):
     """Each item's training mean, the global mean for an unknown item
-    (ItemMean.py:6-10). Rating only."""
+    (ItemMean.py:6-10). Rating only. On a mesh its training (none) is
+    replicated: every rank predicts every test rating."""
+
+    trains_on_mesh = True
 
     def predict_ratings(self, users, items) -> np.ndarray:
         _, iids = self._ids(users, items)
@@ -35,7 +41,11 @@ class MostPopular(Recommender):
     """Items ranked by their training count (MostPopular.py:9-20); an item
     nobody rated in training scores U(0, 1) noise from numpy's
     ``RandomState(seed)``, the JAX package's draws bit for bit. The buffer
-    ``scores`` (I,) holds them after ``fit``."""
+    ``scores`` (I,) holds them after ``fit``. On a mesh its training is
+    replicated (every rank draws the same noise) and K2 ranks each rank's
+    share of the test users."""
+
+    trains_on_mesh = True
 
     def __init__(self, conf, data, fold: str = "[1]", device=None):
         super().__init__(conf, data, fold=fold, device=device)
@@ -56,7 +66,10 @@ class MostPopular(Recommender):
 class Rand(Recommender):
     """Uniform random scores (Rand.py:10-15), drawn from the model's
     generator seeded with ``seed``: not the JAX package's draws, whose PRNG
-    the port does not reproduce."""
+    the port does not reproduce. On a mesh its training is replicated:
+    every rank draws the same scores and ranks every test user."""
+
+    trains_on_mesh = True
 
     def fit(self) -> None:
         self.generator = torch.Generator(device=self.device).manual_seed(self.seed)

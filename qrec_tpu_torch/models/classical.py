@@ -103,19 +103,29 @@ class _KNN(Recommender):
 
 class UserKNN(_KNN):
     """Mean-centred weighted user kNN (UserKNN.py:28-66). Rating only (the
-    reference refuses ranking, UserKNN.py:68-70)."""
+    reference refuses ranking, UserKNN.py:68-70). On a mesh its training
+    (none) is replicated: every rank predicts every test rating."""
+
+    trains_on_mesh = True
 
 
 class ItemKNN(_KNN):
-    """Mean-centred weighted item kNN (ItemKNN.py:27-71). Rating only."""
+    """Mean-centred weighted item kNN (ItemKNN.py:27-71). Rating only. On
+    a mesh its training (none) is replicated: every rank predicts every
+    test rating."""
 
     by_user = False
+    trains_on_mesh = True
 
 
 class SlopeOne(Recommender):
     """Item-pair mean rating differences weighted by co-rating counts
     (SlopeOne.py:12-54): the counts and differences of each test item
-    against every item on the device, the prediction on the host."""
+    against every item on the device, the prediction on the host. Rating
+    only. On a mesh its training (none) is replicated: every rank predicts
+    every test rating."""
+
+    trains_on_mesh = True
 
     def predict_ratings(self, users, items) -> np.ndarray:
         data = self.data

@@ -314,7 +314,11 @@ class CFGAN(_RatingRows):
     columns; partial masking keeps the positives and sampled unrated
     columns of the fake row. One batch an epoch: one D step, then three G
     steps on the same batch, under separate Adams. Parameters: ``g.W1``
-    (I, I), ``g.b1`` (I,), ``d.W1`` (2I, 1), ``d.b1`` (1,)."""
+    (I, I), ``g.b1`` (I,), ``d.W1`` (2I, 1), ``d.b1`` (1,). On a mesh its
+    training is replicated: every rank trains the whole model from the
+    same seed and ranks every test user."""
+
+    trains_on_mesh = True
 
     s_zr = 0.001
     s_pm = 0.001

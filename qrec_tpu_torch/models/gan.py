@@ -56,7 +56,10 @@ class IRGAN(IterativeRecommender):
     importance proposal and is rewarded by the discriminator. Ranking takes
     the discriminator's ``U·Vᵀ + item_bias`` (IRGAN.py:176-180). Parameters:
     ``gen.*`` and ``dis.*``, each ``user_emb`` (U, d), ``item_emb`` (I, d)
-    U(-0.05, 0.05) and ``item_bias`` (I,) zeros."""
+    U(-0.05, 0.05) and ``item_bias`` (I,) zeros. On a mesh its training is
+    replicated: every rank trains the whole model from the same seed."""
+
+    trains_on_mesh = True
 
     eval_batch_size = 512
     d_steps, g_steps = 5, 10

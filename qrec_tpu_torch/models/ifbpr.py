@@ -254,7 +254,11 @@ def user_sums(users: torch.Tensor, values: torch.Tensor, bounds: torch.Tensor) -
 
 class IF_BPR(SocialRecommender):
     """The four-tier chain over implicit friends with the adaptive joint
-    threshold, trained by its own loop under one Adam."""
+    threshold, trained by its own loop under one Adam. On a mesh its
+    training is replicated: every rank builds the friends and trains the
+    whole model from the same seed."""
+
+    trains_on_mesh = True
 
     skipgram_draws = SkipgramDraws  # the SGNS runs' random inputs (replaceable)
 

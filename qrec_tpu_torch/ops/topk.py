@@ -89,8 +89,8 @@ class CatalogRanker:
     batches of ``batch_size`` (``ceil(n_loc / batch_size)`` launches), and
     the (n_loc, k) ids and scores are gathered over the default group in
     rank order, exactly, so every rank returns one process's lists. Score
-    blocks and random scores, which no mesh model ranks, stay whole on
-    every rank."""
+    blocks and random scores (CFGAN's generator, Rand's draws) stay whole
+    on every rank, each rank drawing the same numbers."""
 
     def __init__(self, data, k: int, device, bitmask: torch.Tensor, batch_size: int = 1024,
                  mesh=None):

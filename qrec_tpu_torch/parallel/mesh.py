@@ -37,6 +37,12 @@ reduction completes the sum. A loss that every rank computed whole and
 then summed over ``data`` would count W times; a backward that summed a
 cotangent that is already whole would too.
 
+When it forms. ``parallel.setup=on [-model K]`` asks for the mesh and
+``off`` refuses it. Without the setting a CUDA run forms the default mesh
+when its process is one of more than one rank (a launcher's environment
+or a group already made), as the JAX package forms its mesh over more than
+one TPU device (:func:`mesh_wanted`); a CPU run forms none unasked.
+
 The ranks stay identical to the bit: they draw the same numbers, and every
 rank of a group receives the same bits from a collective.
 """
@@ -73,7 +79,8 @@ def maybe_initialize_distributed(conf=None, device=None) -> bool:
     CPU. On a CUDA device each rank first takes ``cuda:{LOCAL_RANK %
     device_count()}``. ``conf`` is not read, as in the JAX package.
     Launcher sketch, one process per GPU, ``run.conf`` holding
-    ``parallel.setup=on``::
+    ``parallel.setup=on`` or not naming it (the mesh then forms by
+    itself, :func:`mesh_wanted`)::
 
         QREC_COORDINATOR=host0:8476 QREC_NUM_PROCESSES=8 QREC_PROCESS_ID=$i \\
         LOCAL_RANK=$i python -m qrec_tpu_torch run.conf
@@ -143,19 +150,49 @@ def make_mesh(model_parallel: Optional[int] = None) -> Mesh:
     return _meshes[key]
 
 
+def launcher_world() -> int:
+    """The process count that a launcher's environment names: the
+    ``QREC_*`` triplet's ``QREC_NUM_PROCESSES`` under ``QREC_COORDINATOR``,
+    or torchrun's ``WORLD_SIZE`` beside ``MASTER_ADDR`` and ``RANK``; 1
+    when neither does."""
+    if os.environ.get("QREC_COORDINATOR"):
+        return int(os.environ.get("QREC_NUM_PROCESSES", "1"))
+    if all(os.environ.get(k) for k in ("MASTER_ADDR", "WORLD_SIZE", "RANK")):
+        return int(os.environ["WORLD_SIZE"])
+    return 1
+
+
+def mesh_wanted(conf, device) -> Tuple[bool, Optional[int]]:
+    """(whether the run asks for a mesh, its ``-model K`` or None).
+    ``parallel.setup`` decides where it is set. Where it is absent, a CUDA
+    process asks for the default mesh when it is one of more than one
+    rank: a default group of more than one rank is already made, or a
+    launcher's environment names more than one process
+    (:func:`launcher_world`), as the JAX package turns its mesh on by
+    itself when more than one TPU device is visible
+    (``qrec_tpu/models/base.py:378-390``); on the CPU neither builds one
+    unasked."""
+    if conf.contains("parallel.setup"):
+        opts = OptionConf(conf["parallel.setup"])
+        return opts.isMainOn(), opts.get_int("-model", 0) or None
+    if torch.device(device).type != "cuda":
+        return False, None
+    world = dist.get_world_size() if dist.is_initialized() else launcher_world()
+    return world > 1, None
+
+
 def mesh_from_config(conf, device) -> Optional[Mesh]:
-    """The mesh that ``parallel.setup=on [-model K]`` asks for (the JAX
-    package's ``Recommender.mesh``): None unless the setting is on and the
+    """The mesh that the run asks for (:func:`mesh_wanted`; the JAX
+    package's ``Recommender.mesh``): None unless it asks for one and the
     process is one of more than one rank, as the JAX package builds none
-    on one device."""
-    if not conf.contains("parallel.setup"):
-        return None
-    opts = OptionConf(conf["parallel.setup"])
-    if not opts.isMainOn():
+    on one device. Asking joins the process group first
+    (:func:`maybe_initialize_distributed`)."""
+    wanted, model_parallel = mesh_wanted(conf, device)
+    if not wanted:
         return None
     if not maybe_initialize_distributed(conf, device) or dist.get_world_size() == 1:
         return None
-    return make_mesh(opts.get_int("-model", 0) or None)
+    return make_mesh(model_parallel)
 
 
 def is_writer() -> bool:

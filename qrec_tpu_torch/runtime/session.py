@@ -14,15 +14,21 @@ a saved model in place of training and ``-save <path>`` writes it after
 the evaluation (every fold of ``-cv`` writes the same path), as in the JAX
 package's ``run_fold``.
 
-``parallel.setup=on [-model K]`` (``parallel/mesh.py``): the process joins
-its process group before any device work, and with more than one rank
-LightGCN, NGCF, SGL, SimGCL, MHCN, SEPT, BUIR, DiffNet, DHCF and BPR train
-data-parallel on the mesh (``Recommender.mesh``) and rank their test users
-cut over the ranks; ``-cv k``, with or without ``-p``, then runs its folds
-in turn on it. Rank 0 alone writes the result files, the run log, the
-``-cv`` summary, a ``-save``d model and the checkpoints' step files (the
-JAX package writes the result files from every process); every rank reads
-a ``-load``ed model and restores the checkpoint step that rank 0 finds. In
+``parallel.setup=on [-model K]`` (``parallel/mesh.py``), or on a CUDA
+device a launcher of more than one process with the setting absent (as
+the JAX package forms its mesh over more than one TPU device; ``off``
+refuses it): the process joins its process group before any device work,
+and with more than one rank LightGCN, NGCF, SGL, SimGCL, MHCN, SEPT,
+BUIR, DiffNet, DHCF and BPR train data-parallel on the mesh
+(``Recommender.mesh``), the own-loop, ALS and untrained models (CFGAN,
+IRGAN, RSGAN, IF_BPR, WRMF, ExpoMF, CoFactor, SERec, UserMean, ItemMean,
+MostPopular, Rand, UserKNN, ItemKNN, SlopeOne) train whole on every rank,
+and a dot-product score form ranks the test users cut over the ranks; ``-cv
+k``, with or without ``-p``, then runs its folds in turn on it. Rank 0
+alone writes the result files, the run log, the ``-cv`` summary, a
+``-save``d model and the checkpoints' step files (the JAX package writes
+the result files from every process); every rank reads a ``-load``ed
+model and restores the checkpoint step that rank 0 finds. In
 one process the setting changes nothing.
 """
 
@@ -41,7 +47,7 @@ from ..errors import ConfigError, EvaluationError
 from ..log import Log, timestamp
 from ..models import get_model
 from ..models.base import check_graph_settings
-from ..parallel.mesh import is_writer, maybe_initialize_distributed
+from ..parallel.mesh import is_writer, maybe_initialize_distributed, mesh_wanted
 from . import evaluator
 
 
@@ -105,7 +111,7 @@ class QRec:
         if not config.contains("evaluation.setup"):
             raise ConfigError("Wrong configuration of evaluation!")
         check_graph_settings(config)
-        if config.contains("parallel.setup") and config.options("parallel.setup").isMainOn():
+        if mesh_wanted(config, self.device)[0]:
             maybe_initialize_distributed(config, self.device)
         self.evaluation = OptionConf(config["evaluation.setup"])
         binarized = False

@@ -1,5 +1,6 @@
-"""Rank workers of ``tests/test_torch_parallel.py`` and
-``tests/test_torch_parallel_social.py``. Each runs in a spawned
+"""Rank workers of ``tests/test_torch_parallel.py``,
+``tests/test_torch_parallel_social.py`` and
+``tests/test_torch_parallel_models.py``. Each runs in a spawned
 process of a gloo group on the CPU and returns what the test holds against
 the JAX package and against one process. This module holds no test: a
 spawned rank imports it, and it imports no JAX, as the port imports none.
@@ -362,4 +363,98 @@ def lifecycle(confs) -> dict:
     finally:
         C.Checkpointer.save, np.savez = real_save, real_savez
     out["steps"], out["savez"] = steps, savez
+    return out
+
+
+def replicated_run(conf: dict, init=None) -> dict:
+    """``QRec(conf).execute()`` on the CPU for a model that trains whole on
+    every rank (slice 7d), ``init`` (npz-style arrays by table name)
+    replacing those of its ALS ``init_tables``: the measure lines and the
+    files under its ``-dir``; everything the model scores or predicts from
+    (its parameters and buffers, its ALS tables, ``U``, ``V`` and
+    IRGAN's item bias; a rating run's prediction of every test rating),
+    its losses; each ranking's gathered (ids, scores) and the users of
+    every K2 call that this process made (through its plain twin here)."""
+    calls, ranked = [], []
+    kernel, real_topk = topk.masked_catalog_topk, topk.CatalogRanker.topk
+
+    def counted(user_emb, items, bitmask, uids, *a, **k):
+        calls.append(uids.numpy().copy())
+        return kernel(user_emb, items, bitmask, uids, *a, **k)
+
+    def recorded(ranker, form):
+        out = real_topk(ranker, form)
+        ranked.append(out)
+        return out
+
+    cls = get_model(conf["model.name"])
+    real_init = getattr(cls, "init_tables", None)
+
+    def injected(model):
+        tables = real_init(model)
+        tables.update({k: torch.from_numpy(v.copy()) for k, v in init.items()})
+        return tables
+
+    topk.masked_catalog_topk, topk.CatalogRanker.topk = counted, recorded
+    if init is not None:
+        cls.init_tables = injected
+    try:
+        rec = QRec(ModelConf(conf), seed=3, device="cpu")
+        measure = rec.execute()
+    finally:
+        topk.masked_catalog_topk, topk.CatalogRanker.topk = kernel, real_topk
+        if init is not None:
+            cls.init_tables = real_init
+    model = rec.model
+    out_dir = conf["output.setup"].split("-dir ")[1].strip()
+    host = lambda t: None if t is None else t.detach().numpy().copy()  # noqa: E731
+    users = [e[0] for e in model.data.test_data]
+    items = [e[1] for e in model.data.test_data]
+    return {
+        "measure": measure, "mesh": None if model.mesh is None else model.mesh.shape,
+        "files": sorted(os.listdir(out_dir)) if os.path.isdir(out_dir) else [],
+        "params": {n: host(p) for n, p in model.named_parameters()},
+        "buffers": {n: host(b) for n, b in model.named_buffers()},
+        # the ALS tables by name; IF_BPR's tier tables, the friends' items
+        "tables": as_numpy({n: host(t) for n, t in model.tables.items()}
+                           if isinstance(getattr(model, "tables", None), dict)
+                           else getattr(model, "tables", None)),
+        "U": host(model.U), "V": host(model.V), "item_bias": host(getattr(model, "item_bias", None)),
+        "predictions": None if model.ranking.isMainOn() else model.predict_ratings(users, items),
+        "losses": {k: list(getattr(model, k)) for k in ("epoch_losses", "g_losses",
+                                                        "pretrain_losses") if hasattr(model, k)},
+        "thresholds": [tuple(host(t) for t in pair) for pair in getattr(model, "thresholds", [])],
+        "ranked": [(ids, scores) for ids, scores in ranked], "k2_calls": calls,
+    }
+
+
+def replicated(rank, runs, lifecycle):
+    """Each run of ``runs`` (label -> (conf, init)) through
+    :func:`replicated_run`, each rank writing under its own ``-dir``; then
+    the ``lifecycle`` confs in order (their saved-model paths shared by
+    every rank): the measures and factors of each, or the RuntimeError
+    that ended it, with the ``np.savez`` calls that THIS rank made."""
+    out = {}
+    for label, (conf, init) in runs.items():
+        conf = dict(conf, **{"output.setup": f"on -dir {conf['out_dir']}/{label}/rank{rank}"})
+        out[label] = replicated_run({k: v for k, v in conf.items() if k != "out_dir"}, init)
+    savez, real_savez = [], np.savez
+
+    def spy_savez(path, *a, **k):
+        savez.append(str(path))
+        return real_savez(path, *a, **k)
+
+    np.savez = spy_savez
+    try:
+        for label, conf in lifecycle.items():
+            try:
+                rec = QRec(ModelConf(conf), seed=3, device="cpu")
+                measure = rec.execute()
+                out[label] = {"measure": measure, "U": rec.model.U.numpy().copy(),
+                              "V": rec.model.V.numpy().copy()}
+            except RuntimeError as e:
+                out[label] = {"raised": str(e)}
+    finally:
+        np.savez = real_savez
+    out["savez"] = savez
     return out
