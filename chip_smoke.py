@@ -126,10 +126,15 @@ Phases, each of which exits non-zero on failure:
    DHCF with ``lastfm_trust``; the 15 models trained whole on every rank,
    CFGAN, IRGAN, RSGAN, IF_BPR, WRMF, ExpoMF, CoFactor, SERec,
    MostPopular and Rand on the lastfm-shaped file, UserMean, ItemMean,
-   UserKNN, ItemKNN and SlopeOne on the FilmTrust-shaped one), each with
+   UserKNN, ItemKNN and SlopeOne on the FilmTrust-shaped one; the
+   bold-driver family data-parallel, BasicMF, PMF, SVD, SVD++, EE and the
+   seven social MF models with ``filmtrust_trust`` and CUNE_MF on the
+   FilmTrust-shaped file, SBPR, TBPR and CUNE_BPR with ``lastfm_trust`` and
+   SVD ranked on the lastfm-shaped one), each with
    ``parallel.setup=on -model 2``, and WRMF with the setting absent (the
    mesh that forms by itself on a CUDA group), once in one process (no
-   mesh) and once on four ranks on cuda:0 over a
+   mesh; an earlier phase's run of the same config where there is one)
+   and once on four ranks on cuda:0 over a
    gloo group that the script makes (data 2 x model 2): K5 on row blocks
    at width 25 (75 for SimGCL's fused views), K1 on item-column blocks,
    K3/K4 on 1,000 rows at offsets 0 and 1,000, K2 on a quarter of the test
@@ -138,7 +143,7 @@ Phases, each of which exits non-zero on failure:
    model scores from equal bit for bit, the measures within 2e-2 and the
    first epoch's loss within rtol 1e-4 of one process, each route against
    its plain twin, each route's kernel timed on one rank's share (route 7
-   also on IRGAN's biased form); LightGCN's
+   also on IRGAN's and SVD's biased forms); LightGCN's
    lifecycle on the four ranks (``PARALLEL_LIFECYCLE``: stopped after
    epoch 1 of 2 under ``checkpoint.setup``, resumed bit for bit against
    the unbroken mesh run, rank 0 alone writing the step files and the
@@ -889,7 +894,8 @@ def mf_phases(torch, K, QRec, timer, tmp, conf_of):
     file (K2 with its popularity as the item bias); BPR under ``-cv 5`` (1
     epoch a fold: five folds and the summary file) and under ``-predict``
     with a list of 100 users (the list file only). Returns (K2 launches
-    per path, K2 checks, K2 timings)."""
+    per path, K2 checks, K2 timings, the SVD rating run's one-process
+    record for the mesh phase)."""
     from qrec_tpu_torch.data.split import cross_validation
 
     launches, k2r, k2t = {}, {}, {}
@@ -908,6 +914,7 @@ def mf_phases(torch, K, QRec, timer, tmp, conf_of):
     conf["ratings"] = filmtrust
     conf["output.setup"] = f"on -dir {out}/"
     svd, counts, rating = drive(torch, K, QRec, conf, "svd rating")
+    ones = {"svd": one_process_record(conf, svd, rating)}
     files = sorted(os.listdir(out))
     print(f"[svd rating] files {files}", flush=True)
     if not (any("-rating-predictions[1].txt" in f for f in files)
@@ -972,7 +979,7 @@ def mf_phases(torch, K, QRec, timer, tmp, conf_of):
     print(f"[bpr -predict] measures {measure} files {files} lines {len(lines)}", flush=True)
     if measure != [] or len(files) != 1 or len(lines) != 101 or "*" in "".join(lines[1:]):
         fail("bpr -predict: expected the list file alone, 100 users, no measures")
-    return launches, k2r, k2t
+    return launches, k2r, k2t, ones
 
 
 # the deep and GAN slice's depth on the card: each config/*.conf at its
@@ -1320,7 +1327,8 @@ def social_rest_phases(torch, K, QRec, conf_of, tmp, trust_path):
     steady epoch ms per phase and its measures; the rankers' rankings
     checked as the main path's (``ranking_phase``); one more ESRF
     adversarial epoch under torch.profiler. Returns (ESRF's K1 launches,
-    K2 launches per path, K2 checks)."""
+    K2 launches per path, K2 checks, the one-process records of the seven
+    rating models, SBPR and TBPR for the mesh phase)."""
     users, items, ratings = filmtrust_records()
     filmtrust = os.path.join(tmp, "filmtrust_social.txt")
     with open(filmtrust, "w") as f:
@@ -1333,7 +1341,7 @@ def social_rest_phases(torch, K, QRec, conf_of, tmp, trust_path):
         conf = conf_of(name, 1)
         conf["ratings"] = filmtrust
         _, _, baseline[name] = drive(torch, K, QRec, conf, name.lower())
-    launches, k2r, summary = {}, {}, {}
+    launches, k2r, summary, ones = {}, {}, {}, {}
     k1 = 0
     for key, epochs in SOCIAL_REST_EPOCHS.items():
         name = key.split()[0]
@@ -1353,6 +1361,8 @@ def social_rest_phases(torch, K, QRec, conf_of, tmp, trust_path):
               f"{[len(t.times) for t in timers]} steady epoch ms per phase {steady} (mean after a "
               f"phase's first epoch)", flush=True)
         summary[key] = dict(steady_ms=steady, graph_s=model.graph_seconds, **measures)
+        if name in BOLD:
+            ones[label] = one_process_record(conf, model, measures)
         if ranked:
             launches[label] = counts["masked_catalog_topk"]
             k2r[label] = ranking_phase(torch, K, label, model, 10)
@@ -1372,7 +1382,7 @@ def social_rest_phases(torch, K, QRec, conf_of, tmp, trust_path):
         f"{k}: steady_ms={v['steady_ms']} graph_s={v['graph_s']:.3f} "
         + (f"Recall@10={v['Recall']} NDCG@10={v['NDCG']};" if "Recall" in v
            else f"MAE={v['MAE']} RMSE={v['RMSE']};") for k, v in summary.items()), flush=True)
-    return k1, launches, k2r
+    return k1, launches, k2r, ones
 
 
 # the ALS and classical slice's depth on the card, each config/ file at
@@ -1393,8 +1403,9 @@ def als_classical_phases(torch, K, QRec, conf_of, tmp, trust_path):
     K2's bias epilogue. Each ``config/`` file at its published widths with
     the epochs of ``ALS_EPOCHS`` and ``CLASSICAL_EPOCHS``, driven through
     ``QRec(conf).execute()`` with its launches against
-    ``expected_launches``. Returns (K2 launches per path, K2 checks)."""
-    launches, k2r, summary = {}, {}, {}
+    ``expected_launches``. Returns (K2 launches per path, K2 checks, the
+    one-process records of SVD++ and EE for the mesh phase)."""
+    launches, k2r, summary, ones = {}, {}, {}, {}
     for name, epochs in ALS_EPOCHS.items():
         conf = conf_of(name, epochs)
         if name == "SERec":
@@ -1429,6 +1440,8 @@ def als_classical_phases(torch, K, QRec, conf_of, tmp, trust_path):
         label = name.lower()
         model, _, measures = drive(torch, K, QRec, conf, label)
         summary[name] = dict(measures, eval_s=model.rating_seconds)
+        if name in BOLD:
+            ones[label] = one_process_record(conf, model, measures)
         if model.timer is not None:
             summary[name]["steady_ms"] = model.timer.steady_state() * 1e3
         print(f"[{label}] MAE={measures['MAE']} RMSE={measures['RMSE']} beside UserMean "
@@ -1447,7 +1460,7 @@ def als_classical_phases(torch, K, QRec, conf_of, tmp, trust_path):
     print("[als classical] " + " ".join(
         f"{k}: " + " ".join(f"{m}={v:.4f}" if isinstance(v, float) else f"{m}={v}"
                             for m, v in d.items()) + ";" for k, d in summary.items()), flush=True)
-    return launches, k2r
+    return launches, k2r, ones
 
 
 # the walk slice's depth on the card, each config/ file at its published
@@ -1500,9 +1513,9 @@ def walk_phases(torch, K, QRec, conf_of, tmp, trust_path):
     CUNE_MF), its walk, SGNS and friend top-k numbers, its steady epoch and
     its measures; the rankings checked as the main path's
     (``ranking_phase``); one more RSGAN epoch under torch.profiler. Returns
-    (K2 launches per path, K2 checks, IF_BPR's and RSGAN's one-process
-    conf, measures, losses, epoch ms and host build s, which the mesh phase
-    holds its four ranks against)."""
+    (K2 launches per path, K2 checks, the one-process records of CUNE_MF,
+    CUNE_BPR, IF_BPR and RSGAN, which the mesh phase holds its four ranks
+    against)."""
     users, items, ratings = filmtrust_records()
     filmtrust = os.path.join(tmp, "filmtrust_walk.txt")
     with open(filmtrust, "w") as f:
@@ -1532,11 +1545,8 @@ def walk_phases(torch, K, QRec, conf_of, tmp, trust_path):
               f"before the epochs) steady epoch ms={steady:.3f} (mean after the first epoch)",
               flush=True)
         summary[key] = dict(steady_ms=steady, graph_s=model.graph_seconds, **measures)
-        if key in ("IF_BPR", "RSGAN"):
-            ones[label] = dict(conf=dict(conf.config), parsed=measures,
-                               losses=list(model.epoch_losses),
-                               epoch_ms=[t * 1e3 for t in model.timer.times],
-                               graph_s=model.graph_seconds)
+        if key in ("CUNE_MF", "CUNE_BPR", "IF_BPR", "RSGAN"):
+            ones[label] = one_process_record(conf, model, measures)
         if name == "CUNE_MF":
             print(f"[{label}] MAE={measures['MAE']} RMSE={measures['RMSE']} beside UserMean "
                   f"{baseline['UserMean']['MAE']}/{baseline['UserMean']['RMSE']} and ItemMean "
@@ -1863,10 +1873,44 @@ PARALLEL_RUNS = (
     # the mesh that forms by itself: parallel.setup absent on the four
     # ranks of a CUDA group (ROADMAP Queue 3 item 55)
     ("wrmf auto", "WRMF", 1, {"parallel.setup": None}),
+    # slice 7e: the bold-driver family, data-parallel (each data rank's
+    # loss its share), each config/ file at its published widths with the
+    # epochs of its one-process run in an earlier phase, which this phase
+    # reuses (mf_phases' SVD, SOCIAL_REST_EPOCHS, CLASSICAL_EPOCHS,
+    # WALK_EPOCHS; BasicMF and PMF run here, 3 epochs of 100): the rating
+    # models on the FilmTrust-shaped file, the social ones with
+    # filmtrust_trust; SBPR, TBPR and CUNE_BPR on the lastfm-shaped file
+    # with lastfm_trust, and SVD ranked at top-10 there (2 epochs, route 7
+    # on its biased form at d=10)
+    ("basicmf", "BasicMF", 3, {"ratings": "FILMTRUST"}),
+    ("pmf", "PMF", 3, {"ratings": "FILMTRUST"}),
+    ("svd", "SVD", 5, {"ratings": "FILMTRUST"}),
+    ("svd ranked", "SVD", 2, {"item.ranking": "on -topN 10"}),
+    ("svd++", "SVD++", CLASSICAL_EPOCHS["SVD++"], {"ratings": "FILMTRUST"}),
+    ("ee", "EE", CLASSICAL_EPOCHS["EE"], {"ratings": "FILMTRUST"}),
+    *((name.lower(), name, SOCIAL_REST_EPOCHS[name],
+       {"ratings": "FILMTRUST", "social": "FILMTRUST_TRUST"})
+      for name in ("SoRec", "SoReg", "SocialMF", "RSTE", "LOCABAL", "SREE", "SocialFD")),
+    ("sbpr", "SBPR", SOCIAL_REST_EPOCHS["SBPR"], {}),
+    ("tbpr", "TBPR", SOCIAL_REST_EPOCHS["TBPR"], {}),
+    ("cune_mf", "CUNE_MF", WALK_EPOCHS["CUNE_MF"], {"ratings": "FILMTRUST"}),
+    ("cune_bpr", "CUNE_BPR", WALK_EPOCHS["CUNE_BPR"], {}),
 )
 # the models of slice 7d, which train whole on every rank
 REPLICATED = {"MostPopular", "Rand", "WRMF", "ExpoMF", "CoFactor", "SERec", "CFGAN", "IRGAN",
               "IF_BPR", "RSGAN", "UserMean", "ItemMean", "UserKNN", "ItemKNN", "SlopeOne"}
+# the bold-driver family of slice 7e, data-parallel with no joint adjacency:
+# for each, the rows of a loss term other than the batch's that this data
+# rank sums (row_share) and the whole table whose squared norm data rank 0
+# alone adds (adds_table_terms)
+BOLD = {"BasicMF": (None, None), "PMF": (None, None), "SVD": (None, None),
+        "SVD++": (None, "Y"), "EE": (None, None), "SoRec": ("trust edges", "Z"),
+        "SoReg": ("trust edges", None), "SocialMF": ("users", None), "RSTE": (None, None),
+        "LOCABAL": ("trust edges", "H"), "SREE": ("trust edges", None),
+        "SocialFD": ("trust edges", None), "SBPR": (None, None), "TBPR": (None, None),
+        "CUNE_MF": ("friend edges", None), "CUNE_BPR": (None, None)}
+# the one-process models that later timings and the NCCL phase read
+KEPT = ("lightgcn-pallas", "simgcl-pallas", "lightgcn", "irgan", "svd ranked")
 # the lifecycle on the four ranks: (label, epochs, checkpoint.setup on,
 # model.setup) after the unbroken "lightgcn" run, in this order
 PARALLEL_LIFECYCLE = (
@@ -1892,14 +1936,28 @@ def rank_shares(model) -> str:
     mesh = model.mesh
     n = len(model.data.test_set_u)
     s0, s1 = split_range(n, dist.get_world_size(), dist.get_rank())
-    if model.model_name in REPLICATED:
+    if model.model_name in REPLICATED or model.model_name in BOLD:
         if not model.ranking.isMainOn():
             what = f"every one of {len(model.data.test_data)} test ratings predicted"
         elif model.model_name in ("CFGAN", "Rand"):
             what = "every test user ranked whole (torch ops)"
         else:
             what = f"K2 test users [{s0}, {s1}) of {n}"
-        return f"trained whole on every rank; {what}"
+        if model.model_name in REPLICATED:
+            return f"trained whole on every rank; {what}"
+        b0, b1 = split_range(model.batch_size, mesh.data, mesh.data_index)
+        parts = [f"batch rows [{b0}, {b1}) of {model.batch_size}"]
+        rows, table = BOLD[model.model_name]
+        if rows is not None:
+            total = {"trust edges": lambda: model.social_arrays["src"].shape[0],
+                     "users": lambda: model.num_users,
+                     "friend edges": lambda: model.pull_src.shape[0]}[rows]()
+            r0, r1 = split_range(total, mesh.data, mesh.data_index)
+            parts.append(f"{rows} [{r0}, {r1}) of {total}")
+        if table is not None:
+            parts.append(f"the squared norm of {table} "
+                         + ("added here" if model.adds_table_terms else "left to data rank 0"))
+        return "; ".join(parts + [what])
     # the joint adjacency only where the model built it (MHCN, DiffNet and
     # DHCF propagate over auxiliary operators alone)
     adj, view = vars(model).get("_joint_adj"), getattr(model, "view_adj", None)
@@ -2051,11 +2109,12 @@ def user_shard_check(torch, K, model, form) -> float:
 
 
 def replicated_route_check(torch, K, model):
-    """A model trained whole on every rank reaches one route, route 7, where
-    it ranks a ``ScoreForm`` (:func:`user_shard_check` on its own form:
-    IRGAN's and MostPopular's biased, the others' plain). CFGAN's score
-    block, Rand's draws and a rating run reach none. Returns {route:
-    max_abs_err}."""
+    """A model with no joint adjacency (trained whole on every rank, slice
+    7d, or the bold-driver family, slice 7e) reaches one route, route 7,
+    where it ranks a ``ScoreForm`` (:func:`user_shard_check` on its own
+    form: IRGAN's, MostPopular's and SVD's biased, the others' plain).
+    CFGAN's score block, Rand's draws and a rating run reach none. Returns
+    {route: max_abs_err}."""
     from qrec_tpu_torch.ops.topk import ScoreForm
 
     if not model.ranking.isMainOn():
@@ -2131,11 +2190,13 @@ def parallel_rank(rank, store, runs, lifecycle, out_dir):
         for label, conf in runs:
             K.reset_launch_counts()
             writes.clear()
+            t0 = time.perf_counter()
             rec = QRec(ModelConf(conf))
             measure = rec.execute()
             counts = K.launch_counts()
             model = rec.model
-            checks = (replicated_route_check if model.model_name in REPLICATED
+            checks = (replicated_route_check
+                      if model.model_name in REPLICATED or model.model_name in BOLD
                       else parallel_route_checks)
             out[label] = dict(
                 mesh=None if model.mesh is None else model.mesh.shape,
@@ -2147,6 +2208,8 @@ def parallel_rank(rank, store, runs, lifecycle, out_dir):
                 graph_s=getattr(model, "graph_seconds", None), measure=measure,
                 shares=rank_shares(model), writes=list(writes), held=held_digests(model),
                 errs=checks(torch, K, model))
+            # the run, its checks and its digests, on this rank
+            out[label]["wall_s"] = time.perf_counter() - t0
             del rec, model
             gc.collect()
             torch.cuda.empty_cache()
@@ -2349,7 +2412,10 @@ def user_shard_timing(torch, K, timer, model, k: int = 10, label: str = ""):
              + (I * 4 if form.item_bias is not None else 0)
              + (B * 4 if form.user_bias is not None else 0))
     bound_ms, bound_by = bound(moved, 2 * B * I * d + adds * B * I, PEAK_F32)
-    biases = " with the item bias" if form.item_bias is not None else ""
+    terms = [term for term, on in (("the item bias", form.item_bias is not None),
+                                   ("the user bias", form.user_bias is not None),
+                                   ("the global mean", form.offset != 0)) if on]
+    biases = " with " + ", ".join(terms) if terms else ""
     print(f"[K2 topk user shard{label}] {model.model_name}{biases}: rank 0's test users "
           f"[{s0}, {s1}) of {n}: B={B} I={I} d={d} k={k} ms={ms:.4f} library_ms={library_ms:.4f} "
           f"(torch.matmul{' + the bias' if adds else ''} + masked_fill + torch.topk, timed in "
@@ -2444,28 +2510,47 @@ def nccl_phase(torch, lightgcn, simgcl, dense):
             os.environ.pop(key, None)
 
 
+def same_config(a: dict, b: dict) -> bool:
+    """Whether two runs' configs make one run: the same keys and values,
+    but ``parallel.setup`` and ``output.setup``, a data file's path equal
+    or naming a file of the same bytes."""
+    import filecmp
+
+    skip = ("parallel.setup", "output.setup")
+    a = {k: v for k, v in a.items() if k not in skip}
+    b = {k: v for k, v in b.items() if k not in skip}
+    same_file = lambda x, y: (os.path.isfile(x) and os.path.isfile(y)  # noqa: E731
+                              and filecmp.cmp(x, y, shallow=False))
+    return a.keys() == b.keys() and all(
+        a[k] == b[k] or (k in ("ratings", "social") and same_file(a[k], b[k])) for k in a)
+
+
 def parallel_phases(torch, K, QRec, conf_of, tmp, trust_path, one_process=None):
-    """Slices 7a-7d on the card. Run A: each run of ``PARALLEL_RUNS`` in
+    """Slices 7a-7e on the card. Run A: each run of ``PARALLEL_RUNS`` in
     one process (where ``parallel.setup`` builds no mesh), then on four
     ranks on cuda:0 over a gloo group that this script makes
     (``parallel_rank``): data 2 x model 2, so K5 runs on row blocks and K1
     on item-column blocks at width 25 (75 for SimGCL's fused views), K3/K4
     on half the contrastive rows and K2 on a quarter of the test users; the
     social models read ``trust_path``, the rating models a FilmTrust-shaped
-    file; the models of ``REPLICATED`` train whole on every rank, and
-    "wrmf auto" leaves ``parallel.setup`` out. Holds every rank's launches
-    against ``expected_launches``, its mesh (data 2 x model 2, "wrmf auto"
-    too), rank 0 alone writing the result files, the ranks' digests of what
-    each model scores from equal bit for bit, the measures within 2e-2 and
+    file (with :func:`filmtrust_trust` for the social ones); the models of
+    ``REPLICATED`` train whole on every rank, those of ``BOLD``
+    data-parallel with no joint adjacency, and "wrmf auto" leaves
+    ``parallel.setup`` out; a run that an earlier phase made in one
+    process with the same config (``one_process``) is not made again.
+    Holds every rank's launches against ``expected_launches``, its mesh
+    (data 2 x model 2, "wrmf auto" too), rank 0 alone writing the result
+    files, the ranks' digests of what each model scores from equal bit for
+    bit, the measures within 2e-2 and
     the first epoch's loss within rtol 1e-4 of the one-process run, and
     each route against its plain twin; then the lifecycle runs
     (``PARALLEL_LIFECYCLE``) against the unbroken ``lightgcn`` run, bit for
     bit, with rank 0 alone writing; times each route's kernel on one rank's
-    share (``shard_timings``, and route 7 on IRGAN's biased form). The four
-    ranks share one card and gloo carries their collectives through host
-    memory: this checks the routes, not their scaling. Run B:
-    ``nccl_phase``. Returns (kernels-line entries, launches summed over the
-    ranks, the K2 launches of the biased forms among them)."""
+    share (``shard_timings``, and route 7 on IRGAN's and SVD's biased
+    forms). The four ranks share one card and gloo carries their
+    collectives through host memory: this checks the routes, not their
+    scaling. Run B: ``nccl_phase``. Returns (kernels-line entries, launches
+    summed over the ranks, the K2 launches on a biased form by run)."""
     import pickle
 
     import torch.multiprocessing as mp
@@ -2478,35 +2563,35 @@ def parallel_phases(torch, K, QRec, conf_of, tmp, trust_path, one_process=None):
     filmtrust = os.path.join(tmp, "filmtrust_parallel.txt")
     with open(filmtrust, "w") as f:
         f.writelines(f"{a} {b} {r}\n" for a, b, r in zip(users, items, ratings))
+    film_trust = os.path.join(tmp, "filmtrust_trust_parallel.txt")
+    with open(film_trust, "w") as f:
+        f.writelines(f"{a} {b} 1\n" for a, b in filmtrust_trust())
+    files = {"FILMTRUST": filmtrust, "FILMTRUST_TRUST": film_trust}
     runs, one = [], {}
     for label, name, epochs, extra in PARALLEL_RUNS:
         conf = conf_of(name, epochs)
         conf["parallel.setup"] = "on -model 2"
+        if conf.contains("social"):
+            conf["social"] = trust_path
         for key, value in extra.items():
             if value is None:
                 conf.config.pop(key)
             else:
-                conf[key] = filmtrust if value == "FILMTRUST" else value
-        if conf.contains("social"):
-            conf["social"] = trust_path
+                conf[key] = files.get(value, value)
         runs.append((label, dict(conf.config)))
         if label in (one_process or {}):
-            # the walk slice ran the same config in one process: reuse it
-            # (its SGNS host build is most of the run)
-            one[label] = one_process[label]
-            if one[label].pop("conf") != {k: v for k, v in conf.config.items()
-                                          if k != "parallel.setup"}:
-                fail(f"parallel {label}: the walk slice's one-process run had another config")
-            print(f"[parallel {label} one process] the walk slice's run of the same config: "
+            # an earlier phase ran the same config in one process: reuse it
+            # (the walk models' SGNS host build is most of their run)
+            one[label] = dict(one_process[label])
+            if not same_config(one[label].pop("conf"), conf.config):
+                fail(f"parallel {label}: the earlier one-process run had another config")
+            print(f"[parallel {label} one process] an earlier phase's run of the same config: "
                   f"losses {one[label]['losses']}", flush=True)
             continue
         model, _, parsed = drive(torch, K, QRec, conf, f"parallel {label} one process")
         if model.mesh is not None:
             fail(f"parallel {label}: one process built a mesh")
-        if name not in REPLICATED or name == "IRGAN":  # IRGAN's form times route 7 biased
-            one[label] = dict(model=model, parsed=parsed)
-        else:
-            one[label] = dict(parsed=parsed)
+        one[label] = dict(model=model, parsed=parsed) if label in KEPT else dict(parsed=parsed)
         one[label].update(losses=list(getattr(model, "epoch_losses", [])),
                           epoch_ms=[t * 1e3 for t in model.timer.times] if model.timer else [],
                           graph_s=getattr(model, "graph_seconds", None))
@@ -2545,7 +2630,7 @@ def parallel_phases(torch, K, QRec, conf_of, tmp, trust_path, one_process=None):
         with open(os.path.join(out_dir, f"rank{r}.pkl"), "rb") as f:
             ranks.append(pickle.load(f))
     launches = {k.name: 0 for k in K.KERNELS}
-    errs, biased = {}, 0
+    errs, biased = {}, {}
     for label, _ in runs:
         first = ranks[0][label]
         for r, got in enumerate(ranks):
@@ -2553,14 +2638,15 @@ def parallel_phases(torch, K, QRec, conf_of, tmp, trust_path, one_process=None):
             print(f"[parallel {label} rank {r}] mesh {g['mesh']} place (data, model)="
                   f"{g['place']}; {g['shares']}; epoch ms ({SHARED}): "
                   f"{[round(t, 1) for t in g['epoch_ms']]}; losses {g['losses']}; host build s="
-                  f"{g['graph_s']}; result files written {len(g['writes'])}", flush=True)
+                  f"{g['graph_s']}; result files written {len(g['writes'])}; run, checks and "
+                  f"digests s={g['wall_s']:.2f}", flush=True)
             check_counts(f"parallel {label} rank {r}", g["counts"], g["expect"])
             for k, n in g["counts"].items():
                 launches[k] += n
             for route, err in g["errs"].items():
                 errs[route] = max(errs.get(route, 0.0), err)
             if "topk user shards biased" in g["errs"]:
-                biased += g["counts"]["masked_catalog_topk"]
+                biased[label] = biased.get(label, 0) + g["counts"]["masked_catalog_topk"]
             if g["mesh"] != {"data": 2, "model": 2}:
                 fail(f"parallel {label}: rank {r} built the mesh {g['mesh']}")
             if len(g["writes"]) != (2 if r == 0 else 0):
@@ -2621,12 +2707,16 @@ def parallel_phases(torch, K, QRec, conf_of, tmp, trust_path, one_process=None):
     timer = Timer(torch)
     timings = shard_timings(torch, K, timer, one["lightgcn-pallas"]["model"],
                             one["simgcl-pallas"]["model"], one["lightgcn"]["model"])
-    # route 7 on a biased form: IRGAN's item bias at d=20
+    # route 7 on a biased form: IRGAN's item bias at d=20, SVD's user and
+    # item biases and global mean at d=10
     timings["topk biased"] = user_shard_timing(torch, K, timer, one["irgan"]["model"],
                                                label=" biased")
+    timings["topk biased svd"] = user_shard_timing(torch, K, timer, one["svd ranked"]["model"],
+                                                   label=" biased svd")
     for key, route in (("segment", "segment row blocks"), ("infonce", "infonce row shards"),
                        ("dense", "dense column blocks"), ("topk", "topk user shards"),
-                       ("topk biased", "topk user shards biased")):
+                       ("topk biased", "topk user shards biased"),
+                       ("topk biased svd", "topk user shards biased")):
         timings[key]["max_abs_err"] = max(errs[route], timings[key].get("max_abs_err", 0.0))
     del timer
     nccl_phase(torch, one["lightgcn-pallas"]["model"], one["simgcl-pallas"]["model"],
@@ -2755,8 +2845,8 @@ def expected_launches(model):
     once a batch of its own share of the test users (ceil(n_loc /
     eval_batch_size) a ranking); MHCN, DiffNet and DHCF hold their
     operators whole on every rank, so K2 alone; the models trained whole
-    on every rank (slice 7d) launch K2 alone, on their share, where one
-    device ranks through it."""
+    on every rank (slice 7d) and the bold-driver family (slice 7e) launch
+    K2 alone, on their share, where one device ranks through it."""
     import torch.distributed as dist
 
     from qrec_tpu_torch.models.adversarial_social import ESRF
@@ -2887,6 +2977,16 @@ def drive(torch, K, QRec, conf, label):
     if (tracker is not None) != getattr(model, "track_best", False):
         fail(f"{label}: best-epoch tracking is {'off' if tracker is None else 'on'}")
     return model, counts, parsed
+
+
+def one_process_record(conf, model, measures) -> dict:
+    """What ``parallel_phases`` holds its four ranks against, from a
+    one-process run of the same config in an earlier phase: the config,
+    the measures, the epoch losses and ms and the host build s."""
+    return dict(conf=dict(conf.config), parsed=measures,
+                losses=list(getattr(model, "epoch_losses", [])),
+                epoch_ms=[t * 1e3 for t in model.timer.times] if model.timer else [],
+                graph_s=getattr(model, "graph_seconds", None))
 
 
 def planted_check(torch, tmp, ModelConf, QRec, parse_measure, name, args, extra=None,
@@ -3113,7 +3213,7 @@ def main() -> None:
 
         # 8. the MF slice (BPR, SVD rating and ranking, MostPopular) and the
         # -cv and -predict protocols
-        mf_launches, mf_k2r, mf_k2t = mf_phases(torch, K, QRec, timer, tmp, conf_of)
+        mf_launches, mf_k2r, mf_k2t, ones = mf_phases(torch, K, QRec, timer, tmp, conf_of)
         k2r.update(mf_k2r)
         k2t.update(mf_k2t)
 
@@ -3136,19 +3236,23 @@ def main() -> None:
 
         # 11. the rest of the social family: the seven social MF rating
         # models, SBPR (and its -tf path), TBPR and ESRF
-        k1_esrf, rest_launches, rest_k2r = social_rest_phases(torch, K, QRec, conf_of, tmp, trust)
+        k1_esrf, rest_launches, rest_k2r, rest_ones = social_rest_phases(torch, K, QRec, conf_of,
+                                                                         tmp, trust)
+        ones.update(rest_ones)
         mf_launches.update(rest_launches)
         k2r.update(rest_k2r)
 
         # 12. the ALS and classical slice: WRMF, ExpoMF, CoFactor, SERec,
         # UserKNN, ItemKNN, SlopeOne, SVD++ and EE
-        als_launches, als_k2r = als_classical_phases(torch, K, QRec, conf_of, tmp, trust)
+        als_launches, als_k2r, als_ones = als_classical_phases(torch, K, QRec, conf_of, tmp, trust)
+        ones.update(als_ones)
         mf_launches.update(als_launches)
         k2r.update(als_k2r)
 
         # 13. the walk slice: CUNE_MF, CUNE_BPR, IF_BPR (without and with
         # negative feedback) and RSGAN
         walk_launches, walk_k2r, walk_ones = walk_phases(torch, K, QRec, conf_of, tmp, trust)
+        ones.update(walk_ones)
         mf_launches.update(walk_launches)
         k2r.update(walk_k2r)
 
@@ -3160,8 +3264,8 @@ def main() -> None:
 
         # 15. multi-GPU: the LightGCN family on four ranks on the card, in
         # the sparse and the dense forms, and the one-rank NCCL group
-        par, par_launches, par_biased_launches = parallel_phases(torch, K, QRec, conf_of, tmp,
-                                                                 trust, walk_ones)
+        par, par_launches, par_biased = parallel_phases(torch, K, QRec, conf_of, tmp, trust,
+                                                        ones)
 
         # 16. planted blocks
         planted_check(torch, tmp, ModelConf, QRec, parse_measure, "LightGCN", "-n_layer 2")
@@ -3249,13 +3353,18 @@ def main() -> None:
             "qrec_tpu/ops/pallas_kernels.py:635", par_launches["bipartite_dual_matmul"],
             par["dense"]),
         # route 7: K2's top-k on a rank's share of the test users, each
-        # form's launches on its row: plain (LightGCN's factors timed) and
+        # form's launches on its row: plain (LightGCN's factors timed),
         # biased (MostPopular's and IRGAN's runs; IRGAN's item bias timed)
+        # and SVD's biased form at d=10 (the "svd ranked" run, timed)
         row("pallas_catalog_topk(mesh=)", "qrec_tpu_torch/csrc/masked_scores.cu",
-            "qrec_tpu/ops/topk.py:263", par_launches["masked_catalog_topk"] - par_biased_launches,
-            par["topk"]),
+            "qrec_tpu/ops/topk.py:263",
+            par_launches["masked_catalog_topk"] - sum(par_biased.values()), par["topk"]),
         row("pallas_catalog_topk(mesh=), biased", "qrec_tpu_torch/csrc/masked_scores.cu",
-            "qrec_tpu/ops/topk.py:263", par_biased_launches, par["topk biased"]),
+            "qrec_tpu/ops/topk.py:263",
+            sum(n for label, n in par_biased.items() if label != "svd ranked"),
+            par["topk biased"]),
+        row("pallas_catalog_topk(mesh=), biased SVD d=10", "qrec_tpu_torch/csrc/masked_scores.cu",
+            "qrec_tpu/ops/topk.py:263", par_biased.get("svd ranked", 0), par["topk biased svd"]),
     ]
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -85,9 +85,10 @@ class Recommender(nn.Module):
     # ``social``; the session refuses to run it without one
     requires_social = False
     # the four models of models/graph.py, the five of
-    # models/social_graph.py and BPR train data-parallel on a mesh; the
-    # own-loop, ALS and untrained models train whole on every rank; every
-    # other model refuses one
+    # models/social_graph.py and the bold-driver family (models/mf.py,
+    # social_mf.py, social_ranking.py, walk.py, EE and SVD++) train
+    # data-parallel on a mesh; the own-loop, ALS and untrained models train
+    # whole on every rank; NeuMF, DMF, CDAE, APR and ESRF refuse one
     trains_on_mesh = False
 
     def __init__(self, conf: ModelConf, data: Interactions, fold: str = "[1]", device=None,
@@ -150,8 +151,10 @@ class Recommender(nn.Module):
         changes nothing. Which families run there:
 
         * data-parallel, each data rank's loss its share of the step's:
-          LightGCN, NGCF, SGL, SimGCL, MHCN, SEPT, BUIR, DiffNet, DHCF
-          and BPR;
+          LightGCN, NGCF, SGL, SimGCL, MHCN, SEPT, BUIR, DiffNet, DHCF,
+          and the bold-driver family: BPR, BasicMF, PMF, SVD, SVD++, EE,
+          SoRec, SoReg, SocialMF, RSTE, LOCABAL, SREE, SocialFD, SBPR,
+          TBPR, CUNE_MF and CUNE_BPR;
         * whole on every rank, from the same seed and with no collective
           in the loop (the JAX package's own loops read no mesh either):
           CFGAN, IRGAN, RSGAN, IF_BPR, WRMF, ExpoMF, CoFactor, SERec,
@@ -160,8 +163,10 @@ class Recommender(nn.Module):
 
         Either way a ``ScoreForm`` ranks each rank's share of the test
         users through K2 and gathers the lists; score blocks and random
-        scores rank whole on every rank. A model that does not run there
-        yet (``trains_on_mesh`` off) raises a ConfigError. Checkpoints,
+        scores rank whole on every rank, and a rating run predicts every
+        test rating on every rank. A model that does not run there yet
+        (``trains_on_mesh`` off: NeuMF, DMF, CDAE, APR and ESRF) raises a
+        ConfigError. Checkpoints,
         ``model.setup``'s ``-save`` and ``-load`` and ``-cv k -p`` run
         there: rank 0 alone writes a step file or a saved model, every rank
         reads them, and ``-cv``'s folds run in turn on the mesh."""

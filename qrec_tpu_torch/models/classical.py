@@ -169,9 +169,14 @@ class _BiasedRating(SavedBiases, IterativeRecommender):
     sampler in the bold mode, and predictions on the host in numpy, as the
     JAX package computes them. A saved model keeps its biases beside the
     factors, which the JAX package does not (its loaded SVD++ and EE lack
-    them)."""
+    them). On a mesh each data rank's loss is its rows of the batch
+    (``batch_share``); SVD++'s ``Y`` regulariser, over the whole table, is
+    added on data rank 0 alone (``adds_table_terms``), its implicit mean
+    computed whole on every rank: its backward is linear in the cotangent,
+    so the ranks' ``Y`` gradients sum to one process's."""
 
     bias_div = 1
+    trains_on_mesh = True
 
     def __init__(self, conf, data, fold: str = "[1]", device=None):
         super().__init__(conf, data, fold=fold, device=device)
@@ -222,7 +227,7 @@ class EE(_BiasedRating):
     bias_div = 10
 
     def loss(self, batch, gen=None) -> torch.Tensor:
-        u, i, r, w = batch
+        u, i, r, w = self.batch_share(batch)
         bu, bi = self.user_bias[u], self.item_bias[i]
         diff = self.user_emb[u] - self.item_emb[i]
         err = r - (self.data.global_mean + bu + bi - (diff**2).sum(dim=1))
@@ -276,7 +281,7 @@ class SVDPlusPlus(_BiasedRating):
         return segment_sum(y[self.sel_i], self.u_indptr) / self.deg[:, None]
 
     def loss(self, batch, gen=None) -> torch.Tensor:
-        u, i, r, w = batch
+        u, i, r, w = self.batch_share(batch)
         imp = self.implicit_mean(self.Y)
         pu = self.user_emb[u] + imp[u]
         qi = self.item_emb[i]
@@ -286,8 +291,10 @@ class SVDPlusPlus(_BiasedRating):
             self.reg_u * _l2(self.user_emb[u], w) + self.reg_i * _l2(qi, w)
             + self.reg_b * ((w * bu**2).sum() + (w * bi**2).sum())
         )
-        reg_y = self.reg_y_scale * 0.5 * self.reg_y * (self.Y**2).sum()
-        return 0.5 * (w * err**2).sum() + reg + reg_y
+        loss = 0.5 * (w * err**2).sum() + reg
+        if not self.adds_table_terms:
+            return loss
+        return loss + self.reg_y_scale * 0.5 * self.reg_y * (self.Y**2).sum()
 
     def factors(self):
         """``p_u`` plus the user's implicit mean (SVDPlusPlus.py's final

@@ -31,9 +31,12 @@ def _l2(x: torch.Tensor, w: torch.Tensor, y: Optional[torch.Tensor] = None) -> t
 
 
 class _MF(IterativeRecommender):
-    """The embedding tables, the score map and the spec shared by the family."""
+    """The embedding tables, the score map and the spec shared by the family.
+    On a mesh each data rank's loss is its rows of the batch
+    (``batch_share``): every term is a sum over them."""
 
     track_best = False
+    trains_on_mesh = True
 
     def __init__(self, conf, data, fold: str = "[1]", device=None):
         super().__init__(conf, data, fold=fold, device=device)
@@ -66,7 +69,7 @@ class PMF(_MF):
     reg_in_loss = True
 
     def loss(self, batch, gen=None) -> torch.Tensor:
-        u, i, r, w = batch
+        u, i, r, w = self.batch_share(batch)
         pu, qi = self.user_emb[u], self.item_emb[i]
         err = r - (pu * qi).sum(dim=1)
         loss = 0.5 * (w * err**2).sum()
@@ -97,7 +100,7 @@ class SVD(SavedBiases, _MF):
         self.Bu = self.Bi = None
 
     def loss(self, batch, gen=None) -> torch.Tensor:
-        u, i, r, w = batch
+        u, i, r, w = self.batch_share(batch)
         pu, qi = self.user_emb[u], self.item_emb[i]
         bu, bi = self.user_bias[u], self.item_bias[i]
         pred = (pu * qi).sum(dim=1) + self.data.global_mean + bu + bi

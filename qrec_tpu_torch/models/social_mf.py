@@ -20,6 +20,14 @@ numpy's ``RandomState(seed)``, the JAX package's values bit for bit; the
 SocialFD score by distance, so they predict ratings with their own formula
 and rank a :class:`~qrec_tpu_torch.ops.topk.ScoreBlock`. No model of the
 family runs a kernel but K2's top-k, and that only when ranked.
+
+On a mesh each data rank's loss is its share of the step's: its rows of
+the batch (``batch_share``), its block of the trust edges or of the users
+for a social term that sums over them (``row_share``), and a squared norm
+of a whole table (SoRec's ``Z``, LOCABAL's ``H``) on data rank 0 alone
+(``adds_table_terms``). The scale ``social_scale`` is the whole run's on
+every rank; the host constants, the followee mean and RSTE's final blend
+are whole on every rank.
 """
 
 from __future__ import annotations
@@ -90,6 +98,7 @@ class _SocialMF(SocialRecommender):
     the first epoch and the rating term."""
 
     table_div = 1
+    trains_on_mesh = True
 
     def __init__(self, conf, data, fold: str = "[1]", device=None, social=None):
         super().__init__(conf, data, fold=fold, device=device, social=social)
@@ -140,8 +149,13 @@ class _SocialMF(SocialRecommender):
         sq = w * err**2 if coeff is None else w * coeff * err**2
         return 0.5 * sq.sum() + 0.5 * (self.reg_u * _l2(pu, w) + self.reg_i * _l2(qi, w))
 
+    def edge_share(self) -> slice:
+        """This data rank's block of the trust edges (``row_share``), for a
+        social term that sums over them; every edge without a mesh."""
+        return slice(*self.row_share(self.social_arrays["src"].shape[0]))
+
     def _batch_rows(self, batch):
-        u, i, r, w = batch
+        u, i, r, w = self.batch_share(batch)
         pu, qi = self.user_emb[u], self.item_emb[i]
         return u, pu, qi, r, w
 
@@ -169,11 +183,13 @@ class SoRec(_SocialMF):
 
     def loss(self, batch, gen=None) -> torch.Tensor:
         _, pu, qi, r, w = self._batch_rows(batch)
-        s = self.social_arrays
-        e = self.target - (self.user_emb[s["src"]] * self.Z[s["dst"]]).sum(dim=1)
-        social = self.social_scale * (0.5 * self.reg_s * (e**2).sum()
-                                      + 0.5 * self.reg_z * (self.Z**2).sum())
-        return self.fit_term(pu, qi, (pu * qi).sum(dim=1), r, w) + social
+        s, edges = self.social_arrays, self.edge_share()
+        src, dst = s["src"][edges], s["dst"][edges]
+        e = self.target[edges] - (self.user_emb[src] * self.Z[dst]).sum(dim=1)
+        social = 0.5 * self.reg_s * (e**2).sum()
+        if self.adds_table_terms:
+            social = social + 0.5 * self.reg_z * (self.Z**2).sum()
+        return self.fit_term(pu, qi, (pu * qi).sum(dim=1), r, w) + self.social_scale * social
 
 
 class SoReg(_SocialMF):
@@ -189,9 +205,9 @@ class SoReg(_SocialMF):
 
     def loss(self, batch, gen=None) -> torch.Tensor:
         _, pu, qi, r, w = self._batch_rows(batch)
-        s = self.social_arrays
-        diff = self.user_emb[s["src"]] - self.user_emb[s["dst"]]
-        social = self.social_scale * 0.5 * self.alpha * (self.sim[:, None] * diff**2).sum()
+        s, edges = self.social_arrays, self.edge_share()
+        diff = self.user_emb[s["src"][edges]] - self.user_emb[s["dst"][edges]]
+        social = self.social_scale * 0.5 * self.alpha * (self.sim[edges, None] * diff**2).sum()
         return self.fit_term(pu, qi, (pu * qi).sum(dim=1), r, w) + social
 
 
@@ -205,9 +221,9 @@ class SocialMF(_SocialMF):
 
     def loss(self, batch, gen=None) -> torch.Tensor:
         _, pu, qi, r, w = self._batch_rows(batch)
-        p = self.user_emb
+        p, rows = self.user_emb, slice(*self.row_share(self.num_users))
         mean = spmm(self.followee_op, p.detach())
-        diff = (p - mean) * self.has_followees[:, None]
+        diff = (p[rows] - mean[rows]) * self.has_followees[rows, None]
         social = self.social_scale * 0.5 * self.reg_s * (diff**2).sum()
         return self.fit_term(pu, qi, (pu * qi).sum(dim=1), r, w) + social
 
@@ -266,11 +282,13 @@ class LOCABAL(_SocialMF):
 
     def loss(self, batch, gen=None) -> torch.Tensor:
         u, pu, qi, r, w = self._batch_rows(batch)
-        p, s = self.user_emb, self.social_arrays
-        phq = ((p[s["src"]] @ self.H) * p[s["dst"]]).sum(dim=1)
-        social = self.social_scale * (0.5 * self.alpha * ((self.sim - phq) ** 2).sum()
-                                      + 0.5 * self.reg_s * (self.H**2).sum())
-        return self.fit_term(pu, qi, (pu * qi).sum(dim=1), r, w, self.coeff[u]) + social
+        p, s, edges = self.user_emb, self.social_arrays, self.edge_share()
+        phq = ((p[s["src"][edges]] @ self.H) * p[s["dst"][edges]]).sum(dim=1)
+        social = 0.5 * self.alpha * ((self.sim[edges] - phq) ** 2).sum()
+        if self.adds_table_terms:
+            social = social + 0.5 * self.reg_s * (self.H**2).sum()
+        return (self.fit_term(pu, qi, (pu * qi).sum(dim=1), r, w, self.coeff[u])
+                + self.social_scale * social)
 
 
 class _DistanceMF(SavedBiases, _SocialMF):
@@ -340,7 +358,7 @@ class SREE(_DistanceMF):
         self.alpha = self.model_args().get_float("-alpha")
 
     def loss(self, batch, gen=None) -> torch.Tensor:
-        u, i, r, w = batch
+        u, i, r, w = self.batch_share(batch)
         p = self.user_emb
         bu, bi = self.user_bias[u], self.item_bias[i]
         diff = p[u] - self.item_emb[i]
@@ -348,9 +366,9 @@ class SREE(_DistanceMF):
         rating = 0.5 * (w * err**2).sum() + 0.5 * (
             self.reg_u * _l2(diff, w) + self.reg_b * ((w * bu**2).sum() + (w * bi**2).sum())
         )
-        s = self.social_arrays
-        sdiff = p[s["src"]] - p[s["dst"]].detach()
-        social = self.social_scale * 0.5 * self.alpha * (s["w"][:, None] * sdiff**2).sum()
+        s, edges = self.social_arrays, self.edge_share()
+        sdiff = p[s["src"][edges]] - p[s["dst"][edges]].detach()
+        social = self.social_scale * 0.5 * self.alpha * (s["w"][edges, None] * sdiff**2).sum()
         return rating + social
 
 
@@ -390,7 +408,7 @@ class SocialFD(_DistanceMF):
             self.H.copy_(state["H"])
 
     def loss(self, batch, gen=None) -> torch.Tensor:
-        u, i, r, w = batch
+        u, i, r, w = self.batch_share(batch)
         x, y = self.user_emb[u], self.item_emb[i]
         bu, bi = self.user_bias[u], self.item_bias[i]
         d = (((x - y) @ self.H) ** 2).sum(dim=1)
@@ -399,7 +417,7 @@ class SocialFD(_DistanceMF):
         regime = self.eta * self.alpha * (w * (high * d - low * torch.minimum(d, torch.ones_like(d)))).sum()
         reg = 0.5 * (self.reg_u * _l2(x, w) + self.reg_i * _l2(y, w)
                      + self.reg_u * (w * bu**2).sum() + self.reg_i * (w * bi**2).sum())
-        s = self.social_arrays
-        sdiff = self.user_emb[s["src"]] - self.user_emb[s["dst"]].detach()
+        s, edges = self.social_arrays, self.edge_share()
+        sdiff = self.user_emb[s["src"][edges]] - self.user_emb[s["dst"][edges]].detach()
         social = self.social_scale * self.eta * self.beta * (((sdiff @ self.H) ** 2).sum(dim=1)).sum()
         return 0.5 * (w * err**2).sum() + regime + reg + social

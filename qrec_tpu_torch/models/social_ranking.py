@@ -16,6 +16,11 @@ The friend-item and tie-item tables are built once on the host with scipy
 products of the trust and rating matrices (``build_graph``) and sampled on
 the device (``ops/sampling.sample_from_rows``). Both rank through K2's
 fused top-k.
+
+On a mesh each data rank's loss is its rows of the batch
+(``batch_share``): every term of both losses is a sum over them. The
+tables are built whole on every rank, and every rank draws the same
+batches.
 """
 
 from __future__ import annotations
@@ -45,6 +50,8 @@ def _csr_tables(mat: sp.csr_matrix, device):
 class _SocialBPR(SocialRecommender):
     """The (U, d) and (I, d) tables, the bold mode, the host build before
     the first epoch and the epoch order of the training pairs."""
+
+    trains_on_mesh = True
 
     def __init__(self, conf, data, fold: str = "[1]", device=None, social=None):
         super().__init__(conf, data, fold=fold, device=device, social=social)
@@ -114,7 +121,7 @@ class SBPR(_SocialBPR):
         return self._batched(users, pos, k_items, neg, suk, has_fp, w)
 
     def loss(self, batch, gen=None) -> torch.Tensor:
-        u, i, k, j, suk, has_fp, w = batch
+        u, i, k, j, suk, has_fp, w = self.batch_share(batch)
         pu, qi, qk, qj = self.user_emb[u], self.item_emb[i], self.item_emb[k], self.item_emb[j]
         yi, yk, yj = (pu * qi).sum(dim=1), (pu * qk).sum(dim=1), (pu * qj).sum(dim=1)
         y_ik = (yi - yk) / (suk + 1.0)
@@ -190,7 +197,7 @@ class TBPR(_SocialBPR):
         return self._batched(users, pos, *picks, *masks, neg, w)
 
     def loss(self, batch, gen=None) -> torch.Tensor:
-        u, i, jt, wk, st, m_j, m_w, m_s, k, w = batch
+        u, i, jt, wk, st, m_j, m_w, m_s, k, w = self.batch_share(batch)
         p, q = self.user_emb[u], self.item_emb
         score = lambda items: (p * q[items]).sum(dim=1)  # noqa: E731
         last_y = score(i)

@@ -20,6 +20,12 @@ Both train on bold-driver SGD. Options come from the reference's dashed
 keys (``CUNE-MF``, ``CUNE-BPR``). The SGNS draws come from
 ``skipgram_draws`` (``ops/walks.SkipgramDraws``), which a caller can
 replace. Parameters: ``user_emb`` (U, d) and ``item_emb`` (I, d), U(0, 1)/3.
+
+On a mesh each data rank's loss is its rows of the batch (``batch_share``,
+every draw of CUNE_BPR cut alike) and, for CUNE_MF's pull, its block of
+the friend edges (``row_share``), scaled by the whole run's
+``1/num_batches``; the walks, SGNS and the friends are whole on every
+rank, from the same seed.
 """
 
 from __future__ import annotations
@@ -55,6 +61,7 @@ class _WalkBase(IterativeRecommender):
 
     param_key = None  # the reference's dashed conf key, e.g. 'CUNE-BPR'
     skipgram_draws = SkipgramDraws  # the SGNS run's random inputs (replaceable)
+    trains_on_mesh = True
 
     def __init__(self, conf, data, fold: str = "[1]", device=None):
         super().__init__(conf, data, fold=fold, device=device)
@@ -149,13 +156,14 @@ class CUNE_MF(_WalkBase):
         return self.rating_sampler()(gen)
 
     def loss(self, batch, gen=None) -> torch.Tensor:
-        u, i, r, w = batch
+        u, i, r, w = self.batch_share(batch)
         pu, qi = self.user_emb[u], self.item_emb[i]
         err = r - (pu * qi).sum(dim=1)
         rating = 0.5 * (w * err**2).sum() + 0.5 * (
             self.reg_u * (w[:, None] * pu**2).sum() + self.reg_i * (w[:, None] * qi**2).sum())
         num_batches = max(1, -(-self.train_size // self.batch_size))
-        diff = self.user_emb[self.pull_src] - self.user_emb[self.pull_dst].detach()
+        edges = slice(*self.row_share(self.pull_src.shape[0]))
+        diff = self.user_emb[self.pull_src[edges]] - self.user_emb[self.pull_dst[edges]].detach()
         return rating + (1.0 / num_batches) * 0.5 * self.alpha * (diff**2).sum()
 
 
@@ -188,6 +196,7 @@ class CUNE_BPR(_WalkBase):
 
     def loss(self, batch, gen=None) -> torch.Tensor:
         n = self.n_draws
+        batch = self.batch_share(batch)
         u, i = batch[0], batch[1]
         ks, js = batch[2:2 + n], batch[2 + n:2 + 2 * n]
         has_fp, w = batch[-2].float(), batch[-1]

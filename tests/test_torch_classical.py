@@ -188,13 +188,18 @@ def test_ranking_a_knn_model_raises(tmp_path, name):
 # ---------------------------------------------------------------------------
 
 
-def _trained(name):
-    """(JAX model, its built spec, the port's model with the JAX
-    parameters) on explicit ratings of 0.5-4.0."""
+def _rated_split():
+    """Explicit ratings of 0.5-4.0, 24 users x 8 of 30 items, split 3:1."""
     rng = np.random.RandomState(5)
     records = [[f"u{u}", f"i{i}", float(rng.randint(1, 9)) / 2]
                for u in range(24) for i in rng.choice(30, size=8, replace=False)]
-    jmodel, tmodel = _both(name, split=data_split(records, 0.25, rng=random.Random(2)))
+    return data_split(records, 0.25, rng=random.Random(2))
+
+
+def _trained(name):
+    """(JAX model, its built spec, the port's model with the JAX
+    parameters) on :func:`_rated_split`."""
+    jmodel, tmodel = _both(name, split=_rated_split())
     spec = jmodel.build()
     tmodel.load_state_dict(params_from_jax({k: np.asarray(v) for k, v in spec.params.items()}, "cpu"))
     return jmodel, spec, tmodel

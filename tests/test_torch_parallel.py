@@ -775,21 +775,16 @@ def test_cross_validation_folds_run_in_turn_on_the_mesh(trained):
 def test_mesh_refuses_what_is_not_ported(tmp_path):
     """On two ranks (``parallel.setup=on``: data 1 x model 2) each of these
     raises the ConfigError that names ROADMAP.md Queue 1 item 19 on every
-    rank: one model of each group that a mesh still refuses, NeuMF (the
-    generic loop, ranked), SVD (the generic loop, rating evaluation),
-    SoRec (social MF) and CUNE_MF (walks, then the generic loop)."""
+    rank: four of the five models that a mesh still refuses, NeuMF (three
+    phases, whole-table terms), DMF (every parameter regularised), CDAE
+    (a mean loss) and APR (an inner gradient)."""
     ratings = str(_planted_file(tmp_path))
-    trust = tmp_path / "trust.txt"
-    trust.write_text("".join(f"u{u} u{(u + 1) % 40} 1\n" for u in range(40)))
     base = {"ratings": ratings, "parallel.setup": "on", "num.max.epoch": "1"}
-    rating = dict(base, **{"item.ranking": "off -topN 10"})
     confs = {
         "NeuMF": _conf("NeuMF", None, base),
-        "SVD": _conf("SVD", None, rating),
-        "SoRec": _conf("SoRec", "-z 0.001", dict(rating, **{
-            "social": str(trust), "social.setup": "-columns 0 1 2"})),
-        "CUNE_MF": _conf("CUNE_MF", None, dict(rating, **{
-            "CUNE-MF": "-T 2 -L 5 -l 4 -w 2 -k 2 -a 0.5 -ep 1"})),
+        "DMF": _conf("DMF", None, base),
+        "CDAE": _conf("CDAE", "-co 0.8 -nh 16", base),
+        "APR": _conf("APR", "-eps 0.5 -regA 1 -advEpoch 1", base),
     }
     out = R.spawn(R.refusals, 2, tmp_path, confs)
     for rank in out:

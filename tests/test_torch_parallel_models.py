@@ -416,7 +416,7 @@ def _tiny_model(name: str):
             "evaluation.setup": "-ap 0.2", "item.ranking": "on -topN 5", "num.factors": "4",
             "num.max.epoch": "1", "batch_size": "8", "learnRate": "-init 0.01 -max 1",
             "reg.lambda": "-u 0.01 -i 0.01 -b 0.1 -s 0.1", "output.setup": "off -dir ./r/",
-            "CUNE-MF": "-T 2 -L 5 -l 4 -w 2 -k 2 -a 0.5 -ep 1", "SoRec": "-z 0.001"}
+            "CDAE": "-co 0.8 -nh 8", "APR": "-eps 0.5 -regA 1 -advEpoch 1"}
     data = Interactions(ModelConf(conf), records[:40], records[40:])
     cls = get_model(name)
     kwargs = {}
@@ -426,7 +426,7 @@ def _tiny_model(name: str):
     return cls(ModelConf(conf), data, device="cpu", **kwargs)
 
 
-@pytest.mark.parametrize("name,refused", [("SVD", True), ("SoRec", True), ("CUNE_MF", True),
+@pytest.mark.parametrize("name,refused", [("DMF", True), ("CDAE", True), ("APR", True),
                                           ("NeuMF", True), ("WRMF", False),
                                           ("MostPopular", False)])
 def test_a_launcher_refuses_and_admits_as_parallel_setup_on_does(monkeypatch, name, refused):

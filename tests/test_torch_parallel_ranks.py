@@ -1,6 +1,7 @@
 """Rank workers of ``tests/test_torch_parallel.py``,
-``tests/test_torch_parallel_social.py`` and
-``tests/test_torch_parallel_models.py``. Each runs in a spawned
+``tests/test_torch_parallel_social.py``,
+``tests/test_torch_parallel_models.py`` and
+``tests/test_torch_parallel_bold.py``. Each runs in a spawned
 process of a gloo group on the CPU and returns what the test holds against
 the JAX package and against one process. This module holds no test: a
 spawned rank imports it, and it imports no JAX, as the port imports none.
@@ -212,7 +213,9 @@ def fit_case(case) -> dict:
     the losses, the first step's loss (this data rank's share on a mesh),
     the tables and buffers, the final factors and every parameter's
     gradient at the first optimizer step. A case with a ``relation`` gives
-    the model its trust graph."""
+    the model its trust graph, one with ``friends`` (the walk family's
+    (friend ids, active users)) its implicit friends in place of its walks
+    and SGNS."""
     conf = ModelConf(case["conf"])
     data = Interactions(conf, case["train"], case["test"])
     kwargs = {}
@@ -223,6 +226,8 @@ def fit_case(case) -> dict:
     if case.get("draws") is not None:
         stream = iter(case["draws"])
         model.draw = lambda gen: as_tensors(next(stream))
+    if case.get("friends") is not None:
+        model.implicit_friends = lambda: case["friends"]
     step_losses = []
 
     def first_loss(loss):
@@ -367,8 +372,8 @@ def lifecycle(confs) -> dict:
 
 
 def replicated_run(conf: dict, init=None) -> dict:
-    """``QRec(conf).execute()`` on the CPU for a model that trains whole on
-    every rank (slice 7d), ``init`` (npz-style arrays by table name)
+    """``QRec(conf).execute()`` on the CPU (a model that trains whole on
+    every rank, slice 7d, or a data-parallel one), ``init`` (npz-style arrays by table name)
     replacing those of its ALS ``init_tables``: the measure lines and the
     files under its ``-dir``; everything the model scores or predicts from
     (its parameters and buffers, its ALS tables, ``U``, ``V`` and
@@ -457,4 +462,14 @@ def replicated(rank, runs, lifecycle):
     finally:
         np.savez = real_savez
     out["savez"] = savez
+    return out
+
+
+def bold(rank, cases, runs):
+    """The bold-driver family's fit cases (:func:`fit_case`) on the mesh
+    that their confs ask for, then the session runs of ``runs`` (label ->
+    (conf, None)) through :func:`replicated_run`, each rank writing under
+    its own ``-dir``."""
+    out = {"fits": {name: fit_case(case) for name, case in cases.items()}}
+    out.update(replicated(rank, runs, {}))
     return out
