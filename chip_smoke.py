@@ -93,7 +93,7 @@ Phases, each of which exits non-zero on failure:
    path's; one ESRF adversarial epoch under ``torch.profiler``;
 12. the ALS and classical slice (``als_classical_phases``): WRMF, ExpoMF,
    CoFactor and SERec (with ``lastfm_trust``) on the lastfm-shaped file at
-   d=20, 3 epochs each (``ALS_EPOCHS``), ranked at top-10 through K2's
+   d=20, 2 epochs each (``ALS_EPOCHS``), ranked at top-10 through K2's
    fused top-k and checked as the main path's, CoFactor's SPPMI edges and
    host build, one more WRMF epoch under ``torch.profiler``; UserKNN,
    ItemKNN, SlopeOne, SVD++ and EE (3 epochs each) on the FilmTrust-shaped
@@ -130,7 +130,9 @@ Phases, each of which exits non-zero on failure:
    bold-driver family data-parallel, BasicMF, PMF, SVD, SVD++, EE and the
    seven social MF models with ``filmtrust_trust`` and CUNE_MF on the
    FilmTrust-shaped file, SBPR, TBPR and CUNE_BPR with ``lastfm_trust`` and
-   SVD ranked on the lastfm-shaped one), each with
+   SVD ranked on the lastfm-shaped one; NeuMF, APR, DMF, CDAE and ESRF
+   data-parallel on the lastfm-shaped file, ESRF with ``lastfm_trust``),
+   each with
    ``parallel.setup=on -model 2``, and WRMF with the setting absent (the
    mesh that forms by itself on a CUDA group), once in one process (no
    mesh; an earlier phase's run of the same config where there is one)
@@ -143,7 +145,7 @@ Phases, each of which exits non-zero on failure:
    model scores from equal bit for bit, the measures within 2e-2 and the
    first epoch's loss within rtol 1e-4 of one process, each route against
    its plain twin, each route's kernel timed on one rank's share (route 7
-   also on IRGAN's and SVD's biased forms); LightGCN's
+   also on IRGAN's and SVD's biased forms and on APR's factors); LightGCN's
    lifecycle on the four ranks (``PARALLEL_LIFECYCLE``: stopped after
    epoch 1 of 2 under ``checkpoint.setup``, resumed bit for bit against
    the unbroken mesh run, rank 0 alone writing the step files and the
@@ -983,12 +985,24 @@ def mf_phases(torch, K, QRec, timer, tmp, conf_of):
 
 
 # the deep and GAN slice's depth on the card: each config/*.conf at its
-# published widths, with these epochs (NeuMF's phases 5, 2, 1; APR's 2, 2)
-DEEP_EPOCHS = {"NeuMF": 5, "APR": 4, "IRGAN": 2, "DMF": 2, "CDAE": 100, "CFGAN": 20}
+# published widths, with these epochs, those of the mesh runs that reuse
+# these runs in parallel_phases: the least for NeuMF (1 a phase), APR (1 +
+# 1) and DMF, whose 4-rank epochs cost 0.3-21 s (their loss-falls check is
+# left out: SHORT_PHASES); CFGAN's 2, its mesh run's, since its one phase is
+# a minimax game, which the check skips
+DEEP_EPOCHS = {"NeuMF": 1, "APR": 2, "IRGAN": 2, "DMF": 1, "CDAE": 100, "CFGAN": 2}
 # phases whose loss is one side of a minimax game and need not fall epoch
 # by epoch: a GAN's D and G losses; APR's perturbed phase, whose worst-case
 # deltas grow with the tables (its loss rises in the JAX package too)
 MINIMAX_PHASES = {"APR": (1,), "CFGAN": (0,), "IRGAN": (0,), "RSGAN": (0,)}
+# phases that this script trains too briefly for drive's loss-falls check
+# in every run of the model, by design: one epoch a phase at the mesh
+# runs' depth (NeuMF, APR's base phase, DMF; ESRF, whose phases take
+# max_epoch // 3 epochs each), SEPT's warm-up (max(1, max_epoch // 3)
+# epochs). Any other phase that no run checks fails the script
+SHORT_PHASES = {"NeuMF": (0, 1, 2), "APR": (0,), "DMF": (0,), "ESRF": (0, 1, 2), "SEPT": (0,)}
+# the phases drive checked and those it found too short, by model
+FALLS = {"checked": {}, "short": {}}
 # phases checked from their second epoch on: every phase reseeds the
 # trainer's generator (seed + 1, as the JAX package's run_training does), so
 # SEPT's joint phase starts on the batches its warm-up already trained on,
@@ -1045,19 +1059,25 @@ def deep_phases(torch, K, QRec, timer, conf_of):
     score-block rankings of NeuMF, DMF, CDAE and CFGAN against the CPU; one
     more NeuMF epoch (the fused phase: host-bound pointwise steps) and one
     more CFGAN epoch (the (I, I) products) under torch.profiler; a summary
-    line. Returns (K2 launches per path, K2 checks, K2 timings)."""
-    launches, k2r, k2t, summary = {}, {}, {}, {}
+    line. Returns (K2 launches per path, K2 checks, K2 timings, the
+    one-process records of the six for the mesh phase, APR's and IRGAN's
+    with their models)."""
+    launches, k2r, k2t, summary, ones = {}, {}, {}, {}, {}
     for name, epochs in DEEP_EPOCHS.items():
         label = name.lower()
         t0 = time.perf_counter()
-        model, counts, measures = drive(torch, K, QRec, conf_of(name, epochs), label)
+        conf = conf_of(name, epochs)
+        model, counts, measures = drive(torch, K, QRec, conf, label)
         wall = time.perf_counter() - t0
         timers = getattr(model, "phase_timers", None) or [model.timer]
-        steady = [round(t.steady_state() * 1e3, 3) for t in timers]
-        print(f"[{label}] epochs per phase {[len(t.times) for t in timers]} steady epoch ms per "
-              f"phase {steady} (mean after a phase's first epoch)", flush=True)
-        summary[name] = dict(wall_s=wall, steady_ms=steady, recall=measures["Recall"],
+        steady = phase_text(phase_ms(model))
+        print(f"[{label}] epochs per phase {[len(t.times) for t in timers]} epoch ms per "
+              f"phase {steady} ({PHASE_KINDS})", flush=True)
+        summary[name] = dict(wall_s=wall, epoch_ms=steady, recall=measures["Recall"],
                              rank_ms=model.rank_seconds * 1e3)
+        ones[label] = one_process_record(conf, model, measures)
+        if label in KEPT:  # route 7 is timed on APR's and IRGAN's factors
+            ones[label]["model"] = model
         if name in ("APR", "IRGAN"):
             launches[label] = counts["masked_catalog_topk"]
             k2r[label] = ranking_phase(torch, K, label, model, 10)
@@ -1075,13 +1095,14 @@ def deep_phases(torch, K, QRec, timer, conf_of):
             profile_epoch(torch, model, "CFGAN", model.fit_phases)
         del model
     print("[deep] " + " ".join(
-        f"{n}: wall_s={v['wall_s']:.2f} steady_ms={v['steady_ms']} Recall@10={v['recall']} "
+        f"{n}: wall_s={v['wall_s']:.2f} epoch_ms={v['epoch_ms']} Recall@10={v['recall']} "
         f"rank_ms={v['rank_ms']:.3f};" for n, v in summary.items()), flush=True)
-    return launches, k2r, k2t
+    return launches, k2r, k2t, ones
 
 
-# the social slice's depth on the card (SEPT's 4: one warm-up epoch, then
-# three joint ones, the last two on batches no phase has seen)
+# the social slice's depth on the card, the least at which drive checks
+# that each phase's loss falls (SEPT's 4: one warm-up epoch, then three
+# joint ones, the last two on batches no phase has seen)
 SOCIAL_EPOCHS = {"MHCN": 2, "SEPT": 4, "BUIR": 2, "DiffNet": 2, "DHCF": 2}
 
 
@@ -1250,7 +1271,8 @@ def social_phases(torch, K, QRec, timer, conf_of, trust_path):
     MHCN's matrices as ``DenseMat`` and as ``DeviceCOO``
     (:func:`aux_forms_phase`); one more MHCN and DHCF epoch under
     torch.profiler. Returns (K1 bf16 dict, bf16 run's K1
-    launches, K2 launches per path, K2 checks)."""
+    launches, K2 launches per path, K2 checks, the one-process records of
+    the five for the mesh phase)."""
     from qrec_tpu_torch.ops.spmm import DenseMat, DeviceCOO
 
     forms = (("lightgcn-bf16", {"graph.dense.quant": "off", "graph.dense.dual": "on"}, 2),
@@ -1267,7 +1289,7 @@ def social_phases(torch, K, QRec, timer, conf_of, trust_path):
             k1b_launches = counts["bipartite_dual_matmul"]
             k1b = bf16_phase(torch, K, timer, model, k1b_launches)
         del model
-    summary = {}
+    summary, ones = {}, {}
     for name, epochs in SOCIAL_EPOCHS.items():
         conf = conf_of(name, epochs)
         if conf.contains("social"):
@@ -1275,7 +1297,7 @@ def social_phases(torch, K, QRec, timer, conf_of, trust_path):
         label = name.lower()
         model, counts, measures = drive(torch, K, QRec, conf, label)
         timers = getattr(model, "phase_timers", None) or [model.timer]
-        steady = [round(t.steady_state() * 1e3, 3) for t in timers]
+        steady = phase_text(phase_ms(model))
         social = model.social.trustSize() if model.social is not None else None
         ops = [
             f"{k}=DenseMat({v.mat.shape[0]}x{v.mat.shape[1]})" if isinstance(v, DenseMat)
@@ -1284,11 +1306,11 @@ def social_phases(torch, K, QRec, timer, conf_of, trust_path):
         ]
         print(f"[{label}] auxiliary operators {' '.join(ops)}", flush=True)
         print(f"[{label}] trust (users, links)={social} host graph build s={model.graph_seconds:.3f} "
-              f"(before the epochs) epochs per phase {[len(t.times) for t in timers]} steady epoch "
-              f"ms per phase {steady} (mean after a phase's first epoch) U width="
-              f"{model.U.shape[1]}", flush=True)
-        summary[name] = dict(steady_ms=steady, recall=measures["Recall"], ndcg=measures["NDCG"],
+              f"(before the epochs) epochs per phase {[len(t.times) for t in timers]} epoch ms "
+              f"per phase {steady} ({PHASE_KINDS}) U width={model.U.shape[1]}", flush=True)
+        summary[name] = dict(epoch_ms=steady, recall=measures["Recall"], ndcg=measures["NDCG"],
                              rank_ms=model.rank_seconds * 1e3, graph_s=model.graph_seconds)
+        ones[label] = one_process_record(conf, model, measures)
         launches[label] = counts["masked_catalog_topk"]
         k2r[label] = ranking_phase(torch, K, label, model, 10)
         if name == "MHCN":
@@ -1297,10 +1319,10 @@ def social_phases(torch, K, QRec, timer, conf_of, trust_path):
             profile_epoch(torch, model, name)
         del model
     print("[social] " + " ".join(
-        f"{n}: steady_ms={v['steady_ms']} Recall@10={v['recall']} NDCG@10={v['ndcg']} "
+        f"{n}: epoch_ms={v['epoch_ms']} Recall@10={v['recall']} NDCG@10={v['ndcg']} "
         f"rank_ms={v['rank_ms']:.3f} graph_s={v['graph_s']:.3f};" for n, v in summary.items()),
         flush=True)
-    return k1b, k1b_launches, launches, k2r
+    return k1b, k1b_launches, launches, k2r, ones
 
 
 # the rest of the social family's depth on the card, each config/ file at
@@ -1328,7 +1350,7 @@ def social_rest_phases(torch, K, QRec, conf_of, tmp, trust_path):
     checked as the main path's (``ranking_phase``); one more ESRF
     adversarial epoch under torch.profiler. Returns (ESRF's K1 launches,
     K2 launches per path, K2 checks, the one-process records of the seven
-    rating models, SBPR and TBPR for the mesh phase)."""
+    rating models, SBPR, TBPR and ESRF for the mesh phase)."""
     users, items, ratings = filmtrust_records()
     filmtrust = os.path.join(tmp, "filmtrust_social.txt")
     with open(filmtrust, "w") as f:
@@ -1355,14 +1377,13 @@ def social_rest_phases(torch, K, QRec, conf_of, tmp, trust_path):
         label = key.lower().replace(" ", "")
         model, counts, measures = drive(torch, K, QRec, conf, label)
         timers = getattr(model, "phase_timers", None) or [model.timer]
-        steady = [round(t.steady_state() * 1e3, 3) for t in timers]
+        steady = phase_text(phase_ms(model))
         print(f"[{label}] trust (users, links)={model.social.trustSize()} host build s="
               f"{model.graph_seconds:.3f} (before the epochs) epochs per phase "
-              f"{[len(t.times) for t in timers]} steady epoch ms per phase {steady} (mean after a "
-              f"phase's first epoch)", flush=True)
-        summary[key] = dict(steady_ms=steady, graph_s=model.graph_seconds, **measures)
-        if name in BOLD:
-            ones[label] = one_process_record(conf, model, measures)
+              f"{[len(t.times) for t in timers]} epoch ms per phase {steady} ({PHASE_KINDS})",
+              flush=True)
+        summary[key] = dict(epoch_ms=steady, graph_s=model.graph_seconds, **measures)
+        ones[label] = one_process_record(conf, model, measures)
         if ranked:
             launches[label] = counts["masked_catalog_topk"]
             k2r[label] = ranking_phase(torch, K, label, model, 10)
@@ -1379,15 +1400,17 @@ def social_rest_phases(torch, K, QRec, conf_of, tmp, trust_path):
                 2, 1, gen, d_opt, g_opt, model.pairwise_sampler()))
         del model
     print("[social rest] " + " ".join(
-        f"{k}: steady_ms={v['steady_ms']} graph_s={v['graph_s']:.3f} "
+        f"{k}: epoch_ms={v['epoch_ms']} graph_s={v['graph_s']:.3f} "
         + (f"Recall@10={v['Recall']} NDCG@10={v['NDCG']};" if "Recall" in v
            else f"MAE={v['MAE']} RMSE={v['RMSE']};") for k, v in summary.items()), flush=True)
     return k1, launches, k2r, ones
 
 
 # the ALS and classical slice's depth on the card, each config/ file at
-# its published widths (d=20 for the ALS models, d=10 for SVD++ and EE)
-ALS_EPOCHS = {"WRMF": 3, "ExpoMF": 3, "CoFactor": 3, "SERec": 3}
+# its published widths (d=20 for the ALS models, d=10 for SVD++ and EE); the
+# ALS models at 2, the mesh runs' depth, whose one-process runs these are
+# (WRMF's loss, the one the four report, is still checked to fall)
+ALS_EPOCHS = {"WRMF": 2, "ExpoMF": 2, "CoFactor": 2, "SERec": 2}
 CLASSICAL_EPOCHS = {"UserKNN": 1, "ItemKNN": 1, "SlopeOne": 1, "SVD++": 3, "EE": 3}
 
 
@@ -1404,7 +1427,8 @@ def als_classical_phases(torch, K, QRec, conf_of, tmp, trust_path):
     the epochs of ``ALS_EPOCHS`` and ``CLASSICAL_EPOCHS``, driven through
     ``QRec(conf).execute()`` with its launches against
     ``expected_launches``. Returns (K2 launches per path, K2 checks, the
-    one-process records of SVD++ and EE for the mesh phase)."""
+    one-process records of every model here but the ranked SVD++ for the
+    mesh phase)."""
     launches, k2r, summary, ones = {}, {}, {}, {}
     for name, epochs in ALS_EPOCHS.items():
         conf = conf_of(name, epochs)
@@ -1419,6 +1443,7 @@ def als_classical_phases(torch, K, QRec, conf_of, tmp, trust_path):
                   f"{model.graph_seconds:.3f} (before the epochs) context blocks "
                   f"{model.sppmi_edges * model.emb_size ** 2 * 4 / 1e6:.1f} MB", flush=True)
             summary[name]["edges"] = model.sppmi_edges
+        ones[label] = one_process_record(conf, model, measures)
         launches[label] = counts["masked_catalog_topk"]
         k2r[label] = ranking_phase(torch, K, label, model, 10)
         if name == "WRMF":
@@ -1433,15 +1458,16 @@ def als_classical_phases(torch, K, QRec, conf_of, tmp, trust_path):
     for name in ("UserMean", "ItemMean"):
         conf = conf_of(name, 1)
         conf["ratings"] = filmtrust
-        _, _, baseline[name] = drive(torch, K, QRec, conf, name.lower())
+        model, _, baseline[name] = drive(torch, K, QRec, conf, name.lower())
+        ones[name.lower()] = one_process_record(conf, model, baseline[name])
+        del model
     for name, epochs in CLASSICAL_EPOCHS.items():
         conf = conf_of(name, epochs)
         conf["ratings"] = filmtrust
         label = name.lower()
         model, _, measures = drive(torch, K, QRec, conf, label)
         summary[name] = dict(measures, eval_s=model.rating_seconds)
-        if name in BOLD:
-            ones[label] = one_process_record(conf, model, measures)
+        ones[label] = one_process_record(conf, model, measures)
         if model.timer is not None:
             summary[name]["steady_ms"] = model.timer.steady_state() * 1e3
         print(f"[{label}] MAE={measures['MAE']} RMSE={measures['RMSE']} beside UserMean "
@@ -1465,8 +1491,11 @@ def als_classical_phases(torch, K, QRec, conf_of, tmp, trust_path):
 
 # the walk slice's depth on the card, each config/ file at its published
 # widths (CUNE_MF d=10 on the FilmTrust shape; CUNE_BPR and IF_BPR d=10,
-# RSGAN d=50 on the lastfm shape)
-WALK_EPOCHS = {"CUNE_MF": 3, "CUNE_BPR": 3, "IF_BPR": 3, "RSGAN": 3}
+# RSGAN d=50 on the lastfm shape), those of the mesh runs that reuse these
+# runs in parallel_phases: the least at which drive checks that the loss
+# falls (2), RSGAN's 1 since its one phase is a minimax game, which the
+# check skips, and one 4-rank epoch of it costs about 2 s on the H100
+WALK_EPOCHS = {"CUNE_MF": 3, "CUNE_BPR": 2, "IF_BPR": 2, "RSGAN": 1}
 
 
 def negative_feedback_file(ratings: str, seed: int = 0) -> str:
@@ -1539,12 +1568,11 @@ def walk_phases(torch, K, QRec, conf_of, tmp, trust_path):
             conf["ratings"] = negative
         label = key.lower().replace(" ", "-")
         model, counts, measures = drive(torch, K, QRec, conf, label)
-        steady = model.timer.steady_state() * 1e3
+        steady = phase_text(phase_ms(model))
         print(walk_stats_line(label, model.walk_stats), flush=True)
         print(f"[{label}] host build s={model.graph_seconds:.3f} (walks, SGNS, friends and tables, "
-              f"before the epochs) steady epoch ms={steady:.3f} (mean after the first epoch)",
-              flush=True)
-        summary[key] = dict(steady_ms=steady, graph_s=model.graph_seconds, **measures)
+              f"before the epochs) epoch ms {steady} ({PHASE_KINDS})", flush=True)
+        summary[key] = dict(epoch_ms=steady, graph_s=model.graph_seconds, **measures)
         if key in ("CUNE_MF", "CUNE_BPR", "IF_BPR", "RSGAN"):
             ones[label] = one_process_record(conf, model, measures)
         if name == "CUNE_MF":
@@ -1843,16 +1871,21 @@ PARALLEL_RUNS = (
     ("sgl", "SGL", 1, {}),
     ("sgl-pallas", "SGL", 1, {"graph.backend": "pallas"}),
     ("ngcf", "NGCF", 1, {}),
-    ("mhcn", "MHCN", 1, {}),
+    # MHCN, DiffNet and DHCF at the social slice's depth, whose one-process
+    # runs this phase reuses; SEPT (warm-up + joint) and BUIR at the least
+    # depth, with one-process runs of their own here, since one 4-rank epoch
+    # of theirs (3.6-3.9 s on the H100) costs more than a one-process run
+    ("mhcn", "MHCN", SOCIAL_EPOCHS["MHCN"], {}),
     ("sept", "SEPT", 2, {}),
     ("buir", "BUIR", 1, {}),
-    ("diffnet", "DiffNet", 1, {}),
-    ("dhcf", "DHCF", 1, {}),
+    ("diffnet", "DiffNet", SOCIAL_EPOCHS["DiffNet"], {}),
+    ("dhcf", "DHCF", SOCIAL_EPOCHS["DHCF"], {}),
     # slice 7d: trained whole on every rank, each config/ file at its
-    # published widths (epochs cut: CFGAN 500 -> 2, IRGAN 30 -> 2, RSGAN and
-    # IF_BPR 30 -> 3, the walk slice's, whose one-process runs of the same
-    # configs this phase reuses, WRMF 30 -> 2, ExpoMF, CoFactor, SERec 20 ->
-    # 2; the untrained models have none), the lastfm-shaped file (SERec,
+    # published widths (epochs cut: CFGAN 500 -> 2, IRGAN 30 -> 2, RSGAN 30
+    # -> 1, IF_BPR 30 -> 2, WRMF 30 -> 2, ExpoMF, CoFactor, SERec 20 -> 2; the
+    # untrained models have none), each but MostPopular, Rand and "wrmf
+    # auto" reusing the one-process run of the same config that deep_phases,
+    # als_classical_phases or walk_phases made, the lastfm-shaped file (SERec,
     # IF_BPR, RSGAN with lastfm_trust; IF_BPR without negative feedback, one
     # SGNS channel) or the FilmTrust-shaped one (FILMTRUST)
     ("mostpopular", "MostPopular", 1, {}),
@@ -1895,22 +1928,37 @@ PARALLEL_RUNS = (
     ("tbpr", "TBPR", SOCIAL_REST_EPOCHS["TBPR"], {}),
     ("cune_mf", "CUNE_MF", WALK_EPOCHS["CUNE_MF"], {"ratings": "FILMTRUST"}),
     ("cune_bpr", "CUNE_BPR", WALK_EPOCHS["CUNE_BPR"], {}),
+    # slice 7f: NeuMF, APR, DMF, CDAE and ESRF data-parallel, each config/
+    # file at its published widths on the lastfm-shaped file (ESRF with
+    # lastfm_trust, its discriminator on K1's column blocks) with the epochs
+    # of its one-process run in deep_phases or social_rest_phases, which
+    # this phase reuses: NeuMF 1 a phase, APR 1 + 1, DMF 1, CDAE 100, ESRF
+    # 1 a phase
+    *((name.lower(), name, DEEP_EPOCHS[name], {}) for name in ("NeuMF", "APR", "DMF", "CDAE")),
+    ("esrf", "ESRF", SOCIAL_REST_EPOCHS["ESRF"], {}),
 )
 # the models of slice 7d, which train whole on every rank
 REPLICATED = {"MostPopular", "Rand", "WRMF", "ExpoMF", "CoFactor", "SERec", "CFGAN", "IRGAN",
               "IF_BPR", "RSGAN", "UserMean", "ItemMean", "UserKNN", "ItemKNN", "SlopeOne"}
-# the bold-driver family of slice 7e, data-parallel with no joint adjacency:
-# for each, the rows of a loss term other than the batch's that this data
-# rank sums (row_share) and the whole table whose squared norm data rank 0
-# alone adds (adds_table_terms)
-BOLD = {"BasicMF": (None, None), "PMF": (None, None), "SVD": (None, None),
-        "SVD++": (None, "Y"), "EE": (None, None), "SoRec": ("trust edges", "Z"),
-        "SoReg": ("trust edges", None), "SocialMF": ("users", None), "RSTE": (None, None),
-        "LOCABAL": ("trust edges", "H"), "SREE": ("trust edges", None),
-        "SocialFD": ("trust edges", None), "SBPR": (None, None), "TBPR": (None, None),
-        "CUNE_MF": ("friend edges", None), "CUNE_BPR": (None, None)}
+# the models trained data-parallel with no joint adjacency (the
+# bold-driver family of slice 7e; NeuMF, APR, DMF and CDAE of slice 7f):
+# for each, the rows of a step's batch per batch_size (NeuMF's pointwise
+# batch holds 4 negatives a positive), the rows of another loss term that
+# this data rank sums (row_share; DMF's negatives, cut apart from its
+# positives) and the whole tables whose squared norms data rank 0 alone
+# adds (adds_table_terms)
+DATA_PARALLEL = {
+    "BasicMF": (1, None, None), "PMF": (1, None, None), "SVD": (1, None, None),
+    "SVD++": (1, None, "Y"), "EE": (1, None, None), "SoRec": (1, "trust edges", "Z"),
+    "SoReg": (1, "trust edges", None), "SocialMF": (1, "users", None), "RSTE": (1, None, None),
+    "LOCABAL": (1, "trust edges", "H"), "SREE": (1, "trust edges", None),
+    "SocialFD": (1, "trust edges", None), "SBPR": (1, None, None), "TBPR": (1, None, None),
+    "CUNE_MF": (1, "friend edges", None), "CUNE_BPR": (1, None, None),
+    "NeuMF": (5, None, "h_mf and h_mlp"), "APR": (1, None, None),
+    "DMF": (1, "negatives", "every parameter"),
+    "CDAE": (1, None, "enc_w, dec_w, enc_b and dec_b")}
 # the one-process models that later timings and the NCCL phase read
-KEPT = ("lightgcn-pallas", "simgcl-pallas", "lightgcn", "irgan", "svd ranked")
+KEPT = ("lightgcn-pallas", "simgcl-pallas", "lightgcn", "irgan", "svd ranked", "apr")
 # the lifecycle on the four ranks: (label, epochs, checkpoint.setup on,
 # model.setup) after the unbroken "lightgcn" run, in this order
 PARALLEL_LIFECYCLE = (
@@ -1931,27 +1979,31 @@ def rank_shares(model) -> str:
     import torch.distributed as dist
 
     from qrec_tpu_torch.ops.spmm import DenseMat, DeviceCOO, ShardedDenseJoint, feature_slice
+    from qrec_tpu_torch.ops.topk import ScoreForm
     from qrec_tpu_torch.parallel.collectives import split_range
 
     mesh = model.mesh
     n = len(model.data.test_set_u)
     s0, s1 = split_range(n, dist.get_world_size(), dist.get_rank())
-    if model.model_name in REPLICATED or model.model_name in BOLD:
+    name = model.model_name
+    if name in REPLICATED or name in DATA_PARALLEL:
         if not model.ranking.isMainOn():
             what = f"every one of {len(model.data.test_data)} test ratings predicted"
-        elif model.model_name in ("CFGAN", "Rand"):
+        elif not isinstance(model.score_form(), ScoreForm):
             what = "every test user ranked whole (torch ops)"
         else:
             what = f"K2 test users [{s0}, {s1}) of {n}"
-        if model.model_name in REPLICATED:
+        if name in REPLICATED:
             return f"trained whole on every rank; {what}"
-        b0, b1 = split_range(model.batch_size, mesh.data, mesh.data_index)
-        parts = [f"batch rows [{b0}, {b1}) of {model.batch_size}"]
-        rows, table = BOLD[model.model_name]
+        per, rows, table = DATA_PARALLEL[name]
+        b = model.batch_size * per
+        b0, b1 = split_range(b, mesh.data, mesh.data_index)
+        parts = [f"batch rows [{b0}, {b1}) of {b}"]
         if rows is not None:
             total = {"trust edges": lambda: model.social_arrays["src"].shape[0],
                      "users": lambda: model.num_users,
-                     "friend edges": lambda: model.pull_src.shape[0]}[rows]()
+                     "friend edges": lambda: model.pull_src.shape[0],
+                     "negatives": lambda: b * model.negative_sp}[rows]()
             r0, r1 = split_range(total, mesh.data, mesh.data_index)
             parts.append(f"{rows} [{r0}, {r1}) of {total}")
         if table is not None:
@@ -2002,8 +2054,9 @@ def parallel_route_checks(torch, K, model):
     the plain top-k (a row may differ where near-equal scores swap); BUIR's
     views (route 4 with per-edge values) with every edge kept, against the
     plain segment product of the whole view. A model with no joint
-    adjacency (MHCN, DiffNet, DHCF) has route 7 alone. Every rank calls
-    it: the routes gather. Returns {route: max_abs_err}."""
+    adjacency (MHCN, DiffNet, DHCF) has route 7 alone; ESRF's ego table is
+    its discriminator's. Every rank calls it: the routes gather. Returns
+    {route: max_abs_err}."""
     from qrec_tpu_torch.data.graph import joint_normalized_adjacency
     from qrec_tpu_torch.ops.losses import infonce_dispatch, masked_infonce
     from qrec_tpu_torch.ops.spmm import (
@@ -2108,13 +2161,52 @@ def user_shard_check(torch, K, model, form) -> float:
     return (scores - plain_scores).abs().max().item()
 
 
+def flag_read_timing(torch, model, steps: int = 40, turns: int = 2) -> dict:
+    """NeuMF's GMF-phase step on this rank, timed with and without the
+    flag read of ``reduce_gradients``: ``steps`` steps of ``loss_mf`` on the
+    pointwise sampler's batches under a fresh Adam, as ``train`` makes them
+    (the MLP tower's gradients None on every rank, so the flags reach the
+    host every step); in the other form each parameter that the loss does
+    not reach gets a zero gradient before the reduction, so that no flag
+    is read. In turns, the median ms a step. It trains the model on, after
+    every check has read it. Every rank calls it: the steps are
+    collective."""
+    from qrec_tpu_torch.parallel.collectives import reduce_gradients
+
+    params = list(model.parameters())
+    opt = torch.optim.Adam(params, lr=1e-3)
+    batches = model.pointwise_sampler()(torch.Generator(device=model.device).manual_seed(0))
+    n = batches[0].shape[0]
+    times, step = {"flag read": [], "no flag read": []}, 0
+    for _ in range(turns):
+        for key, ms in times.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                loss = model.loss_mf(tuple(t[step % n] for t in batches))
+                step += 1
+                opt.zero_grad(set_to_none=True)
+                loss.backward()
+                if key == "no flag read":
+                    for p in params:
+                        if p.grad is None:
+                            p.grad = torch.zeros_like(p)
+                reduce_gradients(params, model.mesh)
+                opt.step()
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3 / steps)
+    return dict({k: float(np.median(v)) for k, v in times.items()}, steps=steps,
+                steps_per_epoch=n)
+
+
 def replicated_route_check(torch, K, model):
     """A model with no joint adjacency (trained whole on every rank, slice
-    7d, or the bold-driver family, slice 7e) reaches one route, route 7,
-    where it ranks a ``ScoreForm`` (:func:`user_shard_check` on its own
-    form: IRGAN's, MostPopular's and SVD's biased, the others' plain).
-    CFGAN's score block, Rand's draws and a rating run reach none. Returns
-    {route: max_abs_err}."""
+    7d; the bold-driver family, slice 7e; NeuMF, APR, DMF and CDAE, slice
+    7f) reaches one route, route 7, where it ranks a ``ScoreForm``
+    (:func:`user_shard_check` on its own form: IRGAN's, MostPopular's and
+    SVD's biased, the others' plain). A score block (CFGAN, NeuMF, DMF,
+    CDAE), Rand's draws and a rating run reach none. Returns {route:
+    max_abs_err}."""
     from qrec_tpu_torch.ops.topk import ScoreForm
 
     if not model.ranking.isMainOn():
@@ -2196,7 +2288,7 @@ def parallel_rank(rank, store, runs, lifecycle, out_dir):
             counts = K.launch_counts()
             model = rec.model
             checks = (replicated_route_check
-                      if model.model_name in REPLICATED or model.model_name in BOLD
+                      if model.model_name in REPLICATED or model.model_name in DATA_PARALLEL
                       else parallel_route_checks)
             out[label] = dict(
                 mesh=None if model.mesh is None else model.mesh.shape,
@@ -2205,11 +2297,14 @@ def parallel_rank(rank, store, runs, lifecycle, out_dir):
                 counts=counts, expect=expected_launches(model),
                 losses=list(getattr(model, "epoch_losses", [])),
                 epoch_ms=[t * 1e3 for t in model.timer.times] if model.timer else [],
+                phase_ms=phase_ms(model),
                 graph_s=getattr(model, "graph_seconds", None), measure=measure,
                 shares=rank_shares(model), writes=list(writes), held=held_digests(model),
                 errs=checks(torch, K, model))
             # the run, its checks and its digests, on this rank
             out[label]["wall_s"] = time.perf_counter() - t0
+            if model.model_name == "NeuMF":
+                out[label]["flag_ms"] = flag_read_timing(torch, model)
             del rec, model
             gc.collect()
             torch.cuda.empty_cache()
@@ -2526,7 +2621,7 @@ def same_config(a: dict, b: dict) -> bool:
 
 
 def parallel_phases(torch, K, QRec, conf_of, tmp, trust_path, one_process=None):
-    """Slices 7a-7e on the card. Run A: each run of ``PARALLEL_RUNS`` in
+    """Slices 7a-7f on the card. Run A: each run of ``PARALLEL_RUNS`` in
     one process (where ``parallel.setup`` builds no mesh), then on four
     ranks on cuda:0 over a gloo group that this script makes
     (``parallel_rank``): data 2 x model 2, so K5 runs on row blocks and K1
@@ -2534,8 +2629,9 @@ def parallel_phases(torch, K, QRec, conf_of, tmp, trust_path, one_process=None):
     on half the contrastive rows and K2 on a quarter of the test users; the
     social models read ``trust_path``, the rating models a FilmTrust-shaped
     file (with :func:`filmtrust_trust` for the social ones); the models of
-    ``REPLICATED`` train whole on every rank, those of ``BOLD``
-    data-parallel with no joint adjacency, and "wrmf auto" leaves
+    ``REPLICATED`` train whole on every rank, those of ``DATA_PARALLEL``
+    data-parallel with no joint adjacency (ESRF data-parallel on
+    K1's column blocks), and "wrmf auto" leaves
     ``parallel.setup`` out; a run that an earlier phase made in one
     process with the same config (``one_process``) is not made again.
     Holds every rank's launches against ``expected_launches``, its mesh
@@ -2547,7 +2643,7 @@ def parallel_phases(torch, K, QRec, conf_of, tmp, trust_path, one_process=None):
     (``PARALLEL_LIFECYCLE``) against the unbroken ``lightgcn`` run, bit for
     bit, with rank 0 alone writing; times each route's kernel on one rank's
     share (``shard_timings``, and route 7 on IRGAN's and SVD's biased
-    forms). The four ranks share one card and gloo carries their
+    forms and on APR's factors). The four ranks share one card and gloo carries their
     collectives through host memory: this checks the routes, not their
     scaling. Run B: ``nccl_phase``. Returns (kernels-line entries, launches
     summed over the ranks, the K2 launches on a biased form by run)."""
@@ -2579,22 +2675,20 @@ def parallel_phases(torch, K, QRec, conf_of, tmp, trust_path, one_process=None):
             else:
                 conf[key] = files.get(value, value)
         runs.append((label, dict(conf.config)))
-        if label in (one_process or {}):
+        earlier = (one_process or {}).get(label)
+        if earlier is not None and same_config(earlier["conf"], conf.config):
             # an earlier phase ran the same config in one process: reuse it
             # (the walk models' SGNS host build is most of their run)
-            one[label] = dict(one_process[label])
-            if not same_config(one[label].pop("conf"), conf.config):
-                fail(f"parallel {label}: the earlier one-process run had another config")
+            one[label] = {k: v for k, v in earlier.items() if k != "conf"}
             print(f"[parallel {label} one process] an earlier phase's run of the same config: "
                   f"losses {one[label]['losses']}", flush=True)
             continue
         model, _, parsed = drive(torch, K, QRec, conf, f"parallel {label} one process")
         if model.mesh is not None:
             fail(f"parallel {label}: one process built a mesh")
-        one[label] = dict(model=model, parsed=parsed) if label in KEPT else dict(parsed=parsed)
-        one[label].update(losses=list(getattr(model, "epoch_losses", [])),
-                          epoch_ms=[t * 1e3 for t in model.timer.times] if model.timer else [],
-                          graph_s=getattr(model, "graph_seconds", None))
+        one[label] = one_process_record(conf, model, parsed)
+        if label in KEPT:
+            one[label]["model"] = model
         del model
         gc.collect()
         torch.cuda.empty_cache()
@@ -2666,8 +2760,18 @@ def parallel_phases(torch, K, QRec, conf_of, tmp, trust_path, one_process=None):
               f"{want}: largest gap {gap:.3e} (bound 2e-2); first epoch loss 4 ranks "
               f"{first['losses'][0] if first['losses'] else None} one process {loss1} (rtol "
               f"1e-4); epoch ms 4 ranks {steady(first['epoch_ms'])} one process "
-              f"{steady(one[label]['epoch_ms'])}; host build s 4 ranks {first['graph_s']} one "
-              f"process {one[label]['graph_s']}", flush=True)
+              f"{steady(one[label]['epoch_ms'])}; epoch ms per phase 4 ranks "
+              f"{phase_text(first['phase_ms'])} one process {phase_text(one[label]['phase_ms'])} "
+              f"({PHASE_KINDS}); host build s 4 ranks {first['graph_s']} one process "
+              f"{one[label]['graph_s']}", flush=True)
+        if "flag_ms" in first:
+            f = first["flag_ms"]
+            print(f"[parallel {label}] GMF-phase steps on rank 0 ({SHARED}), {f['steps']} a turn "
+                  f"in turns: ms a step with the flag read {f['flag read']:.3f}, with zero "
+                  f"gradients in its place {f['no flag read']:.3f}; {f['steps_per_epoch']} steps "
+                  f"an epoch, so the flag read's share of a GMF epoch is about "
+                  f"{(f['flag read'] - f['no flag read']) * f['steps_per_epoch']:.1f} ms",
+                  flush=True)
         if not gap < 2e-2:
             fail(f"parallel {label}: the measures on 4 ranks are {gap} from one process's")
         if loss1 is not None and not math.isclose(first["losses"][0], loss1, rel_tol=1e-4):
@@ -2713,6 +2817,9 @@ def parallel_phases(torch, K, QRec, conf_of, tmp, trust_path, one_process=None):
                                                label=" biased")
     timings["topk biased svd"] = user_shard_timing(torch, K, timer, one["svd ranked"]["model"],
                                                    label=" biased svd")
+    # and on APR's factors (d=50, plain): the one data-parallel path of
+    # slice 7f that ranks through route 7 with no joint adjacency
+    user_shard_timing(torch, K, timer, one["apr"]["model"], label=" apr")
     for key, route in (("segment", "segment row blocks"), ("infonce", "infonce row shards"),
                        ("dense", "dense column blocks"), ("topk", "topk user shards"),
                        ("topk biased", "topk user shards biased"),
@@ -2940,8 +3047,9 @@ def drive(torch, K, QRec, conf, label):
     if model.timer is not None:
         summary = model.timer.summary()
         print(f"[{label}] epoch losses: {losses}", flush=True)
+        kind = "mean after epoch 1" if len(model.timer.times) > 1 else "one epoch: its first"
         print(f"[{label}] epoch ms: {[round(t * 1e3, 3) for t in model.timer.times]} steady_epoch_ms="
-              f"{summary['epoch_seconds'] * 1e3:.3f} (mean after epoch 1) examples_per_s="
+              f"{summary['epoch_seconds'] * 1e3:.3f} ({kind}) examples_per_s="
               f"{summary['examples_per_second']:.0f} median_epoch_ms_3_to_end="
               f"{np.median(model.timer.times[2:] or model.timer.times) * 1e3:.3f}", flush=True)
     measures = parse_measure(measure)
@@ -2967,25 +3075,78 @@ def drive(torch, K, QRec, conf, label):
         fail(f"{label}: non-finite loss {losses}")
     # each phase of a multi-phase fit minimizes its own loss, but for the
     # phases of a minimax game
+    # (a phase too short for the check is named here, and falls_coverage
+    # fails the script if no run of the model checks it)
     if model.timer is not None:
-        skip = MINIMAX_PHASES.get(model.model_name, ())
-        reseeded = RESEEDED_PHASES.get(model.model_name, ())
+        name = model.model_name
+        skip = MINIMAX_PHASES.get(name, ())
+        reseeded = RESEEDED_PHASES.get(name, ())
+        short = []
         for k, phase in enumerate(getattr(model, "phase_losses", None) or [losses]):
             first = 1 if k in reseeded else 0
-            if k not in skip and len(phase) > first + 1 and not phase[-1] < phase[first]:
+            if k in skip or not phase:
+                continue
+            if len(phase) <= first + 1:
+                short.append(k)
+                FALLS["short"].setdefault(name, set()).add(k)
+                continue
+            FALLS["checked"].setdefault(name, set()).add(k)
+            if not phase[-1] < phase[first]:
                 fail(f"{label}: loss did not decrease in phase {k + 1}: {phase}")
+        if short:
+            print(f"[{label}] loss falls: unchecked in phase(s) {[k + 1 for k in short]}, too few "
+                  f"epochs", flush=True)
     if (tracker is not None) != getattr(model, "track_best", False):
         fail(f"{label}: best-epoch tracking is {'off' if tracker is None else 'on'}")
     return model, counts, parsed
 
 
+def falls_coverage() -> None:
+    """Fails the script where a phase that drive found too short for its
+    loss-falls check was checked in no other run of the model and is not
+    one of ``SHORT_PHASES``: a cut of depth cannot turn the check off
+    unnoticed."""
+    missing = {name: sorted(k + 1 for k in ks - FALLS["checked"].get(name, set())
+                            - set(SHORT_PHASES.get(name, ())))
+               for name, ks in FALLS["short"].items()}
+    missing = {name: ks for name, ks in missing.items() if ks}
+    print(f"[loss falls] checked in {len(FALLS['checked'])} models; unchecked by design "
+          f"(SHORT_PHASES, phases from 1) "
+          f"{ {n: [k + 1 for k in ks] for n, ks in SHORT_PHASES.items()} }; unchecked "
+          f"otherwise {missing}", flush=True)
+    if missing:
+        fail(f"no run checks that the loss falls in these phases: {missing}")
+
+
+def phase_ms(model) -> list:
+    """Each training phase's epoch ms of ``model`` (its one timer's where
+    it trains no phases) as [ms, kind]: "steady", the mean after the
+    phase's first epoch, or "first" where the phase trained one epoch (its
+    warm-up included, and the first phase's first-step costs)."""
+    timers = getattr(model, "phase_timers", None) or ([model.timer] if model.timer else [])
+    return [[round(t.steady_state() * 1e3, 3), "steady" if len(t.times) > 1 else "first"]
+            for t in timers]
+
+
+def phase_text(phases) -> str:
+    """``phase_ms``'s list as "[1063.4 first, 84.2 steady]"."""
+    return "[" + ", ".join(f"{ms:.1f} {kind}" for ms, kind in phases) + "]"
+
+
+# how phase_text's kinds read, beside every print of it
+PHASE_KINDS = ("steady: the mean after a phase's first epoch; first: a phase's one epoch, its "
+               "warm-up included")
+
+
 def one_process_record(conf, model, measures) -> dict:
     """What ``parallel_phases`` holds its four ranks against, from a
     one-process run of the same config in an earlier phase: the config,
-    the measures, the epoch losses and ms and the host build s."""
+    the measures, the epoch losses and ms (and the steady ms of each
+    phase) and the host build s."""
     return dict(conf=dict(conf.config), parsed=measures,
                 losses=list(getattr(model, "epoch_losses", [])),
                 epoch_ms=[t * 1e3 for t in model.timer.times] if model.timer else [],
+                phase_ms=phase_ms(model),
                 graph_s=getattr(model, "graph_seconds", None))
 
 
@@ -3074,6 +3235,7 @@ def main() -> None:
     import torch
 
     # 1. card
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false")
     card = card_line()
@@ -3098,6 +3260,15 @@ def main() -> None:
     print(f"[build] {time.perf_counter() - t0:.2f} s for the host library "
           f"{native.library_path().name} (g++)", flush=True)
 
+    # each phase's seconds, for the script's time budget
+    laps, last = {}, [t_start]
+
+    def lap(label):
+        now = time.perf_counter()
+        laps[label] = round(now - last[0], 1)
+        last[0] = now
+
+    lap("1-2 card and build")
     rows, cols, _, _ = lastfm_records()
     tmp = tempfile.mkdtemp(prefix="qrec_smoke_")
     try:
@@ -3131,6 +3302,8 @@ def main() -> None:
               f"max score diff {np.abs(scores - rscores).max():.3e}", flush=True)
         k2r = {"lastfm": ranking_phase(torch, K, "lastfm", model, 10)}
 
+        lap("3 LightGCN main path")
+
         # 4. K1 and K2 against their plain versions on the main path's own
         # operands: R with the first layer's inputs (K1), the first batch of
         # test users (K2); then K1 at the yelp2018 shape
@@ -3162,6 +3335,8 @@ def main() -> None:
         profile_epoch(torch, model, "LightGCN")
         del model, adj, x, xu, xi
 
+        lap("4 K1, K2, K5 against their plain versions")
+
         # 5. SimGCL main path, then K3 and K4 on its first step's views
         simgcl, sim_counts, _ = drive(torch, K, QRec, conf_of("SimGCL", 3), "simgcl")
         view1, view2, mask = first_step_views(torch, simgcl)
@@ -3177,12 +3352,16 @@ def main() -> None:
         profile_epoch(torch, simgcl, "SimGCL")
         del simgcl, view1, view2, mask
 
+        lap("5 SimGCL, K3, K4")
+
         # 6. SGL path, then K3 and K4 at its merged B=4000
         sgl, sgl_counts, _ = drive(torch, K, QRec, conf_of("SGL", 2), "sgl")
         k3s, k4s = infonce_phase(torch, K, timer, "sgl merged", *first_step_views(torch, sgl))
         for k, extra in ((k3, k3s), (k4, k4s)):
             k["max_abs_err"] = max(k["max_abs_err"], extra["max_abs_err"])
         del sgl
+
+        lap("6 SGL")
 
         # 7. the sparse joint adjacency (K5): SGL's per-edge views, NGCF
         # (dense, K1), LightGCN at the yelp2018 shape; K5 on the yelp path
@@ -3211,28 +3390,38 @@ def main() -> None:
         profile_epoch(torch, yelp, "LightGCN yelp2018 pallas")
         del yelp
 
+        lap("7 SGL-pallas, NGCF, yelp2018, K5")
+
         # 8. the MF slice (BPR, SVD rating and ranking, MostPopular) and the
         # -cv and -predict protocols
         mf_launches, mf_k2r, mf_k2t, ones = mf_phases(torch, K, QRec, timer, tmp, conf_of)
         k2r.update(mf_k2r)
         k2t.update(mf_k2t)
 
+        lap("8 MF slice")
+
         # 9. the deep and GAN slice (NeuMF, APR, IRGAN, DMF, CDAE, CFGAN)
-        deep_launches, deep_k2r, deep_k2t = deep_phases(torch, K, QRec, timer, conf_of)
+        deep_launches, deep_k2r, deep_k2t, deep_ones = deep_phases(torch, K, QRec, timer, conf_of)
+        ones.update(deep_ones)
         mf_launches.update(deep_launches)
         k2r.update(deep_k2r)
         k2t.update(deep_k2t)
+
+        lap("9 deep and GAN slice")
 
         # 10. the social slice: the bf16 and legacy int8 forms, DeviceCOO,
         # MHCN, SEPT, BUIR, DiffNet and DHCF with a synthetic trust file
         trust = os.path.join(tmp, "trust_like.txt")
         with open(trust, "w") as f:
             f.writelines(f"{a} {b}\n" for a, b in lastfm_trust())
-        k1b, k1b_launches, social_launches, social_k2r = social_phases(
+        k1b, k1b_launches, social_launches, social_k2r, social_ones = social_phases(
             torch, K, QRec, timer, conf_of, trust)
+        ones.update(social_ones)
         mf_launches.update(social_launches)
         k2r.update(social_k2r)
         del timer
+
+        lap("10 social slice")
 
         # 11. the rest of the social family: the seven social MF rating
         # models, SBPR (and its -tf path), TBPR and ESRF
@@ -3242,12 +3431,16 @@ def main() -> None:
         mf_launches.update(rest_launches)
         k2r.update(rest_k2r)
 
+        lap("11 social rest")
+
         # 12. the ALS and classical slice: WRMF, ExpoMF, CoFactor, SERec,
         # UserKNN, ItemKNN, SlopeOne, SVD++ and EE
         als_launches, als_k2r, als_ones = als_classical_phases(torch, K, QRec, conf_of, tmp, trust)
         ones.update(als_ones)
         mf_launches.update(als_launches)
         k2r.update(als_k2r)
+
+        lap("12 ALS and classical")
 
         # 13. the walk slice: CUNE_MF, CUNE_BPR, IF_BPR (without and with
         # negative feedback) and RSGAN
@@ -3256,16 +3449,22 @@ def main() -> None:
         mf_launches.update(walk_launches)
         k2r.update(walk_k2r)
 
+        lap("13 walk slice")
+
         # 14. the lifecycle slice: the host library, resume, save/load and the trace
         k1_life, life_launches = host_and_lifecycle_phases(
             torch, K, QRec, conf_of, tmp, card, unbroken)
         mf_launches.update(life_launches)
         del unbroken
 
+        lap("14 lifecycle")
+
         # 15. multi-GPU: the LightGCN family on four ranks on the card, in
         # the sparse and the dense forms, and the one-rank NCCL group
         par, par_launches, par_biased = parallel_phases(torch, K, QRec, conf_of, tmp, trust,
                                                         ones)
+
+        lap("15 multi-GPU")
 
         # 16. planted blocks
         planted_check(torch, tmp, ModelConf, QRec, parse_measure, "LightGCN", "-n_layer 2")
@@ -3280,6 +3479,7 @@ def main() -> None:
         planted_check(torch, tmp, ModelConf, QRec, parse_measure, "SBPR", "", social=True)
         planted_check(torch, tmp, ModelConf, QRec, parse_measure, "ESRF", "-K 5 -beta 0.1 -n_layer 2",
                       social=True, floor=0.45)
+        lap("16 planted blocks")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -3366,6 +3566,9 @@ def main() -> None:
         row("pallas_catalog_topk(mesh=), biased SVD d=10", "qrec_tpu_torch/csrc/masked_scores.cu",
             "qrec_tpu/ops/topk.py:263", par_biased.get("svd ranked", 0), par["topk biased svd"]),
     ]
+    falls_coverage()
+    print(f"[phases] seconds {json.dumps(laps)}; script {time.perf_counter() - t_start:.1f} s",
+          flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -20,7 +20,13 @@ every step's segment start and Gumbel uniforms (``draw``). The final
 factors are the discriminator's propagation without the social term.
 Parameters: ``d.user_emb``, ``d.item_emb`` (truncated normal), then
 ``g.relation_emb`` (U, d) (truncated normal) and ``g.selector`` (K, U)
-(Glorot), all drawn from one CPU generator seeded ``seed``.
+(Glorot), all drawn from one CPU generator seeded ``seed``. On a mesh ESRF
+trains data-parallel: both players' losses take this data rank's rows of
+the batch (``batch_share``), every rank draws the same segment and
+uniforms and builds the generated neighbourhood whole (the motif
+``DeviceCOO``'s backward is linear in the cotangent), the joint adjacency
+is the mesh's form (K1 on item-column blocks for a dense one), and each
+player's gradients are summed over ``data`` before its step.
 
 RSGAN: a CDAE-like generator reads each user's seeded friends (the first 30
 positive implicit friends of IF_BPR's meta-path pipeline, plus those that
@@ -52,6 +58,7 @@ from ..device import f32_products
 from ..ops.losses import _l2n, bpr_loss
 from ..ops.spmm import spmm
 from ..ops.walks import SkipgramDraws
+from ..parallel.collectives import all_reduce_sum
 from ..runtime import trainer as T
 from ..runtime.profiling import StepTimer
 from .base import GraphRecommender, SocialRecommender
@@ -107,6 +114,17 @@ class ESRF(SocialRecommender, GraphRecommender):
         for m in motifs + [a10.multiply(a10 > 5)]:
             a = a + m
         return _row_norm(a.tocsr())
+
+    @property
+    def user_emb(self) -> torch.Tensor:
+        """The discriminator's user table, the ego rows that the joint
+        adjacency propagates (as a graph model's ``user_emb``)."""
+        return self.d["user_emb"]
+
+    @property
+    def item_emb(self) -> torch.Tensor:
+        """The discriminator's item table (see ``user_emb``)."""
+        return self.d["item_emb"]
 
     def build_graph(self) -> None:
         # the JAX package's default ``auto``: a DeviceCOO on the card
@@ -170,7 +188,7 @@ class ESRF(SocialRecommender, GraphRecommender):
         ``social``, the generated neighbourhood of ``draws`` (a constant) in
         the propagation; ``adversarial`` adds β times the BPR loss of the
         user's own score over its neighbours'."""
-        u, i, j, w = batch
+        u, i, j, w = self.batch_share(batch)
         alt = rows = None
         if social:
             with torch.no_grad():
@@ -188,7 +206,7 @@ class ESRF(SocialRecommender, GraphRecommender):
     def g_loss(self, batch, draws) -> torch.Tensor:
         """The generator's loss, β times the BPR loss of the neighbours'
         score over the user's own, the discriminator's tables constants."""
-        u, i, _, w = batch
+        u, i, _, w = self.batch_share(batch)
         alt, rows = self.alt_neighborhood(*draws)
         users, items = self.encode(self.d["user_emb"].detach(), self.d["item_emb"].detach(), alt, rows)
         pu, qi = users[u], items[i]
@@ -204,9 +222,12 @@ class ESRF(SocialRecommender, GraphRecommender):
                   sampler) -> None:
         """``epochs`` epochs of phase ``phase`` (0 plain, 1 social, 2
         adversarial), numbered after the epochs already run; an epoch's
-        loss is the sum of its discriminator losses."""
+        loss is the sum of its discriminator losses. On a mesh every step
+        of either player sums its gradients over ``data``, and the epoch's
+        total is summed over ``data`` before it reaches the host."""
         banner, social, adversarial = self.PHASES[phase]
         print(banner)
+        mesh = self.mesh
         d_params, g_params = list(self.d.values()), list(self.g.values())
         timer = StepTimer(self.train_size, self.device)
         losses = []
@@ -220,10 +241,12 @@ class ESRF(SocialRecommender, GraphRecommender):
                 for step in range(batches[0].shape[0]):
                     batch = tuple(t[step] for t in batches)
                     loss = self.d_loss(batch, self.draw(gen) if social else None, social, adversarial)
-                    T.step(d_opt, loss, d_params)
+                    T.step(d_opt, loss, d_params, mesh)
                     if adversarial:
-                        T.step(g_opt, self.g_loss(batch, self.draw(gen)), g_params)
+                        T.step(g_opt, self.g_loss(batch, self.draw(gen)), g_params, mesh)
                     total = total + loss.detach()
+                if mesh is not None:
+                    all_reduce_sum(total, mesh.data_group)
                 loss_val = float(total)
             T.check_finite(loss_val)
             losses.append(loss_val)
@@ -252,8 +275,6 @@ class RSGAN(SocialRecommender):
     (RSGAN.py), its friends seeded by IF_BPR's meta-path pipeline. On a
     mesh its training is replicated: every rank builds the friends and
     trains the whole model from the same seed."""
-
-    trains_on_mesh = True
 
     hidden = 200
     seed_top_k = 100

@@ -85,8 +85,6 @@ class WRMF(_ALS):
     prints the squared error over the rated entries. On a mesh its training
     is replicated: every rank solves the whole tables from the same seed."""
 
-    trains_on_mesh = True
-
     def init_tables(self) -> Dict[str, torch.Tensor]:
         return self._uniform_tables(torch.Generator().manual_seed(self.seed))
 
@@ -111,8 +109,6 @@ class ExpoMF(_ALS):
     exposure posterior weighs both solves, and the per-item prior ``mu``
     (I,) follows the summed posterior. On a mesh its training is
     replicated: every rank solves the whole tables from the same seed."""
-
-    trains_on_mesh = True
 
     factors = ("theta", "beta")
     lam_theta = 1e-5
@@ -160,8 +156,6 @@ class SERec(SocialRecommender, ExpoMF):
     a_sum (U, I)`` product. On a mesh its training is replicated: every
     rank solves the whole tables from the same seed."""
 
-    trains_on_mesh = True
-
     lam_y = 0.01
     s_boost = 2.2
     init_std = 0.5
@@ -195,8 +189,6 @@ class CoFactor(_ALS):
     (I, d) and biases ``w``, ``c`` (I,) follow, an item without context
     keeping its old values. On a mesh its training is replicated: every
     rank solves the whole tables from the same seed."""
-
-    trains_on_mesh = True
 
     def read_configuration(self) -> None:
         super().read_configuration()

@@ -84,12 +84,6 @@ class Recommender(nn.Module):
     # a model that needs the trust relation (SocialRecommender) gets it as
     # ``social``; the session refuses to run it without one
     requires_social = False
-    # the four models of models/graph.py, the five of
-    # models/social_graph.py and the bold-driver family (models/mf.py,
-    # social_mf.py, social_ranking.py, walk.py, EE and SVD++) train
-    # data-parallel on a mesh; the own-loop, ALS and untrained models train
-    # whole on every rank; NeuMF, DMF, CDAE, APR and ESRF refuse one
-    trains_on_mesh = False
 
     def __init__(self, conf: ModelConf, data: Interactions, fold: str = "[1]", device=None,
                  social=None):
@@ -148,34 +142,21 @@ class Recommender(nn.Module):
         or on a CUDA device a launcher of more than one process with the
         setting absent; the JAX package's ``Recommender.mesh``,
         ``models/base.py:366-400``), else None: in one process the setting
-        changes nothing. Which families run there:
-
-        * data-parallel, each data rank's loss its share of the step's:
-          LightGCN, NGCF, SGL, SimGCL, MHCN, SEPT, BUIR, DiffNet, DHCF,
-          and the bold-driver family: BPR, BasicMF, PMF, SVD, SVD++, EE,
-          SoRec, SoReg, SocialMF, RSTE, LOCABAL, SREE, SocialFD, SBPR,
-          TBPR, CUNE_MF and CUNE_BPR;
-        * whole on every rank, from the same seed and with no collective
-          in the loop (the JAX package's own loops read no mesh either):
-          CFGAN, IRGAN, RSGAN, IF_BPR, WRMF, ExpoMF, CoFactor, SERec,
-          UserMean, ItemMean, MostPopular, Rand, UserKNN, ItemKNN and
-          SlopeOne.
-
-        Either way a ``ScoreForm`` ranks each rank's share of the test
-        users through K2 and gathers the lists; score blocks and random
-        scores rank whole on every rank, and a rating run predicts every
-        test rating on every rank. A model that does not run there yet
-        (``trains_on_mesh`` off: NeuMF, DMF, CDAE, APR and ESRF) raises a
-        ConfigError. Checkpoints,
-        ``model.setup``'s ``-save`` and ``-load`` and ``-cv k -p`` run
-        there: rank 0 alone writes a step file or a saved model, every rank
-        reads them, and ``-cv``'s folds run in turn on the mesh."""
+        changes nothing. Every model runs there, each data rank's loss its
+        share of the step's, but the own-loop, ALS and untrained models
+        (CFGAN, IRGAN, RSGAN, IF_BPR, WRMF, ExpoMF, CoFactor, SERec,
+        UserMean, ItemMean, MostPopular, Rand, UserKNN, ItemKNN and
+        SlopeOne), which train whole on every rank from the same seed with
+        no collective in the loop, as the JAX package's own loops read no
+        mesh. Either way a ``ScoreForm`` ranks each rank's share of the
+        test users through K2 and gathers the lists; score blocks and
+        random scores rank whole on every rank, and a rating run predicts
+        every test rating on every rank. Checkpoints, ``model.setup``'s
+        ``-save`` and ``-load`` and ``-cv k -p`` run there: rank 0 alone
+        writes a step file or a saved model, every rank reads them, and
+        ``-cv``'s folds run in turn on the mesh."""
         if not hasattr(self, "_mesh"):
-            mesh = mesh_from_config(self.config, self.device)
-            if mesh is not None and not self.trains_on_mesh:
-                raise ConfigError(f"model {self.model_name} on a mesh (parallel.setup) is not "
-                                  "ported yet (ROADMAP.md Queue 1 item 19)")
-            self._mesh = mesh
+            self._mesh = mesh_from_config(self.config, self.device)
         return self._mesh
 
     @property

@@ -16,8 +16,6 @@ class UserMean(Recommender):
     (UserMean.py:7-11). Rating only. On a mesh its training (none) is
     replicated: every rank predicts every test rating."""
 
-    trains_on_mesh = True
-
     def predict_ratings(self, users, items) -> np.ndarray:
         uids, _ = self._ids(users, items)
         means = self.data.user_means[np.maximum(uids, 0)]
@@ -28,8 +26,6 @@ class ItemMean(Recommender):
     """Each item's training mean, the global mean for an unknown item
     (ItemMean.py:6-10). Rating only. On a mesh its training (none) is
     replicated: every rank predicts every test rating."""
-
-    trains_on_mesh = True
 
     def predict_ratings(self, users, items) -> np.ndarray:
         _, iids = self._ids(users, items)
@@ -44,8 +40,6 @@ class MostPopular(Recommender):
     ``scores`` (I,) holds them after ``fit``. On a mesh its training is
     replicated (every rank draws the same noise) and K2 ranks each rank's
     share of the test users."""
-
-    trains_on_mesh = True
 
     def __init__(self, conf, data, fold: str = "[1]", device=None):
         super().__init__(conf, data, fold=fold, device=device)
@@ -68,8 +62,6 @@ class Rand(Recommender):
     generator seeded with ``seed``: not the JAX package's draws, whose PRNG
     the port does not reproduce. On a mesh its training is replicated:
     every rank draws the same scores and ranks every test user."""
-
-    trains_on_mesh = True
 
     def fit(self) -> None:
         self.generator = torch.Generator(device=self.device).manual_seed(self.seed)

@@ -106,8 +106,6 @@ class UserKNN(_KNN):
     reference refuses ranking, UserKNN.py:68-70). On a mesh its training
     (none) is replicated: every rank predicts every test rating."""
 
-    trains_on_mesh = True
-
 
 class ItemKNN(_KNN):
     """Mean-centred weighted item kNN (ItemKNN.py:27-71). Rating only. On
@@ -115,7 +113,6 @@ class ItemKNN(_KNN):
     test rating."""
 
     by_user = False
-    trains_on_mesh = True
 
 
 class SlopeOne(Recommender):
@@ -124,8 +121,6 @@ class SlopeOne(Recommender):
     against every item on the device, the prediction on the host. Rating
     only. On a mesh its training (none) is replicated: every rank predicts
     every test rating."""
-
-    trains_on_mesh = True
 
     def predict_ratings(self, users, items) -> np.ndarray:
         data = self.data
@@ -176,7 +171,6 @@ class _BiasedRating(SavedBiases, IterativeRecommender):
     so the ranks' ``Y`` gradients sum to one process's."""
 
     bias_div = 1
-    trains_on_mesh = True
 
     def __init__(self, conf, data, fold: str = "[1]", device=None):
         super().__init__(conf, data, fold=fold, device=device)

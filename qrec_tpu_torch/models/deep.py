@@ -15,6 +15,12 @@ expected counts as the reference's host loops, e.g. CDAE.py:23-43).
 NeuMF, DMF, CDAE and CFGAN rank through a :class:`ScoreBlock` of their own
 scorer, as the JAX package ranks them through XLA; APR ranks ``U·Vᵀ``
 through the masked top-k kernel.
+
+On a mesh NeuMF, DMF, CDAE and APR train data-parallel: each data rank's
+loss is its share of the step's (``parallel/mesh.py``), the terms that sum
+over a batch's rows on its rows (``batch_share``), the terms over whole
+tables on data rank 0 alone (``adds_table_terms``). CFGAN trains whole on
+every rank.
 """
 
 from __future__ import annotations
@@ -98,23 +104,27 @@ class NeuMF(IterativeRecommender):
         return -(w * (r * torch.log(y + _EPS) + (1 - r) * torch.log(1 - y + _EPS))).sum()
 
     def _mf_reg(self, u, i) -> torch.Tensor:
-        return self.reg_u * (
-            0.5 * (self.PG[u] ** 2).sum() + 0.5 * (self.QG[i] ** 2).sum()
-            + 0.5 * (self.h_mf**2).sum()
-        )
+        """The GMF tower's L2 on the batch's rows and, on data rank 0
+        alone, on the whole ``h_mf``."""
+        reg = 0.5 * (self.PG[u] ** 2).sum() + 0.5 * (self.QG[i] ** 2).sum()
+        if self.adds_table_terms:
+            reg = reg + 0.5 * (self.h_mf**2).sum()
+        return self.reg_u * reg
 
     def loss_mf(self, batch, gen=None) -> torch.Tensor:
-        u, i, r, w = batch
+        u, i, r, w = self.batch_share(batch)
         return self._ce(self.y_mf(u, i), r, w) + self._mf_reg(u, i)
 
     def loss_mlp(self, batch, gen=None) -> torch.Tensor:
-        u, i, r, w = batch
+        u, i, r, w = self.batch_share(batch)
         return self._ce(self.y_mlp(u, i), r, w)
 
     def loss_neu(self, batch, gen=None) -> torch.Tensor:
-        u, i, r, w = batch
-        h_neu = torch.cat([0.5 * self.h_mf, 0.5 * self.h_mlp])
-        reg = self._mf_reg(u, i) + self.reg_u * 0.5 * (h_neu**2).sum()
+        u, i, r, w = self.batch_share(batch)
+        reg = self._mf_reg(u, i)
+        if self.adds_table_terms:
+            h_neu = torch.cat([0.5 * self.h_mf, 0.5 * self.h_mlp])
+            reg = reg + self.reg_u * 0.5 * (h_neu**2).sum()
         return self._ce(self.y_neu(u, i), r, w) + reg
 
     def fit_phases(self) -> None:
@@ -193,7 +203,10 @@ class DMF(IterativeRecommender):
                 u_neg.view(nb, -1), i_neg.view(nb, -1))
 
     def loss(self, batch, gen=None) -> torch.Tensor:
-        u_pos, i_pos, r_pos, u_neg, i_neg = batch
+        """The cross-entropy of this data rank's positives and negatives
+        (each cut by ``batch_share``: the loss sums over both) and, on data
+        rank 0 alone, the L2 of every parameter."""
+        u_pos, i_pos, r_pos, u_neg, i_neg = self.batch_share(batch)
         u = torch.cat([u_pos, u_neg])
         i = torch.cat([i_pos, i_neg])
         r = torch.cat([r_pos, torch.zeros(u_neg.shape, device=r_pos.device)])
@@ -204,6 +217,8 @@ class DMF(IterativeRecommender):
         )
         y = torch.clamp_min(cos, 1e-6)
         ce = -(r * torch.log(y) + (1 - r) * torch.log(torch.clamp_min(1 - y, 1e-6))).sum()
+        if not self.adds_table_terms:
+            return ce
         return ce + self.reg_u * 0.5 * _l2(self.parameters())
 
     def build(self) -> TrainSpec:
@@ -282,14 +297,21 @@ class CDAE(_RatingRows):
         return uids, mask.float(), negm.float()
 
     def loss(self, batch, gen=None) -> torch.Tensor:
-        uids, mask, negm = batch
+        """The cross-entropy's mean over the batch's (B, I) entries and the
+        L2 of the weights and of the batch's user rows. On a mesh the mean
+        is this data rank's sum over its rows divided by the whole batch's
+        count, and the weights' L2 is data rank 0's alone."""
+        count = batch[1].numel()
+        uids, mask, negm = self.batch_share(batch)
         x = self.dense_ratings()[uids]
         pos = self.rated[uids]
         negative = negm * (1 - pos)
         pred = torch.clamp_min(self(x, uids, mask) * mask, 1e-6)
         ce = -(pos * mask) * torch.log(pred) - (negative * mask) * torch.log(torch.clamp_min(1 - pred, 1e-6))
-        reg = self.reg_u * 0.5 * _l2((self.enc_w, self.dec_w, self.enc_b, self.dec_b, self.V[uids]))
-        return ce.mean() + reg
+        reg = (self.V[uids] ** 2).sum()
+        if self.adds_table_terms:
+            reg = _l2((self.enc_w, self.dec_w, self.enc_b, self.dec_b)) + reg
+        return ce.sum() / count + self.reg_u * 0.5 * reg
 
     def build(self) -> TrainSpec:
         return TrainSpec(list(self.parameters()), self.loss, self.draw, score_params_fn=None)
@@ -317,8 +339,6 @@ class CFGAN(_RatingRows):
     (I, I), ``g.b1`` (I,), ``d.W1`` (2I, 1), ``d.b1`` (1,). On a mesh its
     training is replicated: every rank trains the whole model from the
     same seed and ranks every test user."""
-
-    trains_on_mesh = True
 
     s_zr = 0.001
     s_pm = 0.001
@@ -411,7 +431,10 @@ class APR(IterativeRecommender):
     FGSM-perturbed loss: Δ = ε ∇/‖∇‖ for each gathered user, positive and
     negative row of the batch, taken with respect to those rows (so a user
     twice in a batch gets one Δ per row) and held constant. Parameters:
-    ``user_emb`` (U, d), ``item_emb`` (I, d), truncated normal σ=0.005."""
+    ``user_emb`` (U, d), ``item_emb`` (I, d), truncated normal σ=0.005.
+    On a mesh both losses take this data rank's rows of the batch: the
+    softplus loss sums over rows, so a row's Δ depends on that row alone
+    and a share's Δ are one process's, with no collective."""
 
     def read_configuration(self) -> None:
         super().read_configuration()
@@ -432,7 +455,7 @@ class APR(IterativeRecommender):
         return (w * F.softplus(-y)).sum()
 
     def _rows(self, batch):
-        u, i, j, w = batch
+        u, i, j, w = self.batch_share(batch)
         return self.user_emb[u], self.item_emb[i], self.item_emb[j], w
 
     def _reg(self, pu, qi) -> torch.Tensor:
@@ -442,12 +465,17 @@ class APR(IterativeRecommender):
         pu, qi, qj, w = self._rows(batch)
         return self.softplus_bpr(pu, qi, qj, w) + self._reg(pu, qi)
 
+    def perturbations(self, loss: torch.Tensor, rows) -> Tuple[torch.Tensor, ...]:
+        """Δ = ε ∇/‖∇‖ of ``loss`` for each row of ``rows`` (the batch's
+        gathered user, positive and negative rows), held constant."""
+        grads = torch.autograd.grad(loss, rows, retain_graph=True)
+        return tuple(self.eps * g / (torch.linalg.vector_norm(g, dim=1, keepdim=True) + 1e-12)
+                     for g in grads)
+
     def adv_loss(self, batch, gen=None) -> torch.Tensor:
         pu, qi, qj, w = self._rows(batch)
         loss = self.softplus_bpr(pu, qi, qj, w)
-        grads = torch.autograd.grad(loss, (pu, qi, qj), retain_graph=True)
-        du, di, dj = (self.eps * g / (torch.linalg.vector_norm(g, dim=1, keepdim=True) + 1e-12)
-                      for g in grads)
+        du, di, dj = self.perturbations(loss, (pu, qi, qj))
         adv = self.softplus_bpr(pu + du, qi + di, qj + dj, w)
         return loss + self._reg(pu, qi) + self.reg_adv * adv
 

@@ -59,8 +59,6 @@ class IRGAN(IterativeRecommender):
     U(-0.05, 0.05) and ``item_bias`` (I,) zeros. On a mesh its training is
     replicated: every rank trains the whole model from the same seed."""
 
-    trains_on_mesh = True
-
     eval_batch_size = 512
     d_steps, g_steps = 5, 10
 

@@ -59,7 +59,6 @@ class LightGCN(GraphRecommender):
     (LightGCN.py:11-41). Parameters: ``user_emb`` (U, d), ``item_emb`` (I, d)."""
 
     track_best = False
-    trains_on_mesh = True
 
     def __init__(self, conf, data, fold: str = "[1]", device=None):
         super().__init__(conf, data, fold=fold, device=device)

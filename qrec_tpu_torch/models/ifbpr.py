@@ -258,8 +258,6 @@ class IF_BPR(SocialRecommender):
     training is replicated: every rank builds the friends and trains the
     whole model from the same seed."""
 
-    trains_on_mesh = True
-
     skipgram_draws = SkipgramDraws  # the SGNS runs' random inputs (replaceable)
 
     def __init__(self, conf, data, fold: str = "[1]", device=None, social=None):

@@ -36,7 +36,6 @@ class _MF(IterativeRecommender):
     (``batch_share``): every term is a sum over them."""
 
     track_best = False
-    trains_on_mesh = True
 
     def __init__(self, conf, data, fold: str = "[1]", device=None):
         super().__init__(conf, data, fold=fold, device=device)
@@ -139,8 +138,6 @@ class BPR(_MF):
     ``-Σ w log(σ(s+ − s−) + 1e-6)`` plus ``regU ½ (‖U‖² + ‖V‖²)`` over the
     FULL tables, the training pairs come in file order (fresh negatives
     every epoch), and Adam trains it."""
-
-    trains_on_mesh = True
 
     def read_configuration(self) -> None:
         super().read_configuration()

@@ -241,7 +241,6 @@ class _GraphModel(GraphRecommender):
     gives the rule of each loss term)."""
 
     track_best = False
-    trains_on_mesh = True
 
     def __init__(self, conf, data, fold: str = "[1]", device=None, social=None):
         super().__init__(conf, data, fold=fold, device=device, social=social)

@@ -98,7 +98,6 @@ class _SocialMF(SocialRecommender):
     the first epoch and the rating term."""
 
     table_div = 1
-    trains_on_mesh = True
 
     def __init__(self, conf, data, fold: str = "[1]", device=None, social=None):
         super().__init__(conf, data, fold=fold, device=device, social=social)

@@ -51,8 +51,6 @@ class _SocialBPR(SocialRecommender):
     """The (U, d) and (I, d) tables, the bold mode, the host build before
     the first epoch and the epoch order of the training pairs."""
 
-    trains_on_mesh = True
-
     def __init__(self, conf, data, fold: str = "[1]", device=None, social=None):
         super().__init__(conf, data, fold=fold, device=device, social=social)
         for name, t in self.init_embeddings(self.init_kind()).items():

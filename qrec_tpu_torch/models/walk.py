@@ -61,7 +61,6 @@ class _WalkBase(IterativeRecommender):
 
     param_key = None  # the reference's dashed conf key, e.g. 'CUNE-BPR'
     skipgram_draws = SkipgramDraws  # the SGNS run's random inputs (replaceable)
-    trains_on_mesh = True
 
     def __init__(self, conf, data, fold: str = "[1]", device=None):
         super().__init__(conf, data, fold=fold, device=device)

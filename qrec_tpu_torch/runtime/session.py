@@ -19,9 +19,10 @@ device a launcher of more than one process with the setting absent (as
 the JAX package forms its mesh over more than one TPU device; ``off``
 refuses it): the process joins its process group before any device work,
 and with more than one rank LightGCN, NGCF, SGL, SimGCL, MHCN, SEPT,
-BUIR, DiffNet, DHCF and the bold-driver family (BPR, BasicMF, PMF, SVD,
+BUIR, DiffNet, DHCF, the bold-driver family (BPR, BasicMF, PMF, SVD,
 SVD++, EE, SoRec, SoReg, SocialMF, RSTE, LOCABAL, SREE, SocialFD, SBPR,
-TBPR, CUNE_MF, CUNE_BPR) train data-parallel on the mesh
+TBPR, CUNE_MF, CUNE_BPR), NeuMF, DMF, CDAE, APR and ESRF train
+data-parallel on the mesh
 (``Recommender.mesh``), the own-loop, ALS and untrained models (CFGAN,
 IRGAN, RSGAN, IF_BPR, WRMF, ExpoMF, CoFactor, SERec, UserMean, ItemMean,
 MostPopular, Rand, UserKNN, ItemKNN, SlopeOne) train whole on every rank,

@@ -96,12 +96,17 @@ def make_optimizer(params: Sequence[torch.Tensor], mode: str, lr: float) -> torc
     raise ValueError(f"unknown training mode {mode!r} (expected adam|bold)")
 
 
-def step(optimizer: torch.optim.Optimizer, loss: torch.Tensor, params: Sequence[torch.Tensor]) -> None:
+def step(optimizer: torch.optim.Optimizer, loss: torch.Tensor, params: Sequence[torch.Tensor],
+         mesh=None) -> None:
     """One optimizer step on the gradients of ``loss`` with respect to
     ``params`` alone (a GAN player's step: the other player's tables get no
-    gradient)."""
+    gradient). On a ``mesh`` ``loss`` is this rank's share and the
+    gradients are summed over ``data`` before the step, as :func:`train`
+    sums them."""
     for p, g in zip(params, torch.autograd.grad(loss, params)):
         p.grad = g
+    if mesh is not None:
+        reduce_gradients(params, mesh)
     optimizer.step()
 
 

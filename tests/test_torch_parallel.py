@@ -765,30 +765,3 @@ def test_cross_validation_folds_run_in_turn_on_the_mesh(trained):
     ref = metrics.parse_measure(one["measure"])["Top 10"]
     for m in ("Precision", "Recall", "NDCG"):
         assert abs(got[m] - ref[m]) < 2e-2, (m, got, ref)
-
-
-# ---------------------------------------------------------------------------
-# what a mesh refuses: one spawn of two ranks
-# ---------------------------------------------------------------------------
-
-
-def test_mesh_refuses_what_is_not_ported(tmp_path):
-    """On two ranks (``parallel.setup=on``: data 1 x model 2) each of these
-    raises the ConfigError that names ROADMAP.md Queue 1 item 19 on every
-    rank: four of the five models that a mesh still refuses, NeuMF (three
-    phases, whole-table terms), DMF (every parameter regularised), CDAE
-    (a mean loss) and APR (an inner gradient)."""
-    ratings = str(_planted_file(tmp_path))
-    base = {"ratings": ratings, "parallel.setup": "on", "num.max.epoch": "1"}
-    confs = {
-        "NeuMF": _conf("NeuMF", None, base),
-        "DMF": _conf("DMF", None, base),
-        "CDAE": _conf("CDAE", "-co 0.8 -nh 16", base),
-        "APR": _conf("APR", "-eps 0.5 -regA 1 -advEpoch 1", base),
-    }
-    out = R.spawn(R.refusals, 2, tmp_path, confs)
-    for rank in out:
-        assert sorted(rank) == sorted(confs)
-        for name, message in rank.items():
-            assert message is not None and "ROADMAP.md Queue 1 item 19" in message, (name, message)
-            assert f"model {name} " in message, (name, message)

@@ -8,9 +8,9 @@ each data rank's loss its share of the step's.
   and 4. The shares' losses sum to the one-process loss within rtol 1e-6,
   their gradients within 1e-6 of the largest entry: a term counted on
   every rank, or on none, fails here.
-* Spawned gloo ranks (``test_torch_parallel_ranks.bold``): four (data 2 x
-  model 2) and three (data 3 x model 1, where the batch rows, the trust
-  edges, the users and the friend edges cut unevenly and the rating
+* Spawned gloo ranks (``test_torch_parallel_ranks.fits_and_runs``): four
+  (data 2 x model 2) and three (data 3 x model 1, where the batch rows,
+  the trust edges, the users and the friend edges cut unevenly and the rating
   sampler's padded tail lands on the last data rank). Three epochs on the
   JAX sampler's batches from the JAX package's initial parameters (the
   walk models' friends from the JAX package's own build), in one process
@@ -223,8 +223,8 @@ def trained(problems, tmp_path_factory):
         runs = {label: (dict(conf, **{"parallel.setup": setup,
                                       "out_dir": str(tmp / f"ranks{world}")}), None)
                 for label, conf in sessions.items()}
-        ranks[world] = R.spawn(R.bold, world, tmp_path_factory.mktemp(f"bold{world}"), on_mesh,
-                               runs)
+        ranks[world] = R.spawn(R.fits_and_runs, world, tmp_path_factory.mktemp(f"bold{world}"),
+                               on_mesh, runs)
     return one, one_sessions, ranks, sessions
 
 

@@ -39,7 +39,6 @@ from qrec_tpu.runtime.session import QRec as JQRec
 from qrec_tpu_torch import ModelConf
 from qrec_tpu_torch.data.dataset import Interactions
 from qrec_tpu_torch.data.social import SocialGraph
-from qrec_tpu_torch.errors import ConfigError
 from qrec_tpu_torch.models import get_model
 from qrec_tpu_torch.parallel import mesh as M
 from qrec_tpu_torch.parallel.collectives import split_range, split_sizes
@@ -426,24 +425,18 @@ def _tiny_model(name: str):
     return cls(ModelConf(conf), data, device="cpu", **kwargs)
 
 
-@pytest.mark.parametrize("name,refused", [("DMF", True), ("CDAE", True), ("APR", True),
-                                          ("NeuMF", True), ("WRMF", False),
-                                          ("MostPopular", False)])
-def test_a_launcher_refuses_and_admits_as_parallel_setup_on_does(monkeypatch, name, refused):
+@pytest.mark.parametrize("name", ["DMF", "CDAE", "APR", "NeuMF", "WRMF", "MostPopular"])
+def test_a_launcher_refuses_and_admits_as_parallel_setup_on_does(monkeypatch, name):
     """Under a launcher of two processes with ``parallel.setup`` absent, on
     a CUDA device (the stubbed group of
-    :func:`test_mesh_forms_by_itself_on_cuda_under_a_launcher`), a model
-    that a mesh still refuses raises the ConfigError that names ROADMAP.md
-    Queue 1 item 19, as under ``parallel.setup=on``; an admitted one gets
-    the mesh."""
+    :func:`test_mesh_forms_by_itself_on_cuda_under_a_launcher`), every
+    model gets the mesh, as under ``parallel.setup=on``: four that train
+    data-parallel (DMF, CDAE, APR and NeuMF) and two that train whole on
+    every rank (WRMF, MostPopular)."""
     model = _tiny_model(name)
     _stub_group(monkeypatch, LAUNCHERS["qrec"])
     model.device = torch.device("cuda")
-    if refused:
-        with pytest.raises(ConfigError, match=f"model {name} .*ROADMAP.md Queue 1 item 19"):
-            model.mesh
-    else:
-        assert model.mesh == ("mesh", 2, None)
+    assert model.mesh == ("mesh", 2, None)
 
 
 def test_no_mesh_on_the_cpu_without_the_setting(files, runs, tmp_path):

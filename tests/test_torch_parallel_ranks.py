@@ -1,7 +1,8 @@
 """Rank workers of ``tests/test_torch_parallel.py``,
 ``tests/test_torch_parallel_social.py``,
-``tests/test_torch_parallel_models.py`` and
-``tests/test_torch_parallel_bold.py``. Each runs in a spawned
+``tests/test_torch_parallel_models.py``,
+``tests/test_torch_parallel_bold.py`` and
+``tests/test_torch_parallel_deep.py``. Each runs in a spawned
 process of a gloo group on the CPU and returns what the test holds against
 the JAX package and against one process. This module holds no test: a
 spawned rank imports it, and it imports no JAX, as the port imports none.
@@ -20,7 +21,6 @@ from qrec_tpu_torch.convert import params_from_jax
 from qrec_tpu_torch.data.dataset import Interactions
 from qrec_tpu_torch.data.social import SocialGraph
 from qrec_tpu_torch.data.graph import COO
-from qrec_tpu_torch.errors import ConfigError
 from qrec_tpu_torch.models import get_model
 from qrec_tpu_torch.ops import topk
 from qrec_tpu_torch.ops.sampling import pack_bitmask
@@ -207,15 +207,26 @@ def as_tensors(x):
     return x
 
 
+# the loss of a fit's first phase, by the name the model gives it: the
+# generic ``loss``, SEPT's warm-up ``rec_loss``, NeuMF's GMF ``loss_mf``,
+# APR's ``base_loss``, ESRF's discriminator ``d_loss``
+FIRST_LOSSES = ("loss", "rec_loss", "loss_mf", "base_loss", "d_loss")
+COLLECTIVES = ("all_reduce", "all_gather", "broadcast", "barrier")
+
+
 def fit_case(case) -> dict:
     """One model fit on injected batches (and the models' draws) from the
     JAX package's initial parameters (and BUIR's target, under ``target``):
     the losses, the first step's loss (this data rank's share on a mesh),
-    the tables and buffers, the final factors and every parameter's
-    gradient at the first optimizer step. A case with a ``relation`` gives
-    the model its trust graph, one with ``friends`` (the walk family's
-    (friend ids, active users)) its implicit friends in place of its walks
-    and SGNS."""
+    the tables and buffers, the final factors (None for a model that keeps
+    none: NeuMF, CDAE), every parameter's gradient
+    at the first optimizer step (None where the step holds none) and, for
+    the first step of each optimizer, its gradients and the parameters
+    after it; the calls of each collective that the fit made. A case with
+    a ``relation`` gives the model its trust graph, one with ``friends``
+    (the walk family's (friend ids, active users)) its implicit friends in
+    place of its walks and SGNS, one with ``attrs`` those attributes (ESRF's
+    ``segment``)."""
     conf = ModelConf(case["conf"])
     data = Interactions(conf, case["train"], case["test"])
     kwargs = {}
@@ -223,6 +234,8 @@ def fit_case(case) -> dict:
         kwargs["social"] = SocialGraph(case["relation"], data)
     model = get_model(case["conf"]["model.name"])(conf, data, device="cpu", **kwargs)
     model.load_state_dict(params_from_jax(case["params"], "cpu"))
+    for name, value in case.get("attrs", {}).items():
+        setattr(model, name, value)
     if case.get("draws") is not None:
         stream = iter(case["draws"])
         model.draw = lambda gen: as_tensors(next(stream))
@@ -231,39 +244,60 @@ def fit_case(case) -> dict:
     step_losses = []
 
     def first_loss(loss):
-        def wrapped(batch, gen=None):
-            value = loss(batch, gen)
+        def wrapped(*args, **kwargs):
+            value = loss(*args, **kwargs)
             if not step_losses:
                 step_losses.append(value.item())
             return value
         return wrapped
 
-    model.loss = first_loss(model.loss)
-    if model.model_name == "SEPT":  # its warm-up phase's loss
-        model.rec_loss = first_loss(model.rec_loss)
-    first = []
+    for name in FIRST_LOSSES:
+        if hasattr(model, name):
+            setattr(model, name, first_loss(getattr(model, name)))
+    host = lambda t: None if t is None else t.detach().clone().numpy()  # noqa: E731
+    # the optimizers held, not their ids: a later phase's may take a freed id
+    firsts, stepped = [], []
     originals = {cls: cls.step for cls in (torch.optim.Adam, torch.optim.SGD)}
 
     def spy(cls):
         def step(opt, *a, **k):
-            if not first:
-                first.append({n: p.grad.clone().numpy() for n, p in model.named_parameters()})
-            return originals[cls](opt, *a, **k)
+            if any(opt is seen for seen in stepped):
+                return originals[cls](opt, *a, **k)
+            stepped.append(opt)
+            grads = {n: host(p.grad) for n, p in model.named_parameters()}
+            out = originals[cls](opt, *a, **k)
+            firsts.append({"grads": grads,
+                           "after": {n: host(p) for n, p in model.named_parameters()}})
+            return out
         return step
 
+    calls = dict.fromkeys(COLLECTIVES, 0)
+    real = {name: getattr(dist, name) for name in COLLECTIVES}
+
+    def counted(name):
+        def call(*a, **k):
+            calls[name] += 1
+            return real[name](*a, **k)
+        return call
+
+    mesh = model.mesh  # the mesh's groups are made before the count starts
     for cls in originals:
         cls.step = spy(cls)
+    for name in COLLECTIVES:
+        setattr(dist, name, counted(name))
     try:
         losses = model.fit(epoch_batches=case["batches"])
     finally:
         for cls, step in originals.items():
             cls.step = step
-    mesh = model.mesh
+        for name, fn in real.items():
+            setattr(dist, name, fn)
     return {
-        "losses": losses, "grads": first[0], "first_loss": step_losses[0],
+        "losses": losses, "grads": firsts[0]["grads"], "first_steps": firsts,
+        "first_loss": step_losses[0], "collectives": calls,
         "params": {n: p.detach().numpy().copy() for n, p in model.named_parameters()},
         "buffers": {n: b.numpy().copy() for n, b in model.named_buffers()},
-        "U": model.U.numpy(), "V": model.V.numpy(),
+        "U": host(model.U), "V": host(model.V),
         "mesh": None if mesh is None else mesh.shape,
         "adj": type(model.joint_adj).__name__ if hasattr(model, "joint_adj") else None,
         "best": None if model.tracker is None else model.tracker.best_epoch,
@@ -288,19 +322,6 @@ def training(rank, cases, sessions):
     for name, conf in sessions.items():
         conf = dict(conf, **{"output.setup": f"on -dir {conf['out_dir']}/{name}/rank{rank}"})
         out[name] = session({k: v for k, v in conf.items() if k != "out_dir"})
-    return out
-
-
-def refusals(rank, confs):
-    """Each conf through ``QRec(conf).execute()``: the ConfigError's message,
-    or None when the run went through."""
-    out = {}
-    for name, conf in confs.items():
-        try:
-            QRec(ModelConf(conf), device="cpu").execute()
-            out[name] = None
-        except ConfigError as e:
-            out[name] = str(e)
     return out
 
 
@@ -465,11 +486,10 @@ def replicated(rank, runs, lifecycle):
     return out
 
 
-def bold(rank, cases, runs):
-    """The bold-driver family's fit cases (:func:`fit_case`) on the mesh
-    that their confs ask for, then the session runs of ``runs`` (label ->
-    (conf, None)) through :func:`replicated_run`, each rank writing under
-    its own ``-dir``."""
+def fits_and_runs(rank, cases, runs):
+    """The fit cases (:func:`fit_case`) on the mesh that their confs ask
+    for, then the session runs of ``runs`` (label -> (conf, None)) through
+    :func:`replicated_run`, each rank writing under its own ``-dir``."""
     out = {"fits": {name: fit_case(case) for name, case in cases.items()}}
     out.update(replicated(rank, runs, {}))
     return out

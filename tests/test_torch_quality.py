@@ -158,7 +158,7 @@ def test_lastfm_quality_matches_jax(name):
 
 # ---------------------------------------------------------------------------
 # the walk family (CUNE_BPR, IF_BPR and RSGAN at the lastfm shape, CUNE_MF's
-# MAE/RMSE at the FilmTrust shape), three epochs as chip_smoke.py runs them
+# MAE/RMSE at the FilmTrust shape), three epochs each
 # ---------------------------------------------------------------------------
 
 WALK_EPOCHS = 3
