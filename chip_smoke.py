@@ -3203,7 +3203,8 @@ def profile_epoch(torch, model, label, epoch=None):
         epoch = lambda: T.train(  # noqa: E731
             spec.params, spec.loss_fn, spec.sampler, max_epoch=1, lr=model.lrate,
             device=model.device, mode=spec.mode, max_lr=model.max_lrate, generator=gen,
-            examples_per_epoch=model.train_size)
+            examples_per_epoch=model.train_size,
+            capturable=spec.chunkable and spec.mode == "adam")
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -3231,6 +3232,270 @@ def profile_epoch(torch, model, label, epoch=None):
               flush=True)
 
 
+def chunk_record(model) -> dict:
+    """What ``chunk_phases`` holds a ``train.chunk=1`` run against, from a
+    run of the same config: its losses, trained parameters, final factors,
+    best epoch, measures and parameters, and its chunk statistics (CUDA
+    graphs and their capture s, the (wall s, epochs) of every chunk)."""
+    t = getattr(model, "tracker", None)
+    timer = model.timer
+    return dict(
+        losses=list(model.epoch_losses),
+        params={k: v.detach().clone() for k, v in model.named_parameters()},
+        U=model.U.clone(), V=model.V.clone(),
+        best=None if t is None else (t.best_epoch, dict(t.best_metrics),
+                                     [b.clone() for b in t.best_params]),
+        graphs=sum(len(pt.captures) for pt in model.phase_timers),
+        capture_s=sum(sum(pt.captures) for pt in model.phase_timers),
+        chunks=[c for pt in model.phase_timers for c in pt.chunks],
+        times=list(timer.times))
+
+
+def check_chunked(label, rec, epochs: int, chunk: int = 8) -> None:
+    """A run that ``train.chunk=auto`` chunked: one CUDA graph, each chunk's
+    epochs as ``train`` cut them (``profile_chunk`` counts a chunk's host
+    reads)."""
+    want = [min(chunk, epochs - k) for k in range(0, epochs, chunk)] if epochs > 1 else []
+    got = [e for _, e in rec["chunks"]] if epochs > 1 else []
+    print(f"[chunk {label}] graphs={rec['graphs']} capture_s={rec['capture_s']:.3f} (warm-up "
+          f"epoch included) chunks(epochs)={got} "
+          f"chunk_wall_ms={[round(w * 1e3, 3) for w, _ in rec['chunks']]}", flush=True)
+    if got != want or rec["graphs"] != (1 if want else 0):
+        fail(f"{label}: chunks {got} (expected {want}), graphs {rec['graphs']}")
+
+
+def compare_chunk_runs(torch, label, auto, one) -> dict:
+    """``train.chunk=auto`` against ``1`` on the card: losses, trained
+    parameters, final factors, best epoch, measures and parameters, bit for
+    bit. Both loops run every epoch through ``trainer.run_epoch`` with
+    capturable Adam and one generator stream; a CUDA graph replays the
+    eager epoch's kernels on the same operands, and every kernel on the
+    path repeats bit for bit (the K1-K5 phases check it), so the bound is
+    0."""
+    gaps = {"losses": max((abs(a - b) for a, b in zip(auto["losses"], one["losses"])),
+                          default=0.0)}
+    for name in auto["params"]:
+        gaps[name] = (auto["params"][name] - one["params"][name]).abs().max().item()
+    gaps["U"] = (auto["U"] - one["U"]).abs().max().item()
+    gaps["V"] = (auto["V"] - one["V"]).abs().max().item()
+    same = (auto["losses"] == one["losses"]
+            and all(torch.equal(auto["params"][k], one["params"][k]) for k in auto["params"])
+            and torch.equal(auto["U"], one["U"]) and torch.equal(auto["V"], one["V"]))
+    if auto["best"] is not None:
+        (ea, ma, pa), (eo, mo, po) = auto["best"], one["best"]
+        gaps["best params"] = max((a - b).abs().max().item() for a, b in zip(pa, po))
+        same = same and ea == eo and ma == mo and all(torch.equal(a, b) for a, b in zip(pa, po))
+        print(f"[chunk {label}] best epoch auto {ea} / 1 {eo}; measures auto {ma} / 1 {mo}",
+              flush=True)
+    print(f"[chunk {label}] train.chunk=auto vs 1: bit-identical={same}; largest gaps "
+          f"{ {k: f'{v:.3e}' for k, v in gaps.items()} } (bound 0)", flush=True)
+    if not same:
+        fail(f"{label}: train.chunk=auto and 1 disagree: {gaps}")
+    return gaps
+
+
+def profile_chunk(torch, model, label, chunk: int = 8) -> dict:
+    """One chunk of ``chunk`` epochs (the model's spec, its CUDA graph
+    captured and replayed for one epoch first) under torch.profiler: the
+    device's busy share of the chunk's wall, as ``profile_epoch`` reads an
+    epoch's; then the host reads of one more chunk (1, or the script
+    fails). With a tracked spec the chunk holds the quick evaluation and
+    the vote."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from qrec_tpu_torch.runtime import trainer as T
+    from qrec_tpu_torch.runtime.profiling import StepTimer
+
+    spec = model.build()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    opt = T.make_optimizer(spec.params, "adam", model.lrate)
+    T.make_capturable(opt)
+    T.init_adam_state(opt)
+    vote = T.DeviceVote(spec.params, T.BestTracker(), 0) if spec.track_best else None
+    st = T.LoopState(0, spec.params, opt, gen, vote)
+    prog = T.EpochProgram(st, spec.loss_fn, spec.sampler, "cuda",
+                          evaluate=(lambda: model.quick_eval_vector(spec)) if vote else None)
+    loop = T.ChunkedLoop(prog, chunk, timer=StepTimer(model.train_size, "cuda"), emit=None,
+                         lr=model.lrate)
+    loop.run(st, 1)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        loop.run(st, 1 + chunk)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and not e.is_user_annotation) / 1e3
+    # the host reads of one more chunk, as CUDA's sync-debug mode "warn"
+    # reports them, with the timer's own synchronisations off
+    capture_s = loop.timer.captures[0]
+    loop.timer = StepTimer(model.train_size)
+    before = torch.cuda.get_sync_debug_mode()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            loop.run(st, 1 + 2 * chunk)
+        finally:
+            torch.cuda.set_sync_debug_mode(before)
+    reads = sum("called a synchronizing" in str(w.message) for w in caught)
+    print(f"[profile chunk {label}] one chunk of {chunk} epochs (CUDA graph replays) under "
+          f"torch.profiler: wall_ms={wall_ms:.3f} ({wall_ms / chunk:.3f} an epoch) "
+          f"device_busy_ms={busy:.3f} busy_share={busy / wall_ms:.3f} host_reads={reads} "
+          f"(capture_s={capture_s:.3f}, a one-epoch chunk first)", flush=True)
+    if reads != 1:
+        fail(f"{label}: {reads} host reads in one chunk, expected 1")
+    return dict(wall_ms=wall_ms, busy_ms=busy, share=busy / wall_ms, host_reads=reads)
+
+
+def graph_kernel_checks(torch, K, lightgcn, simgcl, yelp) -> None:
+    """Each kernel of the chunked path called inside a CUDA graph on the
+    main path's operands (K1: LightGCN's first layer; K2: its first batch of
+    test users on its final factors; K3/K4: SimGCL's first step's views;
+    K5: the yelp2018 run's first layer): the replayed result equals the
+    eager call's bit for bit, and stands against the plain version with
+    the tolerance of that kernel's own phase. Launches made here are put
+    back: they are no launches of a run."""
+    from qrec_tpu_torch.ops.losses import _l2n
+    from qrec_tpu_torch.ops.spmm import segment_operand
+
+    counts = K.launch_counts()
+    adj = lightgcn.joint_adj
+    with torch.no_grad():
+        x = torch.cat([lightgcn.user_emb, lightgcn.item_emb]).contiguous()
+    ranker = lightgcn._quick_ranker()
+    uids = ranker._uids[: lightgcn.eval_batch_size]
+    v1, v2, mask = first_step_views(torch, simgcl)
+    with torch.no_grad():
+        v1, v2 = _l2n(v1).contiguous(), _l2n(v2).contiguous()
+    m = mask.float().contiguous()
+    yadj = yelp.joint_adj
+    with torch.no_grad():
+        xs = segment_operand(torch.cat([yelp.user_emb, yelp.item_emb]))
+    calls = {
+        "bipartite_dual_matmul": (
+            lambda: K.factored_dual_matmul(adj.r, x, adj.row_scale, adj.col_scale),
+            lambda: K.factored_dual_matmul_plain(adj.r, x, adj.row_scale, adj.col_scale),
+            (1e-5, 1e-5)),
+        "masked_catalog_topk": (
+            lambda: K.masked_catalog_topk(lightgcn.U, lightgcn.V, lightgcn.rated_bitmask, uids,
+                                          ranker.global_mean, 10)[1],
+            lambda: K.masked_catalog_topk_plain(lightgcn.U, lightgcn.V, lightgcn.rated_bitmask,
+                                                uids, ranker.global_mean, 10)[1],
+            (0.0, 1e-5)),
+        "infonce_fwd": (lambda: K.infonce_fwd(v1, v2, m, m, TEMP)[1],
+                        lambda: K.infonce_fwd_plain(v1, v2, m, m, TEMP)[1], (1e-5, 1e-5)),
+        "infonce_bwd": (
+            lambda: torch.cat(K.infonce_bwd(v1, v2, m, m, K.infonce_fwd_plain(
+                v1, v2, m, m, TEMP)[1], TEMP)),
+            lambda: torch.cat(K.infonce_bwd_plain(v1, v2, m, m, K.infonce_fwd_plain(
+                v1, v2, m, m, TEMP)[1], TEMP)), (1e-4, 1e-5)),
+        "weighted_segment_matmul": (
+            lambda: K.weighted_segment_matmul(xs, yadj.indptr, yadj.cols, yadj.vals,
+                                              yadj.schedule),
+            lambda: K.weighted_segment_matmul_plain(xs, yadj.indptr, yadj.cols, yadj.vals),
+            (1e-5, 1e-5)),
+    }
+    for name, (fn, plain, (rtol, atol_rel)) in calls.items():
+        eager = fn()
+        stream = torch.cuda.Stream()
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            fn()
+        torch.cuda.current_stream().wait_stream(stream)
+        graph = torch.cuda.CUDAGraph()
+        launches = K.GraphLaunches()
+        with launches.record(), torch.cuda.graph(graph, stream=stream):
+            out = fn()
+        graph.replay()
+        graph.replay()
+        want = plain()
+        torch.cuda.synchronize()
+        same = torch.equal(out, eager)
+        err = (out - want).abs().max().item()
+        atol = atol_rel * max(want.abs().max().item(), 1.0)
+        ok = torch.allclose(out, want, rtol=rtol, atol=atol)
+        print(f"[graph {name}] in a CUDA graph ({launches.counts.get(name, 0)} launch captured, "
+              f"2 replays): equal to the eager call bit for bit={same}; max_abs_err vs plain "
+              f"{err:.3e} (rtol {rtol} atol {atol:.3e}) {'ok' if ok else 'MISMATCH'}", flush=True)
+        if not same or not ok or launches.counts.get(name, 0) != 1:
+            fail(f"{name} inside a CUDA graph: bit-equal {same}, within tolerance {ok}")
+        del graph
+    K.set_launch_counts(counts)
+
+
+def chunk_phases(torch, K, QRec, runs) -> dict:
+    """Slice 8: ``train.chunk``. ``runs`` maps a label to (conf, its
+    ``train.chunk=auto`` run's ``chunk_record``, epochs): each such run
+    is checked as chunked (one graph, one host read a chunk), then run
+    again under ``train.chunk=1`` (through ``drive``: launches against
+    ``expected_launches``, losses that fall) and held to it bit for bit.
+    Then LightGCN's steady epoch ms under both (12 epochs), in turns, one profiled
+    chunk of each path, and each kernel inside a CUDA graph against its
+    plain version."""
+    out = {}
+    models = {}
+    laps = {}
+    t0 = time.perf_counter()
+
+    def lap(name):
+        nonlocal t0
+        laps[name] = round(time.perf_counter() - t0, 1)
+        t0 = time.perf_counter()
+
+    for label, (conf, rec, epochs) in runs.items():
+        check_chunked(label, rec, epochs)
+        one = conf.__class__(dict(conf.config))
+        one["train.chunk"] = "1"
+        model, _, _ = drive(torch, K, QRec, one, f"{label} chunk=1")
+        out[label] = compare_chunk_runs(torch, label, rec, chunk_record(model))
+        models[label] = model
+        lap(f"{label} chunk=1")
+    graph_kernel_checks(torch, K, models["main"], models["simgcl"], models["yelp-pallas"])
+    lap("kernels in graphs")
+    # steady epoch ms, in turns: mean of epochs 9-12 (the second chunk)
+    conf = runs["main"][0].__class__(dict(runs["main"][0].config))
+    conf["num.max.epoch"] = "12"
+    steady = {"auto": [], "1": []}
+    for _ in range(2):
+        for chunk in ("auto", "1"):
+            conf["train.chunk"] = chunk
+            rec = QRec(conf)
+            rec.execute()
+            times = rec.model.timer.times
+            steady[chunk].append(float(np.mean(times[8:12])) * 1e3)
+            del rec
+    print(f"[chunk timing] LightGCN main path, 12 epochs, in turns (auto, 1, auto, 1): steady "
+          f"epoch ms (mean of epochs 9-12) train.chunk=auto {[round(t, 3) for t in steady['auto']]} "
+          f"train.chunk=1 {[round(t, 3) for t in steady['1']]}", flush=True)
+    out["steady"] = steady
+    lap("timing in turns")
+    out["profile"] = {
+        "LightGCN": profile_chunk(torch, models["main"], "LightGCN"),
+        "SimGCL": profile_chunk(torch, models["simgcl"], "SimGCL"),
+        "yelp-pallas": profile_chunk(torch, models["yelp-pallas"], "LightGCN yelp2018 pallas",
+                                     chunk=2),
+    }
+    profile_epoch(torch, models["simgcl"], "SimGCL with its quick evaluation",
+                  epoch=lambda: eval_epoch(torch, models["simgcl"]))
+    lap("profiles")
+    print(f"[chunk phases] seconds {json.dumps(laps)}", flush=True)
+    return out
+
+
+def eval_epoch(torch, model) -> None:
+    """One per-epoch-loop epoch of ``model``'s spec with its quick
+    evaluation and vote, as ``train.chunk=1`` runs a tracked epoch."""
+    from qrec_tpu_torch.runtime import trainer as T
+
+    spec = model.build()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    T.train(spec.params, spec.loss_fn, spec.sampler, max_epoch=1, lr=model.lrate,
+            device=model.device, generator=gen, examples_per_epoch=model.train_size,
+            quick_eval=lambda: model.quick_eval(spec), tracker=T.BestTracker(), capturable=True)
+
+
 def main() -> None:
     import torch
 
@@ -3247,6 +3512,7 @@ def main() -> None:
     from qrec_tpu_torch.ops import kernels as K
     from qrec_tpu_torch.ops.metrics import parse_measure
     from qrec_tpu_torch.ops.topk import CatalogRanker, ScoreForm
+    from qrec_tpu_torch.runtime import trainer as T
 
     # 2. build
     t0 = time.perf_counter()
@@ -3285,6 +3551,7 @@ def main() -> None:
 
         # 3. LightGCN main path
         model, counts, _ = drive(torch, K, QRec, conf_of("LightGCN", 5), "main")
+        chunked = {"main": (conf_of("LightGCN", 5), chunk_record(model), 5)}
         # the unbroken run the slice-6 resume is held against
         unbroken = {"U": model.U.clone(), "V": model.V.clone(), "losses": list(model.epoch_losses)}
         # the final ranking against the plain versions on the CPU
@@ -3339,6 +3606,7 @@ def main() -> None:
 
         # 5. SimGCL main path, then K3 and K4 on its first step's views
         simgcl, sim_counts, _ = drive(torch, K, QRec, conf_of("SimGCL", 3), "simgcl")
+        chunked["simgcl"] = (conf_of("SimGCL", 3), chunk_record(simgcl), 3)
         view1, view2, mask = first_step_views(torch, simgcl)
         k3, k4 = infonce_phase(torch, K, timer, "simgcl users", view1, view2, mask)
         # masked rows and an all-zero row
@@ -3384,6 +3652,7 @@ def main() -> None:
                            ("reg.lambda", "-u 0.0001 -i 0.0001 -b 0.2 -s 0.2")):
             conf[key] = value
         yelp, yelp_counts, _ = drive(torch, K, QRec, conf, "yelp-pallas")
+        chunked["yelp-pallas"] = (conf, chunk_record(yelp), 2)
         k2r["yelp2018"] = ranking_phase(torch, K, "yelp2018", yelp, 20)
         k2t["yelp2018"] = topk_timing(torch, K, timer, yelp, 20, "yelp2018")
         k5 = segment_phase(torch, K, timer, yelp, l2_rate)
@@ -3391,6 +3660,12 @@ def main() -> None:
         del yelp
 
         lap("7 SGL-pallas, NGCF, yelp2018, K5")
+
+        # 7b. train.chunk: the chunked runs above against train.chunk=1
+        chunk_phases(torch, K, QRec, chunked)
+        del chunked
+
+        lap("7b train.chunk")
 
         # 8. the MF slice (BPR, SVD rating and ranking, MostPopular) and the
         # -cv and -predict protocols

@@ -57,7 +57,10 @@ class TrainSpec:
     per-batch loss ``loss_fn(batch, generator)``, the epoch sampler, the map
     from trained parameters to the final (user, item) factors, whether to
     evaluate every epoch and keep the best epoch's parameters, and the
-    training mode (``adam`` or ``bold``, runtime/trainer.py)."""
+    training mode (``adam`` or ``bold``, runtime/trainer.py). ``chunkable``
+    says that the sampler, the loss and the score parameters read nothing
+    from the host, so that ``train.chunk`` may run a chunk of epochs as one
+    dispatch (on a CUDA device, as CUDA graphs)."""
 
     def __init__(
         self,
@@ -67,6 +70,7 @@ class TrainSpec:
         score_params_fn: Callable,
         track_best: bool = False,
         mode: str = "adam",
+        chunkable: bool = False,
     ):
         self.params = list(params)
         self.loss_fn = loss_fn
@@ -74,6 +78,7 @@ class TrainSpec:
         self.score_params_fn = score_params_fn
         self.track_best = track_best
         self.mode = mode
+        self.chunkable = chunkable
 
 
 class Recommender(nn.Module):
@@ -513,14 +518,23 @@ class IterativeRecommender(Recommender):
             )
         return self._ranker
 
-    def quick_eval(self, spec: TrainSpec) -> dict:
-        """Precision/Recall/F1/NDCG at the top N of the current parameters,
-        ranked and measured on the device; one host copy of four numbers."""
+    def quick_eval_vector(self, spec: TrainSpec) -> torch.Tensor:
+        """Precision/Recall/F1/NDCG at the top N of the current parameters
+        as a (4,) f32 device tensor in ``METRIC_KEYS`` order, ranked and
+        measured on the device with no host read (the JAX package's
+        ``quick_eval_vector``): the chunked eval loop runs it inside its
+        epochs."""
         ranker = self._quick_ranker()
         self.finalize(spec)
         ids, _ = ranker.topk_device(self.score_form())
-        dev = device_ranking_metrics(ids, ranker.test_ids, ranker.test_counts, [self._top_n])
-        return {k: float(v) for k, v in dev[self._top_n].items()}
+        dev = device_ranking_metrics(ids, ranker.test_ids, ranker.test_counts, [self._top_n],
+                                     ranker.idcg)[self._top_n]
+        return torch.stack([dev[k] for k in T.METRIC_KEYS])
+
+    def quick_eval(self, spec: TrainSpec) -> dict:
+        """:meth:`quick_eval_vector` read on the host: one copy of four
+        numbers."""
+        return dict(zip(T.METRIC_KEYS, self.quick_eval_vector(spec).tolist()))
 
     def _quick_rating_metrics(self, spec: TrainSpec) -> dict:
         """Per-epoch MAE/RMSE of a rating run (iterativeRecommender.py:91-94):
@@ -539,16 +553,20 @@ class IterativeRecommender(Recommender):
         return {"MAE": float(np.mean(np.abs(err))), "RMSE": float(np.sqrt(np.mean(err**2)))}
 
     def _emit(self, epoch: int, loss: float, lr: float, wall: float,
-              metrics: Optional[dict] = None) -> None:
+              metrics: Optional[dict] = None, eval_fused: bool = False) -> None:
         """Epoch line (iterativeRecommender.py:88-94) with the learning rate
         in force during the epoch, and the per-epoch measures when there
-        are any."""
+        are any. A chunked run prints its epochs after the chunk, each with
+        the chunk's wall / E; " incl. eval" marks a wall that holds the
+        quick evaluation, which the chunk runs inside (the JAX package's
+        ``_emit``)."""
         eps = self.train_size / wall if wall > 0 else 0.0
         extra = "" if metrics is None else " " + " ".join(f"{k}:{v:.5f}" for k, v in metrics.items())
+        note = " incl. eval" if eval_fused else ""
         print(
             f"{self.model_name} {self.fold} epoch {epoch + 1}: "
             f"loss = {loss:.4f} learning_rate = {lr:.5f}{extra} "
-            f"[{wall * 1e3:.1f} ms, {eps:,.0f} ex/s]"
+            f"[{wall * 1e3:.1f} ms{note}, {eps:,.0f} ex/s]"
         )
 
     def fit(self, epoch_batches: Optional[Sequence] = None) -> List[float]:
@@ -585,14 +603,56 @@ class IterativeRecommender(Recommender):
         a quick evaluation follows every epoch; a rating run with test
         records prints their MAE/RMSE every epoch."""
         spec = self.build()
-        quick_eval = None
+        quick_eval = eval_vector = None
         if spec.track_best and self._quick_ranker() is not None:
             quick_eval = lambda: self.quick_eval(spec)  # noqa: E731
+            eval_vector = lambda: self.quick_eval_vector(spec)  # noqa: E731
         elif not self.ranking.isMainOn() and len(self.data.test_data) > 0:
             quick_eval = lambda: self._quick_rating_metrics(spec)  # noqa: E731
         self.run_training(spec.params, spec.loss_fn, spec.sampler, mode=spec.mode,
-                          track_best=spec.track_best, quick_eval=quick_eval)
+                          track_best=spec.track_best, quick_eval=quick_eval,
+                          chunkable=spec.chunkable, eval_vector=eval_vector)
         self.finalize(spec)
+
+    def train_chunk(self) -> int:
+        """``train.chunk``: epochs a dispatch, ``auto`` (the default) 8, 1
+        the per-epoch loop (the JAX package's reading, values below 1 read
+        as 1)."""
+        raw = self.config.get("train.chunk", "auto").strip()
+        if raw == "auto":
+            return 8
+        try:
+            return max(1, int(raw))
+        except ValueError:
+            raise ConfigError(f"train.chunk must be auto or an integer, got {raw!r}") from None
+
+    def _chunk_for(self, mode: str, chunkable: bool, chunk_eval: bool) -> int:
+        """The chunk of one phase: ``train.chunk`` where the JAX package
+        chunks (``qrec_tpu/models/base.py:767-785``): the ``adam`` mode,
+        no per-epoch measure but the tracker's (whose vote then runs on
+        the device), no checkpoint and no mesh; and only for a spec whose
+        step reads no host (``chunkable``). Else 1, and a chunk above 1
+        that the conf set is named, once a model, as run per epoch."""
+        chunk = self.train_chunk()
+        why = None
+        if not chunkable:
+            why = "its step is not chunked in the port"
+        elif mode != "adam":
+            why = "the bold-driver mode reads every epoch's loss"
+        elif not chunk_eval:
+            why = "its per-epoch measures are read on the host"
+        elif self._checkpointer() is not None:
+            why = "checkpoint.setup saves every epoch's state"
+        elif self.mesh is not None:
+            why = "the run is on a mesh"
+        if why is None:
+            return chunk
+        if chunk > 1 and self.config.get("train.chunk", "auto").strip() != "auto" \
+                and not getattr(self, "_chunk_noted", False):
+            self._chunk_noted = True
+            print(f"{self.model_name} {self.fold} train.chunk={chunk} not applied, runs per "
+                  f"epoch: {why}")
+        return 1
 
     def run_training(
         self,
@@ -607,6 +667,8 @@ class IterativeRecommender(Recommender):
         tracker: Optional[T.BestTracker] = None,
         return_best: bool = True,
         after_step: Optional[Callable] = None,
+        chunkable: bool = False,
+        eval_vector: Optional[Callable] = None,
     ) -> List[float]:
         """One training phase (the JAX package's ``run_training``,
         ``models/base.py:670-830``): ``max_epoch`` epochs (``num.max.epoch``
@@ -622,13 +684,18 @@ class IterativeRecommender(Recommender):
         ``after_step()`` runs after every optimizer step. Under
         ``checkpoint.setup`` the phase saves its loop state every ``-every``
         epochs under step ``_epochs_done + epoch + 1`` and first resumes
-        from the latest step past ``_epochs_done``. Returns the losses of
-        the epochs the phase ran."""
+        from the latest step past ``_epochs_done``. A ``chunkable`` phase
+        runs ``train.chunk`` epochs a dispatch where :meth:`_chunk_for`
+        allows it, with ``eval_vector()`` (the quick evaluation as a (4,)
+        device vector) in place of ``quick_eval`` when it tracks the best
+        epoch. Returns the losses of the epochs the phase ran."""
         max_epoch = max_epoch or self.max_epoch
         if mode == "bold" and self.eval_settings.contains("-tf"):
             mode = "adam"
         if track_best and quick_eval is not None and tracker is None:
             tracker = T.BestTracker()
+        chunk = self._chunk_for(mode, chunkable, quick_eval is None or (
+            tracker is not None and eval_vector is not None))
         gen = torch.Generator(device=self.device).manual_seed(self.seed + 1)
         done = self._epochs_done
         injected = None
@@ -643,7 +710,8 @@ class IterativeRecommender(Recommender):
             emit=self._emit, epoch_batches=injected,
             quick_eval=quick_eval, tracker=tracker, after_step=after_step,
             start_epoch=start_epoch, resume=resume, checkpoint=self._make_checkpoint_cb(),
-            mesh=self.mesh,
+            mesh=self.mesh, chunk=chunk, eval_vector=eval_vector,
+            capturable=chunkable and mode == "adam",
         )
         self._epochs_done += start_epoch + len(losses)
         self.epoch_losses += losses

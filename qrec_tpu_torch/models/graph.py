@@ -12,6 +12,11 @@ every step, from the trainer's generator. All four train on a mesh
 (``parallel/mesh.py``): the adjacency, SGL's views of it and the InfoNCE
 are sharded over ``data`` (``GraphRecommender.joint_adj``), every rank
 draws the same numbers, and each rank's loss is its share.
+
+No step reads the host, so the four train ``train.chunk`` epochs a
+dispatch (``TrainSpec.chunkable``): on a CUDA device one CUDA graph an
+epoch, whose draws replay from the trainer's generator, with SimGCL's and
+SGL's quick evaluation and vote inside (``runtime/trainer.py``).
 """
 
 from __future__ import annotations
@@ -103,6 +108,7 @@ class LightGCN(GraphRecommender):
             self.pairwise_sampler(),
             score_params_fn=self.forward,
             track_best=self.track_best,
+            chunkable=True,
         )
 
 

@@ -36,6 +36,7 @@ flags (a changed source or header builds anew), and loads with
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import fcntl
 import functools
@@ -100,11 +101,18 @@ class Kernel:
         return self._lib
 
     def call(self, *args) -> None:
-        """Launch on the current stream; raise on a non-zero CUDA error."""
+        """Launch on the current stream; raise on a non-zero CUDA error.
+        A launch captured into a CUDA graph is no launch: the graph's
+        :class:`GraphLaunches` tallies it and counts it at every replay (a
+        capture that nothing replays, such as a count of a call's kernel
+        nodes, counts nothing)."""
         err = getattr(self.load(), self.symbol)(*args)
         if err != 0:
             raise RuntimeError(f"{self.name}: CUDA launch failed with error {err}")
-        self.launches += 1
+        if not torch.cuda.is_current_stream_capturing():
+            self.launches += 1
+        elif _recording is not None:
+            _recording[self.name] = _recording.get(self.name, 0) + 1
 
 
 DUAL = Kernel(
@@ -193,6 +201,42 @@ def reset_launch_counts() -> None:
 
 def launch_counts() -> Dict[str, int]:
     return {k.name: k.launches for k in KERNELS}
+
+
+def set_launch_counts(counts: Dict[str, int]) -> None:
+    """Put back counts read by :func:`launch_counts` (a warm-up's launches
+    are no launches of the run)."""
+    for k in KERNELS:
+        k.launches = counts[k.name]
+
+
+# the tally of the capture under way (GraphLaunches.record), else None
+_recording: Optional[Dict[str, int]] = None
+
+
+class GraphLaunches:
+    """The kernel launches that a CUDA graph holds: ``record()`` wraps its
+    capture and tallies every :meth:`Kernel.call` made inside it; ``add()``
+    adds the tally to the kernels' counts, once at every replay, so that a
+    replayed launch counts as an eager one does."""
+
+    def __init__(self):
+        self.counts: Dict[str, int] = {}
+
+    @contextlib.contextmanager
+    def record(self):
+        global _recording
+        if _recording is not None:
+            raise RuntimeError("a capture is already being recorded")
+        _recording = self.counts
+        try:
+            yield self
+        finally:
+            _recording = None
+
+    def add(self) -> None:
+        for k in KERNELS:
+            k.launches += self.counts.get(k.name, 0)
 
 
 def _check(t: torch.Tensor, name: str, dtypes, ndim: int) -> None:
@@ -311,10 +355,16 @@ def _scratch(device: torch.device, numel: int, name: str = "dual",
     """A grow-only buffer of a kernel's scratch, one per ``name``, device and
     stream: kept across calls instead of allocated on every one, and sized
     by the wrapper before the launch. It starts at zero, which counters
-    that each call leaves at zero rely on."""
+    that each call leaves at zero rely on. Inside a CUDA graph's capture it
+    must exist already, at its size: a warm-up call on the capture's stream
+    sizes it, so that no replay depends on memory allocated, and zeroed,
+    inside the capture."""
     key = (name, device, torch.cuda.current_stream(device).cuda_stream)
     buf = _scratch_buffers.get(key)
     if buf is None or buf.numel() < numel:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(f"{name} scratch of {numel} elements not sized before capture: "
+                               "run the captured work once on the capture's stream first")
         buf = torch.zeros(numel, dtype=dtype, device=device)
         _scratch_buffers[key] = buf
     return buf

@@ -12,7 +12,7 @@ same measures on tensors for the per-epoch quick evaluation.
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -122,18 +122,24 @@ def device_ranking_metrics(
     test_ids: torch.Tensor,  # (B, T) test items, -1 = pad/unseen
     test_counts: torch.Tensor,  # (B,) |test items| incl. unseen
     top_ns: Sequence[int],
+    idcg: Optional[torch.Tensor] = None,
 ) -> Dict[int, Dict[str, torch.Tensor]]:
     """Precision/Recall/F1/NDCG@{top_ns} as 0-d f32 tensors on the inputs'
     device, with the reference's formulas: precision is the global hit sum
     over ``B*n`` (util/measure.py:52-54), recall the per-user mean of
-    ``hits/|test|`` (util/measure.py:105-109), NDCG as above."""
+    ``hits/|test|`` (util/measure.py:105-109), NDCG as above. ``idcg`` is
+    :func:`idcg_table` of N on that device, which a caller that measures
+    every epoch keeps (``CatalogRanker.idcg``): made here, it is a copy
+    from the host at every call, which a CUDA graph cannot hold."""
     n_max = int(pred_ids.shape[1])
     device = pred_ids.device
     hit_at_pos = (
         (pred_ids[:, :, None] == test_ids[:, None, :]) & (test_ids[:, None, :] >= 0)
     ).any(dim=-1)  # (B, N)
     discounts = 1.0 / torch.log(torch.arange(n_max, dtype=torch.float32, device=device) + 2.0)
-    table = torch.from_numpy(idcg_table(n_max)).to(device)
+    table = torch.from_numpy(idcg_table(n_max)).to(device) if idcg is None else idcg
+    if table.shape != (n_max + 1,):
+        raise ValueError(f"idcg table of {tuple(table.shape)} entries for lists of {n_max}")
     b = pred_ids.shape[0]
     results = {}
     for n in top_ns:

@@ -10,7 +10,8 @@
   and tie-item tables).
 * ``sample_negatives`` — K-try uniform rejection against the bitmask,
   falling back to the exact rejection-free draw for the queries where all
-  K tries hit positives, so a sampled negative is never a training positive.
+  K tries hit positives, so a sampled negative is never a training positive;
+  no step reads the host, so an epoch's sampling can be a CUDA graph.
 * ``pairwise_epoch`` — one epoch of shuffled (user, pos, neg, weight)
   batches; ``weight`` zeroes the padded tail.
 * ``pointwise_epoch`` — one epoch of (user, item, label, weight) batches,
@@ -106,25 +107,30 @@ def sample_negatives_exact(
     row_iters: int = 32,
 ) -> torch.Tensor:
     """Rejection-free uniform negatives: for user u draw k ~ U[0, I - deg(u))
-    and return the k-th non-rated item, the smallest j with
-    ``(j + 1) - rank_le(u, j) >= k + 1``."""
+    and return the k-th non-rated item. With the row's sorted positives
+    p_0 < p_1 < ..., p_t has p_t - t non-rated items below it, a
+    non-decreasing count, so the k-th non-rated item is ``k + m`` with m the
+    number of positives whose count is <= k: one bisection over the row
+    (``row_iters`` steps, enough for the longest row). A row that holds
+    every item has no negative: it gets item ``num_items - 1``, as the JAX
+    package's search ends there."""
     lo_row = indptr[users]
     hi_row = indptr[users + 1]
     span = torch.clamp(num_items - (hi_row - lo_row), min=1)
     draw = torch.rand(users.shape, generator=gen, device=users.device, dtype=torch.float64)
     k = torch.minimum((draw * span).long(), span - 1)
-    lo = torch.zeros_like(users)
-    hi = torch.full_like(users, num_items - 1)
-    for _ in range(_bisect_iters(num_items)):
+    nnz = indices.shape[0]
+    if nnz == 0:
+        return k
+    lo, hi = lo_row, hi_row
+    for _ in range(row_iters):
         active = lo < hi
         mid = (lo + hi) >> 1
-        rank_le = csr_searchsorted_right(indices, lo_row, hi_row, mid, row_iters) - lo_row
-        go_left = (mid + 1) - rank_le >= k + 1
-        new_hi = torch.where(go_left, mid, hi)
-        new_lo = torch.where(go_left, lo, mid + 1)
-        lo = torch.where(active, new_lo, lo)
-        hi = torch.where(active, new_hi, hi)
-    return lo
+        below = indices[torch.clamp(mid, max=nnz - 1)] - (mid - lo_row)
+        go_right = below <= k
+        lo = torch.where(active & go_right, mid + 1, lo)
+        hi = torch.where(active & ~go_right, mid, hi)
+    return torch.clamp(k + (lo - lo_row), max=num_items - 1)
 
 
 def sample_negatives(
@@ -143,7 +149,13 @@ def sample_negatives(
     whose tries all hit positives take the exact sampler's draw.
     ``also_exclude(users, items) -> bool`` rejects more candidates in the
     tries (SBPR's friend items; its exact fallback avoids the positives
-    alone, as the JAX package's does)."""
+    alone, as the JAX package's does).
+
+    The exact draw is made for every query and selected where the tries
+    failed (the JAX package's ``lax.cond`` runs it only when one did):
+    asking the host whether any failed would stop the device once an
+    epoch, and no CUDA graph can hold the question. The generator's stream
+    is therefore the same whatever the tries found."""
     b = users.shape[0]
     cands = torch.randint(
         0, num_items, (b, num_tries), generator=gen, device=users.device, dtype=torch.int64
@@ -154,12 +166,8 @@ def sample_negatives(
     ok = ~bad
     first_ok = ok.to(torch.int8).argmax(dim=1)
     chosen = cands.gather(1, first_ok[:, None])[:, 0]
-    any_ok = ok.any(dim=1)
-    # the fallback is ~density^num_tries rare: run it only when a query failed
-    if bool(any_ok.all()):
-        return chosen
     exact = sample_negatives_exact(gen, users, num_items, indices, indptr, row_iters)
-    return torch.where(any_ok, chosen, exact)
+    return torch.where(ok.any(dim=1), chosen, exact)
 
 
 def pairwise_epoch(

@@ -45,6 +45,7 @@ import torch.distributed as dist
 
 from ..parallel.collectives import gather_shards, split_range, split_sizes
 from .kernels import expand_bitmask, masked_catalog_topk
+from .metrics import idcg_table
 
 # rated items score 0, as the reference zeroes them (base/recommender.py:147-149)
 MASK_VALUE = 0.0
@@ -106,6 +107,8 @@ class CatalogRanker:
         self.test_ids = torch.as_tensor(ev["test_ids"], dtype=torch.int64, device=self.device)
         self.test_counts = torch.as_tensor(ev["test_counts"], dtype=torch.int64, device=self.device)
         self._uids = torch.as_tensor(self.uids, dtype=torch.int64, device=self.device)
+        # device_ranking_metrics' IDCG table for lists of this ranker's length
+        self.idcg = torch.from_numpy(idcg_table(min(self.k, data.num_items))).to(self.device)
         # this rank's test users and every rank's count, on a mesh
         self.mesh = mesh
         if mesh is not None:

@@ -3,7 +3,13 @@
 
 ``StepTimer`` records per-epoch wall time and examples/s. On a CUDA device
 it synchronises before it reads the clock on entry and on exit, so an
-interval covers the device work launched inside it, not just its enqueue.
+interval covers the device work launched inside it, not just its enqueue;
+with ``sync=False`` (the lag-1 loop, whose read of the previous epoch's
+loss lies inside the interval) it reads the clock alone.
+A chunk of E epochs run as one dispatch (``with timer.chunk(E)``) is one
+interval, kept in ``chunks``; each of its epochs gets the chunk's wall / E,
+as the JAX package's chunked loops report them. ``with timer.capture()``
+times a CUDA graph's capture, kept in ``captures``.
 ``trace(log_dir)`` records what runs inside it with ``torch.profiler`` and
 writes a Chrome/Perfetto trace file into ``log_dir`` (the JAX package's
 ``trace``, which writes a TensorBoard profile).
@@ -22,14 +28,20 @@ import torch
 class StepTimer:
     """Accumulates epoch wall-times and derived throughput."""
 
-    def __init__(self, examples_per_epoch: int = 0, device=None):
+    def __init__(self, examples_per_epoch: int = 0, device=None, sync: bool = True):
         self.examples_per_epoch = examples_per_epoch
         self.device = torch.device(device) if device is not None else None
+        self.sync = sync
         self.times: List[float] = []
+        # (seconds, epochs) of every interval
+        self.chunks: List[tuple] = []
+        # seconds of every CUDA graph capture
+        self.captures: List[float] = []
         self._t0: Optional[float] = None
+        self._epochs = 1
 
     def _sync(self) -> None:
-        if self.device is not None and self.device.type == "cuda":
+        if self.sync and self.device is not None and self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
     def __enter__(self):
@@ -38,9 +50,31 @@ class StepTimer:
         return self
 
     def __exit__(self, *exc):
+        if exc[0] is not None:
+            # a failed interval ran no whole epoch
+            self._epochs = 1
+            return False
         self._sync()
-        self.times.append(time.perf_counter() - self._t0)
+        wall = time.perf_counter() - self._t0
+        self.chunks.append((wall, self._epochs))
+        self.times += [wall / self._epochs] * self._epochs
+        self._epochs = 1
         return False
+
+    def chunk(self, epochs: int) -> "StepTimer":
+        """The next interval covers ``epochs`` epochs."""
+        self._epochs = int(epochs)
+        return self
+
+    @contextlib.contextmanager
+    def capture(self) -> Iterator[None]:
+        """Time a CUDA graph's capture (its warm-up included) into
+        ``captures``; a capture that fails is not recorded."""
+        self._sync()
+        t0 = time.perf_counter()
+        yield
+        self._sync()
+        self.captures.append(time.perf_counter() - t0)
 
     @property
     def last(self) -> float:

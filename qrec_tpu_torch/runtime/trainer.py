@@ -1,22 +1,47 @@
-"""Per-epoch training loop (counterpart of the JAX package's
-``runtime/trainer.py``: its ``EpochLoop`` in both modes).
+"""Training loop (counterpart of the JAX package's ``runtime/trainer.py``:
+its ``EpochLoop`` in both modes, its ``ChunkedLoop`` and its
+``ChunkedEvalLoop``).
 
 Each epoch draws its batches from the sampler (or takes injected ones),
-runs one optimizer step per batch, and materializes the epoch's summed
-loss once on the host, where ``check_finite`` gives the reference's NaN
-abort (base/iterativeRecommender.py:84-87). Two modes:
+runs one optimizer step per batch, and sums the epoch's loss on the
+device. Three dispatch strategies, as in the JAX package:
 
-* ``adam``: fixed-LR Adam (the reference's TF paths);
-* ``bold``: SGD with the bold-driver learning rate and the ``|Δloss| <
-  1e-3`` convergence rule (the reference's NumPy-SGD family,
-  base/iterativeRecommender.py:56-63,82-102), in the JAX package's order
-  after each epoch: the convergence check may end training, then the
-  driver's update, its ``last_loss``, and the new rate on the optimizer.
+* the per-epoch loop (``chunk=1``) materializes each epoch's loss on the
+  host, where ``check_finite`` gives the reference's NaN abort
+  (base/iterativeRecommender.py:84-87). Two modes:
 
-With a :class:`BestTracker`, a quick evaluation follows each epoch and the
-parameters of the epoch that wins the tracker's vote are kept
-(``EpochLoop.run``'s tracker branch); a ``quick_eval`` without a tracker
-only adds its measures to the epoch line (the rating models' MAE/RMSE).
+  * ``adam``: fixed-LR Adam (the reference's TF paths); with nothing on
+    the host reading an epoch's state (``pipelined``) epoch e's loss is
+    read after epoch e+1 is enqueued (the JAX package's lag-1 loss);
+  * ``bold``: SGD with the bold-driver learning rate and the ``|Δloss| <
+    1e-3`` convergence rule (the reference's NumPy-SGD family,
+    base/iterativeRecommender.py:56-63,82-102), in the JAX package's order
+    after each epoch: the convergence check may end training, then the
+    driver's update, its ``last_loss``, and the new rate on the optimizer.
+
+  With a :class:`BestTracker`, a quick evaluation follows each epoch and
+  the parameters of the epoch that wins the tracker's vote are kept
+  (``EpochLoop.run``'s tracker branch); a ``quick_eval`` without a tracker
+  only adds its measures to the epoch line (the rating models' MAE/RMSE);
+
+* the chunked loop (``chunk=E``) runs E epochs a dispatch and reads the
+  host once a chunk: the E losses, and with ``eval_vector`` (the chunked
+  eval loop) each epoch's quick evaluation, whose majority vote and
+  best-parameter selection run on the device and reach the tracker once,
+  at the end (:class:`DeviceVote`). On a CUDA device an epoch is one CUDA
+  graph (:class:`EpochProgram`: the sampler, the steps, the evaluation and
+  the vote), captured once and replayed every epoch; on the CPU the same
+  code runs as written. A capture or a replay that fails raises: there is
+  no fallback to the per-epoch loop. The loop's committed state
+  (:class:`LoopState`) is then the last chunk boundary.
+
+Losses, parameters, the best epoch, its measures and its parameters are
+the same bits whatever ``chunk`` is: every strategy runs one epoch through
+:func:`run_epoch`, the generator draws the same stream (a CUDA graph
+replays its draws from the generator's running state), and on a CUDA
+device a phase that may run chunked takes capturable Adam in every loop,
+so that its step count and bias corrections are device arithmetic in
+all of them.
 
 Resume: after every epoch (and after the bold driver's update) ``train``
 hands a ``checkpoint`` callback the loop's state (:func:`loop_state`: the
@@ -31,6 +56,7 @@ generator where the JAX package folds the epoch into its key.
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -38,8 +64,13 @@ import numpy as np
 import torch
 
 from ..errors import ConvergenceError
+from ..ops import kernels as K
 from ..parallel.collectives import all_reduce_sum, reduce_gradients
 from .profiling import StepTimer
+
+# fixed metric order of the device-side quick evaluation (the JAX
+# package's METRIC_KEYS, trainer.py:135): device_ranking_metrics' order
+METRIC_KEYS = ("Precision", "Recall", "F1", "NDCG")
 
 
 def check_finite(loss: float) -> None:
@@ -94,6 +125,33 @@ def make_optimizer(params: Sequence[torch.Tensor], mode: str, lr: float) -> torc
     if mode == "bold":
         return torch.optim.SGD(params, lr=lr)
     raise ValueError(f"unknown training mode {mode!r} (expected adam|bold)")
+
+
+def make_capturable(optimizer: torch.optim.Optimizer) -> None:
+    """Adam, before its first step, made capturable on a CUDA device (as if
+    built with ``capturable=True``): its step count and bias corrections
+    become device arithmetic, which a CUDA graph can hold. A phase that may
+    run chunked takes it in the per-epoch loop too, so that
+    ``train.chunk=1`` and ``auto`` step the same arithmetic."""
+    if isinstance(optimizer, torch.optim.Adam):
+        for group in optimizer.param_groups:
+            group["capturable"] = any(p.is_cuda for p in group["params"])
+
+
+def init_adam_state(optimizer: torch.optim.Adam) -> None:
+    """Adam's state made before its first step, as that step makes it (a
+    zero f32 step count, on the device when capturable, and zero moments):
+    a CUDA graph's capture must not allocate it, and a chunk's snapshot
+    needs its tensors."""
+    for group in optimizer.param_groups:
+        for p in group["params"]:
+            if not optimizer.state[p]:
+                step_device = p.device if group["capturable"] else "cpu"
+                optimizer.state[p] = {
+                    "step": torch.zeros((), dtype=torch.float32, device=step_device),
+                    "exp_avg": torch.zeros_like(p, memory_format=torch.preserve_format),
+                    "exp_avg_sq": torch.zeros_like(p, memory_format=torch.preserve_format),
+                }
 
 
 def step(optimizer: torch.optim.Optimizer, loss: torch.Tensor, params: Sequence[torch.Tensor],
@@ -194,6 +252,266 @@ def restore_loop_state(state: Dict, params, optimizer, bold, conv, tracker, gene
     generator.set_state(state["generator"])
 
 
+def run_epoch(params, optimizer, loss_fn: Callable, batches, generator: torch.Generator,
+              after_step: Optional[Callable] = None, mesh=None) -> torch.Tensor:
+    """One epoch of steps over ``batches`` (each tensor (num_batches, ...)):
+    the epoch's summed loss as a 0-d device tensor (summed over ``data`` on
+    a mesh). Every strategy runs its epochs through this function."""
+    total = torch.zeros((), dtype=torch.float32, device=batches[0].device)
+    for k in range(batches[0].shape[0]):
+        loss = loss_fn(tuple(t[k] for t in batches), generator)
+        optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        if mesh is not None:
+            reduce_gradients(params, mesh)
+        optimizer.step()
+        if after_step is not None:
+            after_step()
+        total = total + loss.detach()
+    if mesh is not None:
+        all_reduce_sum(total, mesh.data_group)
+    return total
+
+
+class DeviceVote:
+    """The tracker's majority vote kept on the device (the JAX package's
+    ``ChunkedEvalLoop`` state, trainer.py:313-393): the best metrics vector
+    in ``METRIC_KEYS`` order, the best epoch (1-based, as
+    :class:`BestTracker`'s), the best parameters in buffers of their own,
+    and the absolute index of the next epoch. Seeded from ``tracker`` when
+    it holds a best already (a phase of a multi-phase fit), else from -inf,
+    which makes the first epoch win; :meth:`write_back` hands the result to
+    the tracker."""
+
+    def __init__(self, params: Sequence[torch.Tensor], tracker: "BestTracker", next_epoch: int):
+        device = params[0].device
+        if tracker.best_metrics is not None and tracker.best_params is not None:
+            self.vec = torch.tensor([tracker.best_metrics[k] for k in METRIC_KEYS],
+                                    dtype=torch.float32, device=device)
+            self.params = [b.detach().clone() for b in tracker.best_params]
+            self.epoch = torch.full((), tracker.best_epoch, dtype=torch.int64, device=device)
+        else:
+            self.vec = torch.full((len(METRIC_KEYS),), -math.inf, dtype=torch.float32,
+                                  device=device)
+            self.params = [p.detach().clone() for p in params]
+            self.epoch = torch.zeros((), dtype=torch.int64, device=device)
+        self.next_epoch = torch.full((), next_epoch, dtype=torch.int64, device=device)
+
+    def tensors(self) -> List[torch.Tensor]:
+        return [self.vec, self.epoch, self.next_epoch, *self.params]
+
+    def vote(self, vec: torch.Tensor, params: Sequence[torch.Tensor]) -> None:
+        """:meth:`BestTracker.update` on the device: count = Σ(best > new) −
+        Σ(best <= new), the epoch wins iff count < 0; the winner's
+        parameters are selected into the buffers with ``where``."""
+        win = torch.where(self.vec > vec, 1, -1).sum() < 0
+        for b, p in zip(self.params, params):
+            b.copy_(torch.where(win, p.detach(), b))
+        self.vec.copy_(torch.where(win, vec, self.vec))
+        self.epoch.copy_(torch.where(win, self.next_epoch + 1, self.epoch))
+        self.next_epoch.add_(1)
+
+    def write_back(self, tracker: "BestTracker") -> None:
+        """The vote's result onto ``tracker`` (one host read), when its
+        vector is finite, i.e. when some epoch won."""
+        vec = self.vec.tolist()
+        if all(math.isfinite(v) for v in vec):
+            tracker.best_metrics = dict(zip(METRIC_KEYS, vec))
+            tracker.best_epoch = int(self.epoch)
+            tracker.best_params = self.params
+
+
+class LoopState:
+    """The chunked loops' committed state (the JAX package's ``LoopState``,
+    trainer.py:242-267): the epoch and a copy, taken at that epoch's
+    boundary, of everything an epoch changes in place, namely the parameters,
+    the optimizer's state, the generator's state and the device vote's.
+    INVARIANT: ``commit`` runs only after the host has read a chunk's
+    losses, which proves its dispatches ran; a chunk that fails calls
+    ``rollback``, which puts the copy back in place, so the state is the
+    last committed boundary's, bit for bit."""
+
+    def __init__(self, epoch: int, params: Sequence[torch.Tensor], optimizer,
+                 generator: torch.Generator, vote: Optional[DeviceVote] = None):
+        self.params = list(params)
+        self.optimizer = optimizer
+        self.generator = generator
+        self.vote = vote
+        self.commit(epoch)
+
+    def tensors(self) -> List[torch.Tensor]:
+        out = list(self.params)
+        for p in self.params:
+            state = self.optimizer.state[p]
+            out += [state[k] for k in sorted(state) if isinstance(state[k], torch.Tensor)]
+        return out + (self.vote.tensors() if self.vote is not None else [])
+
+    def commit(self, epoch: int) -> None:
+        self.epoch = epoch
+        self._saved = [t.detach().clone() for t in self.tensors()]
+        self._generator = self.generator.get_state()
+
+    def rollback(self) -> None:
+        with torch.no_grad():
+            for t, saved in zip(self.tensors(), self._saved):
+                t.copy_(saved)
+        self.generator.set_state(self._generator)
+
+
+class EpochProgram:
+    """One epoch as the chunked loops run it: its batches (the sampler's, or
+    the injected arrays copied into fixed buffers), its steps
+    (:func:`run_epoch`), the summed loss into ``loss``, and with a ``vote``
+    the quick evaluation (``evaluate() -> (4,) f32`` in ``METRIC_KEYS``
+    order) into ``vec`` and the vote.
+
+    On a CUDA device :meth:`capture` records the epoch once into a CUDA
+    graph on a side stream, after one warm-up epoch on that stream (it
+    sizes the kernels' scratch, which is kept per stream, and makes the
+    libraries' handles) whose effects are rolled back, launch counts
+    included; the generator is registered with the graph, so that every
+    replay draws what an eager epoch would draw. No host read can hide in
+    the epoch: the warm-up runs under CUDA's sync-debug mode "error", and
+    the capture itself fails on one. :meth:`run` replays the graph and
+    counts its kernel launches (``ops/kernels.GraphLaunches``). On the CPU
+    :meth:`run` runs the epoch as written."""
+
+    def __init__(self, state: LoopState, loss_fn: Callable, sampler: Callable, device, *,
+                 epoch_batches: Optional[Sequence] = None, after_step: Optional[Callable] = None,
+                 evaluate: Optional[Callable] = None):
+        self.state = state
+        self.loss_fn = loss_fn
+        self.sampler = sampler
+        self.device = torch.device(device)
+        self.epoch_batches = epoch_batches
+        self.after_step = after_step
+        self.evaluate = evaluate
+        self.loss = torch.zeros((), dtype=torch.float32, device=self.device)
+        self.vec = torch.zeros(len(METRIC_KEYS), dtype=torch.float32, device=self.device)
+        self.graph = None
+        self.launches = None
+        self._batches = None
+
+    def _load(self, epoch: int) -> None:
+        """The injected arrays of ``epoch`` into the fixed buffers."""
+        batches = as_device_batches(self.epoch_batches[epoch], "cpu")
+        if self._batches is None:
+            self._batches = tuple(torch.empty_like(t, device=self.device) for t in batches)
+        for buf, t in zip(self._batches, batches):
+            buf.copy_(t)
+
+    def _body(self) -> None:
+        st = self.state
+        batches = self._batches if self.epoch_batches is not None else self.sampler(st.generator)
+        self.loss.copy_(run_epoch(st.params, st.optimizer, self.loss_fn, batches, st.generator,
+                                  self.after_step))
+        if self.evaluate is not None:
+            with torch.no_grad():
+                vec = self.evaluate()
+                self.vec.copy_(vec)
+                st.vote.vote(vec, st.params)
+
+    def capture(self, epoch: int) -> None:
+        """Warm up and capture at the committed boundary ``epoch``."""
+        if self.epoch_batches is not None:
+            self._load(epoch)
+        counts = K.launch_counts()
+        stream = torch.cuda.Stream(self.device)
+        stream.wait_stream(torch.cuda.current_stream(self.device))
+        try:
+            with torch.cuda.stream(stream), _host_reads_refused():
+                self._body()
+        finally:
+            torch.cuda.current_stream(self.device).wait_stream(stream)
+            K.set_launch_counts(counts)
+        self.state.rollback()
+        graph = torch.cuda.CUDAGraph()
+        graph.register_generator_state(self.state.generator)
+        launches = K.GraphLaunches()
+        with launches.record(), torch.cuda.graph(graph, stream=stream):
+            self._body()
+        self.graph, self.launches = graph, launches
+
+    def run(self, epoch: int) -> None:
+        if self.epoch_batches is not None:
+            self._load(epoch)
+        if self.device.type != "cuda":
+            self._body()
+            return
+        if self.graph is None:
+            raise RuntimeError("EpochProgram.run before capture")
+        self.graph.replay()
+        self.launches.add()
+
+
+@contextlib.contextmanager
+def _host_reads_refused():
+    """CUDA's sync-debug mode "error" over the block: a host read inside
+    it raises."""
+    before = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(before)
+
+
+class ChunkedLoop:
+    """``chunk`` epochs a dispatch, one host read a chunk (the JAX
+    package's ``ChunkedLoop`` and, with a vote, its ``ChunkedEvalLoop``,
+    trainer.py:281-393). The chunk's epochs write their losses (and
+    measures) into one device buffer, which the host reads once after the
+    last; the epoch lines follow, each with the chunk's wall / E (" incl.
+    eval" when the evaluation ran inside). A failure inside a chunk rolls
+    the state back to the chunk's start and propagates."""
+
+    def __init__(self, program: EpochProgram, chunk: int, *, timer: StepTimer,
+                 emit: Optional[Callable], lr: float):
+        self.program = program
+        self.chunk = chunk
+        self.timer = timer
+        self.emit = emit
+        self.lr = lr
+        self.out = torch.zeros((chunk, 1 + len(METRIC_KEYS)), dtype=torch.float32,
+                               device=program.device)
+
+    def run(self, st: LoopState, max_epoch: int) -> List[float]:
+        prog = self.program
+        losses: List[float] = []
+        if prog.device.type == "cuda" and prog.graph is None and st.epoch < max_epoch:
+            try:
+                with self.timer.capture():
+                    prog.capture(st.epoch)
+            except BaseException:
+                st.rollback()
+                raise
+        fused = prog.evaluate is not None
+        while st.epoch < max_epoch:
+            e = min(self.chunk, max_epoch - st.epoch)
+            try:
+                with self.timer.chunk(e):
+                    for k in range(e):
+                        prog.run(st.epoch + k)
+                        self.out[k, 0].copy_(prog.loss)
+                        if fused:
+                            self.out[k, 1:].copy_(prog.vec)
+                    # the chunk's one host read: it proves the chunk ran
+                    rows = self.out[:e].tolist()
+            except BaseException:
+                st.rollback()
+                raise
+            base = st.epoch
+            st.commit(base + e)
+            wall = self.timer.last
+            for k, row in enumerate(rows):
+                check_finite(row[0])
+                losses.append(row[0])
+                if self.emit is not None:
+                    metrics = dict(zip(METRIC_KEYS, row[1:])) if fused else None
+                    self.emit(base + k, row[0], self.lr, wall, metrics, eval_fused=fused)
+        return losses
+
+
 def train(
     params: Sequence[torch.Tensor],
     loss_fn: Callable,
@@ -215,6 +533,9 @@ def train(
     resume: Optional[Dict] = None,
     checkpoint: Optional[Callable[[int, Dict], None]] = None,
     mesh=None,
+    chunk: int = 1,
+    eval_vector: Optional[Callable] = None,
+    capturable: bool = False,
 ) -> Tuple[List[float], StepTimer]:
     """Train ``params`` in place; return the per-epoch summed losses of the
     epochs run (fewer than ``max_epoch - start_epoch`` when the bold mode
@@ -232,13 +553,27 @@ def train(
     ``quick_eval() -> metrics``, the measures of each epoch (taken outside
     its timing) join its line; with ``tracker`` too, the parameters of a
     winning epoch are copied into ``tracker.best_params``.
-    ``emit(epoch, loss, lr, seconds, metrics)`` prints the epoch line with
-    the learning rate in force during the epoch. ``after_step()`` runs after
-    every optimizer step (BUIR's momentum target). ``resume`` (a
-    :func:`loop_state` saved after epoch ``start_epoch``) is restored
-    before the first epoch, which is then ``start_epoch``;
-    ``checkpoint(epoch, state)`` runs after every epoch that does not end
-    the bold mode's training, once its rate is updated.
+    ``emit(epoch, loss, lr, seconds, metrics, eval_fused=False)`` prints
+    the epoch line with the learning rate in force during the epoch.
+    ``after_step()`` runs after every optimizer step (BUIR's momentum
+    target). ``resume`` (a :func:`loop_state` saved after epoch
+    ``start_epoch``) is restored before the first epoch, which is then
+    ``start_epoch``; ``checkpoint(epoch, state)`` runs after every epoch
+    that does not end the bold mode's training, once its rate is updated.
+
+    ``chunk`` > 1 runs the epochs in chunks of that many
+    (:class:`ChunkedLoop`) when more than one epoch is left; it needs the
+    ``adam`` mode and no checkpoint, resume or mesh, as the JAX package
+    chunks. With a ``tracker`` it takes ``eval_vector() -> (4,) f32``, the
+    quick evaluation in ``METRIC_KEYS`` order, in place of ``quick_eval``,
+    and votes on the device. ``capturable`` (:func:`make_capturable`) is
+    on for a phase that may run chunked, whatever ``chunk`` is. Without a
+    chunk and without a ``quick_eval``, an ``adam`` run reads epoch e's
+    loss after it has enqueued epoch e+1 (lag-1: its line and its NaN abort
+    come one epoch later). Its timer then does not synchronise, so the
+    host enqueues epoch e+1 while the device finishes epoch e: epoch e's
+    interval holds its enqueue and the wait for epoch e-1's loss, the last
+    one also the wait for its own.
 
     On a ``mesh`` (``parallel/mesh.py``) each step's loss is this rank's
     share: the gradients are summed over ``data`` between the backward and
@@ -248,32 +583,60 @@ def train(
     one-process loss, the same bits on every rank.
     """
     optimizer = make_optimizer(params, mode, lr)
+    if capturable:
+        make_capturable(optimizer)
     bold = BoldDriver(lr, max_lr) if mode == "bold" else None
     conv = ConvergenceMonitor() if mode == "bold" else None
     if resume is not None:
         restore_loop_state(resume, params, optimizer, bold, conv, tracker, generator)
-    timer = StepTimer(examples_per_epoch, device)
+    chunked = chunk > 1 and max_epoch - start_epoch > 1
+    pipelined = not chunked and mode == "adam" and quick_eval is None
+    timer = StepTimer(examples_per_epoch, device, sync=not pipelined)
+    if chunked:
+        if mode != "adam" or checkpoint is not None or resume is not None or mesh is not None:
+            raise ValueError("train.chunk > 1 needs the adam mode, no checkpoint and no mesh")
+        if tracker is not None and eval_vector is None:
+            raise ValueError("a chunked run with a tracker needs eval_vector")
+        init_adam_state(optimizer)
+        vote = (DeviceVote(params, tracker, start_epoch + tracker.epoch_offset)
+                if tracker is not None else None)
+        st = LoopState(start_epoch, params, optimizer, generator, vote)
+        program = EpochProgram(st, loss_fn, sampler, device, epoch_batches=epoch_batches,
+                               after_step=after_step,
+                               evaluate=eval_vector if vote is not None else None)
+        loop = ChunkedLoop(program, chunk, timer=timer, emit=emit, lr=lr)
+        losses = loop.run(st, max_epoch)
+        if vote is not None:
+            vote.write_back(tracker)
+        return losses, timer
     losses: List[float] = []
+    pending = None  # lag-1: (epoch, device loss) not yet read
     for epoch in range(start_epoch, max_epoch):
         with timer:
             if epoch_batches is not None:
                 batches = as_device_batches(epoch_batches[epoch], device)
             else:
                 batches = sampler(generator)
-            total = torch.zeros((), dtype=torch.float32, device=device)
-            for step in range(batches[0].shape[0]):
-                loss = loss_fn(tuple(t[step] for t in batches), generator)
-                optimizer.zero_grad(set_to_none=True)
-                loss.backward()
-                if mesh is not None:
-                    reduce_gradients(params, mesh)
-                optimizer.step()
-                if after_step is not None:
-                    after_step()
-                total = total + loss.detach()
-            if mesh is not None:
-                all_reduce_sum(total, mesh.data_group)
-            loss_val = float(total)
+            total = run_epoch(params, optimizer, loss_fn, batches, generator, after_step, mesh)
+            if pipelined:
+                # epoch e-1's loss, read once epoch e is enqueued; the last
+                # epoch's own too
+                ready = [] if pending is None else [pending]
+                pending = (epoch, total)
+                if epoch == max_epoch - 1:
+                    ready, pending = ready + [pending], None
+                read = [(e, float(t)) for e, t in ready]
+            else:
+                loss_val = float(total)
+        if pipelined:
+            for e, val in read:
+                check_finite(val)
+                losses.append(val)
+                if emit is not None:
+                    emit(e, val, lr, timer.times[e - start_epoch], None)
+            if checkpoint is not None:
+                checkpoint(epoch, loop_state(params, optimizer, bold, conv, tracker, generator))
+            continue
         if conv is None:
             # the bold mode checks inside conv.check below
             check_finite(loss_val)

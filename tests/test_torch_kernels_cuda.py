@@ -1375,3 +1375,110 @@ def test_topk_kernel_on_user_shards(cuda_device, parts, biased):
                                           k, **bias)
         assert K.TOPK.launches == before + 1
         assert torch.equal(ids, whole_ids[s0:s1]) and _same_bits(vals, whole[s0:s1])
+
+
+@pytest.mark.cuda
+def test_scratch_is_sized_before_capture(cuda_device):
+    """A kernel's scratch that a capture would have to allocate raises; a
+    warm-up call on the capture's stream sizes it, and the captured call's
+    replays are counted."""
+    v = torch.nn.functional.normalize(torch.randn(96, 16, device="cuda"), dim=1)
+    m = torch.ones(96, device="cuda")
+    # the kernel's plan and module first, on the default stream: what a
+    # capture may not do for the first time is size the scratch
+    K.infonce_fwd(v, v, m, m, 0.2)
+    torch.cuda.synchronize()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with pytest.raises(RuntimeError, match="not sized before capture"):
+        with K.GraphLaunches().record(), torch.cuda.graph(graph, stream=stream):
+            K.infonce_fwd(v, v, m, m, 0.2)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        want, _ = K.infonce_fwd(v, v, m, m, 0.2)
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    launches = K.GraphLaunches()
+    before = K.INFONCE_FWD.launches
+    with launches.record(), torch.cuda.graph(graph, stream=stream):
+        got, _ = K.infonce_fwd(v, v, m, m, 0.2)
+    for _ in range(3):
+        graph.replay()
+        launches.add()
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert K.INFONCE_FWD.launches - before == 3
+    assert int(K.infonce_fwd_counters("cuda").abs().sum()) == 0
+
+
+# train.chunk on the card: a chunk's epochs replay one CUDA graph, the
+# losses, parameters and best epoch those of the per-epoch loop bit for bit
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,args,backend", [
+    ("LightGCN", "-n_layer 2", "auto"),
+    ("LightGCN", "-n_layer 2", "pallas"),
+    ("NGCF", "", "auto"),
+    ("SimGCL", "-n_layer 2 -lambda 0.05 -eps 0.1", "auto"),
+    ("SGL", "-n_layer 2 -lambda 0.05 -droprate 0.2 -augtype 1 -temp 0.2", "auto"),
+    ("SGL", "-n_layer 2 -lambda 0.05 -droprate 0.2 -augtype 0 -temp 0.2", "pallas"),
+])
+def test_chunked_graphs_match_per_epoch_on_card(cuda_device, tmp_path, name, args, backend):
+    rng = np.random.RandomState(0)
+    path = tmp_path / "ratings.txt"
+    path.write_text("".join(
+        f"u{u} i{i} 1\n" for u in range(40)
+        for i in rng.choice(15, size=10, replace=False) + (0 if u < 20 else 15)))
+    runs = {}
+    for chunk in ("1", "3"):
+        conf = ModelConf({
+            "ratings": str(path), "ratings.setup": "-columns 0 1 2", "model.name": name,
+            "evaluation.setup": "-ap 0.2", "item.ranking": "on -topN 10", "num.factors": "16",
+            "num.max.epoch": "5", "batch_size": "64", "learnRate": "-init 0.05 -max 1",
+            "reg.lambda": "-u 0.001 -i 0.001 -b 0.1 -s 0.1", name: args,
+            "graph.backend": backend, "output.setup": "off -dir ./results/", "seed": "7",
+            "train.chunk": chunk,
+        })
+        rec = QRec(conf, seed=3)
+        rec.execute()
+        m = rec.model
+        runs[chunk] = (m.epoch_losses, [p.detach().clone() for p in m.parameters()],
+                       None if m.tracker is None else (m.tracker.best_epoch, m.tracker.best_metrics),
+                       m.phase_timers[0])
+    (l1, p1, b1, t1), (l3, p3, b3, t3) = runs["1"], runs["3"]
+    assert len(t3.captures) == 1 and [e for _, e in t3.chunks] == [3, 2]
+    assert t1.captures == [] and [e for _, e in t1.chunks] == [1] * 5
+    assert l3 == l1 and b3 == b1
+    assert all(torch.equal(a, b) for a, b in zip(p3, p1))
+
+
+@pytest.mark.cuda
+def test_a_host_read_in_a_chunked_epoch_raises(cuda_device):
+    """A step that reads the host fails the chunk's warm-up epoch (CUDA's
+    sync-debug mode "error") before any capture: the error propagates, the
+    loop state stays at its boundary and the process's sync-debug mode is
+    put back."""
+    from qrec_tpu_torch.runtime import trainer as T
+    from qrec_tpu_torch.runtime.profiling import StepTimer
+
+    w = torch.nn.Parameter(torch.ones(8, device="cuda"))
+    batches = (torch.zeros((2, 4), device="cuda"),)
+
+    def loss_fn(batch, gen):
+        loss = ((w - batch[0].sum()) ** 2).sum()
+        float(loss)  # a host read
+        return loss
+
+    opt = T.make_optimizer([w], "adam", 0.1)
+    T.make_capturable(opt)
+    T.init_adam_state(opt)
+    st = T.LoopState(0, [w], opt, torch.Generator(device="cuda").manual_seed(0))
+    prog = T.EpochProgram(st, loss_fn, lambda gen: batches, "cuda")
+    loop = T.ChunkedLoop(prog, 2, timer=StepTimer(1, "cuda"), emit=None, lr=0.1)
+    mode = torch.cuda.get_sync_debug_mode()
+    with pytest.raises(RuntimeError, match="synchroniz"):
+        loop.run(st, 4)
+    assert torch.cuda.get_sync_debug_mode() == mode
+    assert st.epoch == 0 and prog.graph is None and loop.timer.captures == []
+    assert torch.equal(w.detach(), torch.ones(8, device="cuda"))
