@@ -48,6 +48,10 @@ Phases, each of which exits non-zero on failure:
    itself, its split-row counters back at 0) and against K1 on the same
    graph, timed in turns with ``torch.sparse.mm``, one CUDA kernel a call,
    the gather floor, and one more yelp epoch under ``torch.profiler``;
+7b. ``train.chunk`` for the graph family (``chunk_phases``): the LightGCN,
+   SimGCL and yelp2018 runs above, chunked under ``auto``, against
+   ``train.chunk=1`` bit for bit; each kernel inside a CUDA graph; LightGCN
+   timed in turns under both; one profiled chunk of each path;
 8. the MF slice and the reference's protocols (``mf_phases``):
    ``config/BPR.conf`` as published, 5 epochs of bold-driver SGD, its
    ranking held as the main path's; ``config/SVD.conf`` on a
@@ -81,6 +85,14 @@ Phases, each of which exits non-zero on failure:
    matrices applied as ``DenseMat`` and as ``DeviceCOO``, timed in turns,
    the latter bit for bit against a repeat; one MHCN and one DHCF epoch
    under ``torch.profiler``;
+10b. ``train.chunk`` for the social-graph and deep families
+   (``family_chunk_phases``): the chunked MHCN (the slice's main path),
+   SEPT (both phases), DiffNet, DHCF and CDAE runs above, NeuMF and APR on
+   the FilmTrust-shaped file and DMF at the lastfm shape, each against
+   ``train.chunk=1`` bit for bit; K2 inside MHCN's evaluation graph, K1 and
+   K2 inside SEPT's; MHCN, SEPT's two phases, DHCF and NeuMF's fused phase
+   timed in turns under both; one profiled chunk of MHCN, DHCF and NeuMF's
+   fused phase;
 11. the rest of the social family (``social_rest_phases``): SoRec, SoReg,
    SocialMF, RSTE, LOCABAL, SREE and SocialFD on a FilmTrust-shaped file
    with a FilmTrust-shaped trust file (``filmtrust_trust``: 1,853 links),
@@ -987,20 +999,20 @@ def mf_phases(torch, K, QRec, timer, tmp, conf_of):
 # the deep and GAN slice's depth on the card: each config/*.conf at its
 # published widths, with these epochs, those of the mesh runs that reuse
 # these runs in parallel_phases: the least for NeuMF (1 a phase), APR (1 +
-# 1) and DMF, whose 4-rank epochs cost 0.3-21 s (their loss-falls check is
-# left out: SHORT_PHASES); CFGAN's 2, its mesh run's, since its one phase is
-# a minimax game, which the check skips
+# 1) and DMF, whose 4-rank epochs cost 0.3-21 s (their loss falls in the
+# runs of family_chunk_phases: NeuMF and APR on the FilmTrust-shaped file,
+# DMF 2 epochs); CFGAN's 2, its mesh run's, since its one phase is a
+# minimax game, which the check skips
 DEEP_EPOCHS = {"NeuMF": 1, "APR": 2, "IRGAN": 2, "DMF": 1, "CDAE": 100, "CFGAN": 2}
 # phases whose loss is one side of a minimax game and need not fall epoch
 # by epoch: a GAN's D and G losses; APR's perturbed phase, whose worst-case
 # deltas grow with the tables (its loss rises in the JAX package too)
 MINIMAX_PHASES = {"APR": (1,), "CFGAN": (0,), "IRGAN": (0,), "RSGAN": (0,)}
 # phases that this script trains too briefly for drive's loss-falls check
-# in every run of the model, by design: one epoch a phase at the mesh
-# runs' depth (NeuMF, APR's base phase, DMF; ESRF, whose phases take
-# max_epoch // 3 epochs each), SEPT's warm-up (max(1, max_epoch // 3)
-# epochs). Any other phase that no run checks fails the script
-SHORT_PHASES = {"NeuMF": (0, 1, 2), "APR": (0,), "DMF": (0,), "ESRF": (0, 1, 2), "SEPT": (0,)}
+# in every run of the model, by design: ESRF's, one epoch a phase at the
+# mesh run's depth (its phases take max_epoch // 3 epochs each). Any other
+# phase that no run checks fails the script
+SHORT_PHASES = {"ESRF": (0, 1, 2)}
 # the phases drive checked and those it found too short, by model
 FALLS = {"checked": {}, "short": {}}
 # phases checked from their second epoch on: every phase reseeds the
@@ -1048,7 +1060,7 @@ def block_ranking_phase(torch, label, model, k, users: int = 256):
         fail(f"{label}: the score-block ranking disagrees with the CPU")
 
 
-def deep_phases(torch, K, QRec, timer, conf_of):
+def deep_phases(torch, K, QRec, timer, conf_of, chunked):
     """The deep and GAN slice on the card: NeuMF, APR, IRGAN, DMF, CDAE and
     CFGAN, each driven through ``QRec(conf).execute()`` with its config at
     its published widths and the depth of ``DEEP_EPOCHS``, its launches
@@ -1059,9 +1071,10 @@ def deep_phases(torch, K, QRec, timer, conf_of):
     score-block rankings of NeuMF, DMF, CDAE and CFGAN against the CPU; one
     more NeuMF epoch (the fused phase: host-bound pointwise steps) and one
     more CFGAN epoch (the (I, I) products) under torch.profiler; a summary
-    line. Returns (K2 launches per path, K2 checks, K2 timings, the
-    one-process records of the six for the mesh phase, APR's and IRGAN's
-    with their models)."""
+    line. CDAE's run (chunked: ``CHUNKED_FAMILY``) goes into ``chunked`` for
+    ``family_chunk_phases``. Returns (K2 launches per path, K2 checks, K2
+    timings, the one-process records of the six for the mesh phase, APR's,
+    IRGAN's and NeuMF's with their models)."""
     launches, k2r, k2t, summary, ones = {}, {}, {}, {}, {}
     for name, epochs in DEEP_EPOCHS.items():
         label = name.lower()
@@ -1078,6 +1091,8 @@ def deep_phases(torch, K, QRec, timer, conf_of):
         ones[label] = one_process_record(conf, model, measures)
         if label in KEPT:  # route 7 is timed on APR's and IRGAN's factors
             ones[label]["model"] = model
+        if name in CHUNKED_FAMILY:
+            chunked[label] = (conf, chunk_record(model), epochs, name)
         if name in ("APR", "IRGAN"):
             launches[label] = counts["masked_catalog_topk"]
             k2r[label] = ranking_phase(torch, K, label, model, 10)
@@ -1101,9 +1116,10 @@ def deep_phases(torch, K, QRec, timer, conf_of):
 
 
 # the social slice's depth on the card, the least at which drive checks
-# that each phase's loss falls (SEPT's 4: one warm-up epoch, then three
-# joint ones, the last two on batches no phase has seen)
-SOCIAL_EPOCHS = {"MHCN": 2, "SEPT": 4, "BUIR": 2, "DiffNet": 2, "DHCF": 2}
+# that each phase's loss falls and every chunked phase runs a chunk of two
+# epochs or more (SEPT's 6: two warm-up epochs, then four joint ones, the
+# last three on batches no phase has seen)
+SOCIAL_EPOCHS = {"MHCN": 2, "SEPT": 6, "BUIR": 2, "DiffNet": 2, "DHCF": 2}
 
 
 def trust_links(num_users: int, links: int, communities: int, mutual: float, seed: int) -> np.ndarray:
@@ -1259,7 +1275,7 @@ def aux_forms_phase(torch, timer, model):
     return out
 
 
-def social_phases(torch, K, QRec, timer, conf_of, trust_path):
+def social_phases(torch, K, QRec, timer, conf_of, trust_path, chunked):
     """The social slice: LightGCN on the bf16 form (2 epochs, then K1's
     bf16-Ŝ route, :func:`bf16_phase`), on the legacy int8 form and on
     ``graph.backend=coo`` (1 epoch each); then MHCN, SEPT, BUIR, DiffNet and
@@ -1270,9 +1286,10 @@ def social_phases(torch, K, QRec, timer, conf_of, trust_path):
     steady epoch ms per phase, and its ranking checked as the main path's;
     MHCN's matrices as ``DenseMat`` and as ``DeviceCOO``
     (:func:`aux_forms_phase`); one more MHCN and DHCF epoch under
-    torch.profiler. Returns (K1 bf16 dict, bf16 run's K1
-    launches, K2 launches per path, K2 checks, the one-process records of
-    the five for the mesh phase)."""
+    torch.profiler. The chunked runs (``CHUNKED_FAMILY``) go into
+    ``chunked`` for ``family_chunk_phases``. Returns (K1 bf16 dict, bf16
+    run's K1 launches, K1 launches per social path, K2 launches per path,
+    K2 checks, the one-process records of the five for the mesh phase)."""
     from qrec_tpu_torch.ops.spmm import DenseMat, DeviceCOO
 
     forms = (("lightgcn-bf16", {"graph.dense.quant": "off", "graph.dense.dual": "on"}, 2),
@@ -1289,7 +1306,7 @@ def social_phases(torch, K, QRec, timer, conf_of, trust_path):
             k1b_launches = counts["bipartite_dual_matmul"]
             k1b = bf16_phase(torch, K, timer, model, k1b_launches)
         del model
-    summary, ones = {}, {}
+    summary, ones, k1_social = {}, {}, {}
     for name, epochs in SOCIAL_EPOCHS.items():
         conf = conf_of(name, epochs)
         if conf.contains("social"):
@@ -1311,7 +1328,11 @@ def social_phases(torch, K, QRec, timer, conf_of, trust_path):
         summary[name] = dict(epoch_ms=steady, recall=measures["Recall"], ndcg=measures["NDCG"],
                              rank_ms=model.rank_seconds * 1e3, graph_s=model.graph_seconds)
         ones[label] = one_process_record(conf, model, measures)
+        if name in CHUNKED_FAMILY:
+            chunked[label] = (conf, chunk_record(model), epochs, name)
         launches[label] = counts["masked_catalog_topk"]
+        if counts["bipartite_dual_matmul"]:  # SEPT's rec view, BUIR's final factors
+            k1_social[label] = counts["bipartite_dual_matmul"]
         k2r[label] = ranking_phase(torch, K, label, model, 10)
         if name == "MHCN":
             aux_forms_phase(torch, timer, model)
@@ -1322,7 +1343,7 @@ def social_phases(torch, K, QRec, timer, conf_of, trust_path):
         f"{n}: epoch_ms={v['epoch_ms']} Recall@10={v['recall']} NDCG@10={v['ndcg']} "
         f"rank_ms={v['rank_ms']:.3f} graph_s={v['graph_s']:.3f};" for n, v in summary.items()),
         flush=True)
-    return k1b, k1b_launches, launches, k2r, ones
+    return k1b, k1b_launches, k1_social, launches, k2r, ones
 
 
 # the rest of the social family's depth on the card, each config/ file at
@@ -1958,7 +1979,7 @@ DATA_PARALLEL = {
     "DMF": (1, "negatives", "every parameter"),
     "CDAE": (1, None, "enc_w, dec_w, enc_b and dec_b")}
 # the one-process models that later timings and the NCCL phase read
-KEPT = ("lightgcn-pallas", "simgcl-pallas", "lightgcn", "irgan", "svd ranked", "apr")
+KEPT = ("lightgcn-pallas", "simgcl-pallas", "lightgcn", "irgan", "svd ranked", "apr", "neumf")
 # the lifecycle on the four ranks: (label, epochs, checkpoint.setup on,
 # model.setup) after the unbroken "lightgcn" run, in this order
 PARALLEL_LIFECYCLE = (
@@ -3187,12 +3208,27 @@ def planted_check(torch, tmp, ModelConf, QRec, parse_measure, name, args, extra=
         fail(f"planted-block {name} run reached Recall@10={recall} <= {floor}")
 
 
+def device_ms_by_name(prof) -> dict:
+    """Device time by kernel name (ms) of a finished torch.profiler run,
+    summed over its device activities but user annotations (the
+    optimizer's step range spans kernels already counted): what
+    ``key_averages()``'s device rows hold, read from the profiler's raw
+    events, whose conversion to ``key_averages()`` took tens of seconds on
+    a chunk of graph replays."""
+    from torch.autograd import DeviceType
+
+    out = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA and not e.is_user_annotation():
+            out[e.name()] = out.get(e.name(), 0.0) + e.duration_ns() / 1e6
+    return out
+
+
 def profile_epoch(torch, model, label, epoch=None):
     """One more training epoch under torch.profiler: device time by kernel
     and the device's busy share of the epoch's wall time, with the InfoNCE
     kernels' and K5's device ms. ``epoch`` runs the epoch (by default one
     epoch of the model's single-phase spec)."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from qrec_tpu_torch.runtime import trainer as T
@@ -3211,13 +3247,7 @@ def profile_epoch(torch, model, label, epoch=None):
         epoch()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    # device-side kernels only: a user annotation such as the optimizer's
-    # step range spans kernels already counted
-    kernels = [
-        e for e in prof.key_averages()
-        if e.device_type == DeviceType.CUDA and not e.is_user_annotation
-    ]
-    busy = {e.key: e.self_device_time_total / 1e3 for e in kernels}  # us -> ms
+    busy = device_ms_by_name(prof)
     total = sum(busy.values())
     infonce = sum(ms for name, ms in busy.items() if "infonce" in name)
     k4 = sum(ms for name, ms in busy.items() if "infonce_bwd" in name)
@@ -3239,29 +3269,46 @@ def chunk_record(model) -> dict:
     graphs and their capture s, the (wall s, epochs) of every chunk)."""
     t = getattr(model, "tracker", None)
     timer = model.timer
+    clone = lambda x: None if x is None else x.detach().clone()  # noqa: E731
     return dict(
         losses=list(model.epoch_losses),
         params={k: v.detach().clone() for k, v in model.named_parameters()},
-        U=model.U.clone(), V=model.V.clone(),
+        U=clone(model.U), V=clone(model.V),
         best=None if t is None else (t.best_epoch, dict(t.best_metrics),
                                      [b.clone() for b in t.best_params]),
         graphs=sum(len(pt.captures) for pt in model.phase_timers),
         capture_s=sum(sum(pt.captures) for pt in model.phase_timers),
+        phase_captures=[list(pt.captures) for pt in model.phase_timers],
         chunks=[c for pt in model.phase_timers for c in pt.chunks],
+        phase_chunks=[[e for _, e in pt.chunks] for pt in model.phase_timers],
         times=list(timer.times))
 
 
-def check_chunked(label, rec, epochs: int, chunk: int = 8) -> None:
-    """A run that ``train.chunk=auto`` chunked: one CUDA graph, each chunk's
-    epochs as ``train`` cut them (``profile_chunk`` counts a chunk's host
-    reads)."""
-    want = [min(chunk, epochs - k) for k in range(0, epochs, chunk)] if epochs > 1 else []
-    got = [e for _, e in rec["chunks"]] if epochs > 1 else []
+# the epochs of each run_training phase of a model trained for E epochs
+# (the JAX package's phase lengths): one phase of E where not listed
+PHASE_EPOCHS = {
+    "NeuMF": lambda e: [e, max(1, e // 2), max(1, e // 5)],
+    "APR": lambda e: [max(1, e // 2)] * 2,
+    "SEPT": lambda e: [max(1, int(e / 3)), max(1, e - max(1, int(e / 3)))],
+}
+
+
+def check_chunked(label, rec, epochs: int, chunk: int = 8, name: str = "") -> None:
+    """A run that ``train.chunk=auto`` chunked: one CUDA graph for each
+    phase of more than one epoch (``PHASE_EPOCHS`` of ``name``'s ``epochs``),
+    each chunk's epochs as ``train`` cut them, a phase of one epoch per
+    epoch (``profile_chunk`` counts a chunk's host reads)."""
+    phases = PHASE_EPOCHS.get(name, lambda e: [e])(epochs)
+    want = [[min(chunk, n - k) for k in range(0, n, chunk)] if n > 1 else [1] for n in phases]
+    graphs = sum(n > 1 for n in phases)
+    got = rec["phase_chunks"]
     print(f"[chunk {label}] graphs={rec['graphs']} capture_s={rec['capture_s']:.3f} (warm-up "
-          f"epoch included) chunks(epochs)={got} "
+          f"epoch included; by phase {[[round(c, 3) for c in p] for p in rec['phase_captures']]}) "
+          f"chunks(epochs) by phase={got} "
           f"chunk_wall_ms={[round(w * 1e3, 3) for w, _ in rec['chunks']]}", flush=True)
-    if got != want or rec["graphs"] != (1 if want else 0):
-        fail(f"{label}: chunks {got} (expected {want}), graphs {rec['graphs']}")
+    if got != want or rec["graphs"] != graphs:
+        fail(f"{label}: chunks {got} (expected {want}), graphs {rec['graphs']} (expected "
+             f"{graphs})")
 
 
 def compare_chunk_runs(torch, label, auto, one) -> dict:
@@ -3276,11 +3323,14 @@ def compare_chunk_runs(torch, label, auto, one) -> dict:
                           default=0.0)}
     for name in auto["params"]:
         gaps[name] = (auto["params"][name] - one["params"][name]).abs().max().item()
-    gaps["U"] = (auto["U"] - one["U"]).abs().max().item()
-    gaps["V"] = (auto["V"] - one["V"]).abs().max().item()
     same = (auto["losses"] == one["losses"]
-            and all(torch.equal(auto["params"][k], one["params"][k]) for k in auto["params"])
-            and torch.equal(auto["U"], one["U"]) and torch.equal(auto["V"], one["V"]))
+            and all(torch.equal(auto["params"][k], one["params"][k]) for k in auto["params"]))
+    for k in ("U", "V"):  # final factors, where the model keeps them
+        if auto[k] is None or one[k] is None:
+            same = same and auto[k] is None and one[k] is None
+            continue
+        gaps[k] = (auto[k] - one[k]).abs().max().item()
+        same = same and torch.equal(auto[k], one[k])
     if auto["best"] is not None:
         (ea, ma, pa), (eo, mo, po) = auto["best"], one["best"]
         gaps["best params"] = max((a - b).abs().max().item() for a, b in zip(pa, po))
@@ -3294,28 +3344,31 @@ def compare_chunk_runs(torch, label, auto, one) -> dict:
     return gaps
 
 
-def profile_chunk(torch, model, label, chunk: int = 8) -> dict:
-    """One chunk of ``chunk`` epochs (the model's spec, its CUDA graph
-    captured and replayed for one epoch first) under torch.profiler: the
-    device's busy share of the chunk's wall, as ``profile_epoch`` reads an
-    epoch's; then the host reads of one more chunk (1, or the script
-    fails). With a tracked spec the chunk holds the quick evaluation and
-    the vote."""
-    from torch.autograd import DeviceType
+def profile_chunk(torch, model, label, chunk: int = 8, phase=None) -> dict:
+    """One chunk of ``chunk`` epochs (the model's spec, or ``phase`` =
+    (params, loss, sampler, evaluate or None) for a phase of a multi-phase
+    model; its CUDA graph captured and replayed for one epoch first) under
+    torch.profiler: the device's busy share of the chunk's wall, as
+    ``profile_epoch`` reads an epoch's; then the host reads of one more
+    chunk (1, or the script fails). With a tracked spec the chunk holds the
+    quick evaluation and the vote."""
     from torch.profiler import ProfilerActivity, profile
 
     from qrec_tpu_torch.runtime import trainer as T
     from qrec_tpu_torch.runtime.profiling import StepTimer
 
-    spec = model.build()
+    if phase is None:
+        spec = model.build()
+        phase = (spec.params, spec.loss_fn, spec.sampler,
+                 (lambda: model.quick_eval_vector(spec)) if spec.track_best else None)
+    params, loss_fn, sampler, evaluate = phase
     gen = torch.Generator(device="cuda").manual_seed(0)
-    opt = T.make_optimizer(spec.params, "adam", model.lrate)
+    opt = T.make_optimizer(params, "adam", model.lrate)
     T.make_capturable(opt)
     T.init_adam_state(opt)
-    vote = T.DeviceVote(spec.params, T.BestTracker(), 0) if spec.track_best else None
-    st = T.LoopState(0, spec.params, opt, gen, vote)
-    prog = T.EpochProgram(st, spec.loss_fn, spec.sampler, "cuda",
-                          evaluate=(lambda: model.quick_eval_vector(spec)) if vote else None)
+    vote = T.DeviceVote(params, T.BestTracker(), 0) if evaluate is not None else None
+    st = T.LoopState(0, params, opt, gen, vote)
+    prog = T.EpochProgram(st, loss_fn, sampler, "cuda", evaluate=evaluate)
     loop = T.ChunkedLoop(prog, chunk, timer=StepTimer(model.train_size, "cuda"), emit=None,
                          lr=model.lrate)
     loop.run(st, 1)
@@ -3325,8 +3378,9 @@ def profile_chunk(torch, model, label, chunk: int = 8) -> dict:
         loop.run(st, 1 + chunk)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    busy = sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA and not e.is_user_annotation) / 1e3
+    t0 = time.perf_counter()
+    busy = sum(device_ms_by_name(prof).values())
+    processing_s = time.perf_counter() - t0
     # the host reads of one more chunk, as CUDA's sync-debug mode "warn"
     # reports them, with the timer's own synchronisations off
     capture_s = loop.timer.captures[0]
@@ -3343,7 +3397,8 @@ def profile_chunk(torch, model, label, chunk: int = 8) -> dict:
     print(f"[profile chunk {label}] one chunk of {chunk} epochs (CUDA graph replays) under "
           f"torch.profiler: wall_ms={wall_ms:.3f} ({wall_ms / chunk:.3f} an epoch) "
           f"device_busy_ms={busy:.3f} busy_share={busy / wall_ms:.3f} host_reads={reads} "
-          f"(capture_s={capture_s:.3f}, a one-epoch chunk first)", flush=True)
+          f"(capture_s={capture_s:.3f}, a one-epoch chunk first; the profiler's processing "
+          f"{processing_s:.1f} s)", flush=True)
     if reads != 1:
         fail(f"{label}: {reads} host reads in one chunk, expected 1")
     return dict(wall_ms=wall_ms, busy_ms=busy, share=busy / wall_ms, host_reads=reads)
@@ -3360,7 +3415,6 @@ def graph_kernel_checks(torch, K, lightgcn, simgcl, yelp) -> None:
     from qrec_tpu_torch.ops.losses import _l2n
     from qrec_tpu_torch.ops.spmm import segment_operand
 
-    counts = K.launch_counts()
     adj = lightgcn.joint_adj
     with torch.no_grad():
         x = torch.cat([lightgcn.user_emb, lightgcn.item_emb]).contiguous()
@@ -3397,6 +3451,17 @@ def graph_kernel_checks(torch, K, lightgcn, simgcl, yelp) -> None:
             lambda: K.weighted_segment_matmul_plain(xs, yadj.indptr, yadj.cols, yadj.vals),
             (1e-5, 1e-5)),
     }
+    graph_call_checks(torch, K, calls)
+
+
+def graph_call_checks(torch, K, calls, label: str = "") -> None:
+    """``calls`` maps a kernel's name to (its call, its plain version,
+    (rtol, atol relative to the plain result's largest entry)): each call is
+    captured in a CUDA graph (after a warm-up call on the capture's stream)
+    and replayed twice; its result must equal the eager call's bit for bit
+    and the plain version's within the tolerance, with one launch captured.
+    Launches made here are put back."""
+    counts = K.launch_counts()
     for name, (fn, plain, (rtol, atol_rel)) in calls.items():
         eager = fn()
         stream = torch.cuda.Stream()
@@ -3416,42 +3481,56 @@ def graph_kernel_checks(torch, K, lightgcn, simgcl, yelp) -> None:
         err = (out - want).abs().max().item()
         atol = atol_rel * max(want.abs().max().item(), 1.0)
         ok = torch.allclose(out, want, rtol=rtol, atol=atol)
-        print(f"[graph {name}] in a CUDA graph ({launches.counts.get(name, 0)} launch captured, "
+        print(f"[graph {name}{label}] in a CUDA graph ({launches.counts.get(name, 0)} launch captured, "
               f"2 replays): equal to the eager call bit for bit={same}; max_abs_err vs plain "
               f"{err:.3e} (rtol {rtol} atol {atol:.3e}) {'ok' if ok else 'MISMATCH'}", flush=True)
         if not same or not ok or launches.counts.get(name, 0) != 1:
-            fail(f"{name} inside a CUDA graph: bit-equal {same}, within tolerance {ok}")
+            fail(f"{name}{label} inside a CUDA graph: bit-equal {same}, within tolerance {ok}")
         del graph
     K.set_launch_counts(counts)
 
 
-def chunk_phases(torch, K, QRec, runs) -> dict:
-    """Slice 8: ``train.chunk``. ``runs`` maps a label to (conf, its
-    ``train.chunk=auto`` run's ``chunk_record``, epochs): each such run
-    is checked as chunked (one graph, one host read a chunk), then run
-    again under ``train.chunk=1`` (through ``drive``: launches against
-    ``expected_launches``, losses that fall) and held to it bit for bit.
-    Then LightGCN's steady epoch ms under both (12 epochs), in turns, one profiled
-    chunk of each path, and each kernel inside a CUDA graph against its
-    plain version."""
-    out = {}
-    models = {}
-    laps = {}
-    t0 = time.perf_counter()
+def lap_timer(start=None):
+    """(laps, lap): ``lap(name)`` records the seconds since the last lap
+    (the first since ``start``, by default now)."""
+    laps, last = {}, [time.perf_counter() if start is None else start]
 
     def lap(name):
-        nonlocal t0
-        laps[name] = round(time.perf_counter() - t0, 1)
-        t0 = time.perf_counter()
+        laps[name] = round(time.perf_counter() - last[0], 1)
+        last[0] = time.perf_counter()
 
-    for label, (conf, rec, epochs) in runs.items():
-        check_chunked(label, rec, epochs)
+    return laps, lap
+
+
+def per_epoch_reruns(torch, K, QRec, runs, lap, keep=None) -> tuple:
+    """``runs`` maps a label to (conf, its ``train.chunk=auto`` run's
+    ``chunk_record``, epochs, model name): each such run is checked as
+    chunked (a graph a phase of more than one epoch, ``check_chunked``),
+    then run again under ``train.chunk=1`` (through ``drive``: launches
+    against ``expected_launches``, losses that fall) and held to it bit for
+    bit. Returns (the gaps by label, the ``train.chunk=1`` models of the
+    labels in ``keep``, every label's where it is None)."""
+    out, models = {}, {}
+    for label, (conf, rec, epochs, name) in runs.items():
+        check_chunked(label, rec, epochs, name=name)
         one = conf.__class__(dict(conf.config))
         one["train.chunk"] = "1"
         model, _, _ = drive(torch, K, QRec, one, f"{label} chunk=1")
         out[label] = compare_chunk_runs(torch, label, rec, chunk_record(model))
-        models[label] = model
+        if keep is None or label in keep:
+            models[label] = model
+        del model
         lap(f"{label} chunk=1")
+    return out, models
+
+
+def chunk_phases(torch, K, QRec, runs) -> dict:
+    """Slice 8: ``train.chunk``. The runs of ``runs`` (``per_epoch_reruns``)
+    against ``train.chunk=1``; then LightGCN's steady epoch ms under both
+    (12 epochs), in turns, one profiled chunk of each path, and each kernel
+    inside a CUDA graph against its plain version."""
+    laps, lap = lap_timer()
+    out, models = per_epoch_reruns(torch, K, QRec, runs, lap)
     graph_kernel_checks(torch, K, models["main"], models["simgcl"], models["yelp-pallas"])
     lap("kernels in graphs")
     # steady epoch ms, in turns: mean of epochs 9-12 (the second chunk)
@@ -3496,6 +3575,148 @@ def eval_epoch(torch, model) -> None:
             quick_eval=lambda: model.quick_eval(spec), tracker=T.BestTracker(), capturable=True)
 
 
+# the models whose run_training phases chunk since slice 9, with their
+# one-process runs in deep_phases (CDAE) and social_phases (the four)
+CHUNKED_FAMILY = ("MHCN", "SEPT", "DiffNet", "DHCF", "CDAE")
+
+
+def turns_timing(torch, model, label, phase, epochs: int = 4, per_epoch: int = 3) -> dict:
+    """Steady epoch ms of one phase of ``model`` (``phase`` = (params, loss,
+    sampler, evaluate or None, quick_eval or None)) through
+    ``trainer.train`` as ``run_training`` calls it, in turns:
+    ``train.chunk=auto`` (``epochs`` epochs, one chunk, after its capture),
+    ``1`` (``per_epoch`` epochs: the mean after the first), auto, 1. A tracked
+    phase evaluates every epoch (inside the chunk, or on the host). Returns
+    {"auto": [ms, ms], "1": [ms, ms], "capture_s": [s, s]}."""
+    from qrec_tpu_torch.runtime import trainer as T
+
+    params, loss_fn, sampler, evaluate, quick = phase
+    out = {"auto": [], "1": [], "capture_s": []}
+    for _ in range(2):
+        for chunk in (8, 1):
+            gen = torch.Generator(device="cuda").manual_seed(model.seed + 1)
+            _, timer = T.train(
+                params, loss_fn, sampler, max_epoch=epochs if chunk > 1 else per_epoch,
+                lr=model.lrate, device=model.device, generator=gen,
+                examples_per_epoch=model.train_size, quick_eval=quick,
+                tracker=T.BestTracker() if evaluate is not None else None, chunk=chunk,
+                eval_vector=evaluate, capturable=True)
+            if chunk > 1:
+                out["auto"].append(float(np.mean(timer.times)) * 1e3)
+                out["capture_s"].append(timer.captures[0])
+            else:
+                out["1"].append(float(np.mean(timer.times[1:])) * 1e3)
+            del timer
+            gc.collect()
+    print(f"[chunk timing {label}] in turns (auto, 1, auto, 1): steady epoch ms train.chunk=auto "
+          f"{[round(t, 3) for t in out['auto']]} (one chunk of {epochs}, "
+          f"{'evaluation inside' if evaluate is not None else 'no evaluation'}; captures "
+          f"{[round(c, 3) for c in out['capture_s']]} s) train.chunk=1 "
+          f"{[round(t, 3) for t in out['1']]} (mean of epochs 2-{per_epoch}"
+          f"{', evaluation on the host' if evaluate is not None else ', lag-1'})", flush=True)
+    return out
+
+
+def family_graph_kernel_checks(torch, K, mhcn, sept) -> None:
+    """K2 on MHCN's final factors and its ranker's first batch of test
+    users, K1 on SEPT's joint adjacency with its tables and K2 on SEPT's
+    factors, each called inside a CUDA graph (``graph_call_checks``): the
+    kernels that MHCN's and SEPT's epoch graphs hold."""
+    def topk(model):
+        ranker = model._quick_ranker()
+        uids = ranker._uids[: model.eval_batch_size]
+        args = (model.U, model.V, model.rated_bitmask, uids, ranker.global_mean, 10)
+        return (lambda: K.masked_catalog_topk(*args)[1],
+                lambda: K.masked_catalog_topk_plain(*args)[1], (0.0, 1e-5))
+
+    graph_call_checks(torch, K, {"masked_catalog_topk": topk(mhcn)}, " mhcn")
+    adj = sept.joint_adj
+    with torch.no_grad():
+        x = torch.cat([sept.user_emb, sept.item_emb]).contiguous()
+    graph_call_checks(torch, K, {
+        "bipartite_dual_matmul": (
+            lambda: K.factored_dual_matmul(adj.r, x, adj.row_scale, adj.col_scale),
+            lambda: K.factored_dual_matmul_plain(adj.r, x, adj.row_scale, adj.col_scale),
+            (1e-5, 1e-5)),
+        "masked_catalog_topk": topk(sept),
+    }, " sept")
+
+
+def family_chunk_phases(torch, K, QRec, conf_of, tmp, runs, neumf) -> dict:
+    """Slice 9: ``train.chunk`` for the social-graph and deep families.
+    ``runs`` holds the chunked runs of ``CHUNKED_FAMILY`` that phases 9 and
+    10 made (label -> (conf, ``chunk_record``, epochs, model name)); to
+    them come NeuMF (10 epochs: phases of 10, 5 and 2) and APR (4: 2 + 2) on
+    the FilmTrust-shaped file and DMF at the lastfm shape (2 epochs: its
+    578-step graph), each at its published widths under ``auto``. Each run
+    is checked as chunked and held bit for bit to its ``train.chunk=1``
+    rerun (``per_epoch_reruns``); then K2 inside MHCN's evaluation graph and
+    K1 and K2 inside SEPT's (``family_graph_kernel_checks``); steady epoch
+    ms in turns (``turns_timing``) of MHCN (the slice's main path), SEPT's
+    warm-up and joint phases, DHCF and ``neumf``'s fused phase (the lastfm
+    run of phase 9); one profiled chunk of MHCN (8 epochs), DHCF and
+    NeuMF's fused phase (2 each) beside one profiled MHCN epoch with its
+    evaluation (phases 9 and 10 profile DHCF's and NeuMF's per-epoch
+    epochs)."""
+    from qrec_tpu_torch.models.base import TrainSpec
+
+    laps, lap = lap_timer()
+    film = os.path.join(tmp, "filmtrust_chunk.txt")
+    with open(film, "w") as f:
+        f.writelines(f"{a} {b} {r}\n" for a, b, r in zip(*filmtrust_records()))
+    runs = dict(runs)
+    for label, name, epochs, ratings in (("neumf filmtrust", "NeuMF", 10, film),
+                                         ("apr filmtrust", "APR", 4, film),
+                                         ("dmf", "DMF", 2, None)):
+        conf = conf_of(name, epochs)
+        if ratings is not None:
+            conf["ratings"] = ratings
+        model, _, _ = drive(torch, K, QRec, conf, f"{label} chunk=auto")
+        runs[label] = (conf, chunk_record(model), epochs, name)
+        del model
+        lap(f"{label} chunk=auto")
+    out, models = per_epoch_reruns(torch, K, QRec, runs, lap, keep=("mhcn", "sept", "dhcf"))
+    print(f"[chunk family] graphs and capture s (warm-up epoch included) by run: " + "; ".join(
+        f"{label} {rec['graphs']} graphs {[[round(c, 3) for c in p] for p in rec['phase_captures']]}"
+        for label, (_, rec, _, _) in runs.items()), flush=True)
+    mhcn, sept, dhcf = models["mhcn"], models["sept"], models["dhcf"]
+    family_graph_kernel_checks(torch, K, mhcn, sept)
+    lap("kernels in graphs")
+    spec = mhcn.build()
+    mhcn_phase = (spec.params, spec.loss_fn, spec.sampler,
+                  lambda: mhcn.quick_eval_vector(spec), lambda: mhcn.quick_eval(spec))
+    sspec = TrainSpec(list(sept.parameters()), sept.loss, sept.pairwise_sampler(),
+                      score_params_fn=sept.forward, track_best=True, chunkable=True)
+    sept_eval = (lambda: sept.quick_eval_vector(sspec), lambda: sept.quick_eval(sspec))
+    dspec = dhcf.build()
+    neu = (list(neumf.parameters()), neumf.loss_neu, neumf.pointwise_sampler(), None, None)
+    # the main path's chunk at auto's 8 epochs, the others' at 4
+    out["steady"] = {
+        "MHCN": turns_timing(torch, mhcn, "MHCN", mhcn_phase, epochs=8),
+        "SEPT warm-up": turns_timing(torch, sept, "SEPT warm-up",
+                                     (sspec.params, sept.rec_loss, sspec.sampler, *sept_eval)),
+        "SEPT joint": turns_timing(torch, sept, "SEPT joint",
+                                   (sspec.params, sept.loss, sspec.sampler, *sept_eval)),
+        "DHCF": turns_timing(torch, dhcf, "DHCF",
+                             (dspec.params, dspec.loss_fn, dspec.sampler, None, None)),
+        "NeuMF fused": turns_timing(torch, neumf, "NeuMF fused phase", neu),
+    }
+    lap("timing in turns")
+    # the main path's chunk at auto's 8 epochs; DHCF's and NeuMF's at 2
+    # (torch.profiler's own processing of a chunk's kernels is most of a
+    # profile's seconds)
+    out["profile"] = {
+        "MHCN": profile_chunk(torch, mhcn, "MHCN"),
+        "DHCF": profile_chunk(torch, dhcf, "DHCF", chunk=2),
+        "NeuMF fused": profile_chunk(torch, neumf, "NeuMF fused phase", chunk=2, phase=neu[:4]),
+    }
+    profile_epoch(torch, mhcn, "MHCN with its quick evaluation",
+                  epoch=lambda: eval_epoch(torch, mhcn))
+    lap("profiles")
+    print(f"[chunk family phases] seconds {json.dumps(laps)}", flush=True)
+    return out
+
+
 def main() -> None:
     import torch
 
@@ -3527,13 +3748,7 @@ def main() -> None:
           f"{native.library_path().name} (g++)", flush=True)
 
     # each phase's seconds, for the script's time budget
-    laps, last = {}, [t_start]
-
-    def lap(label):
-        now = time.perf_counter()
-        laps[label] = round(now - last[0], 1)
-        last[0] = now
-
+    laps, lap = lap_timer(t_start)
     lap("1-2 card and build")
     rows, cols, _, _ = lastfm_records()
     tmp = tempfile.mkdtemp(prefix="qrec_smoke_")
@@ -3551,7 +3766,7 @@ def main() -> None:
 
         # 3. LightGCN main path
         model, counts, _ = drive(torch, K, QRec, conf_of("LightGCN", 5), "main")
-        chunked = {"main": (conf_of("LightGCN", 5), chunk_record(model), 5)}
+        chunked = {"main": (conf_of("LightGCN", 5), chunk_record(model), 5, "LightGCN")}
         # the unbroken run the slice-6 resume is held against
         unbroken = {"U": model.U.clone(), "V": model.V.clone(), "losses": list(model.epoch_losses)}
         # the final ranking against the plain versions on the CPU
@@ -3606,7 +3821,7 @@ def main() -> None:
 
         # 5. SimGCL main path, then K3 and K4 on its first step's views
         simgcl, sim_counts, _ = drive(torch, K, QRec, conf_of("SimGCL", 3), "simgcl")
-        chunked["simgcl"] = (conf_of("SimGCL", 3), chunk_record(simgcl), 3)
+        chunked["simgcl"] = (conf_of("SimGCL", 3), chunk_record(simgcl), 3, "SimGCL")
         view1, view2, mask = first_step_views(torch, simgcl)
         k3, k4 = infonce_phase(torch, K, timer, "simgcl users", view1, view2, mask)
         # masked rows and an all-zero row
@@ -3652,7 +3867,7 @@ def main() -> None:
                            ("reg.lambda", "-u 0.0001 -i 0.0001 -b 0.2 -s 0.2")):
             conf[key] = value
         yelp, yelp_counts, _ = drive(torch, K, QRec, conf, "yelp-pallas")
-        chunked["yelp-pallas"] = (conf, chunk_record(yelp), 2)
+        chunked["yelp-pallas"] = (conf, chunk_record(yelp), 2, "LightGCN")
         k2r["yelp2018"] = ranking_phase(torch, K, "yelp2018", yelp, 20)
         k2t["yelp2018"] = topk_timing(torch, K, timer, yelp, 20, "yelp2018")
         k5 = segment_phase(torch, K, timer, yelp, l2_rate)
@@ -3676,7 +3891,9 @@ def main() -> None:
         lap("8 MF slice")
 
         # 9. the deep and GAN slice (NeuMF, APR, IRGAN, DMF, CDAE, CFGAN)
-        deep_launches, deep_k2r, deep_k2t, deep_ones = deep_phases(torch, K, QRec, timer, conf_of)
+        family = {}
+        deep_launches, deep_k2r, deep_k2t, deep_ones = deep_phases(torch, K, QRec, timer, conf_of,
+                                                                   family)
         ones.update(deep_ones)
         mf_launches.update(deep_launches)
         k2r.update(deep_k2r)
@@ -3689,14 +3906,22 @@ def main() -> None:
         trust = os.path.join(tmp, "trust_like.txt")
         with open(trust, "w") as f:
             f.writelines(f"{a} {b}\n" for a, b in lastfm_trust())
-        k1b, k1b_launches, social_launches, social_k2r, social_ones = social_phases(
-            torch, K, QRec, timer, conf_of, trust)
+        k1b, k1b_launches, k1_social, social_launches, social_k2r, social_ones = social_phases(
+            torch, K, QRec, timer, conf_of, trust, family)
         ones.update(social_ones)
         mf_launches.update(social_launches)
         k2r.update(social_k2r)
         del timer
 
         lap("10 social slice")
+
+        # 10b. train.chunk for the social-graph and deep families: the
+        # chunked runs of phases 9 and 10 against train.chunk=1, NeuMF and
+        # APR on the FilmTrust-shaped file, DMF's 578-step graph
+        family_chunk_phases(torch, K, QRec, conf_of, tmp, family, ones["neumf"].pop("model"))
+        del family
+
+        lap("10b train.chunk, slice 9")
 
         # 11. the rest of the social family: the seven social MF rating
         # models, SBPR (and its -tf path), TBPR and ESRF
@@ -3785,7 +4010,8 @@ def main() -> None:
     print(f"[K2] scores entry ms={k2['ms']:.4f} (on no path; launches "
           f"{counts['masked_catalog_scores']})", flush=True)
     print(f"[K1] launches: main {counts['bipartite_dual_matmul']} lightgcn-bf16 {k1b_launches} "
-          f"esrf {k1_esrf} lightgcn-stopped+resumed {k1_life}", flush=True)
+          + " ".join(f"{label} {n}" for label, n in k1_social.items())
+          + f" esrf {k1_esrf} lightgcn-stopped+resumed {k1_life}", flush=True)
     print(f"[K2 topk] launches: main {counts['masked_catalog_topk']} "
           + " ".join(f"{label} {n}" for label, n in mf_launches.items()), flush=True)
 
@@ -3802,7 +4028,8 @@ def main() -> None:
     kernels = [
         row("bipartite_dual_matmul", "qrec_tpu_torch/csrc/dual_matmul.cu",
             "qrec_tpu/ops/pallas_kernels.py:563",
-            counts["bipartite_dual_matmul"] + k1b_launches + k1_esrf + k1_life, k1),
+            counts["bipartite_dual_matmul"] + k1b_launches + sum(k1_social.values()) + k1_esrf
+            + k1_life, k1),
         row("masked_catalog_scores", "qrec_tpu_torch/csrc/masked_scores.cu",
             "qrec_tpu/ops/pallas_kernels.py:49", counts["masked_catalog_scores"], k2),
         row("masked_catalog_topk", "qrec_tpu_torch/csrc/masked_scores.cu",

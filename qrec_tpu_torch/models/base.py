@@ -626,19 +626,25 @@ class IterativeRecommender(Recommender):
         except ValueError:
             raise ConfigError(f"train.chunk must be auto or an integer, got {raw!r}") from None
 
+    # why an adam phase whose step is not chunkable runs per epoch, in the
+    # note a conf's train.chunk above 1 gets: a bold spec trained with Adam
+    # under -tf (BUIR says its own)
+    per_epoch_reason = "a -tf run is not chunked in the port"
+
     def _chunk_for(self, mode: str, chunkable: bool, chunk_eval: bool) -> int:
         """The chunk of one phase: ``train.chunk`` where the JAX package
         chunks (``qrec_tpu/models/base.py:767-785``): the ``adam`` mode,
         no per-epoch measure but the tracker's (whose vote then runs on
         the device), no checkpoint and no mesh; and only for a spec whose
         step reads no host (``chunkable``). Else 1, and a chunk above 1
-        that the conf set is named, once a model, as run per epoch."""
+        that the conf set is named, once a model, as run per epoch, with
+        the reason."""
         chunk = self.train_chunk()
         why = None
-        if not chunkable:
-            why = "its step is not chunked in the port"
-        elif mode != "adam":
+        if mode != "adam":
             why = "the bold-driver mode reads every epoch's loss"
+        elif not chunkable:
+            why = self.per_epoch_reason
         elif not chunk_eval:
             why = "its per-epoch measures are read on the host"
         elif self._checkpointer() is not None:
@@ -653,6 +659,19 @@ class IterativeRecommender(Recommender):
             print(f"{self.model_name} {self.fold} train.chunk={chunk} not applied, runs per "
                   f"epoch: {why}")
         return 1
+
+    def _capturable(self, mode: str, chunkable: bool, max_epoch: int) -> bool:
+        """Whether a phase of ``max_epoch`` epochs takes capturable Adam (on
+        a CUDA device): one that may run chunked, whatever ``train.chunk``
+        is, so that ``1`` and ``auto`` step the same arithmetic, and so does
+        a run resumed from a checkpoint. Not on a mesh, and not in a phase
+        of one epoch, which never chunk: there Adam keeps its plain
+        arithmetic, which the mesh runs are held to one process by (on an
+        H100, DMF's first 4-rank loss parted from one process's by 8.0e-5
+        where neither side was capturable, by 1.057e-4 where one process
+        was and by 1.07e-4 where both were: Adam turns f32 noise into
+        moves)."""
+        return chunkable and mode == "adam" and self.mesh is None and max_epoch > 1
 
     def run_training(
         self,
@@ -711,7 +730,7 @@ class IterativeRecommender(Recommender):
             quick_eval=quick_eval, tracker=tracker, after_step=after_step,
             start_epoch=start_epoch, resume=resume, checkpoint=self._make_checkpoint_cb(),
             mesh=self.mesh, chunk=chunk, eval_vector=eval_vector,
-            capturable=chunkable and mode == "adam",
+            capturable=self._capturable(mode, chunkable, max_epoch),
         )
         self._epochs_done += start_epoch + len(losses)
         self.epoch_losses += losses

@@ -12,6 +12,12 @@ method, from the trainer's generator: DMF's and CDAE's epoch batches,
 CFGAN's users and Bernoulli masks (the JAX package's masks with the same
 expected counts as the reference's host loops, e.g. CDAE.py:23-43).
 
+NeuMF's, APR's, DMF's and CDAE's steps read nothing from the host, so
+their phases train ``train.chunk`` epochs a dispatch (on a CUDA device one
+CUDA graph an epoch, ``runtime/trainer.py``); a phase of one epoch runs
+per epoch, as in the JAX package. NeuMF's GMF and MLP phases leave the
+other tower's parameters without a gradient, which Adam skips.
+
 NeuMF, DMF, CDAE and CFGAN rank through a :class:`ScoreBlock` of their own
 scorer, as the JAX package ranks them through XLA; APR ranks ``U·Vᵀ``
 through the masked top-k kernel.
@@ -131,11 +137,13 @@ class NeuMF(IterativeRecommender):
         params = list(self.parameters())
         sampler = self.pointwise_sampler()
         print("pretraining... (GMF)")
-        self.run_training(params, self.loss_mf, sampler)
+        self.run_training(params, self.loss_mf, sampler, chunkable=True)
         print("pretraining... (MLP)")
-        self.run_training(params, self.loss_mlp, sampler, max_epoch=max(1, self.max_epoch // 2))
+        self.run_training(params, self.loss_mlp, sampler, max_epoch=max(1, self.max_epoch // 2),
+                          chunkable=True)
         print("training... (NeuMF)")
-        self.run_training(params, self.loss_neu, sampler, max_epoch=max(1, self.max_epoch // 5))
+        self.run_training(params, self.loss_neu, sampler, max_epoch=max(1, self.max_epoch // 5),
+                          chunkable=True)
 
     def scores(self, uids: torch.Tensor) -> torch.Tensor:
         """(B, I): the fused prediction of every (user, item) pair."""
@@ -222,7 +230,13 @@ class DMF(IterativeRecommender):
         return ce + self.reg_u * 0.5 * _l2(self.parameters())
 
     def build(self) -> TrainSpec:
-        return TrainSpec(list(self.parameters()), self.loss, self.draw, score_params_fn=None)
+        """The spec; the dense rating rows and columns and the training
+        pairs that ``draw`` reads are put on the device here, before a
+        chunked run's capture, not first inside its warm-up epoch."""
+        self.dense_ratings_t
+        self.train_arrays
+        return TrainSpec(list(self.parameters()), self.loss, self.draw, score_params_fn=None,
+                         chunkable=True)
 
     def finalize(self, spec: Optional[TrainSpec] = None) -> None:
         """The towers of every user row and item column."""
@@ -314,7 +328,12 @@ class CDAE(_RatingRows):
         return ce.sum() / count + self.reg_u * 0.5 * reg
 
     def build(self) -> TrainSpec:
-        return TrainSpec(list(self.parameters()), self.loss, self.draw, score_params_fn=None)
+        """The spec; the dense rating rows and their rated mask are made
+        here, before a chunked run's capture, not first inside its warm-up
+        epoch."""
+        self.rated
+        return TrainSpec(list(self.parameters()), self.loss, self.draw, score_params_fn=None,
+                         chunkable=True)
 
     def finalize(self, spec: Optional[TrainSpec] = None) -> None:
         pass
@@ -484,7 +503,7 @@ class APR(IterativeRecommender):
         sampler = self.pairwise_sampler()
         epochs = max(1, self.max_epoch // 2)
         print("pretraining...")
-        self.run_training(params, self.base_loss, sampler, max_epoch=epochs)
+        self.run_training(params, self.base_loss, sampler, max_epoch=epochs, chunkable=True)
         print("adversarial training...")
-        self.run_training(params, self.adv_loss, sampler, max_epoch=epochs)
+        self.run_training(params, self.adv_loss, sampler, max_epoch=epochs, chunkable=True)
         self.U, self.V = self.user_emb.detach(), self.item_emb.detach()

@@ -17,6 +17,12 @@ Each model's random inputs of a step come from its ``draw(generator)``
 dropout masks) and go into ``step_loss(batch, draws)``, so a caller can
 inject other draws.
 
+No step of MHCN, SEPT, DiffNet or DHCF reads the host, so they train
+``train.chunk`` epochs a dispatch (``TrainSpec.chunkable``): on a CUDA
+device one CUDA graph an epoch, with MHCN's and SEPT's quick evaluation
+and vote inside (SEPT's two phases share one tracker). BUIR runs per
+epoch, as the JAX package's own loop runs it.
+
 All five train on a mesh (``parallel/mesh.py``). Every rank draws the same
 numbers and holds every auxiliary operator whole, so the forward through
 them is replicated (the JAX package leaves these products to GSPMD, no
@@ -424,7 +430,7 @@ class MHCN(SocialRecommender, _GraphModel):
     def build(self) -> TrainSpec:
         self.prepare_graph()
         return TrainSpec(list(self.parameters()), self.loss, self.pairwise_sampler(),
-                         score_params_fn=self.forward, track_best=True)
+                         score_params_fn=self.forward, track_best=True, chunkable=True)
 
 
 class SEPT(SocialRecommender, _GraphModel):
@@ -562,21 +568,25 @@ class SEPT(SocialRecommender, _GraphModel):
         return rec + self.ss_rate * ssl
 
     def fit_phases(self) -> None:
+        """The warm-up, then the joint phase, one tracker over both: the
+        joint phase's device vote (a chunked run's) is seeded from what the
+        warm-up wrote back, its epochs numbered after the warm-up's."""
         self.prepare_graph()
         spec = TrainSpec(list(self.parameters()), self.loss, self.pairwise_sampler(),
-                         score_params_fn=self.forward, track_best=True)
-        quick_eval = None
+                         score_params_fn=self.forward, track_best=True, chunkable=True)
+        quick_eval = eval_vector = None
         tracker = None
         if self._quick_ranker() is not None:
             quick_eval = lambda: self.quick_eval(spec)  # noqa: E731
+            eval_vector = lambda: self.quick_eval_vector(spec)  # noqa: E731
             tracker = T.BestTracker()
         warm = max(1, int(self.max_epoch / 3))
         self.run_training(spec.params, self.rec_loss, spec.sampler, track_best=True,
                           max_epoch=warm, quick_eval=quick_eval, tracker=tracker,
-                          return_best=False)
+                          return_best=False, chunkable=True, eval_vector=eval_vector)
         self.run_training(spec.params, self.loss, spec.sampler, track_best=True,
                           max_epoch=max(1, self.max_epoch - warm), quick_eval=quick_eval,
-                          tracker=tracker)
+                          tracker=tracker, chunkable=True, eval_vector=eval_vector)
         self.finalize(spec)
 
 
@@ -590,6 +600,10 @@ class BUIR(_GraphModel):
     the pair (o_u‖q_u, q_i‖o_i). Parameters: ``user_emb``, ``item_emb``
     (glorot), ``W`` (d, d), ``b`` (1, d); buffers ``target.user_emb``,
     ``target.item_emb``."""
+
+    # the JAX package trains BUIR in a jitted per-epoch loop of its own
+    # (qrec_tpu/models/social_graph.py:673-710), which it never chunks
+    per_epoch_reason = "the JAX package runs BUIR per epoch too, in a loop of its own"
 
     def __init__(self, conf, data, fold: str = "[1]", device=None, social=None):
         super().__init__(conf, data, fold=fold, device=device, social=social)
@@ -728,7 +742,7 @@ class DiffNet(SocialRecommender, _GraphModel):
     def build(self) -> TrainSpec:
         self.prepare_graph()
         return TrainSpec(list(self.parameters()), self.loss, self.pairwise_sampler(),
-                         score_params_fn=self.forward)
+                         score_params_fn=self.forward, chunkable=True)
 
 
 class DHCF(_GraphModel):
@@ -810,4 +824,4 @@ class DHCF(_GraphModel):
     def build(self) -> TrainSpec:
         self.prepare_graph()
         return TrainSpec(list(self.parameters()), self.loss, self.pairwise_sampler(),
-                         score_params_fn=self.forward)
+                         score_params_fn=self.forward, chunkable=True)

@@ -1482,3 +1482,70 @@ def test_a_host_read_in_a_chunked_epoch_raises(cuda_device):
     assert torch.cuda.get_sync_debug_mode() == mode
     assert st.epoch == 0 and prog.graph is None and loop.timer.captures == []
     assert torch.equal(w.detach(), torch.ones(8, device="cuda"))
+
+
+def _planted_social(tmp_path):
+    """The planted blocks of the chunk test above and a trust file of four
+    links inside each user's block plus 20 reciprocated pairs."""
+    rng = np.random.RandomState(0)
+    ratings, trust = tmp_path / "ratings.txt", tmp_path / "trust.txt"
+    ratings.write_text("".join(
+        f"u{u} i{i} 1\n" for u in range(40)
+        for i in rng.choice(15, size=10, replace=False) + (0 if u < 20 else 15)))
+    links = [f"u{u} u{v}\n" for u in range(40)
+             for v in rng.choice(20, size=4, replace=False) + (0 if u < 20 else 20) if v != u]
+    links += [f"u{u} u{u + 1}\nu{u + 1} u{u}\n" for u in range(0, 40, 2)]
+    trust.write_text("".join(links))
+    return str(ratings), str(trust)
+
+
+# train.chunk for the social-graph and deep families on the card: every
+# phase of more than one epoch replays one CUDA graph an epoch (captured
+# after a warm-up epoch under CUDA's sync-debug mode "error"), the losses
+# of every phase, the parameters and the best epoch those of the per-epoch
+# loop bit for bit: (model, its arguments, epochs, extra keys, epochs per
+# phase)
+CHUNK_FAMILIES = [
+    ("MHCN", "-n_layer 2 -ss_rate 0.01", 5, {}, [5]),
+    ("MHCN", "-n_layer 2 -ss_rate 0.01", 5, {"graph.aux.dense": "on"}, [5]),
+    ("SEPT", "-n_layer 2 -ss_rate 0.005 -drop_rate 0.3 -ins_cnt 5", 7, {}, [2, 5]),
+    ("DiffNet", "-n_layer 2", 4, {}, [4]),
+    ("DHCF", "", 4, {}, [4]),
+    ("NeuMF", "", 10, {}, [10, 5, 2]),
+    ("APR", "-eps 0.5 -regA 1 -advEpoch 2", 6, {}, [3, 3]),
+    ("DMF", "", 4, {"learnRate": "-init 0.001 -max 1"}, [4]),
+    ("CDAE", "-co 0.8 -nh 16", 5, {"batch_size": "32"}, [5]),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,args,epochs,extra,phases", CHUNK_FAMILIES,
+                         ids=["MHCN-coo", "MHCN-dense", "SEPT", "DiffNet", "DHCF", "NeuMF", "APR",
+                              "DMF", "CDAE"])
+def test_chunked_family_graphs_match_per_epoch_on_card(cuda_device, tmp_path, name, args, epochs,
+                                                      extra, phases):
+    ratings, trust = _planted_social(tmp_path)
+    runs = {}
+    for chunk in ("1", "3"):
+        conf = ModelConf({
+            "ratings": ratings, "ratings.setup": "-columns 0 1 2", "model.name": name,
+            "evaluation.setup": "-ap 0.2", "item.ranking": "on -topN 10", "num.factors": "16",
+            "num.max.epoch": str(epochs), "batch_size": "64", "learnRate": "-init 0.01 -max 1",
+            "reg.lambda": "-u 0.001 -i 0.001 -b 0.1 -s 0.1", "output.setup": "off -dir ./results/",
+            "seed": "7", "train.chunk": chunk, **({name: args} if args else {}), **extra,
+        })
+        if name in ("MHCN", "SEPT", "DiffNet"):
+            conf["social"], conf["social.setup"] = trust, "-columns 0 1"
+        rec = QRec(conf, seed=3)
+        rec.execute()
+        m = rec.model
+        runs[chunk] = (m.phase_losses, [p.detach().clone() for p in m.parameters()],
+                       None if m.tracker is None else (m.tracker.best_epoch, m.tracker.best_metrics),
+                       m.phase_timers)
+    (l1, p1, b1, t1), (l3, p3, b3, t3) = runs["1"], runs["3"]
+    cut = [[min(3, n - k) for k in range(0, n, 3)] if n > 1 else [1] for n in phases]
+    assert [[e for _, e in t.chunks] for t in t3] == cut
+    assert [len(t.captures) for t in t3] == [int(n > 1) for n in phases]
+    assert all(t.captures == [] and {e for _, e in t.chunks} == {1} for t in t1)
+    assert l3 == l1 and b3 == b1
+    assert all(torch.equal(a, b) for a, b in zip(p3, p1))
