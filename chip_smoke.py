@@ -120,6 +120,15 @@ Phases, each of which exits non-zero on failure:
    channel, its friend top-k ms, its steady epoch and its measures; the
    rankings held as the main path's; RSGAN's pretraining ms and one more
    RSGAN epoch under ``torch.profiler``;
+13b. slice 10 (``dispatch_walk_phases``): BPR, SBPR, TBPR and CUNE_BPR
+   under ``-tf`` (``TF_EPOCHS`` = 4 of the published 30-100), chunked under
+   ``auto`` and held bit for bit to ``train.chunk=1``, one host read a
+   chunk; BasicMF under ``-tf`` on the FilmTrust-shaped file, per epoch on
+   plain Adam; CUNE_BPR's SGNS channel (3 epochs) as replayed CUDA graphs
+   against its per-step loop, bit for bit; IF_BPR (``WALK_EPOCHS``) as one
+   CUDA graph an epoch against its per-step epochs, bit for bit; every
+   SGNS channel of phases 13 and 15 runs as replayed graphs, IF_BPR's
+   epochs as one graph each;
 14. the lifecycle slice (``host_and_lifecycle_phases``): the host library
    built; the lastfm- and FilmTrust-shaped files parsed through its
    tokenizer and the plain parser (equal records, both times);
@@ -1542,10 +1551,12 @@ def negative_feedback_file(ratings: str, seed: int = 0) -> str:
 def walk_stats_line(label: str, stats: dict) -> str:
     """The walk pipeline's numbers: the host seconds of the network and
     walk build, the walkers kept (by meta-path for IF_BPR's channels) and
-    the pairs, each SGNS channel's steps and seconds, the friend top-k's
-    ms."""
-    sgns = " ".join(f"channel {c}: {steps} steps {sec:.3f} s ({sec / steps * 1e3:.3f} ms a step)"
-                    for c, (steps, sec) in enumerate(stats["sgns"]))
+    the pairs, each SGNS channel's steps, seconds without its CUDA graphs'
+    capture, the capture's seconds and the steps a replayed graph holds,
+    the friend top-k's ms."""
+    sgns = " ".join(f"channel {c}: {ch['steps']} steps {ch['s']:.3f} s ({ch['s'] / ch['steps'] * 1e3:.3f} "
+                    f"ms a step) capture_s={ch['capture_s']:.3f} graph_steps={ch['graph_steps']}"
+                    for c, ch in enumerate(stats["sgns"]))
     return (f"[{label}] walks: host build s={stats['walk_s']:.3f} walkers kept={stats['walkers']} "
             f"pairs={stats['pairs']}; SGNS {sgns}; friend top-k ms={stats['topk_ms']:.3f}")
 
@@ -1626,6 +1637,181 @@ def walk_phases(torch, K, QRec, conf_of, tmp, trust_path):
         f"{k}: " + " ".join(f"{m}={v:.4f}" if isinstance(v, float) else f"{m}={v}"
                             for m, v in d.items()) + ";" for k, d in summary.items()), flush=True)
     return launches, k2r, ones
+
+
+# slice 10: the -tf runs, chunked under auto and held to train.chunk=1, at
+# 4 epochs (the published 30-100 cut: each phase of more than one epoch
+# chunks, and the loss-falls check needs 3)
+TF_RUNS = ("BPR", "SBPR", "TBPR", "CUNE_BPR")
+TF_EPOCHS = 4
+
+
+def tf_runs_phase(torch, K, QRec, conf_of, tmp, trust_path, lap) -> tuple:
+    """BPR, SBPR, TBPR (with ``trust_path``) and CUNE_BPR under ``-tf`` on
+    the lastfm-shaped file at their published widths, ``TF_EPOCHS`` epochs
+    under ``train.chunk=auto``: each checked as chunked and held bit for bit
+    to its ``train.chunk=1`` rerun (``per_epoch_reruns``), the host reads
+    of one more chunk counted (1), the steady epoch ms of both and the
+    seeded losses printed; then BasicMF under ``-tf`` on the FilmTrust-shaped
+    file, 3 epochs, its MAE/RMSE read every epoch: per epoch on plain Adam.
+    Returns ({label: (auto ms, 1 ms, capture s, losses)}, {label: K2
+    launches of its ``auto`` run})."""
+    from qrec_tpu_torch.runtime import trainer as T
+
+    runs, reads, launches = {}, {}, {}
+    for name in TF_RUNS:
+        conf = conf_of(name, TF_EPOCHS)
+        conf["evaluation.setup"] = conf["evaluation.setup"] + " -tf"
+        if name in ("SBPR", "TBPR"):
+            conf["social"] = trust_path
+        label = f"{name.lower()} -tf"
+        model, counts, _ = drive(torch, K, QRec, conf, f"{label} chunk=auto")
+        launches[label] = counts["masked_catalog_topk"]
+        runs[label] = (conf, chunk_record(model), TF_EPOCHS, name)
+        reads[label] = chunk_host_reads(torch, model, f"{label} chunk=auto")
+        del model
+        lap(f"{label} chunk=auto")
+    _, models = per_epoch_reruns(torch, K, QRec, runs, lap)
+    out = {}
+    for label, (_, rec, _, _) in runs.items():
+        one = models[label].timer.times
+        out[label] = (float(np.mean(rec["times"])) * 1e3, float(np.mean(one[1:])) * 1e3,
+                      rec["capture_s"], rec["losses"])
+        print(f"[tf {label}] steady epoch ms train.chunk=auto {out[label][0]:.3f} (one chunk of "
+              f"{TF_EPOCHS}, wall / E, after a capture of {rec['capture_s']:.3f} s) train.chunk=1 "
+              f"{out[label][1]:.3f} (mean of epochs 2-{TF_EPOCHS}, lag-1); host reads a chunk "
+              f"{reads[label]}; seeded losses {rec['losses']}", flush=True)
+    del models
+    film = os.path.join(tmp, "filmtrust_tf.txt")
+    with open(film, "w") as f:
+        f.writelines(f"{a} {b} {r}\n" for a, b, r in zip(*filmtrust_records()))
+    conf = conf_of("BasicMF", 3)
+    conf["ratings"] = film
+    conf["evaluation.setup"] = conf["evaluation.setup"] + " -tf"
+    seen = []
+    real = T.train
+
+    def spy(*a, **k):
+        seen.append((k["chunk"], k["capturable"], k["mode"]))
+        return real(*a, **k)
+
+    T.train = spy
+    try:
+        model, _, measures = drive(torch, K, QRec, conf, "basicmf -tf")
+    finally:
+        T.train = real
+    chunks = [e for t in model.phase_timers for _, e in t.chunks]
+    print(f"[tf basicmf] rating run under -tf: (chunk, capturable, mode) {seen}; epochs a dispatch "
+          f"{chunks}; seeded losses {model.epoch_losses}; MAE={measures['MAE']} "
+          f"RMSE={measures['RMSE']}", flush=True)
+    if seen != [(1, False, "adam")] or chunks != [1, 1, 1] or model.phase_timers[0].captures:
+        fail("basicmf -tf: a -tf rating run must run per epoch on plain Adam")
+    lap("basicmf -tf")
+    return out, launches
+
+
+def sgns_phase(torch, QRec, conf_of) -> dict:
+    """One SGNS channel, CUNE_BPR's at its published ``-T 20 -L 10 -l 20 -w
+    5`` on the lastfm-shaped file (its network, walks and pairs as the
+    model builds them, seeded alike), 3 epochs of 8,192 pairs a step, as
+    replayed CUDA graphs of ``SGNS_GRAPH_STEPS`` steps and as the per-step
+    loop: the two ``in`` tables equal bit for bit; each one's seconds, the
+    graphs' capture seconds and steps."""
+    from qrec_tpu_torch.config import OptionConf
+    from qrec_tpu_torch.data.dataset import Interactions
+    from qrec_tpu_torch.ops import walks as W
+    from qrec_tpu_torch.runtime.profiling import StepTimer
+
+    conf = conf_of("CUNE_BPR", 1)
+    rec = QRec(conf)
+    data = Interactions(conf, rec.training_data, rec.test_data)
+    options = OptionConf(conf["CUNE-BPR"])
+    seed = int(conf.get("seed", 2026))
+    net = W.cooccurrence_network(data)
+    walks, active = W.random_walks(net, options.get_int("-T"), options.get_int("-L"),
+                                   np.random.RandomState(seed))
+    centers, contexts = W.walk_pairs(walks, options.get_int("-w"))
+    dim = options.get_int("-l")
+    out, tables = {}, {}
+    # the default graphs, the per-step loop, then graphs of 32 and 64 steps
+    # (the capture's cost against the graph's length)
+    for form, steps in (("graphs", None), ("eager", 0), ("graphs k=32", 32), ("graphs k=64", 64)):
+        timer = StepTimer(len(centers), "cuda")
+        tables[form] = W.train_skipgram(centers, contexts, data.num_users, dim, active, seed=seed,
+                                        device="cuda", timer=timer, graph_steps=steps)
+        out[form] = W.skipgram_stats(len(centers), timer, "cuda", graph_steps=steps)
+        gc.collect()
+    same = {form: torch.equal(t, tables["eager"]) for form, t in tables.items()}
+    g, e = out["graphs"], out["eager"]
+    print(f"[sgns cune_bpr] pairs={len(centers)} steps={g['steps']} (3 epochs of 8,192 pairs) d={dim}: "
+          f"graphs of {g['graph_steps']} steps s={g['s']:.3f} (capture_s={g['capture_s']:.3f}, "
+          f"warm-up included) eager s={e['s']:.3f} ({e['s'] / e['steps'] * 1e3:.3f} ms a step); "
+          f"in tables bit-identical={same['graphs']}; "
+          + "; ".join(f"{form} s={out[form]['s']:.3f} capture_s={out[form]['capture_s']:.3f} "
+                      f"bit-identical={same[form]}" for form in ("graphs k=32", "graphs k=64")),
+          flush=True)
+    if not all(same.values()) or not torch.isfinite(tables["graphs"]).all() or e["capture_s"] != 0:
+        fail(f"sgns cune_bpr: a replayed form's in table differs from the per-step loop's: {same}")
+    return out
+
+
+def ifbpr_graph_phase(torch, QRec, conf_of, trust_path) -> dict:
+    """IF_BPR at the lastfm shape (``lastfm_trust``, its published widths),
+    its friends built once, then fitted twice from the same tables for
+    ``WALK_EPOCHS`` epochs: one CUDA graph an epoch, then the per-step
+    epochs (``epoch_graphs=False``): the tables, thresholds, sums and
+    losses equal bit for bit; each one's epoch ms, the capture's seconds."""
+    from qrec_tpu_torch.data.dataset import Interactions
+    from qrec_tpu_torch.data.social import SocialGraph
+    from qrec_tpu_torch.models.ifbpr import IF_BPR
+
+    conf = conf_of("IF_BPR", WALK_EPOCHS["IF_BPR"])
+    conf["social"] = trust_path
+    rec = QRec(conf)
+    data = Interactions(conf, rec.training_data, rec.test_data)
+    model = IF_BPR(conf, data, device="cuda", social=SocialGraph(rec.relation, data))
+    model.prepare_graph()
+    initial = {k: v.detach().clone() for k, v in model.named_parameters()}
+    out = {}
+    for form, graphs in (("graphs", True), ("eager", False)):
+        with torch.no_grad():
+            for k, v in model.named_parameters():
+                v.copy_(initial[k])
+        model.epoch_graphs = graphs
+        model.fit()
+        out[form] = dict(losses=list(model.epoch_losses), U=model.U, V=model.V, acc=model.acc,
+                         thresholds=list(model.thresholds), times=list(model.timer.times),
+                         captures=list(model.timer.captures))
+    g, e = out["graphs"], out["eager"]
+    same = (g["losses"] == e["losses"] and torch.equal(g["U"], e["U"]) and torch.equal(g["V"], e["V"])
+            and torch.equal(g["acc"], e["acc"]) and len(g["thresholds"]) == len(e["thresholds"])
+            and all(torch.equal(a, b) and torch.equal(c, d)
+                    for (a, c), (b, d) in zip(g["thresholds"], e["thresholds"])))
+    print(f"[ifbpr graphs] users={model.num_users} items={model.num_items} train={model.train_size} "
+          f"steps an epoch={model.num_batches} d={model.emb_size}: epoch ms one CUDA graph an epoch "
+          f"{[round(t * 1e3, 3) for t in g['times']]} (capture_s={sum(g['captures']):.3f}, warm-up "
+          f"epoch included) per-step {[round(t * 1e3, 3) for t in e['times']]}; tables, thresholds, "
+          f"sums and losses bit-identical={same}; seeded losses {g['losses']}", flush=True)
+    if not same or len(g["captures"]) != 1 or e["captures"]:
+        fail("ifbpr graphs: the captured epochs differ from the per-step epochs")
+    return out
+
+
+def dispatch_walk_phases(torch, K, QRec, conf_of, tmp, trust_path) -> dict:
+    """Slice 10: the ``-tf`` runs chunked (``tf_runs_phase``), one SGNS
+    channel as replayed graphs against its per-step loop (``sgns_phase``)
+    and IF_BPR's epoch graph against its per-step epochs
+    (``ifbpr_graph_phase``), with the seconds of each part. Returns their
+    results, with the K2 launches of the ``-tf`` runs under "launches"."""
+    laps, lap = lap_timer()
+    out = dict(zip(("tf", "launches"), tf_runs_phase(torch, K, QRec, conf_of, tmp, trust_path,
+                                                     lap)))
+    out["sgns"] = sgns_phase(torch, QRec, conf_of)
+    lap("sgns")
+    out["ifbpr"] = ifbpr_graph_phase(torch, QRec, conf_of, trust_path)
+    lap("ifbpr graphs")
+    print(f"[slice 10 phases] seconds {json.dumps(laps)}", flush=True)
+    return out
 
 
 def walk_distribution(net, walks, active, walk_count) -> float:
@@ -3344,16 +3530,11 @@ def compare_chunk_runs(torch, label, auto, one) -> dict:
     return gaps
 
 
-def profile_chunk(torch, model, label, chunk: int = 8, phase=None) -> dict:
-    """One chunk of ``chunk`` epochs (the model's spec, or ``phase`` =
-    (params, loss, sampler, evaluate or None) for a phase of a multi-phase
-    model; its CUDA graph captured and replayed for one epoch first) under
-    torch.profiler: the device's busy share of the chunk's wall, as
-    ``profile_epoch`` reads an epoch's; then the host reads of one more
-    chunk (1, or the script fails). With a tracked spec the chunk holds the
-    quick evaluation and the vote."""
-    from torch.profiler import ProfilerActivity, profile
-
+def spec_loop(torch, model, chunk: int, phase=None):
+    """(loop state, ``ChunkedLoop`` of ``chunk`` epochs) over ``model``'s
+    spec (or ``phase`` = (params, loss, sampler, evaluate or None)) on
+    capturable Adam from a generator seeded 0, the vote with a tracked
+    spec, as ``train`` builds them."""
     from qrec_tpu_torch.runtime import trainer as T
     from qrec_tpu_torch.runtime.profiling import StepTimer
 
@@ -3371,6 +3552,48 @@ def profile_chunk(torch, model, label, chunk: int = 8, phase=None) -> dict:
     prog = T.EpochProgram(st, loss_fn, sampler, "cuda", evaluate=evaluate)
     loop = T.ChunkedLoop(prog, chunk, timer=StepTimer(model.train_size, "cuda"), emit=None,
                          lr=model.lrate)
+    return st, loop
+
+
+def host_reads(torch, loop, st, until: int) -> int:
+    """The host reads of ``loop.run(st, until)`` as CUDA's sync-debug mode
+    "warn" reports them, with the timer's own synchronisations off."""
+    from qrec_tpu_torch.runtime.profiling import StepTimer
+
+    loop.timer = StepTimer(loop.timer.examples_per_epoch)
+    before = torch.cuda.get_sync_debug_mode()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            loop.run(st, until)
+        finally:
+            torch.cuda.set_sync_debug_mode(before)
+    return sum("called a synchronizing" in str(w.message) for w in caught)
+
+
+def chunk_host_reads(torch, model, label, chunk: int = 4) -> int:
+    """One chunk of ``chunk`` epochs of ``model``'s spec, its graph captured
+    by a first chunk: its host reads (1, or the script fails)."""
+    st, loop = spec_loop(torch, model, chunk)
+    loop.run(st, chunk)
+    reads = host_reads(torch, loop, st, 2 * chunk)
+    if reads != 1:
+        fail(f"{label}: {reads} host reads in one chunk, expected 1")
+    return reads
+
+
+def profile_chunk(torch, model, label, chunk: int = 8, phase=None) -> dict:
+    """One chunk of ``chunk`` epochs (the model's spec, or ``phase`` =
+    (params, loss, sampler, evaluate or None) for a phase of a multi-phase
+    model; its CUDA graph captured and replayed for one epoch first) under
+    torch.profiler: the device's busy share of the chunk's wall, as
+    ``profile_epoch`` reads an epoch's; then the host reads of one more
+    chunk (1, or the script fails). With a tracked spec the chunk holds the
+    quick evaluation and the vote."""
+    from torch.profiler import ProfilerActivity, profile
+
+    st, loop = spec_loop(torch, model, chunk, phase)
     loop.run(st, 1)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -3381,19 +3604,9 @@ def profile_chunk(torch, model, label, chunk: int = 8, phase=None) -> dict:
     t0 = time.perf_counter()
     busy = sum(device_ms_by_name(prof).values())
     processing_s = time.perf_counter() - t0
-    # the host reads of one more chunk, as CUDA's sync-debug mode "warn"
-    # reports them, with the timer's own synchronisations off
+    # the host reads of one more chunk
     capture_s = loop.timer.captures[0]
-    loop.timer = StepTimer(model.train_size)
-    before = torch.cuda.get_sync_debug_mode()
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            loop.run(st, 1 + 2 * chunk)
-        finally:
-            torch.cuda.set_sync_debug_mode(before)
-    reads = sum("called a synchronizing" in str(w.message) for w in caught)
+    reads = host_reads(torch, loop, st, 1 + 2 * chunk)
     print(f"[profile chunk {label}] one chunk of {chunk} epochs (CUDA graph replays) under "
           f"torch.profiler: wall_ms={wall_ms:.3f} ({wall_ms / chunk:.3f} an epoch) "
           f"device_busy_ms={busy:.3f} busy_share={busy / wall_ms:.3f} host_reads={reads} "
@@ -3950,6 +4163,12 @@ def main() -> None:
         k2r.update(walk_k2r)
 
         lap("13 walk slice")
+
+        # 13b. slice 10: -tf runs chunked, SGNS as replayed graphs, IF_BPR's
+        # epoch as one captured graph
+        mf_launches.update(dispatch_walk_phases(torch, K, QRec, conf_of, tmp, trust)["launches"])
+
+        lap("13b -tf, SGNS and IF_BPR graphs")
 
         # 14. the lifecycle slice: the host library, resume, save/load and the trace
         k1_life, life_launches = host_and_lifecycle_phases(

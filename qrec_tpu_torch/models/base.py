@@ -627,9 +627,8 @@ class IterativeRecommender(Recommender):
             raise ConfigError(f"train.chunk must be auto or an integer, got {raw!r}") from None
 
     # why an adam phase whose step is not chunkable runs per epoch, in the
-    # note a conf's train.chunk above 1 gets: a bold spec trained with Adam
-    # under -tf (BUIR says its own)
-    per_epoch_reason = "a -tf run is not chunked in the port"
+    # note a conf's train.chunk above 1 gets (BUIR says its own)
+    per_epoch_reason = "its step is not chunkable"
 
     def _chunk_for(self, mode: str, chunkable: bool, chunk_eval: bool) -> int:
         """The chunk of one phase: ``train.chunk`` where the JAX package
@@ -660,18 +659,20 @@ class IterativeRecommender(Recommender):
                   f"epoch: {why}")
         return 1
 
-    def _capturable(self, mode: str, chunkable: bool, max_epoch: int) -> bool:
+    def _capturable(self, mode: str, chunkable: bool, max_epoch: int, chunk_eval: bool) -> bool:
         """Whether a phase of ``max_epoch`` epochs takes capturable Adam (on
         a CUDA device): one that may run chunked, whatever ``train.chunk``
         is, so that ``1`` and ``auto`` step the same arithmetic, and so does
-        a run resumed from a checkpoint. Not on a mesh, and not in a phase
-        of one epoch, which never chunk: there Adam keeps its plain
-        arithmetic, which the mesh runs are held to one process by (on an
-        H100, DMF's first 4-rank loss parted from one process's by 8.0e-5
-        where neither side was capturable, by 1.057e-4 where one process
-        was and by 1.07e-4 where both were: Adam turns f32 noise into
-        moves)."""
-        return chunkable and mode == "adam" and self.mesh is None and max_epoch > 1
+        a run resumed from a checkpoint. Not on a mesh, not in a phase of
+        one epoch, and not where a per-epoch measure is read on the host
+        (``chunk_eval`` false: a ``-tf`` rating run printing MAE/RMSE), none
+        of which ever chunks: there Adam keeps its plain arithmetic, which
+        the mesh runs are held to one process by (on an H100, DMF's first
+        4-rank loss parted from one process's by 8.0e-5 where neither side
+        was capturable, by 1.057e-4 where one process was and by 1.07e-4
+        where both were: Adam turns f32 noise into moves)."""
+        return (chunkable and chunk_eval and mode == "adam" and self.mesh is None
+                and max_epoch > 1)
 
     def run_training(
         self,
@@ -713,8 +714,8 @@ class IterativeRecommender(Recommender):
             mode = "adam"
         if track_best and quick_eval is not None and tracker is None:
             tracker = T.BestTracker()
-        chunk = self._chunk_for(mode, chunkable, quick_eval is None or (
-            tracker is not None and eval_vector is not None))
+        chunk_eval = quick_eval is None or (tracker is not None and eval_vector is not None)
+        chunk = self._chunk_for(mode, chunkable, chunk_eval)
         gen = torch.Generator(device=self.device).manual_seed(self.seed + 1)
         done = self._epochs_done
         injected = None
@@ -730,7 +731,7 @@ class IterativeRecommender(Recommender):
             quick_eval=quick_eval, tracker=tracker, after_step=after_step,
             start_epoch=start_epoch, resume=resume, checkpoint=self._make_checkpoint_cb(),
             mesh=self.mesh, chunk=chunk, eval_vector=eval_vector,
-            capturable=self._capturable(mode, chunkable, max_epoch),
+            capturable=self._capturable(mode, chunkable, max_epoch, chunk_eval),
         )
         self._epochs_done += start_epoch + len(losses)
         self.epoch_losses += losses

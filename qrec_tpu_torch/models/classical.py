@@ -186,8 +186,9 @@ class _BiasedRating(SavedBiases, IterativeRecommender):
         return (("user_bias", self.num_users), ("item_bias", self.num_items))
 
     def build(self) -> TrainSpec:
+        """The bold-mode spec; under ``-tf`` (Adam) it may chunk."""
         return TrainSpec(list(self.parameters()), self.loss, self.rating_sampler(),
-                         score_params_fn=self.factors, mode="bold")
+                         score_params_fn=self.factors, mode="bold", chunkable=True)
 
     def factors(self):
         return self.user_emb.detach(), self.item_emb.detach()

@@ -8,7 +8,11 @@ device; each user's positive and negative top-K implicit friends
 (:func:`friend_lists`, which RSGAN shares); then a four-tier preference
 chain ``P ≻ Joint ≻ PS ≻ rand ≻ Neg`` whose joint tier is admitted by a
 per-user similarity threshold, learned from the tier's gradient and moved
-at the end of every epoch (IF_BPR.py ``optimization_thres``).
+at the end of every epoch (IF_BPR.py ``optimization_thres``). On a CUDA
+device an epoch (the sampler, the steps with their threshold sums, the
+threshold update) is one CUDA graph, replayed once an epoch, and the
+host reads the losses at the printed epochs, as the JAX package's one
+jitted scan an epoch does.
 
 Negative feedback comes from ``<ratings>_n.txt`` beside the rating file
 (IF_BPR.py:35-44); where it is absent the negative channel and tier are
@@ -39,7 +43,7 @@ from ..ops import sampling
 from ..ops.spmm import segment_sum
 from ..ops.walks import (
     SkipgramDraws,
-    skipgram_steps,
+    skipgram_stats,
     topk_cosine_neighbors,
     train_skipgram,
     walk_pairs,
@@ -208,7 +212,7 @@ def friend_lists(data, social, seed: int, walk_length: int, dim: int, window: in
         timer = StepTimer(len(centers), device)
         emb = train_skipgram(centers, contexts, nu + ni, dim, active, epochs=3, seed=seed,
                              device=device, draws=draws, timer=timer)
-        stats["sgns"].append((skipgram_steps(len(centers)), sum(timer.times)))
+        stats["sgns"].append(skipgram_stats(len(centers), timer, device))
         return emb[:nu]
 
     print("Generating meta-path walks / embeddings (positive)...")
@@ -337,6 +341,8 @@ class IF_BPR(SocialRecommender):
         self.pull_true = dev(true_mask.ravel().astype(np.float32))
         self._user_range = torch.arange(self.num_users + 1, device=self.device)
         self.num_batches = -(-self.train_size // self.batch_size)
+        # the sampler's tables, on the device before an epoch's capture
+        self.train_arrays, self.rated_bitmask
 
     def sampler(self, gen: torch.Generator):
         """(users, pos, joint item, its similarity, ps item, neg item,
@@ -416,26 +422,90 @@ class IF_BPR(SocialRecommender):
         thr, avg = self.update_threshold(thr, avg, acc, cnt)
         return total, thr, avg, acc
 
+    # the form of the epochs, which no conf reads: None, one CUDA graph an
+    # epoch on a CUDA device and the per-step epoch elsewhere; True, the
+    # captured form (run as written off a card); False, the per-step epoch
+    epoch_graphs: Optional[bool] = None
+
     def fit_phases(self) -> None:
+        """``num.max.epoch`` epochs under one Adam (capturable on a card),
+        the threshold moved after each. On a CUDA device an epoch (the
+        sampler, the steps with their threshold sums, the threshold update
+        and the summed loss) is one CUDA graph (:class:`_EpochGraph`),
+        captured before the first epoch and replayed once an epoch. Each
+        epoch's loss waits in a device buffer; the host reads the losses at
+        the epochs it prints, every 5th and the last, as the JAX package
+        does, each checked for NaN there."""
         self.prepare_graph()
         optimizer = T.make_optimizer([self.user_emb, self.item_emb], "adam", self.lrate)
+        T.make_capturable(optimizer)
         gen = torch.Generator(device=self.device).manual_seed(self.seed + 1)
         thr, avg = (torch.tensor(a, dtype=torch.float32, device=self.device)
                     for a in (self.friends.threshold, self.friends.avg_sim))
+        graphs = self.epoch_graphs if self.epoch_graphs is not None else self.device.type == "cuda"
+        graph = _EpochGraph(self, optimizer, gen, thr, avg) if graphs else None
+        if graph is not None and self.device.type == "cuda":
+            graph.load(0)
+            with self.timer.capture():
+                graph.capture()
+        losses_d = torch.zeros(self.max_epoch, device=self.device)
         self.thresholds = []
         losses = []
         for epoch in range(self.max_epoch):
             with self.timer:
-                if self._epoch_batches is not None:
-                    batches = T.as_device_batches(self._epoch_batches[epoch], self.device)
+                if graph is not None:
+                    graph.load(epoch)
+                    graph.run()
+                    total, thr, avg = graph.loss, graph.thr.clone(), graph.avg.clone()
                 else:
-                    batches = self.sampler(gen)
-                total, thr, avg, self.acc = self.train_epoch(optimizer, batches, thr, avg)
-                loss = float(total)
-            T.check_finite(loss)
-            losses.append(loss)
+                    if self._epoch_batches is not None:
+                        batches = T.as_device_batches(self._epoch_batches[epoch], self.device)
+                    else:
+                        batches = self.sampler(gen)
+                    total, thr, avg, self.acc = self.train_epoch(optimizer, batches, thr, avg)
+                losses_d[epoch].copy_(total)
             self.thresholds.append((thr, avg))
             if (epoch + 1) % 5 == 0 or epoch == self.max_epoch - 1:
-                print(f"{self.model_name} {self.fold} epoch {epoch + 1}: loss = {loss:.4f}")
+                for loss in losses_d[len(losses):epoch + 1].tolist():
+                    T.check_finite(loss)
+                    losses.append(loss)
+                print(f"{self.model_name} {self.fold} epoch {epoch + 1}: loss = {losses[-1]:.4f}")
+        if graph is not None:
+            self.acc = graph.acc.clone()
         self.epoch_losses, self.phase_losses = losses, [losses]
         self.U, self.V = self.user_emb.detach().clone(), self.item_emb.detach().clone()
+
+
+class _EpochGraph(T.GraphProgram):
+    """IF_BPR's epoch (a ``runtime/trainer.GraphProgram`` over the tables,
+    Adam's state, the thresholds and the generator, committed before the
+    first epoch) in fixed buffers: the thresholds ``thr`` and ``avg``,
+    which the steps read and the update overwrites, the last step's sums
+    ``acc`` and the summed ``loss``; injected batches are copied into
+    buffers of their own (``trainer.load_batches``). :meth:`run` runs
+    :meth:`body` once an epoch, as a replayed CUDA graph on a card."""
+
+    def __init__(self, model: IF_BPR, optimizer, gen: torch.Generator, thr, avg):
+        self.model, self.optimizer, self.gen = model, optimizer, gen
+        self.thr, self.avg = thr.clone(), avg.clone()
+        self.acc = torch.zeros(model.num_users, device=model.device)
+        self.loss = torch.zeros((), device=model.device)
+        self._batches = None
+        T.init_adam_state(optimizer)
+        super().__init__(T.LoopState(0, [model.user_emb, model.item_emb], optimizer, gen,
+                                     extra=[self.thr, self.avg]), model.device)
+
+    def load(self, epoch: int) -> None:
+        """The injected batches of ``epoch`` into their buffers."""
+        injected = self.model._epoch_batches
+        if injected is not None:
+            self._batches = T.load_batches(injected[epoch], self._batches, self.model.device)
+
+    def body(self) -> None:
+        model = self.model
+        batches = self._batches if model._epoch_batches is not None else model.sampler(self.gen)
+        total, thr, avg, acc = model.train_epoch(self.optimizer, batches, self.thr, self.avg)
+        self.thr.copy_(thr)
+        self.avg.copy_(avg)
+        self.acc.copy_(acc)
+        self.loss.copy_(total)

@@ -52,9 +52,11 @@ class _MF(IterativeRecommender):
         return self.user_emb.detach(), self.item_emb.detach()
 
     def build(self) -> TrainSpec:
+        """The bold-mode spec; under ``-tf`` (Adam) it may chunk."""
         return TrainSpec(
             list(self.parameters()), self.loss, self.sampler(),
             score_params_fn=self.factors, track_best=self.track_best, mode="bold",
+            chunkable=True,
         )
 
     def sampler(self):

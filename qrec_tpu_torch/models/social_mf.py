@@ -137,9 +137,13 @@ class _SocialMF(SocialRecommender):
         return self.user_emb.detach(), self.item_emb.detach()
 
     def build(self) -> TrainSpec:
+        """The host build and the bold-mode spec, which may chunk under
+        ``-tf``; the trust edges the losses read are put on the device here,
+        before a chunked run's capture."""
         self.prepare_graph()
+        self.social_arrays
         return TrainSpec(list(self.parameters()), self.loss, self.rating_sampler(),
-                         score_params_fn=self.factors, mode="bold")
+                         score_params_fn=self.factors, mode="bold", chunkable=True)
 
     def fit_term(self, pu, qi, pred, r, w, coeff: Optional[torch.Tensor] = None) -> torch.Tensor:
         """``½ Σ w (r - pred)² + ½ (regU Σ w‖p‖² + regI Σ w‖q‖²)``, each

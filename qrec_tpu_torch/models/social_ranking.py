@@ -63,9 +63,13 @@ class _SocialBPR(SocialRecommender):
         return self.user_emb.detach(), self.item_emb.detach()
 
     def build(self) -> TrainSpec:
+        """The host build and the bold-mode spec, which may chunk under
+        ``-tf``; the training pairs and the rated bitmask that ``sampler``
+        reads are put on the device here, before a chunked run's capture."""
         self.prepare_graph()
+        self.train_arrays, self.rated_bitmask
         return TrainSpec(list(self.parameters()), self.loss, self.sampler,
-                         score_params_fn=self.factors, mode="bold")
+                         score_params_fn=self.factors, mode="bold", chunkable=True)
 
 
 class SBPR(_SocialBPR):

@@ -16,7 +16,8 @@ active user's top-K cosine neighbours as implicit friends. Then:
   without friend items (CUNE_BPR.py:292-341); it ranks through K2's fused
   top-k.
 
-Both train on bold-driver SGD. Options come from the reference's dashed
+Both train on bold-driver SGD (Adam under ``-tf``, which chunks where the
+ranking is on). Options come from the reference's dashed
 keys (``CUNE-MF``, ``CUNE-BPR``). The SGNS draws come from
 ``skipgram_draws`` (``ops/walks.SkipgramDraws``), which a caller can
 replace. Parameters: ``user_emb`` (U, d) and ``item_emb`` (I, d), U(0, 1)/3.
@@ -45,7 +46,7 @@ from ..ops.walks import (
     SkipgramDraws,
     cooccurrence_network,
     random_walks,
-    skipgram_steps,
+    skipgram_stats,
     topk_cosine_neighbors,
     train_skipgram,
     walk_pairs,
@@ -80,8 +81,9 @@ class _WalkBase(IterativeRecommender):
     def implicit_friends(self) -> Tuple[np.ndarray, np.ndarray]:
         """(friend ids (A, k), active users (A,)) numpy arrays: each active
         user's top-K implicit friends. ``walk_stats`` keeps the host walk
-        seconds, the walkers and pairs, the SGNS steps and seconds and the
-        friend top-k's ms."""
+        seconds, the walkers and pairs, the SGNS run's numbers
+        (``ops/walks.skipgram_stats``: steps, seconds, capture seconds,
+        steps a replayed graph) and the friend top-k's ms."""
         print("Building collaborative user network...")
         t0 = time.perf_counter()
         net = cooccurrence_network(self.data)
@@ -102,7 +104,7 @@ class _WalkBase(IterativeRecommender):
             ids, _ = topk_cosine_neighbors(emb, active, k)
         self.walk_stats = {
             "walk_s": walk_s, "walkers": len(walks), "pairs": len(centers),
-            "sgns": [(skipgram_steps(len(centers)), sum(sgns.times))],
+            "sgns": [skipgram_stats(len(centers), sgns, self.device)],
             "topk_ms": topk.last * 1e3,
         }
         return ids.cpu().numpy(), active
@@ -130,9 +132,13 @@ class _WalkBase(IterativeRecommender):
         return self.user_emb.detach(), self.item_emb.detach()
 
     def build(self) -> TrainSpec:
+        """The host build and the bold-mode spec, which may chunk under
+        ``-tf``; the training pairs and the rated bitmask that ``sampler``
+        reads are put on the device here, before a chunked run's capture."""
         self.prepare_graph()
+        self.train_arrays, self.rated_bitmask
         return TrainSpec(list(self.parameters()), self.loss, self.sampler,
-                         score_params_fn=self.factors, mode="bold")
+                         score_params_fn=self.factors, mode="bold", chunkable=True)
 
 
 class CUNE_MF(_WalkBase):

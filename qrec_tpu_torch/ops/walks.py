@@ -14,7 +14,8 @@ model/ranking/CUNE_BPR.py:156-258).
   same seed draw, so the same state gives the JAX numpy path's walks;
 * ``train_skipgram`` is skip-gram with negative sampling (SGNS) under Adam,
   its random inputs drawn by a :class:`SkipgramDraws` that a caller can
-  replace;
+  replace; on a CUDA device its steps run as CUDA graphs of
+  ``SGNS_GRAPH_STEPS`` steps, replayed through each epoch;
 * ``topk_cosine_neighbors`` ranks cosine neighbours in row chunks, ties to
   the lower index, as ``lax.top_k`` orders them.
 
@@ -31,6 +32,7 @@ import torch
 
 from .. import native
 from ..device import f32_products
+from ..runtime import trainer as T
 from ..runtime.profiling import StepTimer
 
 
@@ -134,11 +136,39 @@ class SkipgramDraws:
 
 
 SGNS_BATCH = 8192  # the JAX package's SGNS batch
+# the steps of one replayed SGNS graph on a CUDA device: a replayed epoch
+# is device-bound whatever the graph holds, while its capture (a warm-up of
+# as many steps, and the tail's) grows with it; an epoch at the lastfm
+# shape is 324 to 1,331 steps
+SGNS_GRAPH_STEPS = 16
 
 
 def skipgram_steps(num_pairs: int, epochs: int = 3, batch_size: int = SGNS_BATCH) -> int:
     """The optimizer steps of a :func:`train_skipgram` run."""
     return epochs * max(1, -(-num_pairs // batch_size))
+
+
+def skipgram_graph_steps(graph_steps: Optional[int], device) -> int:
+    """The steps of one replayed program of :func:`train_skipgram`:
+    ``graph_steps`` where given, else ``SGNS_GRAPH_STEPS`` on a CUDA device
+    and 0 (the per-step loop) elsewhere."""
+    if graph_steps is not None:
+        return graph_steps
+    return SGNS_GRAPH_STEPS if torch.device(device).type == "cuda" else 0
+
+
+def skipgram_stats(num_pairs: int, timer: StepTimer, device, graph_steps: Optional[int] = None,
+                   epochs: int = 3, batch_size: int = SGNS_BATCH) -> dict:
+    """One SGNS channel's numbers from the ``timer`` of its
+    :func:`train_skipgram` run with ``graph_steps``: its optimizer steps,
+    its seconds without its CUDA graphs' capture, the capture's seconds
+    (its warm-up included) and the steps a replayed graph holds (0: the
+    per-step loop)."""
+    capture_s = sum(timer.captures)
+    return {"steps": skipgram_steps(num_pairs, epochs, batch_size),
+            "s": sum(timer.times) - capture_s, "capture_s": capture_s,
+            "graph_steps": min(skipgram_graph_steps(graph_steps, device),
+                               skipgram_steps(num_pairs, 1, batch_size))}
 
 
 def skipgram_loss(t_in: torch.Tensor, t_out: torch.Tensor, c, ctx, negs) -> torch.Tensor:
@@ -165,15 +195,26 @@ def train_skipgram(
     device="cpu",
     draws: Callable[[int, object], SkipgramDraws] = SkipgramDraws,
     timer: Optional[StepTimer] = None,
+    graph_steps: Optional[int] = None,
 ) -> torch.Tensor:
     """SGNS over the (center, context) pairs; returns the ``in`` table
     (num_nodes, dim) on ``device``. Both tables are dense parameters with
     dense gradients under one Adam (optax.adam's moves every row whose
-    moments are non-zero); ``out`` starts at zero. Each epoch shuffles the
-    pairs and pads them to whole batches with pair 0 (not the
-    permutation's first), unmasked, as the JAX package does; negatives are
-    uniform over ``active_nodes``. ``draws(seed, device)`` gives the random
-    inputs; ``timer`` times each epoch."""
+    moments are non-zero), capturable on a CUDA device; ``out`` starts at
+    zero. Each epoch shuffles the pairs and pads them to whole batches with
+    pair 0 (not the permutation's first), unmasked, as the JAX package
+    does; negatives are uniform over ``active_nodes``. ``draws(seed,
+    device)`` gives the random inputs; ``timer`` times each epoch and the
+    capture of the replayed form.
+
+    ``graph_steps`` picks the form (:func:`skipgram_graph_steps`): 0 runs
+    every step from Python; k > 0 writes each epoch's draws into buffers
+    made once a run and runs a program of k steps (``min(k, batches)``),
+    which reads them at a device step counter, ``batches // k`` times, then
+    one of the remaining steps: on a CUDA device each program is a CUDA
+    graph, captured once a run (``runtime/trainer.GraphProgram``) and
+    replayed; elsewhere it runs as written. Both forms step the same
+    arithmetic and give the same bits."""
     device = torch.device(device)
     n = len(centers)
     if n == 0:
@@ -181,26 +222,92 @@ def train_skipgram(
     source = draws(seed, device)
     t_in = source.initial_table(num_nodes, dim).to(device).requires_grad_()
     t_out = torch.zeros((num_nodes, dim), device=device, requires_grad=True)
-    optimizer = torch.optim.Adam([t_in, t_out], lr=lr, betas=(0.9, 0.999), eps=1e-8)
+    optimizer = T.make_optimizer([t_in, t_out], "adam", lr)
+    T.make_capturable(optimizer)
     num_batches = max(1, (n + batch_size - 1) // batch_size)
     padded = num_batches * batch_size
     as_long = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.int64, device=device)  # noqa: E731
     centers_d, contexts_d, active_d = as_long(centers), as_long(contexts), as_long(active_nodes)
     timer = timer if timer is not None else StepTimer(n, device)
+    steps = min(skipgram_graph_steps(graph_steps, device), num_batches)
+    replayed = _ReplayedSkipgram(t_in, t_out, optimizer, num_batches, batch_size, negatives,
+                                 steps, device) if steps else None
     with f32_products():
         for _ in range(epochs):
             with timer:
                 perm, neg_idx = source.epoch(n, num_batches, batch_size, negatives, len(active_d))
                 pad = torch.cat([perm, perm.new_zeros(padded - n)]).to(device)
+                neg_idx = neg_idx.to(device)
+                if replayed is not None:
+                    replayed.epoch(centers_d, contexts_d, active_d, pad, neg_idx, timer)
+                    continue
                 cs = centers_d[pad].view(num_batches, batch_size)
                 xs = contexts_d[pad].view(num_batches, batch_size)
-                negs = active_d[neg_idx.to(device)]
+                negs = active_d[neg_idx]
                 for step in range(num_batches):
                     loss = skipgram_loss(t_in, t_out, cs[step], xs[step], negs[step])
                     optimizer.zero_grad(set_to_none=True)
                     loss.backward()
                     optimizer.step()
     return t_in.detach()
+
+
+class _ReplayedSkipgram:
+    """The replayed form of :func:`train_skipgram`: the epoch's centers,
+    contexts and negatives in buffers made once a run, a device step
+    counter ``at`` that each step reads them at and advances, and the
+    programs of ``steps`` steps (run ``batches // steps`` times an epoch)
+    and of the remaining steps (once), which share one ``LoopState``: the
+    tables, Adam's state and the counter, committed before any step."""
+
+    def __init__(self, t_in, t_out, optimizer, num_batches: int, batch_size: int,
+                 negatives: int, steps: int, device):
+        self.cs = torch.empty((num_batches, batch_size), dtype=torch.int64, device=device)
+        self.xs = torch.empty_like(self.cs)
+        self.negs = torch.empty((num_batches, batch_size, negatives), dtype=torch.int64,
+                                device=device)
+        self.at = torch.zeros(1, dtype=torch.int64, device=device)
+        T.init_adam_state(optimizer)
+        state = T.LoopState(0, [t_in, t_out], optimizer, None, extra=[self.at])
+        full, tail = divmod(num_batches, steps)
+        buffers = (t_in, t_out, optimizer, self.cs, self.xs, self.negs, self.at)
+        self.programs = [(T.GraphProgram(state, device, _skipgram_steps(steps, *buffers)), full)]
+        if tail:
+            self.programs.append(
+                (T.GraphProgram(state, device, _skipgram_steps(tail, *buffers)), 1))
+        self.device = torch.device(device)
+
+    def epoch(self, centers_d, contexts_d, active_d, pad, neg_idx, timer: StepTimer) -> None:
+        """One epoch on its draws: the buffers filled, the programs captured
+        at the first epoch (on a CUDA device), the counter reset, the
+        programs run."""
+        torch.index_select(centers_d, 0, pad, out=self.cs.view(-1))
+        torch.index_select(contexts_d, 0, pad, out=self.xs.view(-1))
+        torch.index_select(active_d, 0, neg_idx.view(-1), out=self.negs.view(-1))
+        if self.device.type == "cuda" and self.programs[0][0].graph is None:
+            with timer.capture():
+                for program, _ in self.programs:
+                    program.capture()
+        self.at.zero_()
+        for program, times in self.programs:
+            for _ in range(times):
+                program.run()
+
+
+def _skipgram_steps(k: int, t_in, t_out, optimizer, cs, xs, negs, at) -> Callable[[], None]:
+    """``k`` SGNS steps on the buffers' rows at the counter ``at``, each
+    advancing it (a closure over tensors alone, no program)."""
+
+    def body() -> None:
+        for _ in range(k):
+            loss = skipgram_loss(t_in, t_out, cs.index_select(0, at)[0],
+                                 xs.index_select(0, at)[0], negs.index_select(0, at)[0])
+            optimizer.zero_grad(set_to_none=True)
+            loss.backward()
+            optimizer.step()
+            at.add_(1)
+
+    return body
 
 
 def topk_cosine_neighbors(emb: torch.Tensor, active, k: int, chunk: int = 1024):

@@ -35,6 +35,11 @@ device. Three dispatch strategies, as in the JAX package:
   no fallback to the per-epoch loop. The loop's committed state
   (:class:`LoopState`) is then the last chunk boundary.
 
+The capture itself (a warm-up on a side stream under sync-debug "error",
+rolled back, then the graph) is :class:`GraphProgram`'s, which
+:class:`EpochProgram` extends and the loops of their own share: SGNS's
+replayed steps (``ops/walks.py``) and IF_BPR's epoch (``models/ifbpr.py``).
+
 Losses, parameters, the best epoch, its measures and its parameters are
 the same bits whatever ``chunk`` is: every strategy runs one epoch through
 :func:`run_epoch`, the generator draws the same stream (a CUDA graph
@@ -57,6 +62,7 @@ generator where the JAX package folds the epoch into its key.
 from __future__ import annotations
 
 import contextlib
+import gc
 import math
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -214,6 +220,19 @@ def as_device_batches(batches: Sequence, device) -> tuple:
     return tuple(out)
 
 
+def load_batches(arrays: Sequence, buffers: Optional[tuple], device) -> tuple:
+    """Numpy or tensor epoch arrays copied into fixed device ``buffers``
+    (made at the first call, from the arrays' shapes and
+    :func:`as_device_batches`' dtypes), which a CUDA graph reads where it
+    was captured. Returns the buffers."""
+    batches = as_device_batches(arrays, "cpu")
+    if buffers is None:
+        buffers = tuple(torch.empty_like(t, device=device) for t in batches)
+    for buf, t in zip(buffers, batches):
+        buf.copy_(t)
+    return buffers
+
+
 def loop_state(params, optimizer, bold, conv, tracker, generator) -> Dict:
     """What a resumed run restores, by reference (``torch.save`` copies)."""
     return {
@@ -325,18 +344,23 @@ class LoopState:
     """The chunked loops' committed state (the JAX package's ``LoopState``,
     trainer.py:242-267): the epoch and a copy, taken at that epoch's
     boundary, of everything an epoch changes in place, namely the parameters,
-    the optimizer's state, the generator's state and the device vote's.
+    the optimizer's state, the generator's state, the device vote's and the
+    ``extra`` tensors of a loop of its own (SGNS's step counter, IF_BPR's
+    thresholds); a loop that draws nothing inside its graph has no
+    ``generator``.
     INVARIANT: ``commit`` runs only after the host has read a chunk's
     losses, which proves its dispatches ran; a chunk that fails calls
     ``rollback``, which puts the copy back in place, so the state is the
     last committed boundary's, bit for bit."""
 
     def __init__(self, epoch: int, params: Sequence[torch.Tensor], optimizer,
-                 generator: torch.Generator, vote: Optional[DeviceVote] = None):
+                 generator: Optional[torch.Generator], vote: Optional[DeviceVote] = None,
+                 extra: Sequence[torch.Tensor] = ()):
         self.params = list(params)
         self.optimizer = optimizer
         self.generator = generator
         self.vote = vote
+        self.extra = list(extra)
         self.commit(epoch)
 
     def tensors(self) -> List[torch.Tensor]:
@@ -344,63 +368,110 @@ class LoopState:
         for p in self.params:
             state = self.optimizer.state[p]
             out += [state[k] for k in sorted(state) if isinstance(state[k], torch.Tensor)]
-        return out + (self.vote.tensors() if self.vote is not None else [])
+        return out + (self.vote.tensors() if self.vote is not None else []) + self.extra
 
     def commit(self, epoch: int) -> None:
         self.epoch = epoch
         self._saved = [t.detach().clone() for t in self.tensors()]
-        self._generator = self.generator.get_state()
+        self._generator = None if self.generator is None else self.generator.get_state()
 
     def rollback(self) -> None:
         with torch.no_grad():
             for t, saved in zip(self.tensors(), self._saved):
                 t.copy_(saved)
-        self.generator.set_state(self._generator)
+        if self.generator is not None:
+            self.generator.set_state(self._generator)
 
 
-class EpochProgram:
-    """One epoch as the chunked loops run it: its batches (the sampler's, or
-    the injected arrays copied into fixed buffers), its steps
-    (:func:`run_epoch`), the summed loss into ``loss``, and with a ``vote``
-    the quick evaluation (``evaluate() -> (4,) f32`` in ``METRIC_KEYS``
-    order) into ``vec`` and the vote.
+class GraphProgram:
+    """A body of device work that a loop runs again and again (an epoch, or
+    a few SGNS steps), and on a CUDA device its CUDA graph: ``body``, or a
+    subclass's :meth:`body`. Neither may hold a reference back to the
+    program's owner: a CUDA graph left in a reference cycle is freed by
+    Python's cyclic collector at an arbitrary later time, and freeing it
+    while another graph is being captured invalidates that capture.
 
-    On a CUDA device :meth:`capture` records the epoch once into a CUDA
-    graph on a side stream, after one warm-up epoch on that stream (it
-    sizes the kernels' scratch, which is kept per stream, and makes the
-    libraries' handles) whose effects are rolled back, launch counts
-    included; the generator is registered with the graph, so that every
-    replay draws what an eager epoch would draw. No host read can hide in
-    the epoch: the warm-up runs under CUDA's sync-debug mode "error", and
-    the capture itself fails on one. :meth:`run` replays the graph and
-    counts its kernel launches (``ops/kernels.GraphLaunches``). On the CPU
-    :meth:`run` runs the epoch as written."""
+    :meth:`capture` records the body once into a CUDA graph on a side
+    stream, after one warm-up run on that stream (it sizes the kernels'
+    scratch, which is kept per stream, and makes the libraries' handles)
+    whose effects ``state`` rolls back, launch counts included; the state's
+    generator, where it has one, is registered with the graph, so that
+    every replay draws what an eager run would draw. No host read can hide
+    in the body: the warm-up runs under CUDA's sync-debug mode "error", and
+    the capture itself fails on one. The cyclic collector is paused over
+    the capture. :meth:`run` replays the graph and counts its kernel
+    launches (``ops/kernels.GraphLaunches``). On the CPU :meth:`run` runs
+    the body as written. A capture or a replay that fails raises: nothing
+    falls back to the eager loop."""
+
+    def __init__(self, state: LoopState, device, body: Optional[Callable[[], None]] = None):
+        self.state = state
+        self.device = torch.device(device)
+        self._body = body
+        self.graph = None
+        self.launches = None
+
+    def body(self) -> None:
+        self._body()
+
+    def capture(self) -> None:
+        """Warm up and capture at the state's committed boundary."""
+        counts = K.launch_counts()
+        stream = torch.cuda.Stream(self.device)
+        stream.wait_stream(torch.cuda.current_stream(self.device))
+        try:
+            with torch.cuda.stream(stream), _host_reads_refused():
+                self.body()
+        finally:
+            torch.cuda.current_stream(self.device).wait_stream(stream)
+            K.set_launch_counts(counts)
+        self.state.rollback()
+        graph = torch.cuda.CUDAGraph()
+        if self.state.generator is not None:
+            graph.register_generator_state(self.state.generator)
+        launches = K.GraphLaunches()
+        with launches.record(), _collector_paused(), torch.cuda.graph(graph, stream=stream):
+            self.body()
+        self.graph, self.launches = graph, launches
+
+    def run(self) -> None:
+        if self.device.type != "cuda":
+            self.body()
+            return
+        if self.graph is None:
+            raise RuntimeError("GraphProgram.run before capture")
+        self.graph.replay()
+        self.launches.add()
+
+
+class EpochProgram(GraphProgram):
+    """One epoch as the chunked loops run it (a :class:`GraphProgram`): its
+    batches (the sampler's, or the injected arrays copied into fixed
+    buffers), its steps (:func:`run_epoch`), the summed loss into ``loss``,
+    and with a ``vote`` the quick evaluation (``evaluate() -> (4,) f32`` in
+    ``METRIC_KEYS`` order) into ``vec`` and the vote. ``capture`` and
+    ``run`` take the epoch, whose injected arrays they load first."""
 
     def __init__(self, state: LoopState, loss_fn: Callable, sampler: Callable, device, *,
                  epoch_batches: Optional[Sequence] = None, after_step: Optional[Callable] = None,
                  evaluate: Optional[Callable] = None):
-        self.state = state
+        super().__init__(state, device)
         self.loss_fn = loss_fn
         self.sampler = sampler
-        self.device = torch.device(device)
         self.epoch_batches = epoch_batches
         self.after_step = after_step
         self.evaluate = evaluate
         self.loss = torch.zeros((), dtype=torch.float32, device=self.device)
         self.vec = torch.zeros(len(METRIC_KEYS), dtype=torch.float32, device=self.device)
-        self.graph = None
-        self.launches = None
         self._batches = None
 
     def _load(self, epoch: int) -> None:
         """The injected arrays of ``epoch`` into the fixed buffers."""
-        batches = as_device_batches(self.epoch_batches[epoch], "cpu")
-        if self._batches is None:
-            self._batches = tuple(torch.empty_like(t, device=self.device) for t in batches)
-        for buf, t in zip(self._batches, batches):
-            buf.copy_(t)
+        if self.epoch_batches is None:
+            return
+        self._batches = load_batches(self.epoch_batches[epoch], self._batches, self.device)
 
-    def _body(self) -> None:
+    def body(self) -> None:
         st = self.state
         batches = self._batches if self.epoch_batches is not None else self.sampler(st.generator)
         self.loss.copy_(run_epoch(st.params, st.optimizer, self.loss_fn, batches, st.generator,
@@ -413,35 +484,26 @@ class EpochProgram:
 
     def capture(self, epoch: int) -> None:
         """Warm up and capture at the committed boundary ``epoch``."""
-        if self.epoch_batches is not None:
-            self._load(epoch)
-        counts = K.launch_counts()
-        stream = torch.cuda.Stream(self.device)
-        stream.wait_stream(torch.cuda.current_stream(self.device))
-        try:
-            with torch.cuda.stream(stream), _host_reads_refused():
-                self._body()
-        finally:
-            torch.cuda.current_stream(self.device).wait_stream(stream)
-            K.set_launch_counts(counts)
-        self.state.rollback()
-        graph = torch.cuda.CUDAGraph()
-        graph.register_generator_state(self.state.generator)
-        launches = K.GraphLaunches()
-        with launches.record(), torch.cuda.graph(graph, stream=stream):
-            self._body()
-        self.graph, self.launches = graph, launches
+        self._load(epoch)
+        super().capture()
 
     def run(self, epoch: int) -> None:
-        if self.epoch_batches is not None:
-            self._load(epoch)
-        if self.device.type != "cuda":
-            self._body()
-            return
-        if self.graph is None:
-            raise RuntimeError("EpochProgram.run before capture")
-        self.graph.replay()
-        self.launches.add()
+        self._load(epoch)
+        super().run()
+
+
+@contextlib.contextmanager
+def _collector_paused():
+    """Python's cyclic garbage collector off over the block (a collection
+    inside a capture could free a CUDA graph left in some reference cycle,
+    which invalidates the capture), back on after it if it was on."""
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if enabled:
+            gc.enable()
 
 
 @contextlib.contextmanager

@@ -193,12 +193,17 @@ def test_buir_runs_per_epoch_and_says_why(capsys):
 
 
 def test_a_tf_run_says_it_is_not_chunked(capsys):
-    """A bold spec under ``-tf`` trains with Adam but is not chunked: its
-    note names ``-tf``, not the bold driver."""
+    """A bold spec under ``-tf`` trains with Adam and, since the bold specs
+    are ``chunkable``, chunks where the ranking reads no epoch: no note. A
+    phase whose step is not chunkable still runs per epoch with the
+    default reason, which no longer names ``-tf``."""
     model = _model("APR", "4", extra={"evaluation.setup": "-ap 0.25 -tf"})
+    assert model._chunk_for("adam", True, True) == 4
+    assert "not applied" not in capsys.readouterr().out
     assert model._chunk_for("adam", False, True) == 1
-    assert "not applied, runs per epoch: a -tf run is not chunked in the port" in (
-        capsys.readouterr().out)
+    out = capsys.readouterr().out
+    assert "not applied, runs per epoch: its step is not chunkable" in out
+    assert "-tf" not in out
 
 
 @pytest.mark.parametrize("name", ["DMF", "CDAE"])
@@ -214,18 +219,22 @@ def test_dense_row_caches_are_made_by_build(name):
 
 
 def test_capturable_adam_where_a_phase_may_chunk():
-    """Capturable Adam follows the spec, the mode and the phase's length,
-    not ``train.chunk`` (so ``1`` and ``auto`` step the same arithmetic, and
-    a checkpointed run the unbroken one's); a phase of one epoch and a
-    mesh, where no phase chunks, keep plain Adam."""
+    """Capturable Adam follows the spec, the mode, the phase's length and
+    whether a per-epoch measure is read on the host, not ``train.chunk``
+    (so ``1`` and ``auto`` step the same arithmetic, and a checkpointed
+    run the unbroken one's); a phase of one epoch, a phase whose measures
+    the host reads every epoch (a ``-tf`` rating run) and a mesh, where no
+    phase chunks, keep plain Adam."""
     for chunk, extra in (("1", None), ("auto", None),
                          ("auto", {"checkpoint.setup": "on -dir ckpt -every 1"})):
         model = _model("DMF", chunk, extra=extra)
-        assert model._capturable("adam", True, 2)
-        assert not model._capturable("adam", True, 1)
-        assert not model._capturable("adam", False, 2) and not model._capturable("bold", True, 2)
+        assert model._capturable("adam", True, 2, True)
+        assert not model._capturable("adam", True, 1, True)
+        assert not model._capturable("adam", True, 2, False)
+        assert not model._capturable("adam", False, 2, True)
+        assert not model._capturable("bold", True, 2, True)
     model._mesh = SimpleNamespace(data=2, data_index=0, model=1)
-    assert not model._capturable("adam", True, 2)
+    assert not model._capturable("adam", True, 2, True)
 
 
 @pytest.mark.parametrize("epochs,capturable", [(1, [False] * 3), (2, [True, False, False]),

@@ -1224,23 +1224,32 @@ def _walk_conf(name, ratings, trust, epochs=30):
 
 
 @pytest.mark.cuda
-def test_ifbpr_threshold_sums_repeat_bit_for_bit_on_card(cuda_device, tmp_path):
+def test_ifbpr_threshold_sums_repeat_bit_for_bit_on_card(cuda_device, tmp_path, monkeypatch):
     """IF_BPR's per-user threshold sums are segment sums over each batch
     sorted by user (no atomics), so two seeded runs on the card give the
-    same sums, thresholds and tables bit for bit."""
+    same sums, thresholds and tables bit for bit; so does a third that
+    runs its epochs step by step from Python (``epoch_graphs=False``)
+    against the two that replay one captured CUDA graph an epoch."""
+    from qrec_tpu_torch.models.ifbpr import IF_BPR
+
     ratings, trust = _walk_files(tmp_path)
     runs = []
-    for _ in range(2):
+    for graphs in (None, None, False):
+        monkeypatch.setattr(IF_BPR, "epoch_graphs", graphs)
         rec = QRec(_walk_conf("IF_BPR", ratings, trust, epochs=5), seed=3)
         rec.execute()
         runs.append(rec.model)
-    a, b = runs
+    a, b, eager = runs
+    assert len(a.timer.captures) == 1 and eager.timer.captures == []
     assert a.acc.device.type == "cuda" and a.acc.abs().sum() > 0
-    assert torch.equal(a.acc, b.acc)
-    for (t1, v1), (t2, v2) in zip(a.thresholds, b.thresholds):
-        assert torch.equal(t1, t2) and torch.equal(v1, v2)
-    assert torch.equal(a.U, b.U) and torch.equal(a.V, b.V)
-    assert a.epoch_losses == b.epoch_losses
+    for m in (b, eager):
+        assert torch.equal(a.acc, m.acc)
+        assert len(m.thresholds) == len(a.thresholds) == 5
+        for (t1, v1), (t2, v2) in zip(a.thresholds, m.thresholds):
+            assert torch.equal(t1, t2) and torch.equal(v1, v2)
+        assert torch.equal(a.U, m.U) and torch.equal(a.V, m.V)
+        assert a.epoch_losses == m.epoch_losses
+    assert not torch.equal(a.thresholds[0][0], a.thresholds[-1][0])
 
 
 @pytest.mark.cuda
@@ -1549,3 +1558,115 @@ def test_chunked_family_graphs_match_per_epoch_on_card(cuda_device, tmp_path, na
     assert all(t.captures == [] and {e for _, e in t.chunks} == {1} for t in t1)
     assert l3 == l1 and b3 == b1
     assert all(torch.equal(a, b) for a, b in zip(p3, p1))
+
+
+# -tf runs, SGNS and IF_BPR as CUDA graphs: a -tf run with the ranking on
+# replays one CUDA graph an epoch (every bold spec is chunkable under Adam),
+# SGNS replays graphs of a few steps through each epoch, IF_BPR replays one
+# graph an epoch; each the same bits as its eager loop
+TF_MODELS = [("BPR", None), ("BasicMF", None), ("PMF", None), ("SVD", None),
+             ("SBPR", None), ("TBPR", "-regT 0.01"), ("SoRec", "-z 0.01"),
+             ("SoReg", "-alpha 0.1"), ("SocialMF", None), ("RSTE", "-alpha 0.4"),
+             ("LOCABAL", "-alpha 0.1"), ("SREE", "-alpha 0.01"),
+             ("SocialFD", "-alpha 0.1 -eta 0.1 -beta 0.1"),
+             ("CUNE_MF", "-T 10 -L 10 -l 16 -w 5 -k 10 -a 0.1 -ep 10"),
+             ("CUNE_BPR", "-T 10 -L 10 -l 16 -w 5 -k 10 -s 2 -ep 10"),
+             ("SVD++", "-y 0.01"), ("EE", None)]
+TF_KEYS = {"CUNE_MF": "CUNE-MF", "CUNE_BPR": "CUNE-BPR", "SVD++": "SVDPlusPlus"}
+
+
+def _tf_conf(ratings, trust, name, args, chunk, epochs=5):
+    conf = ModelConf({
+        "ratings": ratings, "ratings.setup": "-columns 0 1 2", "model.name": name,
+        "evaluation.setup": "-ap 0.2 -tf", "item.ranking": "on -topN 10", "num.factors": "16",
+        "num.max.epoch": str(epochs), "batch_size": "64", "learnRate": "-init 0.01 -max 1",
+        "reg.lambda": "-u 0.001 -i 0.001 -b 0.1 -s 0.1", "output.setup": "off -dir ./results/",
+        "seed": "7", "train.chunk": chunk, "social": trust, "social.setup": "-columns 0 1",
+    })
+    if args:
+        conf[TF_KEYS.get(name, name)] = args
+    return conf
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,args", TF_MODELS, ids=[n for n, _ in TF_MODELS])
+@pytest.mark.parametrize("chunk,cut", [("3", [3, 2]), ("auto", [5])])
+def test_tf_runs_chunk_as_graphs_on_card(cuda_device, tmp_path, name, args, chunk, cut):
+    """Every bold spec under ``-tf`` with the ranking on: one CUDA graph
+    (captured after a warm-up epoch under sync-debug "error": no sampler
+    or loss reads the host), its chunks as cut, its losses, parameters and
+    ranking's factors the same bits as the ``train.chunk=1`` run's."""
+    ratings, trust = _planted_social(tmp_path)
+    runs = {}
+    for c in ("1", chunk):
+        rec = QRec(_tf_conf(ratings, trust, name, args, c), seed=3)
+        rec.execute()
+        m = rec.model
+        runs[c] = (m.epoch_losses, [p.detach().clone() for p in m.parameters()], m.U, m.V,
+                   m.phase_timers[0])
+    (l1, p1, u1, v1, t1), (lc, pc, uc, vc, tc) = runs["1"], runs[chunk]
+    assert [e for _, e in tc.chunks] == cut and len(tc.captures) == 1
+    assert t1.captures == [] and [e for _, e in t1.chunks] == [1] * 5
+    assert lc == l1 and torch.equal(uc, u1) and torch.equal(vc, v1)
+    assert all(torch.equal(a, b) for a, b in zip(pc, p1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,args", [m for m in TF_MODELS
+                                       if m[0] in ("BPR", "SBPR", "TBPR", "CUNE_BPR")])
+def test_tf_chunk_reads_the_host_once(cuda_device, tmp_path, name, args):
+    """One more chunk of 4 epochs of a captured ``-tf`` run, under CUDA's
+    sync-debug mode "warn": one host read, the chunk's losses."""
+    import warnings
+
+    from qrec_tpu_torch.runtime import trainer as T
+    from qrec_tpu_torch.runtime.profiling import StepTimer
+
+    ratings, trust = _planted_social(tmp_path)
+    rec = QRec(_tf_conf(ratings, trust, name, args, "auto", epochs=1), seed=3)
+    rec.execute()
+    model = rec.model
+    spec = model.build()
+    opt = T.make_optimizer(spec.params, "adam", model.lrate)
+    T.make_capturable(opt)
+    T.init_adam_state(opt)
+    st = T.LoopState(0, spec.params, opt, torch.Generator(device="cuda").manual_seed(0))
+    prog = T.EpochProgram(st, spec.loss_fn, spec.sampler, "cuda")
+    loop = T.ChunkedLoop(prog, 4, timer=StepTimer(1), emit=None, lr=model.lrate)
+    loop.run(st, 4)
+    before = torch.cuda.get_sync_debug_mode()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            losses = loop.run(st, 8)
+        finally:
+            torch.cuda.set_sync_debug_mode(before)
+    assert sum("called a synchronizing" in str(w.message) for w in caught) == 1
+    assert len(losses) == 4 and all(np.isfinite(losses))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("graph_steps", [None, 3])
+def test_skipgram_graphs_equal_eager_steps_on_card(cuda_device, graph_steps):
+    """SGNS at batch 8,192 on 4 batches an epoch (the last padded with
+    pair 0): replayed CUDA graphs of ``SGNS_GRAPH_STEPS`` (one program of
+    all 4) or of 3 steps (3 + a tail of 1), captured once, give the ``in``
+    table of the per-step loop bit for bit, both on capturable Adam."""
+    from qrec_tpu_torch.ops import walks as W
+    from qrec_tpu_torch.runtime.profiling import StepTimer
+
+    rng = np.random.RandomState(0)
+    centers = rng.randint(0, 500, 30000).astype(np.int32)
+    contexts = rng.randint(0, 500, 30000).astype(np.int32)
+    active = np.arange(0, 500, 2)
+    kw = dict(epochs=3, seed=4, device="cuda")
+    eager_timer, graph_timer = StepTimer(30000, "cuda"), StepTimer(30000, "cuda")
+    eager = W.train_skipgram(centers, contexts, 500, 20, active, graph_steps=0,
+                             timer=eager_timer, **kw)
+    got = W.train_skipgram(centers, contexts, 500, 20, active, graph_steps=graph_steps,
+                           timer=graph_timer, **kw)
+    assert got.device.type == "cuda" and torch.isfinite(got).all()
+    assert torch.equal(got, eager)
+    assert eager_timer.captures == [] and len(graph_timer.captures) == 1
+    assert len(graph_timer.times) == 3
