@@ -129,6 +129,15 @@ Phases, each of which exits non-zero on failure:
    CUDA graph an epoch against its per-step epochs, bit for bit; every
    SGNS channel of phases 13 and 15 runs as replayed graphs, IF_BPR's
    epochs as one graph each;
+13c. slice 11 (``own_loop_phases``): the own loops as one dispatch an
+   epoch, each ``config/`` file at its published widths with the epochs of
+   ``OWN_LOOP_EPOCHS``: ESRF (2 a phase: three phase graphs, K1 inside)
+   and BUIR (4, ``train.chunk=auto``: one epoch graph, K5 inside) through
+   ``ChunkedLoop``, RSGAN's pretraining step and epoch, IRGAN's and
+   CFGAN's epochs as captured CUDA graphs; each held bit for bit to its
+   per-step twin (``epoch_graphs=False``, BUIR at ``train.chunk=1``), with
+   its ms an epoch, capture s, host reads in its epochs (``FitReads``
+   against ``OWN_LOOP_READS``), peak MiB and launches (replays included);
 14. the lifecycle slice (``host_and_lifecycle_phases``): the host library
    built; the lastfm- and FilmTrust-shaped files parsed through its
    tokenizer and the plain parser (equal records, both times);
@@ -1014,14 +1023,16 @@ def mf_phases(torch, K, QRec, timer, tmp, conf_of):
 # minimax game, which the check skips
 DEEP_EPOCHS = {"NeuMF": 1, "APR": 2, "IRGAN": 2, "DMF": 1, "CDAE": 100, "CFGAN": 2}
 # phases whose loss is one side of a minimax game and need not fall epoch
-# by epoch: a GAN's D and G losses; APR's perturbed phase, whose worst-case
-# deltas grow with the tables (its loss rises in the JAX package too)
-MINIMAX_PHASES = {"APR": (1,), "CFGAN": (0,), "IRGAN": (0,), "RSGAN": (0,)}
+# by epoch: a GAN's D and G losses, ESRF's adversarial phase (its
+# discriminator against the generator's neighbourhoods); APR's perturbed
+# phase, whose worst-case deltas grow with the tables (its loss rises in
+# the JAX package too)
+MINIMAX_PHASES = {"APR": (1,), "CFGAN": (0,), "IRGAN": (0,), "RSGAN": (0,), "ESRF": (2,)}
 # phases that this script trains too briefly for drive's loss-falls check
-# in every run of the model, by design: ESRF's, one epoch a phase at the
-# mesh run's depth (its phases take max_epoch // 3 epochs each). Any other
-# phase that no run checks fails the script
-SHORT_PHASES = {"ESRF": (0, 1, 2)}
+# in every run of the model, by design: none since ESRF's first two phases
+# are checked at 2 epochs in own_loop_phases (its other runs train one
+# epoch a phase). Any phase that no run checks fails the script
+SHORT_PHASES = {}
 # the phases drive checked and those it found too short, by model
 FALLS = {"checked": {}, "short": {}}
 # phases checked from their second epoch on: every phase reseeds the
@@ -1811,6 +1822,171 @@ def dispatch_walk_phases(torch, K, QRec, conf_of, tmp, trust_path) -> dict:
     out["ifbpr"] = ifbpr_graph_phase(torch, QRec, conf_of, trust_path)
     lap("ifbpr graphs")
     print(f"[slice 10 phases] seconds {json.dumps(laps)}", flush=True)
+    return out
+
+
+# slice 11: the own loops as one dispatch an epoch, each config/ file at
+# its published widths with the epochs cut: ESRF 2 a phase (the least at
+# which a phase captures), BUIR 4, IRGAN 5 (its first printed epoch), RSGAN
+# 2, CFGAN 20 (its first printed epoch)
+OWN_LOOP_EPOCHS = {"ESRF": 6, "BUIR": 4, "IRGAN": 5, "RSGAN": 2, "CFGAN": 20}
+# the host reads of each captured fit's epochs: one a phase's chunk (ESRF),
+# one chunk (BUIR at auto), the printed epochs (IRGAN's 5th, CFGAN's 20th),
+# the pretraining's losses and the last epoch's (RSGAN)
+OWN_LOOP_READS = {"ESRF": 3, "BUIR": 1, "IRGAN": 1, "RSGAN": 2, "CFGAN": 1}
+# the same of each per-step twin: ESRF reads every epoch, BUIR's per-epoch
+# loop each epoch (lag-1), the others where their captured form reads
+OWN_LOOP_TWIN_READS = {"ESRF": 6, "BUIR": 4, "IRGAN": 1, "RSGAN": 2, "CFGAN": 1}
+READ_METHODS = ("tolist", "item", "cpu", "__float__", "__int__", "__bool__")
+
+
+class FitReads:
+    """Counts the host reads of ``cls``'s ``fit_phases`` outside its host
+    build (``prepare_graph``): each ``tolist``, ``item``, ``cpu``,
+    ``float``, ``int`` or ``bool`` of a CUDA tensor, the ways a Python loop
+    reads the card. ``count`` holds them after the block."""
+
+    device = "cuda"  # the device type whose tensors' reads count
+
+    def __init__(self, torch, cls):
+        self.torch, self.cls, self.count, self.active = torch, cls, 0, False
+
+    def __enter__(self):
+        counter = self
+        self.saved = [(owner, name, owner.__dict__.get(name))
+                      for owner, names in ((self.torch.Tensor, READ_METHODS),
+                                           (self.cls, ("fit_phases", "prepare_graph")))
+                      for name in names]
+
+        def reader(real):
+            def read(t, *a, **k):
+                if counter.active and t.device.type == counter.device:
+                    counter.count += 1
+                return real(t, *a, **k)
+            return read
+
+        def toggled(real, on):
+            def run(model, *a, **k):
+                was, counter.active = counter.active, on
+                try:
+                    return real(model, *a, **k)
+                finally:
+                    counter.active = was
+            return run
+
+        for name in READ_METHODS:
+            setattr(self.torch.Tensor, name, reader(getattr(self.torch.Tensor, name)))
+        self.cls.fit_phases = toggled(self.cls.fit_phases, True)
+        self.cls.prepare_graph = toggled(self.cls.prepare_graph, False)
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, real in self.saved:
+            if real is None:
+                delattr(owner, name)
+            else:
+                setattr(owner, name, real)
+        return False
+
+
+def own_timers(model) -> list:
+    """A fit's timers: ESRF's and BUIR's by phase, RSGAN's pretraining
+    timer and its epoch timer, the others' one."""
+    if model.model_name == "RSGAN":
+        return [model.pretrain_timer, model.timer]
+    return model.phase_timers or [model.timer]
+
+
+def own_record(model) -> dict:
+    """What a per-step twin is held to: every loss list, table, buffer
+    and factor of the fit."""
+    clone = lambda x: None if x is None else x.detach().clone()  # noqa: E731
+    return dict(
+        losses={k: list(getattr(model, k)) for k in ("epoch_losses", "g_losses", "pretrain_losses")
+                if hasattr(model, k)},
+        tensors={k: clone(v) for k, v in (*model.named_parameters(), *model.named_buffers())},
+        U=clone(getattr(model, "U", None)), V=clone(getattr(model, "V", None)))
+
+
+def same_record(torch, a, b) -> bool:
+    return (a["losses"] == b["losses"] and a["tensors"].keys() == b["tensors"].keys()
+            and all(torch.equal(a["tensors"][k], b["tensors"][k]) for k in a["tensors"])
+            and all((a[k] is None and b[k] is None) or (a[k] is not None and b[k] is not None
+                                                        and torch.equal(a[k], b[k]))
+                    for k in ("U", "V")))
+
+
+def own_loop_phases(torch, K, QRec, conf_of, trust_path) -> dict:
+    """Slice 11: ESRF, BUIR, IRGAN, RSGAN and CFGAN at their ``config/``
+    files' published widths on the lastfm-shaped file (with ``trust_path``
+    where the file names a relation), ``OWN_LOOP_EPOCHS`` epochs, each driven twice through
+    ``QRec(conf).execute()`` (``drive``: the launches against
+    ``expected_launches``, replays included): in its captured form (ESRF's
+    three phase graphs and BUIR's epoch graph under ``train.chunk=auto``;
+    RSGAN's pretraining-step and epoch graphs; IRGAN's and CFGAN's epoch
+    graphs), then as its per-step twin (``epoch_graphs=False``; BUIR at
+    ``train.chunk=1``), both on capturable Adam. Each pair is held bit for
+    bit (losses, tables, buffers, factors); each run's ms an epoch (by
+    phase), capture s, host reads in its epochs (``FitReads``, against
+    ``OWN_LOOP_READS``) and peak MiB are printed. Returns the summed
+    launches of each kernel over the ten runs and the K2 launches of each
+    run."""
+    from qrec_tpu_torch.models import MODELS
+
+    laps, lap = lap_timer()
+    total, k2 = {}, {}
+    out = {"launches": total, "k2": k2}
+    for name, epochs in OWN_LOOP_EPOCHS.items():
+        cls = MODELS[name]
+        runs = {}
+        for form in ("graphs", "per-step"):
+            conf = conf_of(name, epochs)
+            if conf.contains("social"):
+                conf["social"] = trust_path
+            if form == "per-step" and name == "BUIR":
+                conf["train.chunk"] = "1"
+            elif form == "per-step":
+                cls.epoch_graphs = False
+            label = f"own {name.lower()} {form}"
+            try:
+                with FitReads(torch, cls) as reads:
+                    model, counts, _ = drive(torch, K, QRec, conf, label)
+            finally:
+                if "epoch_graphs" in cls.__dict__:
+                    del cls.epoch_graphs
+            peak = torch.cuda.max_memory_allocated() / 2**20
+            for kernel, n in counts.items():
+                total[kernel] = total.get(kernel, 0) + n
+            k2[label] = counts["masked_catalog_topk"]
+            timers = own_timers(model)
+            captures = [len(t.captures) for t in timers]
+            runs[form] = dict(record=own_record(model), reads=reads.count, captures=captures,
+                              capture_s=sum(sum(t.captures) for t in timers),
+                              ms=phase_text(phase_ms(model)), peak=peak, counts=counts,
+                              chunks=[[e for _, e in t.chunks] for t in timers])
+            del model
+            gc.collect()
+            lap(label)
+        g, e = runs["graphs"], runs["per-step"]
+        same = same_record(torch, g["record"], e["record"])
+        print(f"[own {name.lower()}] epochs={epochs}: ms an epoch by phase, captured "
+              f"{g['ms']} / per-step {e['ms']} ({PHASE_KINDS}); capture_s={g['capture_s']:.3f} "
+              f"(captures by timer {g['captures']}, warm-ups included); epochs a dispatch "
+              f"{g['chunks']} / {e['chunks']}; host reads in the epochs {g['reads']} / "
+              f"{e['reads']}; peak MiB {g['peak']:.1f} / {e['peak']:.1f}; launches "
+              f"{ {k: n for k, n in g['counts'].items() if n} } / "
+              f"{ {k: n for k, n in e['counts'].items() if n} }; bit-identical={same}; seeded "
+              f"losses {g['record']['losses']}", flush=True)
+        out[name] = runs
+        if not same:
+            fail(f"own {name}: the captured form differs from its per-step twin")
+        if g["reads"] != OWN_LOOP_READS[name] or e["reads"] != OWN_LOOP_TWIN_READS[name]:
+            fail(f"own {name}: host reads {g['reads']} / {e['reads']}, expected "
+                 f"{OWN_LOOP_READS[name]} / {OWN_LOOP_TWIN_READS[name]}")
+        if not all(g["captures"]) or any(e["captures"]) or g["counts"] != e["counts"]:
+            fail(f"own {name}: captures {g['captures']} / {e['captures']}, launches "
+                 f"{g['counts']} / {e['counts']}")
+    print(f"[slice 11 phases] seconds {json.dumps(laps)}", flush=True)
     return out
 
 
@@ -3160,7 +3336,13 @@ def expected_launches(model):
     eval_batch_size) a ranking); MHCN, DiffNet and DHCF hold their
     operators whole on every rank, so K2 alone; the models trained whole
     on every rank (slice 7d) and the bold-driver family (slice 7e) launch
-    K2 alone, on their share, where one device ranks through it."""
+    K2 alone, on their share, where one device ranks through it. A
+    captured CUDA graph's kernels count at every replay
+    (``ops/kernels.GraphLaunches``) and its warm-up's not at all, so a
+    captured run launches what its per-step twin does: the chunked runs,
+    and since slice 11 ESRF's phase graphs (2 epochs a phase in
+    ``own_loop_phases``: 2·38·(4 + 4 + 7) + 2 = 1,142 K1) and BUIR's epoch
+    graph (4 epochs: 6·38·4 = 912 K5)."""
     import torch.distributed as dist
 
     from qrec_tpu_torch.models.adversarial_social import ESRF
@@ -4170,6 +4352,13 @@ def main() -> None:
 
         lap("13b -tf, SGNS and IF_BPR graphs")
 
+        # 13c. slice 11: ESRF's phases and BUIR chunked, IRGAN, RSGAN and
+        # CFGAN as captured graphs, each against its per-step twin
+        own = own_loop_phases(torch, K, QRec, conf_of, trust)
+        mf_launches.update(own["k2"])
+
+        lap("13c own loops")
+
         # 14. the lifecycle slice: the host library, resume, save/load and the trace
         k1_life, life_launches = host_and_lifecycle_phases(
             torch, K, QRec, conf_of, tmp, card, unbroken)
@@ -4230,7 +4419,10 @@ def main() -> None:
           f"{counts['masked_catalog_scores']})", flush=True)
     print(f"[K1] launches: main {counts['bipartite_dual_matmul']} lightgcn-bf16 {k1b_launches} "
           + " ".join(f"{label} {n}" for label, n in k1_social.items())
-          + f" esrf {k1_esrf} lightgcn-stopped+resumed {k1_life}", flush=True)
+          + f" esrf {k1_esrf} lightgcn-stopped+resumed {k1_life} own loops (both forms) "
+          f"{own['launches']['bipartite_dual_matmul']}", flush=True)
+    print(f"[K5] launches: yelp-pallas {yelp_counts['weighted_segment_matmul']} own loops (BUIR, "
+          f"both forms) {own['launches']['weighted_segment_matmul']}", flush=True)
     print(f"[K2 topk] launches: main {counts['masked_catalog_topk']} "
           + " ".join(f"{label} {n}" for label, n in mf_launches.items()), flush=True)
 
@@ -4248,7 +4440,7 @@ def main() -> None:
         row("bipartite_dual_matmul", "qrec_tpu_torch/csrc/dual_matmul.cu",
             "qrec_tpu/ops/pallas_kernels.py:563",
             counts["bipartite_dual_matmul"] + k1b_launches + sum(k1_social.values()) + k1_esrf
-            + k1_life, k1),
+            + k1_life + own["launches"]["bipartite_dual_matmul"], k1),
         row("masked_catalog_scores", "qrec_tpu_torch/csrc/masked_scores.cu",
             "qrec_tpu/ops/pallas_kernels.py:49", counts["masked_catalog_scores"], k2),
         row("masked_catalog_topk", "qrec_tpu_torch/csrc/masked_scores.cu",
@@ -4260,7 +4452,8 @@ def main() -> None:
         row("infonce_bwd", "qrec_tpu_torch/csrc/infonce.cu",
             "qrec_tpu/ops/pallas_kernels.py:242", sim_counts["infonce_bwd"], k4),
         row("weighted_segment_matmul", "qrec_tpu_torch/csrc/segment_matmul.cu",
-            "qrec_tpu/ops/pallas_kernels.py:478", yelp_counts["weighted_segment_matmul"], k5),
+            "qrec_tpu/ops/pallas_kernels.py:478",
+            yelp_counts["weighted_segment_matmul"] + own["launches"]["weighted_segment_matmul"], k5),
         # the mesh routes: launches summed over the four ranks, ms on one
         # rank's share (K3 + K4 for the InfoNCE)
         row("sharded_infonce_loss", "qrec_tpu_torch/csrc/infonce.cu",

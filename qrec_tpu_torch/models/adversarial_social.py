@@ -218,40 +218,63 @@ class ESRF(SocialRecommender, GraphRecommender):
         return (T.make_optimizer(list(self.d.values()), "adam", self.lrate),
                 T.make_optimizer(list(self.g.values()), "adam", self.lrate * 5))
 
-    def run_phase(self, phase: int, epochs: int, gen: torch.Generator, d_opt, g_opt,
-                  sampler) -> None:
-        """``epochs`` epochs of phase ``phase`` (0 plain, 1 social, 2
-        adversarial), numbered after the epochs already run; an epoch's
-        loss is the sum of its discriminator losses. On a mesh every step
-        of either player sums its gradients over ``data``, and the epoch's
-        total is summed over ``data`` before it reaches the host."""
-        banner, social, adversarial = self.PHASES[phase]
-        print(banner)
+    def train_epoch(self, phase: int, batches, gen: torch.Generator, d_opt, g_opt) -> torch.Tensor:
+        """One epoch of phase ``phase`` (0 plain, 1 social, 2 adversarial)
+        on ``batches``: each step a discriminator step, followed in the
+        adversarial phase by a generator step on the updated tables, each
+        on draws of its own; returns the sum of the discriminator's losses.
+        On a mesh every step of either player sums its gradients over
+        ``data``, and the total is summed over ``data``."""
+        _, social, adversarial = self.PHASES[phase]
         mesh = self.mesh
         d_params, g_params = list(self.d.values()), list(self.g.values())
+        total = torch.zeros((), device=self.device)
+        for step in range(batches[0].shape[0]):
+            batch = tuple(t[step] for t in batches)
+            loss = self.d_loss(batch, self.draw(gen) if social else None, social, adversarial)
+            T.step(d_opt, loss, d_params, mesh)
+            if adversarial:
+                T.step(g_opt, self.g_loss(batch, self.draw(gen)), g_params, mesh)
+            total = total + loss.detach()
+        if mesh is not None:
+            all_reduce_sum(total, mesh.data_group)
+        return total
+
+    def run_phase(self, phase: int, epochs: int, gen: torch.Generator, d_opt, g_opt,
+                  sampler, state: Optional[T.LoopState] = None) -> None:
+        """``epochs`` epochs of phase ``phase``, numbered after the epochs
+        already run; an epoch's loss is the sum of its discriminator
+        losses. With ``state`` (both players' tables, both Adams and the
+        generator, committed at the phase's start) the phase's epoch is one
+        program (``runtime/trainer.EpochProgram``: on a card one CUDA graph,
+        captured at the phase's start) run through ``ChunkedLoop``,
+        ``train.chunk`` epochs a dispatch: one host read a chunk, the epoch
+        lines after it. Without, the per-step loop reads every epoch's
+        loss."""
+        print(self.PHASES[phase][0])
         timer = StepTimer(self.train_size, self.device)
-        losses = []
-        for _ in range(epochs):
-            with timer:
-                if self._epoch_batches is not None:
-                    batches = T.as_device_batches(self._epoch_batches[self._epochs_done], self.device)
-                else:
-                    batches = sampler(gen)
-                total = torch.zeros((), device=self.device)
-                for step in range(batches[0].shape[0]):
-                    batch = tuple(t[step] for t in batches)
-                    loss = self.d_loss(batch, self.draw(gen) if social else None, social, adversarial)
-                    T.step(d_opt, loss, d_params, mesh)
-                    if adversarial:
-                        T.step(g_opt, self.g_loss(batch, self.draw(gen)), g_params, mesh)
-                    total = total + loss.detach()
-                if mesh is not None:
-                    all_reduce_sum(total, mesh.data_group)
-                loss_val = float(total)
-            T.check_finite(loss_val)
-            losses.append(loss_val)
-            self._emit(self._epochs_done, loss_val, self.lrate, timer.last)
-            self._epochs_done += 1
+        if state is not None:
+            program = T.EpochProgram(
+                state, None, sampler, self.device, epoch_batches=self._epoch_batches,
+                epoch_fn=lambda batches, g: self.train_epoch(phase, batches, g, d_opt, g_opt))
+            loop = T.ChunkedLoop(program, self._chunk_for("adam", True, True), timer=timer,
+                                 emit=self._emit, lr=self.lrate)
+            losses = loop.run(state, self._epochs_done + epochs)
+            self._epochs_done += len(losses)
+        else:
+            losses = []
+            for _ in range(epochs):
+                with timer:
+                    if self._epoch_batches is not None:
+                        batches = T.as_device_batches(self._epoch_batches[self._epochs_done],
+                                                      self.device)
+                    else:
+                        batches = sampler(gen)
+                    loss_val = float(self.train_epoch(phase, batches, gen, d_opt, g_opt))
+                T.check_finite(loss_val)
+                losses.append(loss_val)
+                self._emit(self._epochs_done, loss_val, self.lrate, timer.last)
+                self._epochs_done += 1
         print(f"{self.model_name} {self.fold} phase {phase + 1}: loss = {losses[-1]:.4f}")
         self.epoch_losses += losses
         self.phase_losses.append(losses)
@@ -259,12 +282,31 @@ class ESRF(SocialRecommender, GraphRecommender):
         self.timer.times += timer.times
 
     def fit_phases(self) -> None:
+        """The three phases of ``max(1, max_epoch // 3)`` epochs under the
+        two Adams. Where a phase runs more than one epoch
+        (``own_loop_form``), off a mesh, each phase's epoch is one CUDA
+        graph on a card, as the
+        JAX package runs one jitted scan an epoch; both Adams are then
+        capturable, in the per-step loop too, so that both forms step the
+        same arithmetic. On a mesh, whose steps hold collectives, every
+        phase runs per step under plain Adam."""
         self.prepare_graph()
         gen = torch.Generator(device=self.device).manual_seed(self.seed + 1)
         d_opt, g_opt = self.optimizers()
         sampler = self.pairwise_sampler()
+        epochs = max(1, self.max_epoch // 3)
+        graphs, capturable = self.own_loop_form(epochs, collectives=True)
+        state = None
+        if capturable:
+            for opt in (d_opt, g_opt):
+                T.make_capturable(opt)
+        if graphs:
+            for opt in (d_opt, g_opt):
+                T.init_adam_state(opt)
+            state = T.LoopState(self._epochs_done, [*self.d.values(), *self.g.values()],
+                                [d_opt, g_opt], gen)
         for phase in range(len(self.PHASES)):
-            self.run_phase(phase, max(1, self.max_epoch // 3), gen, d_opt, g_opt, sampler)
+            self.run_phase(phase, epochs, gen, d_opt, g_opt, sampler, state)
         with torch.no_grad():
             users, items = self.encode(self.d["user_emb"], self.d["item_emb"])
         self.U, self.V = users.contiguous(), items.contiguous()
@@ -382,20 +424,35 @@ class RSGAN(SocialRecommender):
         return (T.make_optimizer(list(self.g.values()), "adam", self.lrate),
                 T.make_optimizer(list(self.d.values()), "adam", self.lrate))
 
-    def pretrain(self, g_opt) -> list:
-        """The generator's full-profile pretraining steps; their losses.
+    def pretrain_step(self, g_opt) -> torch.Tensor:
+        """One full-profile pretraining step of the generator; its loss.
         ``item_selection`` takes no part, but its Adam step count advances
         on a zero gradient, as optax's does."""
         params = list(self.g.values())
-        losses = []
+        loss = self.recon_loss()
+        for p, g in zip(params, torch.autograd.grad(loss, params, allow_unused=True)):
+            p.grad = torch.zeros_like(p) if g is None else g
+        g_opt.step()
+        return loss.detach()
+
+    def pretrain(self, g_opt, program: Optional[T.EpochProgram] = None) -> list:
+        """The generator's ``pretrain_steps`` full-profile steps, their
+        losses kept on the device and read once after the last (the JAX
+        package reads none); with ``program`` (one step, on a card a CUDA
+        graph) each step a run of it. The products in f32 throughout, the
+        replays too."""
+        losses = torch.zeros(self.pretrain_steps, device=self.device)
         with f32_products():
-            for _ in range(self.pretrain_steps):
-                loss = self.recon_loss()
-                for p, g in zip(params, torch.autograd.grad(loss, params, allow_unused=True)):
-                    p.grad = torch.zeros_like(p) if g is None else g
-                g_opt.step()
-                losses.append(loss.detach())
-        return [float(x) for x in losses]
+            for k in range(self.pretrain_steps):
+                if program is not None:
+                    program.run(k)
+                    losses[k].copy_(program.loss)
+                else:
+                    losses[k].copy_(self.pretrain_step(g_opt))
+        out = losses.tolist()
+        for loss in out:
+            T.check_finite(loss)
+        return out
 
     def train_epoch(self, gen: torch.Generator, g_opt, d_opt, batches) -> torch.Tensor:
         """One epoch: each step a generator step, then a discriminator step
@@ -413,27 +470,49 @@ class RSGAN(SocialRecommender):
         return total
 
     def fit_phases(self) -> None:
+        """The generator's pretraining, then ``num.max.epoch`` GAN epochs.
+        Where the run has more than one epoch (``own_loop_form``), a
+        pretraining step is one CUDA graph on a card, replayed
+        ``pretrain_steps`` times, and a GAN epoch another, replayed once an
+        epoch, as the JAX package runs a jitted step and one jitted scan an
+        epoch; both Adams are then capturable (the generator's from its
+        first pretraining step), in the per-step loop too. The epochs'
+        losses are read on the host at the epochs printed, every 5th and
+        the last; f32 products are in force over the captures and the
+        replays."""
         self.prepare_graph()
         g_opt, d_opt = self.optimizers()
-        print("pretraining for generator...")
-        self.pretrain_timer = StepTimer(self.num_users, self.device)
-        with self.pretrain_timer:
-            self.pretrain_losses = self.pretrain(g_opt)
-        print("Training GAN...")
         gen = torch.Generator(device=self.device).manual_seed(self.seed + 1)
-        sampler = self.pairwise_sampler()
-        losses = []
-        for epoch in range(self.max_epoch):
-            with self.timer:
-                if self._epoch_batches is not None:
-                    batches = T.as_device_batches(self._epoch_batches[epoch], self.device)
-                else:
-                    batches = sampler(gen)
-                loss = float(self.train_epoch(gen, g_opt, d_opt, batches))
-            T.check_finite(loss)
-            losses.append(loss)
-            if (epoch + 1) % 5 == 0 or epoch == self.max_epoch - 1:
-                print(f"{self.model_name} {self.fold} epoch {epoch + 1}: D_loss = {loss:.4f}")
-        self.epoch_losses, self.phase_losses = losses, [losses]
+        graphs, capturable = self.own_loop_form(self.max_epoch)
+        self.pretrain_timer = StepTimer(self.num_users, self.device)
+        pre = None
+        if capturable:
+            for opt in (g_opt, d_opt):
+                T.make_capturable(opt)
+        if graphs:
+            T.init_adam_state(g_opt)
+            pre = T.EpochProgram(T.LoopState(0, list(self.g.values()), g_opt, None), None, None,
+                                 self.device, epoch_fn=lambda *_: self.pretrain_step(g_opt))
+            if self.device.type == "cuda":
+                with f32_products(), self.pretrain_timer.capture():
+                    pre.capture(0)
+        print("pretraining for generator...")
+        with self.pretrain_timer:
+            self.pretrain_losses = self.pretrain(g_opt, pre)
+        # the pretraining graph freed now, not during the epoch's capture
+        del pre
+        print("Training GAN...")
+
+        def emit(epoch, row):
+            print(f"{self.model_name} {self.fold} epoch {epoch + 1}: D_loss = {row[0]:.4f}")
+
+        rows = T.run_own_epochs(
+            [*self.g.values(), *self.d.values()], [g_opt, d_opt], gen,
+            lambda batches, g: self.train_epoch(g, g_opt, d_opt, batches), epochs=self.max_epoch,
+            every=5, device=self.device, timer=self.timer, graphs=graphs, emit=emit,
+            sampler=self.pairwise_sampler(), epoch_batches=self._epoch_batches,
+            context=f32_products)
+        self.epoch_losses = [r[0] for r in rows]
+        self.phase_losses = [self.epoch_losses]
         self.U = self.d["user_emb"].detach().clone()
         self.V = self.d["item_emb"].detach().clone()

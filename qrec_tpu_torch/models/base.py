@@ -86,6 +86,13 @@ class Recommender(nn.Module):
 
     # full-catalog scoring batch (users per masked-scorer launch)
     eval_batch_size = 1024
+    # the form of the training epochs, which no conf reads: None, one CUDA
+    # graph an epoch on a CUDA device and the per-step loop elsewhere; True,
+    # the captured form (run as written off a card); False, the per-step
+    # loop. The own loops (ESRF, RSGAN, IRGAN, CFGAN, IF_BPR) read it
+    # through ``own_loop_form``; a ``run_training`` phase runs per epoch under
+    # False, and under None or True as ``train.chunk`` says (BUIR's)
+    epoch_graphs: Optional[bool] = None
     # a model that needs the trust relation (SocialRecommender) gets it as
     # ``social``; the session refuses to run it without one
     requires_social = False
@@ -139,6 +146,22 @@ class Recommender(nn.Module):
 
     def fit(self) -> None:
         pass
+
+    def own_loop_form(self, epochs: int, collectives: bool = False) -> Tuple[bool, bool]:
+        """(captured form, capturable Adam) of an own loop of ``epochs``
+        epochs a phase. The captured form where ``epoch_graphs`` says so,
+        or with it None on a CUDA device where the loop runs more than one
+        epoch (a run of one keeps the per-step loop and plain Adam);
+        capturable Adam (on a CUDA device) wherever the loop captures or
+        runs more than one epoch, so that its per-step twin steps the same
+        arithmetic. A loop whose steps hold ``collectives`` (ESRF's) runs
+        per step on plain Adam on a mesh."""
+        if collectives and self.mesh is not None:
+            return False, False
+        graphs = self.epoch_graphs
+        if graphs is None:
+            graphs = self.device.type == "cuda" and epochs > 1
+        return graphs, graphs or epochs > 1
 
     @property
     def mesh(self):
@@ -626,10 +649,6 @@ class IterativeRecommender(Recommender):
         except ValueError:
             raise ConfigError(f"train.chunk must be auto or an integer, got {raw!r}") from None
 
-    # why an adam phase whose step is not chunkable runs per epoch, in the
-    # note a conf's train.chunk above 1 gets (BUIR says its own)
-    per_epoch_reason = "its step is not chunkable"
-
     def _chunk_for(self, mode: str, chunkable: bool, chunk_eval: bool) -> int:
         """The chunk of one phase: ``train.chunk`` where the JAX package
         chunks (``qrec_tpu/models/base.py:767-785``): the ``adam`` mode,
@@ -643,7 +662,7 @@ class IterativeRecommender(Recommender):
         if mode != "adam":
             why = "the bold-driver mode reads every epoch's loss"
         elif not chunkable:
-            why = self.per_epoch_reason
+            why = "its step is not chunkable"
         elif not chunk_eval:
             why = "its per-epoch measures are read on the host"
         elif self._checkpointer() is not None:
@@ -706,16 +725,18 @@ class IterativeRecommender(Recommender):
         epochs under step ``_epochs_done + epoch + 1`` and first resumes
         from the latest step past ``_epochs_done``. A ``chunkable`` phase
         runs ``train.chunk`` epochs a dispatch where :meth:`_chunk_for`
-        allows it, with ``eval_vector()`` (the quick evaluation as a (4,)
-        device vector) in place of ``quick_eval`` when it tracks the best
-        epoch. Returns the losses of the epochs the phase ran."""
+        allows it (per epoch under ``epoch_graphs=False``), with
+        ``eval_vector()`` (the quick evaluation as a (4,) device vector) in
+        place of ``quick_eval`` when it tracks the best epoch; the model's
+        buffers (BUIR's target) roll back with the parameters. Returns the
+        losses of the epochs the phase ran."""
         max_epoch = max_epoch or self.max_epoch
         if mode == "bold" and self.eval_settings.contains("-tf"):
             mode = "adam"
         if track_best and quick_eval is not None and tracker is None:
             tracker = T.BestTracker()
         chunk_eval = quick_eval is None or (tracker is not None and eval_vector is not None)
-        chunk = self._chunk_for(mode, chunkable, chunk_eval)
+        chunk = 1 if self.epoch_graphs is False else self._chunk_for(mode, chunkable, chunk_eval)
         gen = torch.Generator(device=self.device).manual_seed(self.seed + 1)
         done = self._epochs_done
         injected = None
@@ -732,6 +753,7 @@ class IterativeRecommender(Recommender):
             start_epoch=start_epoch, resume=resume, checkpoint=self._make_checkpoint_cb(),
             mesh=self.mesh, chunk=chunk, eval_vector=eval_vector,
             capturable=self._capturable(mode, chunkable, max_epoch, chunk_eval),
+            extra=list(self.buffers()),
         )
         self._epochs_done += start_epoch + len(losses)
         self.epoch_losses += losses

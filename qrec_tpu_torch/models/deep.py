@@ -412,28 +412,48 @@ class CFGAN(_RatingRows):
         pos = self.rated[uids]
         return c, pos + pm.float() * (1 - pos), zr.float() * (1 - pos)
 
-    def fit_phases(self) -> None:
-        gen = torch.Generator(device=self.device).manual_seed(self.seed + 1)
+    def train_epoch(self, gen: torch.Generator, g_opt, d_opt) -> torch.Tensor:
+        """One epoch: its batch from ``gen``'s draws, one D step, then
+        ``g_steps`` G steps on the same batch; the D loss and the last G
+        loss as a (2,) tensor."""
         g_params, d_params = list(self.g.values()), list(self.d.values())
-        g_opt = T.make_optimizer(g_params, "adam", self.lrate)
-        d_opt = T.make_optimizer(d_params, "adam", self.lrate)
-        self.g_losses = []
-        for ep in range(self.max_epoch):
-            with self.timer:
-                c, mask, n_zr = self.batch(self.draw(gen))
-                with torch.no_grad():
-                    fake = self.generate(c) * mask
-                dl = self.d_loss(c, mask, fake)
-                T.step(d_opt, dl, d_params)
-                for _ in range(self.g_steps):
-                    gl = self.g_loss(c, mask, n_zr)
-                    T.step(g_opt, gl, g_params)
-                dl, gl = dl.item(), gl.item()
-            self.epoch_losses.append(dl)
-            self.g_losses.append(gl)
-            if (ep + 1) % 20 == 0 or ep == self.max_epoch - 1:
-                print(f"{self.model_name} {self.fold} epoch {ep + 1}: "
-                      f"D_loss = {dl:.4f} G_loss = {gl:.4f}")
+        c, mask, n_zr = self.batch(self.draw(gen))
+        with torch.no_grad():
+            fake = self.generate(c) * mask
+        dl = self.d_loss(c, mask, fake)
+        T.step(d_opt, dl, d_params)
+        for _ in range(self.g_steps):
+            gl = self.g_loss(c, mask, n_zr)
+            T.step(g_opt, gl, g_params)
+        return torch.stack([dl.detach(), gl.detach()])
+
+    def fit_phases(self) -> None:
+        """``num.max.epoch`` epochs under the two Adams. Where the run has
+        more than one epoch (``own_loop_form``) an epoch is one CUDA graph on a
+        card, captured before the first and replayed once an epoch, as the
+        JAX package runs one jitted epoch; both Adams are then capturable,
+        in the per-step loop too. The losses are read on the host at the
+        epochs printed, every 20th and the last, as the JAX package reads
+        them."""
+        gen = torch.Generator(device=self.device).manual_seed(self.seed + 1)
+        g_opt = T.make_optimizer(list(self.g.values()), "adam", self.lrate)
+        d_opt = T.make_optimizer(list(self.d.values()), "adam", self.lrate)
+        # the rating rows and their mask, on the device before a capture
+        self.rated
+        graphs, capturable = self.own_loop_form(self.max_epoch)
+        if capturable:
+            for opt in (g_opt, d_opt):
+                T.make_capturable(opt)
+
+        def emit(epoch, row):
+            print(f"{self.model_name} {self.fold} epoch {epoch + 1}: "
+                  f"D_loss = {row[0]:.4f} G_loss = {row[1]:.4f}")
+
+        rows = T.run_own_epochs(
+            [*self.g.values(), *self.d.values()], [g_opt, d_opt], gen,
+            lambda _, g: self.train_epoch(g, g_opt, d_opt), epochs=self.max_epoch, every=20,
+            device=self.device, timer=self.timer, graphs=graphs, emit=emit, width=2)
+        self.epoch_losses, self.g_losses = [r[0] for r in rows], [r[1] for r in rows]
         self.phase_losses.append(self.epoch_losses)
 
     def scores(self, uids: torch.Tensor) -> torch.Tensor:

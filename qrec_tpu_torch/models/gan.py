@@ -143,26 +143,44 @@ class IRGAN(IterativeRecommender):
         pg = -(log_prob.gather(1, sample) * reward).sum() / torch.clamp_min(samp_mask.sum(), 1.0)
         return pg + self._reg(self.gen)
 
-    def fit_phases(self) -> None:
-        rng = torch.Generator(device=self.device).manual_seed(self.seed + 1)
+    def train_epoch(self, rng: torch.Generator, d_opt, g_opt) -> torch.Tensor:
+        """One epoch: ``d_steps`` discriminator steps, then ``g_steps``
+        generator steps, each on fresh samples from ``rng``; the last D and
+        G losses as a (2,) tensor."""
         d_params, g_params = list(self.dis.values()), list(self.gen.values())
-        d_opt = T.make_optimizer(d_params, "adam", self.lrate)
-        g_opt = T.make_optimizer(g_params, "adam", self.lrate)
-        self.g_losses = []
-        for epoch in range(self.max_epoch):
-            with self.timer:
-                for _ in range(self.d_steps):
-                    dl = self.d_loss(*self.d_inputs(rng))
-                    T.step(d_opt, dl, d_params)
-                for _ in range(self.g_steps):
-                    gl = self.g_loss(*self.g_inputs(rng))
-                    T.step(g_opt, gl, g_params)
-                dl, gl = dl.item(), gl.item()
-            self.epoch_losses.append(dl)
-            self.g_losses.append(gl)
-            if (epoch + 1) % 5 == 0 or epoch == self.max_epoch - 1:
-                print(f"{self.model_name} {self.fold} epoch {epoch + 1}: "
-                      f"D_loss = {dl:.4f} G_loss = {gl:.4f}")
+        for _ in range(self.d_steps):
+            dl = self.d_loss(*self.d_inputs(rng))
+            T.step(d_opt, dl, d_params)
+        for _ in range(self.g_steps):
+            gl = self.g_loss(*self.g_inputs(rng))
+            T.step(g_opt, gl, g_params)
+        return torch.stack([dl.detach(), gl.detach()])
+
+    def fit_phases(self) -> None:
+        """``num.max.epoch`` epochs under the two Adams. Where the run has
+        more than one epoch (``own_loop_form``) an epoch is one CUDA graph on a
+        card, captured before the first and replayed once an epoch, as the
+        JAX package runs jitted steps; both Adams are then capturable, in
+        the per-step loop too. The losses are read on the host at the
+        epochs printed, every 5th and the last, as the JAX package reads
+        them."""
+        rng = torch.Generator(device=self.device).manual_seed(self.seed + 1)
+        d_opt = T.make_optimizer(list(self.dis.values()), "adam", self.lrate)
+        g_opt = T.make_optimizer(list(self.gen.values()), "adam", self.lrate)
+        graphs, capturable = self.own_loop_form(self.max_epoch)
+        if capturable:
+            for opt in (d_opt, g_opt):
+                T.make_capturable(opt)
+
+        def emit(epoch, row):
+            print(f"{self.model_name} {self.fold} epoch {epoch + 1}: "
+                  f"D_loss = {row[0]:.4f} G_loss = {row[1]:.4f}")
+
+        rows = T.run_own_epochs(
+            [*self.dis.values(), *self.gen.values()], [d_opt, g_opt], rng,
+            lambda _, gen: self.train_epoch(gen, d_opt, g_opt), epochs=self.max_epoch, every=5,
+            device=self.device, timer=self.timer, graphs=graphs, emit=emit, width=2)
+        self.epoch_losses, self.g_losses = [r[0] for r in rows], [r[1] for r in rows]
         self.phase_losses.append(self.epoch_losses)
         self.U = self.dis["user_emb"].detach()
         self.V = self.dis["item_emb"].detach()

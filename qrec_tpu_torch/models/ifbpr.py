@@ -422,35 +422,32 @@ class IF_BPR(SocialRecommender):
         thr, avg = self.update_threshold(thr, avg, acc, cnt)
         return total, thr, avg, acc
 
-    # the form of the epochs, which no conf reads: None, one CUDA graph an
-    # epoch on a CUDA device and the per-step epoch elsewhere; True, the
-    # captured form (run as written off a card); False, the per-step epoch
-    epoch_graphs: Optional[bool] = None
-
     def fit_phases(self) -> None:
-        """``num.max.epoch`` epochs under one Adam (capturable on a card),
-        the threshold moved after each. On a CUDA device an epoch (the
-        sampler, the steps with their threshold sums, the threshold update
-        and the summed loss) is one CUDA graph (:class:`_EpochGraph`),
-        captured before the first epoch and replayed once an epoch. Each
-        epoch's loss waits in a device buffer; the host reads the losses at
-        the epochs it prints, every 5th and the last, as the JAX package
-        does, each checked for NaN there."""
+        """``num.max.epoch`` epochs under one Adam, the threshold moved
+        after each. Where the run has more than one epoch
+        (``own_loop_form``) an epoch (the sampler, the steps with their
+        threshold sums, the threshold update and the summed loss) is one
+        CUDA graph on a card (:class:`_EpochGraph`), captured before the
+        first epoch and replayed once an epoch, and Adam is capturable in
+        both forms. Each epoch's loss waits in a device buffer; the
+        host reads the losses at the epochs it prints, every 5th and the
+        last, as the JAX package does, each checked for NaN there."""
         self.prepare_graph()
         optimizer = T.make_optimizer([self.user_emb, self.item_emb], "adam", self.lrate)
-        T.make_capturable(optimizer)
+        graphs, capturable = self.own_loop_form(self.max_epoch)
+        if capturable:
+            T.make_capturable(optimizer)
         gen = torch.Generator(device=self.device).manual_seed(self.seed + 1)
         thr, avg = (torch.tensor(a, dtype=torch.float32, device=self.device)
                     for a in (self.friends.threshold, self.friends.avg_sim))
-        graphs = self.epoch_graphs if self.epoch_graphs is not None else self.device.type == "cuda"
         graph = _EpochGraph(self, optimizer, gen, thr, avg) if graphs else None
         if graph is not None and self.device.type == "cuda":
             graph.load(0)
             with self.timer.capture():
                 graph.capture()
-        losses_d = torch.zeros(self.max_epoch, device=self.device)
+        losses = T.PrintedLosses(self.max_epoch, 5, self.device,
+                                  state=None if graph is None else graph.state)
         self.thresholds = []
-        losses = []
         for epoch in range(self.max_epoch):
             with self.timer:
                 if graph is not None:
@@ -463,16 +460,15 @@ class IF_BPR(SocialRecommender):
                     else:
                         batches = self.sampler(gen)
                     total, thr, avg, self.acc = self.train_epoch(optimizer, batches, thr, avg)
-                losses_d[epoch].copy_(total)
+                losses.put(epoch, total)
             self.thresholds.append((thr, avg))
-            if (epoch + 1) % 5 == 0 or epoch == self.max_epoch - 1:
-                for loss in losses_d[len(losses):epoch + 1].tolist():
-                    T.check_finite(loss)
-                    losses.append(loss)
-                print(f"{self.model_name} {self.fold} epoch {epoch + 1}: loss = {losses[-1]:.4f}")
+            row = losses.read(epoch)
+            if row is not None:
+                print(f"{self.model_name} {self.fold} epoch {epoch + 1}: loss = {row[0]:.4f}")
         if graph is not None:
             self.acc = graph.acc.clone()
-        self.epoch_losses, self.phase_losses = losses, [losses]
+        self.epoch_losses = [row[0] for row in losses.rows]
+        self.phase_losses = [self.epoch_losses]
         self.U, self.V = self.user_emb.detach().clone(), self.item_emb.detach().clone()
 
 

@@ -17,11 +17,11 @@ Each model's random inputs of a step come from its ``draw(generator)``
 dropout masks) and go into ``step_loss(batch, draws)``, so a caller can
 inject other draws.
 
-No step of MHCN, SEPT, DiffNet or DHCF reads the host, so they train
-``train.chunk`` epochs a dispatch (``TrainSpec.chunkable``): on a CUDA
-device one CUDA graph an epoch, with MHCN's and SEPT's quick evaluation
-and vote inside (SEPT's two phases share one tracker). BUIR runs per
-epoch, as the JAX package's own loop runs it.
+No step of the five reads the host, so they train ``train.chunk`` epochs
+a dispatch (``TrainSpec.chunkable``): on a CUDA device one CUDA graph an
+epoch, with MHCN's and SEPT's quick evaluation and vote inside (SEPT's two
+phases share one tracker) and BUIR's target update after every step (the
+target, a buffer, rolls back with the parameters).
 
 All five train on a mesh (``parallel/mesh.py``). Every rank draws the same
 numbers and holds every auxiliary operator whole, so the forward through
@@ -601,10 +601,6 @@ class BUIR(_GraphModel):
     (glorot), ``W`` (d, d), ``b`` (1, d); buffers ``target.user_emb``,
     ``target.item_emb``."""
 
-    # the JAX package trains BUIR in a jitted per-epoch loop of its own
-    # (qrec_tpu/models/social_graph.py:673-710), which it never chunks
-    per_epoch_reason = "the JAX package runs BUIR per epoch too, in a loop of its own"
-
     def __init__(self, conf, data, fold: str = "[1]", device=None, social=None):
         super().__init__(conf, data, fold=fold, device=device, social=social)
         d = self.emb_size
@@ -671,7 +667,7 @@ class BUIR(_GraphModel):
             t.copy_(t * self.tau + getattr(self, name) * (1 - self.tau))
 
     def _emit(self, epoch: int, loss: float, lr: float, wall: float,
-              metrics: Optional[dict] = None) -> None:
+              metrics: Optional[dict] = None, eval_fused: bool = False) -> None:
         """Every fifth epoch and the last (BUIR.py's print)."""
         if (epoch + 1) % 5 == 0 or epoch == self.max_epoch - 1:
             print(f"{self.model_name} {self.fold} epoch {epoch + 1}: loss = {loss:.4f}")
@@ -686,10 +682,14 @@ class BUIR(_GraphModel):
                 torch.cat([q[nu:], online[nu:]], dim=1))
 
     def fit_phases(self) -> None:
+        """One phase, ``train.chunk`` epochs a dispatch (the JAX package's
+        one jitted scan an epoch, read every fifth epoch): on a card one
+        CUDA graph an epoch, the target's update after every step inside
+        it and the target rolled back with the parameters."""
         self.prepare_graph()
         params = [self.user_emb, self.item_emb, self.W, self.b]
         self.run_training(params, self.loss, self.pairwise_sampler(),
-                          after_step=self.update_target)
+                          after_step=self.update_target, chunkable=True)
         self.finalize(TrainSpec(params, self.loss, None, score_params_fn=self.forward))
 
 

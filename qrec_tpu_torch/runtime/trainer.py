@@ -38,7 +38,15 @@ device. Three dispatch strategies, as in the JAX package:
 The capture itself (a warm-up on a side stream under sync-debug "error",
 rolled back, then the graph) is :class:`GraphProgram`'s, which
 :class:`EpochProgram` extends and the loops of their own share: SGNS's
-replayed steps (``ops/walks.py``) and IF_BPR's epoch (``models/ifbpr.py``).
+replayed steps (``ops/walks.py``), IF_BPR's epoch (``models/ifbpr.py``),
+ESRF's phases and RSGAN's pretraining step and epoch
+(``models/adversarial_social.py``), IRGAN's epoch (``models/gan.py``) and
+CFGAN's (``models/deep.py``). An own loop's :class:`EpochProgram` runs its
+epoch function (``epoch_fn``) in place of :func:`run_epoch`'s steps, over
+both players' optimizers in one :class:`LoopState`; ESRF runs it through
+:class:`ChunkedLoop`, the others through :func:`run_own_epochs`, which
+reads the losses on the host only at the epochs they print
+(:class:`PrintedLosses`).
 
 Losses, parameters, the best epoch, its measures and its parameters are
 the same bits whatever ``chunk`` is: every strategy runs one epoch through
@@ -344,10 +352,12 @@ class LoopState:
     """The chunked loops' committed state (the JAX package's ``LoopState``,
     trainer.py:242-267): the epoch and a copy, taken at that epoch's
     boundary, of everything an epoch changes in place, namely the parameters,
-    the optimizer's state, the generator's state, the device vote's and the
-    ``extra`` tensors of a loop of its own (SGNS's step counter, IF_BPR's
+    the state of the optimizer (or of each of a sequence of them: both
+    players' of a GAN), the generator's state, the device vote's and the
+    ``extra`` tensors (BUIR's momentum target, SGNS's step counter, IF_BPR's
     thresholds); a loop that draws nothing inside its graph has no
-    ``generator``.
+    ``generator``. ``optimizer`` is the first optimizer, ``optimizers``
+    all of them.
     INVARIANT: ``commit`` runs only after the host has read a chunk's
     losses, which proves its dispatches ran; a chunk that fails calls
     ``rollback``, which puts the copy back in place, so the state is the
@@ -357,7 +367,8 @@ class LoopState:
                  generator: Optional[torch.Generator], vote: Optional[DeviceVote] = None,
                  extra: Sequence[torch.Tensor] = ()):
         self.params = list(params)
-        self.optimizer = optimizer
+        self.optimizers = list(optimizer) if isinstance(optimizer, (list, tuple)) else [optimizer]
+        self.optimizer = self.optimizers[0]
         self.generator = generator
         self.vote = vote
         self.extra = list(extra)
@@ -365,9 +376,11 @@ class LoopState:
 
     def tensors(self) -> List[torch.Tensor]:
         out = list(self.params)
-        for p in self.params:
-            state = self.optimizer.state[p]
-            out += [state[k] for k in sorted(state) if isinstance(state[k], torch.Tensor)]
+        for opt in self.optimizers:
+            for group in opt.param_groups:
+                for p in group["params"]:
+                    state = opt.state[p]
+                    out += [state[k] for k in sorted(state) if isinstance(state[k], torch.Tensor)]
         return out + (self.vote.tensors() if self.vote is not None else []) + self.extra
 
     def commit(self, epoch: int) -> None:
@@ -401,8 +414,9 @@ class GraphProgram:
     the capture itself fails on one. The cyclic collector is paused over
     the capture. :meth:`run` replays the graph and counts its kernel
     launches (``ops/kernels.GraphLaunches``). On the CPU :meth:`run` runs
-    the body as written. A capture or a replay that fails raises: nothing
-    falls back to the eager loop."""
+    the body as written. A capture or a replay that fails raises, the
+    state rolled back to its committed boundary: nothing falls back to the
+    eager loop."""
 
     def __init__(self, state: LoopState, device, body: Optional[Callable[[], None]] = None):
         self.state = state
@@ -420,18 +434,22 @@ class GraphProgram:
         stream = torch.cuda.Stream(self.device)
         stream.wait_stream(torch.cuda.current_stream(self.device))
         try:
-            with torch.cuda.stream(stream), _host_reads_refused():
+            try:
+                with torch.cuda.stream(stream), _host_reads_refused():
+                    self.body()
+            finally:
+                torch.cuda.current_stream(self.device).wait_stream(stream)
+                K.set_launch_counts(counts)
+            self.state.rollback()
+            graph = torch.cuda.CUDAGraph()
+            if self.state.generator is not None:
+                graph.register_generator_state(self.state.generator)
+            launches = K.GraphLaunches()
+            with launches.record(), _collector_paused(), torch.cuda.graph(graph, stream=stream):
                 self.body()
-        finally:
-            torch.cuda.current_stream(self.device).wait_stream(stream)
-            K.set_launch_counts(counts)
-        self.state.rollback()
-        graph = torch.cuda.CUDAGraph()
-        if self.state.generator is not None:
-            graph.register_generator_state(self.state.generator)
-        launches = K.GraphLaunches()
-        with launches.record(), _collector_paused(), torch.cuda.graph(graph, stream=stream):
-            self.body()
+        except BaseException:
+            self.state.rollback()
+            raise
         self.graph, self.launches = graph, launches
 
     def run(self) -> None:
@@ -440,28 +458,37 @@ class GraphProgram:
             return
         if self.graph is None:
             raise RuntimeError("GraphProgram.run before capture")
-        self.graph.replay()
+        try:
+            self.graph.replay()
+        except BaseException:
+            self.state.rollback()
+            raise
         self.launches.add()
 
 
 class EpochProgram(GraphProgram):
     """One epoch as the chunked loops run it (a :class:`GraphProgram`): its
     batches (the sampler's, or the injected arrays copied into fixed
-    buffers), its steps (:func:`run_epoch`), the summed loss into ``loss``,
-    and with a ``vote`` the quick evaluation (``evaluate() -> (4,) f32`` in
-    ``METRIC_KEYS`` order) into ``vec`` and the vote. ``capture`` and
-    ``run`` take the epoch, whose injected arrays they load first."""
+    buffers; None without a sampler), its steps (:func:`run_epoch`, or an
+    own loop's ``epoch_fn(batches, generator) -> losses``, over the
+    state's optimizers), the summed loss (or an own loop's losses, of
+    ``loss_shape``) into ``loss``, and with a ``vote`` the quick evaluation
+    (``evaluate() -> (4,) f32`` in ``METRIC_KEYS`` order) into ``vec`` and
+    the vote. ``capture`` and ``run`` take the epoch, whose injected arrays
+    they load first."""
 
-    def __init__(self, state: LoopState, loss_fn: Callable, sampler: Callable, device, *,
-                 epoch_batches: Optional[Sequence] = None, after_step: Optional[Callable] = None,
-                 evaluate: Optional[Callable] = None):
+    def __init__(self, state: LoopState, loss_fn: Optional[Callable], sampler: Optional[Callable],
+                 device, *, epoch_batches: Optional[Sequence] = None,
+                 after_step: Optional[Callable] = None, evaluate: Optional[Callable] = None,
+                 epoch_fn: Optional[Callable] = None, loss_shape: Tuple[int, ...] = ()):
         super().__init__(state, device)
         self.loss_fn = loss_fn
         self.sampler = sampler
         self.epoch_batches = epoch_batches
         self.after_step = after_step
         self.evaluate = evaluate
-        self.loss = torch.zeros((), dtype=torch.float32, device=self.device)
+        self.epoch_fn = epoch_fn
+        self.loss = torch.zeros(loss_shape, dtype=torch.float32, device=self.device)
         self.vec = torch.zeros(len(METRIC_KEYS), dtype=torch.float32, device=self.device)
         self._batches = None
 
@@ -473,9 +500,15 @@ class EpochProgram(GraphProgram):
 
     def body(self) -> None:
         st = self.state
-        batches = self._batches if self.epoch_batches is not None else self.sampler(st.generator)
-        self.loss.copy_(run_epoch(st.params, st.optimizer, self.loss_fn, batches, st.generator,
-                                  self.after_step))
+        if self.epoch_batches is not None:
+            batches = self._batches
+        else:
+            batches = None if self.sampler is None else self.sampler(st.generator)
+        if self.epoch_fn is not None:
+            self.loss.copy_(self.epoch_fn(batches, st.generator))
+        else:
+            self.loss.copy_(run_epoch(st.params, st.optimizer, self.loss_fn, batches,
+                                      st.generator, self.after_step))
         if self.evaluate is not None:
             with torch.no_grad():
                 vec = self.evaluate()
@@ -518,6 +551,84 @@ def _host_reads_refused():
         torch.cuda.set_sync_debug_mode(before)
 
 
+class PrintedLosses:
+    """An own loop's losses, ``width`` an epoch, kept in a device buffer
+    and read on the host only at the epochs the loop prints, every
+    ``every``-th and the last, where the JAX package's own loops read
+    them: :meth:`put` copies an epoch's losses in on the device,
+    :meth:`read` reads the rows not yet read, in one copy, when the epoch
+    is a printed one, each loss checked for NaN there. A read proves the
+    epochs before it ran, so it commits ``state`` (the loop's
+    :class:`LoopState`, where it runs a program) at that boundary."""
+
+    def __init__(self, epochs: int, every: int, device, width: int = 1,
+                 state: Optional[LoopState] = None):
+        self.epochs, self.every, self.state = epochs, every, state
+        self.buf = torch.zeros((epochs, width), dtype=torch.float32, device=device)
+        self.rows: List[List[float]] = []
+
+    def put(self, epoch: int, losses: torch.Tensor) -> None:
+        self.buf[epoch].copy_(losses)
+
+    def read(self, epoch: int) -> Optional[List[float]]:
+        """At a printed ``epoch``, the losses of the epochs since the last
+        read, read and checked, and ``epoch``'s row returned; else None."""
+        if (epoch + 1) % self.every and epoch != self.epochs - 1:
+            return None
+        for row in self.buf[len(self.rows):epoch + 1].tolist():
+            for loss in row:
+                check_finite(loss)
+            self.rows.append(row)
+        if self.state is not None:
+            self.state.commit(epoch + 1)
+        return self.rows[-1]
+
+
+def run_own_epochs(params: Sequence[torch.Tensor], optimizers: Sequence, generator: torch.Generator,
+                   epoch_fn: Callable, *, epochs: int, every: int, device, timer: StepTimer,
+                   graphs: bool, emit: Callable[[int, List[float]], None],
+                   sampler: Optional[Callable] = None, epoch_batches: Optional[Sequence] = None,
+                   width: int = 1, context: Callable = contextlib.nullcontext) -> List[List[float]]:
+    """``epochs`` epochs of an own loop (IRGAN's, CFGAN's, RSGAN's GAN
+    epochs): ``epoch_fn(batches, generator) -> losses`` (``width`` of them)
+    an epoch, on the sampler's batches, the injected ``epoch_batches`` or
+    None. With ``graphs`` the epoch is an :class:`EpochProgram` over a
+    :class:`LoopState` of ``params``, the ``optimizers`` (made capturable by
+    the caller before their first step) and ``generator``, captured before
+    the first epoch on a CUDA device (into ``timer.captures``) and replayed
+    once an epoch; else the epochs run step by step. The losses wait in
+    :class:`PrintedLosses`, read at every ``every``-th epoch and the last,
+    where ``emit(epoch, row)`` prints the epoch's. ``context()`` is in
+    force over the capture and every epoch. Returns every epoch's losses."""
+    program = None
+    if graphs:
+        for opt in optimizers:
+            init_adam_state(opt)
+        program = EpochProgram(LoopState(0, params, list(optimizers), generator), None, sampler,
+                               device, epoch_batches=epoch_batches, epoch_fn=epoch_fn,
+                               loss_shape=(width,))
+        if program.device.type == "cuda":
+            with context(), timer.capture():
+                program.capture(0)
+    losses = PrintedLosses(epochs, every, device, width,
+                           state=None if program is None else program.state)
+    for epoch in range(epochs):
+        with timer, context():
+            if program is not None:
+                program.run(epoch)
+                losses.put(epoch, program.loss)
+            else:
+                if epoch_batches is not None:
+                    batches = as_device_batches(epoch_batches[epoch], device)
+                else:
+                    batches = None if sampler is None else sampler(generator)
+                losses.put(epoch, epoch_fn(batches, generator))
+        row = losses.read(epoch)
+        if row is not None:
+            emit(epoch, row)
+    return losses.rows
+
+
 class ChunkedLoop:
     """``chunk`` epochs a dispatch, one host read a chunk (the JAX
     package's ``ChunkedLoop`` and, with a vote, its ``ChunkedEvalLoop``,
@@ -525,7 +636,10 @@ class ChunkedLoop:
     measures) into one device buffer, which the host reads once after the
     last; the epoch lines follow, each with the chunk's wall / E (" incl.
     eval" when the evaluation ran inside). A failure inside a chunk rolls
-    the state back to the chunk's start and propagates."""
+    the state back to the chunk's start and propagates. ``program`` is an
+    :class:`EpochProgram` or any program with its ``loss``, ``device``,
+    ``graph``, ``capture(epoch)`` and ``run(epoch)`` (an ``evaluate``, if
+    it has one, then fills ``vec``)."""
 
     def __init__(self, program: EpochProgram, chunk: int, *, timer: StepTimer,
                  emit: Optional[Callable], lr: float):
@@ -547,7 +661,7 @@ class ChunkedLoop:
             except BaseException:
                 st.rollback()
                 raise
-        fused = prog.evaluate is not None
+        fused = getattr(prog, "evaluate", None) is not None
         while st.epoch < max_epoch:
             e = min(self.chunk, max_epoch - st.epoch)
             try:
@@ -598,6 +712,7 @@ def train(
     chunk: int = 1,
     eval_vector: Optional[Callable] = None,
     capturable: bool = False,
+    extra: Sequence[torch.Tensor] = (),
 ) -> Tuple[List[float], StepTimer]:
     """Train ``params`` in place; return the per-epoch summed losses of the
     epochs run (fewer than ``max_epoch - start_epoch`` when the bold mode
@@ -618,7 +733,9 @@ def train(
     ``emit(epoch, loss, lr, seconds, metrics, eval_fused=False)`` prints
     the epoch line with the learning rate in force during the epoch.
     ``after_step()`` runs after every optimizer step (BUIR's momentum
-    target). ``resume`` (a :func:`loop_state` saved after epoch
+    target); ``extra`` are the tensors besides the parameters that an epoch
+    changes in place (BUIR's target), which a chunk that fails rolls back
+    with them. ``resume`` (a :func:`loop_state` saved after epoch
     ``start_epoch``) is restored before the first epoch, which is then
     ``start_epoch``; ``checkpoint(epoch, state)`` runs after every epoch
     that does not end the bold mode's training, once its rate is updated.
@@ -662,7 +779,7 @@ def train(
         init_adam_state(optimizer)
         vote = (DeviceVote(params, tracker, start_epoch + tracker.epoch_offset)
                 if tracker is not None else None)
-        st = LoopState(start_epoch, params, optimizer, generator, vote)
+        st = LoopState(start_epoch, params, optimizer, generator, vote, extra)
         program = EpochProgram(st, loss_fn, sampler, device, epoch_batches=epoch_batches,
                                after_step=after_step,
                                evaluate=eval_vector if vote is not None else None)

@@ -1,9 +1,9 @@
 """``train.chunk`` for the social-graph and deep families in the PyTorch
 port: MHCN, SEPT (both phases, one tracker), DiffNet, DHCF, NeuMF (three
-phases), APR (two), DMF and CDAE run ``train.chunk`` epochs a dispatch
-through ``runtime/trainer.ChunkedLoop`` (MHCN and SEPT with the device
-vote), bit for bit the per-epoch loop; BUIR runs per epoch, as the JAX
-package's own loop does; the port on the JAX package's batches and draws
+phases), APR (two), DMF, CDAE and BUIR run ``train.chunk`` epochs a
+dispatch through ``runtime/trainer.ChunkedLoop`` (MHCN and SEPT with the
+device vote), bit for bit the per-epoch loop; the port on the JAX
+package's batches and draws
 under ``train.chunk=auto`` stays within the bounds of
 ``tests/test_torch_social_graph.py`` and ``tests/test_torch_deep.py``.
 
@@ -181,15 +181,22 @@ def test_neumf_pretraining_phases_leave_the_other_tower_unchanged(monkeypatch):
     assert [[e for _, e in t.chunks] for t in model.phase_timers] == [[8, 2], [5], [2]]
 
 
-def test_buir_runs_per_epoch_and_says_why(capsys):
-    """BUIR under ``train.chunk=4``: one note with its true reason, and
-    every epoch on its own."""
+def test_buir_runs_per_epoch_and_says_why(capsys, monkeypatch):
+    """BUIR's step is chunkable: under ``train.chunk=4`` its 3 epochs run
+    as one chunk with no note; it runs every epoch on its own only where
+    the per-step loop is asked for (``epoch_graphs=False``, which no conf
+    sets), also without a note, and both runs are the same bits."""
     model = _model("BUIR", "4")
     model.fit()
     out = capsys.readouterr().out
-    assert out.count("not applied, runs per epoch") == 1
-    assert "train.chunk=4 not applied, runs per epoch: the JAX package runs BUIR per epoch" in out
-    assert [[e for _, e in t.chunks] for t in model.phase_timers] == [[1] * EPOCHS["BUIR"]]
+    assert "not applied" not in out and "BUIR [1] epoch 3: loss = " in out
+    assert [[e for _, e in t.chunks] for t in model.phase_timers] == [[EPOCHS["BUIR"]]]
+    monkeypatch.setattr(type(model), "epoch_graphs", False)
+    per_epoch = _model("BUIR", "4")
+    per_epoch.fit()
+    assert "not applied" not in capsys.readouterr().out
+    assert [[e for _, e in t.chunks] for t in per_epoch.phase_timers] == [[1] * EPOCHS["BUIR"]]
+    _assert_same(_outcome(model), _outcome(per_epoch))
 
 
 def test_a_tf_run_says_it_is_not_chunked(capsys):

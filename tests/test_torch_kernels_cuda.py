@@ -1670,3 +1670,95 @@ def test_skipgram_graphs_equal_eager_steps_on_card(cuda_device, graph_steps):
     assert torch.equal(got, eager)
     assert eager_timer.captures == [] and len(graph_timer.captures) == 1
     assert len(graph_timer.times) == 3
+
+
+# the own loops as one dispatch an epoch: ESRF's phases and BUIR chunked,
+# IRGAN, RSGAN (pretraining step and epoch) and CFGAN as one CUDA graph
+# each, replayed; (model, epochs, captures by timer of the captured run)
+OWN_LOOPS = [("ESRF", 6, [1, 1, 1]), ("BUIR", 4, [1]), ("IRGAN", 3, [1]), ("RSGAN", 3, [1, 1]),
+             ("CFGAN", 3, [1])]
+
+
+def _own_timers(m):
+    """A fit's timers: ESRF's and BUIR's by phase, RSGAN's pretraining
+    timer and its epoch timer, the others' one."""
+    if m.model_name == "RSGAN":
+        return [m.pretrain_timer, m.timer]
+    return m.phase_timers or [m.timer]
+
+
+def _own_model(name, tmp_path, epochs):
+    """The model on the planted blocks, links and negative feedback of
+    ``_walk_files``, built as the session builds it, on the card."""
+    from qrec_tpu_torch.data.dataset import Interactions
+    from qrec_tpu_torch.data.social import SocialGraph
+    from qrec_tpu_torch.models import MODELS
+
+    ratings, trust = _walk_files(tmp_path)
+    conf = _walk_conf(name, ratings, trust, epochs=epochs)
+    rec = QRec(conf, seed=3)
+    data = Interactions(conf, rec.training_data, rec.test_data, seed=3)
+    cls = MODELS[name]
+    social = {"social": SocialGraph(rec.relation, data)} if cls.requires_social else {}
+    return cls(conf, data, device="cuda", **social)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,epochs,captures", OWN_LOOPS, ids=[n for n, _, _ in OWN_LOOPS])
+def test_own_loop_graphs_equal_per_step_loop_on_card(cuda_device, tmp_path, name, epochs,
+                                                     captures):
+    """Each own loop at more than one epoch (ESRF 2 a phase): its captured
+    form (ESRF's three phase graphs, BUIR's epoch graph under
+    ``train.chunk`` auto, RSGAN's pretraining step and epoch graphs,
+    IRGAN's and CFGAN's epoch graphs) against its per-step loop
+    (``epoch_graphs=False``), both on capturable Adam: every loss, table,
+    buffer and factor the same bits."""
+    runs = {}
+    for graphs in (None, False):
+        model = _own_model(name, tmp_path, epochs)
+        model.epoch_graphs = graphs
+        model.fit()
+        runs[graphs] = (model, {k: list(getattr(model, k)) for k in
+                                ("epoch_losses", "g_losses", "pretrain_losses") if hasattr(model, k)},
+                        [t.detach().clone() for t in (*model.parameters(), *model.buffers())])
+    (g, lg, tg), (e, le, te) = runs[None], runs[False]
+    assert [len(t.captures) for t in _own_timers(g)] == captures
+    assert all(t.captures == [] for t in _own_timers(e))
+    assert lg == le and len(lg["epoch_losses"]) == epochs and np.isfinite(lg["epoch_losses"]).all()
+    assert len(tg) == len(te) and all(torch.equal(a, b) for a, b in zip(tg, te))
+    for k in ("U", "V"):
+        a, b = getattr(g, k, None), getattr(e, k, None)
+        assert (a is None and b is None) or torch.equal(a, b)
+
+
+# the method of each loop's body that a host read is planted in
+OWN_BODIES = {"ESRF": "d_loss", "BUIR": "step_loss", "IRGAN": "d_loss", "RSGAN": "recon_loss",
+              "CFGAN": "d_loss"}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,epochs,captures", OWN_LOOPS, ids=[n for n, _, _ in OWN_LOOPS])
+def test_a_host_read_in_an_own_loop_raises(cuda_device, tmp_path, monkeypatch, name, epochs,
+                                           captures):
+    """A host read planted in a loop's body fails the warm-up of its first
+    capture (CUDA's sync-debug mode "error"): the fit raises, nothing runs
+    per step instead, and the tables (and BUIR's target) are those the
+    loop started from."""
+    model = _own_model(name, tmp_path, epochs)
+    cls = type(model)
+    real = getattr(cls, OWN_BODIES[name])
+
+    def with_read(self, *a, **k):
+        loss = real(self, *a, **k)
+        float(loss)  # a host read
+        return loss
+
+    model.prepare_graph()
+    before = [t.detach().clone() for t in (*model.parameters(), *model.buffers())]
+    monkeypatch.setattr(cls, OWN_BODIES[name], with_read)
+    mode = torch.cuda.get_sync_debug_mode()
+    with pytest.raises(RuntimeError, match="synchroniz"):
+        model.fit()
+    assert torch.cuda.get_sync_debug_mode() == mode
+    after = [t.detach() for t in (*model.parameters(), *model.buffers())]
+    assert all(torch.equal(a, b) for a, b in zip(after, before))
