@@ -23,9 +23,13 @@ Phases, each of which exits non-zero on failure:
    (a streaming read of an L2-resident buffer); K5 on the lastfm graph's
    CSR at d=50 (against its plain version, timed in turns with
    ``torch.sparse.mm``, its CUDA kernels per call, bound and gather floor)
-   beside K1; CUDA-event timings of each kernel, its plain version and a
-   PyTorch yardstick, with the L2 cache flushed before each timed launch,
-   and the bound; then one more LightGCN epoch under ``torch.profiler``;
+   beside K1; the Adam update kernel (``csrc/adam.cu``, the port's own,
+   with no TPU counterpart) on the main path's parameter shapes against
+   its plain version, bit for bit, its launches on the main path one a
+   parameter a step; CUDA-event timings of each kernel, its plain version
+   and a PyTorch yardstick, with the L2 cache flushed before each timed
+   launch, and the bound; then one more LightGCN epoch under
+   ``torch.profiler``;
 5. SimGCL main path: ``config/SimGCL.conf`` at full width on the same file,
    3 epochs, with the per-epoch quick evaluation and best-epoch selection;
    launch counts of K1-K4 against the code's expectations; K3 and K4
@@ -138,6 +142,24 @@ Phases, each of which exits non-zero on failure:
    per-step twin (``epoch_graphs=False``, BUIR at ``train.chunk=1``), with
    its ms an epoch, capture s, host reads in its epochs (``FitReads``
    against ``OWN_LOOP_READS``), peak MiB and launches (replays included);
+13d. slice 12 (``als_loop_phases``): WRMF, ExpoMF, CoFactor and SERec
+   (``lastfm_trust``) at d=20 on the lastfm-shaped file, ``ALS_LOOP_EPOCHS``
+   = 5 epochs, each as one CUDA graph an epoch and as its per-step twin,
+   bit for bit (tables, WRMF's losses, U, V, top-10 lists), with the
+   solves pinned to cuSOLVER in both; a third run per step on the default
+   linear-algebra route, its gap to the pinned route printed; ms an epoch,
+   capture s, host reads in ``fit`` (WRMF 5, the others 1), peak MiB and
+   the solve's kernels on each route;
+13e. the one Adam (``adam_phase``): ``runtime/adam.Adam`` against
+   ``torch.optim.Adam(foreach=True)`` on LightGCN's and DMF's parameter
+   shapes at lr 0.001 and 0.01, 200 eager steps (a parameter without a
+   gradient every third step) and 50 replays of a captured step (that
+   parameter without a gradient throughout), every entry bit for bit;
+   one step timed in turns beside plain and fused ``torch.optim.Adam``;
+   ``config/LightGCN.conf`` 3 epochs chunked on the one Adam against
+   ``train.chunk=1`` on ``torch.optim.Adam(foreach=True)``, bit for bit;
+   after phase 15, DMF's first 4-rank loss against phase 10b's two-epoch
+   one-process run, within 1e-4;
 14. the lifecycle slice (``host_and_lifecycle_phases``): the host library
    built; the lastfm- and FilmTrust-shaped files parsed through its
    tokenizer and the plain parser (equal records, both times);
@@ -1703,7 +1725,7 @@ def tf_runs_phase(torch, K, QRec, conf_of, tmp, trust_path, lap) -> tuple:
     real = T.train
 
     def spy(*a, **k):
-        seen.append((k["chunk"], k["capturable"], k["mode"]))
+        seen.append((k["chunk"], "capturable" in k, k["mode"]))
         return real(*a, **k)
 
     T.train = spy
@@ -1712,11 +1734,12 @@ def tf_runs_phase(torch, K, QRec, conf_of, tmp, trust_path, lap) -> tuple:
     finally:
         T.train = real
     chunks = [e for t in model.phase_timers for _, e in t.chunks]
-    print(f"[tf basicmf] rating run under -tf: (chunk, capturable, mode) {seen}; epochs a dispatch "
+    print(f"[tf basicmf] rating run under -tf: (chunk, capturable asked, mode) {seen}; "
+          f"epochs a dispatch "
           f"{chunks}; seeded losses {model.epoch_losses}; MAE={measures['MAE']} "
           f"RMSE={measures['RMSE']}", flush=True)
     if seen != [(1, False, "adam")] or chunks != [1, 1, 1] or model.phase_timers[0].captures:
-        fail("basicmf -tf: a -tf rating run must run per epoch on plain Adam")
+        fail("basicmf -tf: a -tf rating run must run per epoch on the one Adam")
     lap("basicmf -tf")
     return out, launches
 
@@ -1841,21 +1864,23 @@ READ_METHODS = ("tolist", "item", "cpu", "__float__", "__int__", "__bool__")
 
 
 class FitReads:
-    """Counts the host reads of ``cls``'s ``fit_phases`` outside its host
-    build (``prepare_graph``): each ``tolist``, ``item``, ``cpu``,
-    ``float``, ``int`` or ``bool`` of a CUDA tensor, the ways a Python loop
-    reads the card. ``count`` holds them after the block."""
+    """Counts the host reads of ``cls``'s ``method`` (``fit_phases``, or the
+    ALS models' ``fit``) outside its host build (``prepare_graph``): each
+    ``tolist``, ``item``, ``cpu``, ``float``, ``int`` or ``bool`` of a CUDA
+    tensor, the ways a Python loop reads the card. ``count`` holds them
+    after the block."""
 
     device = "cuda"  # the device type whose tensors' reads count
 
-    def __init__(self, torch, cls):
+    def __init__(self, torch, cls, method: str = "fit_phases"):
         self.torch, self.cls, self.count, self.active = torch, cls, 0, False
+        self.method = method
 
     def __enter__(self):
         counter = self
         self.saved = [(owner, name, owner.__dict__.get(name))
                       for owner, names in ((self.torch.Tensor, READ_METHODS),
-                                           (self.cls, ("fit_phases", "prepare_graph")))
+                                           (self.cls, (self.method, "prepare_graph")))
                       for name in names]
 
         def reader(real):
@@ -1876,7 +1901,7 @@ class FitReads:
 
         for name in READ_METHODS:
             setattr(self.torch.Tensor, name, reader(getattr(self.torch.Tensor, name)))
-        self.cls.fit_phases = toggled(self.cls.fit_phases, True)
+        setattr(self.cls, self.method, toggled(getattr(self.cls, self.method), True))
         self.cls.prepare_graph = toggled(self.cls.prepare_graph, False)
         return self
 
@@ -1925,7 +1950,7 @@ def own_loop_phases(torch, K, QRec, conf_of, trust_path) -> dict:
     three phase graphs and BUIR's epoch graph under ``train.chunk=auto``;
     RSGAN's pretraining-step and epoch graphs; IRGAN's and CFGAN's epoch
     graphs), then as its per-step twin (``epoch_graphs=False``; BUIR at
-    ``train.chunk=1``), both on capturable Adam. Each pair is held bit for
+    ``train.chunk=1``), both on the one Adam. Each pair is held bit for
     bit (losses, tables, buffers, factors); each run's ms an epoch (by
     phase), capture s, host reads in its epochs (``FitReads``, against
     ``OWN_LOOP_READS``) and peak MiB are printed. Returns the summed
@@ -1987,6 +2012,327 @@ def own_loop_phases(torch, K, QRec, conf_of, trust_path) -> dict:
             fail(f"own {name}: captures {g['captures']} / {e['captures']}, launches "
                  f"{g['counts']} / {e['counts']}")
     print(f"[slice 11 phases] seconds {json.dumps(laps)}", flush=True)
+    return out
+
+
+# slice 12: the ALS loops at 5 epochs, the first printed epoch of ExpoMF's,
+# CoFactor's and SERec's loops (their progress line prints every 5th)
+ALS_LOOP_EPOCHS = 5
+# the host reads of each ALS fit's epochs, in both forms: WRMF's loss every
+# epoch, the others' progress line at the 5th
+ALS_LOOP_READS = {"WRMF": 5, "ExpoMF": 1, "CoFactor": 1, "SERec": 1}
+# the linear-algebra kernels of a batched solve, by name
+SOLVER_KERNELS = ("getr", "trsm", "magma", "lu_", "batched", "solve", "pivot")
+
+
+def als_record(model) -> dict:
+    """What the ALS per-step twin is held to: the tables, the losses and the
+    final factors."""
+    return dict(tables={k: v.detach().clone() for k, v in model.tables.items()},
+                losses=list(model.epoch_losses), U=model.U.detach().clone(),
+                V=model.V.detach().clone())
+
+
+def solver_kernels(torch, model) -> dict:
+    """Device ms by kernel name of one more epoch of ``model``'s loop (its
+    ``_step`` on a copy of its tables) under its solver's library, those
+    of a batched solve only."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from qrec_tpu_torch.ops.als import linalg_library
+
+    tables = {k: v.clone() for k, v in model.tables.items()}
+    with linalg_library(model.device, model.solver):
+        model._step(tables)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            model._step(tables)
+            torch.cuda.synchronize()
+    return {k: round(v, 4) for k, v in device_ms_by_name(prof).items()
+            if any(w in k.lower() for w in SOLVER_KERNELS)}
+
+
+def als_loop_phases(torch, K, QRec, conf_of, trust_path) -> dict:
+    """Phase 13d, slice 12: WRMF, ExpoMF, CoFactor and SERec (with
+    ``trust_path``) at their ``config/`` files' published widths (d=20) on
+    the lastfm-shaped file, ``ALS_LOOP_EPOCHS`` epochs, each driven through
+    ``QRec(conf).execute()`` (``drive``: K2's launches against
+    ``expected_launches``) in its captured form (one CUDA graph an epoch),
+    as its per-step twin (``epoch_graphs=False``), and as the per-step twin
+    on the default linear-algebra route (``solver`` None: the route before
+    the solves were pinned to cuSOLVER). The captured form is held to its
+    twin bit for bit (tables, WRMF's losses, U, V and the top-10 lists);
+    the default route's gap to the pinned one is printed. Each run's ms an
+    epoch (the mean after the first), capture s, host reads in ``fit``
+    (``FitReads``, against ``ALS_LOOP_READS``) and peak MiB, and the solve's
+    kernels on each route, are printed. Returns the K2 launches of each
+    run."""
+    from qrec_tpu_torch.models import MODELS
+    from qrec_tpu_torch.ops.topk import CatalogRanker, ScoreForm
+
+    laps, lap = lap_timer()
+    k2 = {}
+    forms = {"graphs": {}, "per-step": {"epoch_graphs": False},
+             "per-step default route": {"epoch_graphs": False, "solver": None}}
+    for name, want_reads in ALS_LOOP_READS.items():
+        cls = MODELS[name]
+        runs = {}
+        for form, attrs in forms.items():
+            conf = conf_of(name, ALS_LOOP_EPOCHS)
+            if conf.contains("social"):
+                conf["social"] = trust_path
+            for key, value in attrs.items():
+                setattr(cls, key, value)
+            label = f"als {name.lower()} {form}"
+            try:
+                with FitReads(torch, cls, "fit") as reads:
+                    model, counts, _ = drive(torch, K, QRec, conf, label)
+                kernels = solver_kernels(torch, model)
+            finally:
+                for key in attrs:
+                    delattr(cls, key)
+            peak = torch.cuda.max_memory_allocated() / 2**20
+            k2[label] = counts["masked_catalog_topk"]
+            ranker = CatalogRanker(model.data, k=10, device="cuda", bitmask=model.rated_bitmask,
+                                   batch_size=model.eval_batch_size)
+            ids, _ = ranker.topk_device(ScoreForm(model.U, model.V))
+            times = model.timer.times
+            runs[form] = dict(record=als_record(model), ids=ids.clone(), reads=reads.count,
+                              captures=len(model.timer.captures),
+                              capture_s=sum(model.timer.captures), peak=peak,
+                              ms=float(np.mean(times[1:])) * 1e3, first_ms=times[0] * 1e3,
+                              kernels=kernels, counts=counts)
+            del model, ranker
+            gc.collect()
+            lap(label)
+        g, e, d = runs["graphs"], runs["per-step"], runs["per-step default route"]
+        same = (g["record"]["losses"] == e["record"]["losses"]
+                and all(torch.equal(g["record"]["tables"][k], e["record"]["tables"][k])
+                        for k in g["record"]["tables"])
+                and all(torch.equal(g["record"][k], e["record"][k]) for k in ("U", "V"))
+                and torch.equal(g["ids"], e["ids"]))
+        route_gap = max((d["record"]["tables"][k] - e["record"]["tables"][k]).abs().max().item()
+                        for k in e["record"]["tables"])
+        route_same = all(torch.equal(d["record"]["tables"][k], e["record"]["tables"][k])
+                         for k in e["record"]["tables"])
+        print(f"[als {name.lower()}] epochs={ALS_LOOP_EPOCHS}: ms an epoch (mean after the "
+              f"first) captured {g['ms']:.3f} / per-step {e['ms']:.3f} / per-step on the default "
+              f"route {d['ms']:.3f}; first epoch ms {g['first_ms']:.3f} / {e['first_ms']:.3f}; "
+              f"capture_s={g['capture_s']:.3f} (captures {g['captures']} / {e['captures']}, the "
+              f"warm-up included); host reads in fit {g['reads']} / {e['reads']} (expected "
+              f"{want_reads}); peak MiB {g['peak']:.1f} / {e['peak']:.1f}; K2 launches "
+              f"{g['counts']['masked_catalog_topk']} / {e['counts']['masked_catalog_topk']}; "
+              f"tables, losses, U, V and top-10 lists bit-identical={same}; seeded losses "
+              f"{g['record']['losses']}", flush=True)
+        print(f"[als {name.lower()} solve_ex] pinned to cusolver: kernels (device ms, one epoch) "
+              f"{g['kernels']}; default route: {d['kernels']}; tables on the default route vs "
+              f"pinned bit-identical={route_same}, largest gap {route_gap:.3e}", flush=True)
+        if not same:
+            fail(f"als {name}: the captured form differs from its per-step twin")
+        if g["reads"] != want_reads or e["reads"] != want_reads:
+            fail(f"als {name}: host reads {g['reads']} / {e['reads']}, expected {want_reads}")
+        if g["captures"] != 1 or e["captures"] or g["counts"] != e["counts"]:
+            fail(f"als {name}: captures {g['captures']} / {e['captures']}, launches "
+                 f"{g['counts']} / {e['counts']}")
+    print(f"[slice 12 als phases] seconds {json.dumps(laps)}", flush=True)
+    return k2
+
+
+# phase 13e: the one Adam against torch.optim.Adam(foreach=True)
+ADAM_STEPS = 200
+ADAM_REPLAYS = 50
+
+
+def adam_pair(torch, shapes, lr: float, graph: bool, seed: int = 0) -> dict:
+    """The one Adam (``trainer.make_optimizer``) and ``torch.optim.Adam(
+    foreach=True)`` on two copies of parameters of ``shapes`` with the same
+    gradients: ``ADAM_STEPS`` eager steps, parameter 1 without a gradient
+    at every third step (its step count lags), or, with ``graph``, the one
+    Adam's step captured once (``trainer.GraphProgram``: the warm-up under
+    sync-debug "error", then the graph) and replayed ``ADAM_REPLAYS``
+    times, parameter 1 without a gradient throughout. Returns the number of
+    parameter, moment and step-count entries that differ."""
+    from qrec_tpu_torch.runtime import trainer as T
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    ps = [torch.randn(s, generator=gen, device="cuda").requires_grad_() for s in shapes]
+    qs = [p.detach().clone().requires_grad_() for p in ps]
+    ours = T.make_optimizer(ps, "adam", lr)
+    plain = torch.optim.Adam(qs, lr=lr, betas=(0.9, 0.999), eps=1e-8, foreach=True)
+    grads = [torch.zeros_like(p) for p in ps]
+    T.init_adam_state(ours)
+    prog = None
+    if graph:
+        for k, (p, g) in enumerate(zip(ps, grads)):
+            p.grad = None if k == 1 else g
+        prog = T.GraphProgram(T.LoopState(0, ps, ours, None), "cuda", body=ours.step)
+        prog.capture()
+    for step in range(ADAM_REPLAYS if graph else ADAM_STEPS):
+        for k, g in enumerate(grads):
+            g.copy_(torch.randn(g.shape, generator=gen, device="cuda") * (0.01 if k % 2 else 1.0))
+        skip = graph or step % 3 == 2
+        for k, (p, q, g) in enumerate(zip(ps, qs, grads)):
+            q.grad = None if k == 1 and skip else g.clone()
+            if not graph:
+                p.grad = None if k == 1 and skip else g.clone()
+        if graph:
+            prog.run()
+        else:
+            ours.step()
+        plain.step()
+    torch.cuda.synchronize()
+    differ = 0
+    for p, q in zip(ps, qs):
+        differ += int((p != q).sum())
+        if q in plain.state:
+            for key in ("exp_avg", "exp_avg_sq"):
+                differ += int((ours.state[p][key] != plain.state[q][key]).sum())
+            differ += int(float(ours.state[p]["step"]) != float(plain.state[q]["step"]))
+        else:
+            differ += int(float(ours.state[p]["step"]) != 0.0)
+    return {"differ": differ, "steps": [float(ours.state[p]["step"]) for p in ps]}
+
+
+def adam_kernel_phase(torch, K, timer, model) -> dict:
+    """The Adam kernel on the main path's parameter shapes (``model``'s
+    tables, moments drawn from a seed, the step count the main path ended
+    at): against its plain version (plain Adam's foreach update with the
+    table's scalars), bit for bit; one step's updates (a launch a table)
+    timed in turns with the plain version (its scalars read beforehand, as
+    plain Adam reads them), the bound the bytes of p, m and v read and p
+    written. No single library call computes this update."""
+    from qrec_tpu_torch.runtime.adam import adam_scalars
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    table = torch.tensor(adam_scalars(model.lrate, 0.9, 0.999), device="cuda")
+    t = math.ceil(model.train_size / model.batch_size) * model.max_epoch
+    step = torch.tensor(float(t), device="cuda")
+    tables = []
+    for p in model.parameters():
+        m = torch.randn(p.shape, generator=gen, device="cuda") * 1e-3
+        v = torch.rand(p.shape, generator=gen, device="cuda") * 1e-6
+        tables.append((p.detach().clone(), m, v))
+    err = 0.0
+    for p, m, v in tables:
+        got, want = p.clone(), p.clone()
+        K.adam_update(got, m, v, step, table, 1e-8)
+        K.adam_update_plain(want, m, v, step, table, 1e-8)
+        err = max(err, (got - want).abs().max().item())
+        if not torch.equal(got, want):
+            fail("adam_update differs from its plain version")
+    step_cpu, table_cpu = step.cpu(), table.cpu()
+    ms, plain_ms = timer.paired([
+        lambda: [K.adam_update(p, m, v, step, table, 1e-8) for p, m, v in tables],
+        lambda: [K.adam_update_plain(p, m, v, step_cpu, table_cpu, 1e-8) for p, m, v in tables],
+    ])
+    n = sum(p.numel() for p, _, _ in tables)
+    bound_ms = 4 * 4 * n / HBM_BYTES_PER_S * 1e3
+    print(f"[adam_update] {n} parameters in {len(tables)} tables at step {t}: bit-identical to its "
+          f"plain version (max_abs_err {err:.1e}, tolerance 0); ms={ms:.4f} "
+          f"plain_ms={plain_ms:.4f} "
+          f"bound_ms={bound_ms:.4f} (p, m, v read and p written at {HBM_BYTES_PER_S / 1e12:.2f} "
+          f"TB/s); library_ms=None", flush=True)
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": "bytes", "library_ms": None}
+
+
+def adam_main_path(torch, K, QRec, conf_of) -> None:
+    """``config/LightGCN.conf`` 3 epochs twice: chunked under ``auto`` (one
+    CUDA graph an epoch) on the one Adam, and at ``train.chunk=1`` on
+    ``torch.optim.Adam(foreach=True)`` itself (``trainer.make_optimizer``
+    replaced for the run): the losses, parameters and final factors bit for
+    bit, so a captured run's seeded losses are plain Adam's on the same
+    sampler stream."""
+    from qrec_tpu_torch.runtime import trainer as T
+
+    real, runs = T.make_optimizer, {}
+
+    def plain(params, mode, lr):
+        if mode != "adam":
+            return real(params, mode, lr)
+        return torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8, foreach=True)
+
+    for chunk in ("auto", "1"):
+        conf = conf_of("LightGCN", 3)
+        conf["train.chunk"] = chunk
+        if chunk == "1":
+            T.make_optimizer = plain
+        try:
+            model, _, _ = drive(torch, K, QRec, conf, f"adam lightgcn chunk={chunk}")
+        finally:
+            T.make_optimizer = real
+        runs[chunk] = chunk_record(model)
+        del model
+        gc.collect()
+    if runs["auto"]["graphs"] != 1 or runs["1"]["graphs"]:
+        fail(f"adam lightgcn: graphs {runs['auto']['graphs']} / {runs['1']['graphs']}")
+    compare_chunk_runs(torch, "adam lightgcn: the one Adam chunked vs torch.optim.Adam(foreach) "
+                       "per epoch", runs["auto"], runs["1"])
+
+
+def adam_phase(torch, timer, shapes: dict) -> dict:
+    """Phase 13e: the one Adam against ``torch.optim.Adam(foreach=True)``
+    on the card on each model's parameter shapes (``shapes``: LightGCN's
+    and DMF's at the lastfm shape), at lr 0.001 and 0.01, eager
+    (``ADAM_STEPS`` steps) and replayed in a CUDA graph (``ADAM_REPLAYS``
+    replays): every parameter, moment and step count bit for bit, with no
+    exception. Then one step of each on each model's shapes timed in turns
+    on the device (``Timer.paired``), beside ``torch.optim.Adam(fused=
+    True)``'s (the library's one call) and the step's bound (seven f32
+    tables of the parameters' size moved once: p, g, m, v read; p, m, v
+    written), and the host's enqueue time of a step."""
+    from qrec_tpu_torch.runtime import trainer as T
+
+    t0 = time.perf_counter()
+    for kind, dims in shapes.items():
+        for lr in (0.001, 0.01):
+            for graph in (False, True):
+                got = adam_pair(torch, dims, lr, graph)
+                print(f"[adam {kind}] lr={lr} {'replayed graph' if graph else 'eager'} "
+                      f"({ADAM_REPLAYS if graph else ADAM_STEPS} steps): entries differing from "
+                      f"torch.optim.Adam(foreach=True) {got['differ']} (bound 0); step counts "
+                      f"{got['steps']}", flush=True)
+                if got["differ"]:
+                    fail(f"adam {kind} lr={lr} graph={graph}: the one Adam differs from "
+                         f"torch.optim.Adam(foreach=True)")
+    out = {}
+    for kind, dims in shapes.items():
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        base = [torch.randn(s, generator=gen, device="cuda") for s in dims]
+        grads = [torch.randn(s, generator=gen, device="cuda") for s in dims]
+        made = {}
+        for label in ("ours", "plain", "fused"):
+            ps = [b.clone().requires_grad_() for b in base]
+            for p, g in zip(ps, grads):
+                p.grad = g.clone()
+            made[label] = {"ours": lambda: T.make_optimizer(ps, "adam", 1e-3),
+                           "plain": lambda: torch.optim.Adam(ps, lr=1e-3, foreach=True),
+                           "fused": lambda: torch.optim.Adam(ps, lr=1e-3, fused=True)}[label]()
+        labels = ("ours", "plain", "fused")
+        device = dict(zip(labels, timer.paired([made[k].step for k in labels], iters=30)))
+        # the host's enqueue time of a step, which sets a host-bound loop's
+        # pace: 100 steps back to back, in turns, the median of 3
+        host = {k: [] for k in labels}
+        for _ in range(3):
+            for k in labels:
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                for _ in range(100):
+                    made[k].step()
+                host[k].append((time.perf_counter() - t1) * 10.0)
+                torch.cuda.synchronize()
+        host = {k: float(np.median(v)) for k, v in host.items()}
+        n = sum(math.prod(s) for s in dims)
+        bound_ms = 7 * 4 * n / HBM_BYTES_PER_S * 1e3
+        print(f"[adam step {kind}] {n} parameters in {len(dims)} tensors: "
+              f"device ms={device['ours']:.4f} "
+              f"plain_ms={device['plain']:.4f} (torch.optim.Adam foreach) "
+              f"library_ms={device['fused']:.4f} (torch.optim.Adam fused) bound_ms={bound_ms:.4f} "
+              f"(7 f32 tables at {HBM_BYTES_PER_S / 1e12:.2f} TB/s); host enqueue ms a step "
+              f"{host['ours']:.4f} / plain {host['plain']:.4f} / fused {host['fused']:.4f}",
+              flush=True)
+        out[kind] = {"device": device, "host": host, "bound_ms": bound_ms}
+    print(f"[adam] phase {time.perf_counter() - t0:.1f} s", flush=True)
     return out
 
 
@@ -2545,22 +2891,25 @@ def user_shard_check(torch, K, model, form) -> float:
 
 
 def flag_read_timing(torch, model, steps: int = 40, turns: int = 2) -> dict:
-    """NeuMF's GMF-phase step on this rank, timed with and without the
-    flag read of ``reduce_gradients``: ``steps`` steps of ``loss_mf`` on the
+    """NeuMF's GMF-phase step on this rank, timed in three forms of the
+    reduction of ``reduce_gradients``: ``steps`` steps of ``loss_mf`` on the
     pointwise sampler's batches under a fresh Adam, as ``train`` makes them
-    (the MLP tower's gradients None on every rank, so the flags reach the
-    host every step); in the other form each parameter that the loss does
-    not reach gets a zero gradient before the reduction, so that no flag
-    is read. In turns, the median ms a step. It trains the model on, after
-    every check has read it. Every rank calls it: the steps are
-    collective."""
+    (the MLP tower's gradients None on every rank): the summed flags read
+    on the host every step ("flag read every step", the form before they
+    were kept), read once and kept a phase ("flags kept", as ``train``
+    steps), and each parameter that the loss does not reach given a zero
+    gradient before the reduction ("no flag read"). In turns, the median
+    ms a step. It trains the model on, after every check has read it.
+    Every rank calls it: the steps are collective."""
     from qrec_tpu_torch.parallel.collectives import reduce_gradients
+    from qrec_tpu_torch.runtime import trainer as T
 
     params = list(model.parameters())
-    opt = torch.optim.Adam(params, lr=1e-3)
+    opt = T.make_optimizer(params, "adam", 1e-3)
     batches = model.pointwise_sampler()(torch.Generator(device=model.device).manual_seed(0))
     n = batches[0].shape[0]
-    times, step = {"flag read": [], "no flag read": []}, 0
+    kept = {}
+    times, step = {"flag read every step": [], "flags kept": [], "no flag read": []}, 0
     for _ in range(turns):
         for key, ms in times.items():
             torch.cuda.synchronize()
@@ -2574,7 +2923,7 @@ def flag_read_timing(torch, model, steps: int = 40, turns: int = 2) -> dict:
                     for p in params:
                         if p.grad is None:
                             p.grad = torch.zeros_like(p)
-                reduce_gradients(params, model.mesh)
+                reduce_gradients(params, model.mesh, kept if key == "flags kept" else None)
                 opt.step()
             torch.cuda.synchronize()
             ms.append((time.perf_counter() - t0) * 1e3 / steps)
@@ -3150,10 +3499,12 @@ def parallel_phases(torch, K, QRec, conf_of, tmp, trust_path, one_process=None):
         if "flag_ms" in first:
             f = first["flag_ms"]
             print(f"[parallel {label}] GMF-phase steps on rank 0 ({SHARED}), {f['steps']} a turn "
-                  f"in turns: ms a step with the flag read {f['flag read']:.3f}, with zero "
-                  f"gradients in its place {f['no flag read']:.3f}; {f['steps_per_epoch']} steps "
-                  f"an epoch, so the flag read's share of a GMF epoch is about "
-                  f"{(f['flag read'] - f['no flag read']) * f['steps_per_epoch']:.1f} ms",
+                  f"in turns: ms a step with the flags read every step "
+                  f"{f['flag read every step']:.3f}, read once and kept {f['flags kept']:.3f} "
+                  f"(as train steps), with zero gradients in their place "
+                  f"{f['no flag read']:.3f}; {f['steps_per_epoch']} steps an epoch, so reading "
+                  f"every step would cost a GMF epoch about "
+                  f"{(f['flag read every step'] - f['flags kept']) * f['steps_per_epoch']:.1f} ms",
                   flush=True)
         if not gap < 2e-2:
             fail(f"parallel {label}: the measures on 4 ranks are {gap} from one process's")
@@ -3212,6 +3563,8 @@ def parallel_phases(torch, K, QRec, conf_of, tmp, trust_path, one_process=None):
     nccl_phase(torch, one["lightgcn-pallas"]["model"], one["simgcl-pallas"]["model"],
                one["lightgcn"]["model"])
     print(f"[parallel] phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    timings["first_losses"] = {label: ranks[0][label]["losses"][0] if ranks[0][label]["losses"]
+                               else None for label, _ in runs}
     return timings, launches, biased
 
 
@@ -3607,8 +3960,7 @@ def profile_epoch(torch, model, label, epoch=None):
         epoch = lambda: T.train(  # noqa: E731
             spec.params, spec.loss_fn, spec.sampler, max_epoch=1, lr=model.lrate,
             device=model.device, mode=spec.mode, max_lr=model.max_lrate, generator=gen,
-            examples_per_epoch=model.train_size,
-            capturable=spec.chunkable and spec.mode == "adam")
+            examples_per_epoch=model.train_size)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -3683,7 +4035,7 @@ def compare_chunk_runs(torch, label, auto, one) -> dict:
     """``train.chunk=auto`` against ``1`` on the card: losses, trained
     parameters, final factors, best epoch, measures and parameters, bit for
     bit. Both loops run every epoch through ``trainer.run_epoch`` with
-    capturable Adam and one generator stream; a CUDA graph replays the
+    the one Adam and one generator stream; a CUDA graph replays the
     eager epoch's kernels on the same operands, and every kernel on the
     path repeats bit for bit (the K1-K5 phases check it), so the bound is
     0."""
@@ -3715,7 +4067,7 @@ def compare_chunk_runs(torch, label, auto, one) -> dict:
 def spec_loop(torch, model, chunk: int, phase=None):
     """(loop state, ``ChunkedLoop`` of ``chunk`` epochs) over ``model``'s
     spec (or ``phase`` = (params, loss, sampler, evaluate or None)) on
-    capturable Adam from a generator seeded 0, the vote with a tracked
+    the one Adam from a generator seeded 0, the vote with a tracked
     spec, as ``train`` builds them."""
     from qrec_tpu_torch.runtime import trainer as T
     from qrec_tpu_torch.runtime.profiling import StepTimer
@@ -3727,7 +4079,6 @@ def spec_loop(torch, model, chunk: int, phase=None):
     params, loss_fn, sampler, evaluate = phase
     gen = torch.Generator(device="cuda").manual_seed(0)
     opt = T.make_optimizer(params, "adam", model.lrate)
-    T.make_capturable(opt)
     T.init_adam_state(opt)
     vote = T.DeviceVote(params, T.BestTracker(), 0) if evaluate is not None else None
     st = T.LoopState(0, params, opt, gen, vote)
@@ -3967,7 +4318,7 @@ def eval_epoch(torch, model) -> None:
     gen = torch.Generator(device="cuda").manual_seed(0)
     T.train(spec.params, spec.loss_fn, spec.sampler, max_epoch=1, lr=model.lrate,
             device=model.device, generator=gen, examples_per_epoch=model.train_size,
-            quick_eval=lambda: model.quick_eval(spec), tracker=T.BestTracker(), capturable=True)
+            quick_eval=lambda: model.quick_eval(spec), tracker=T.BestTracker())
 
 
 # the models whose run_training phases chunk since slice 9, with their
@@ -3995,7 +4346,7 @@ def turns_timing(torch, model, label, phase, epochs: int = 4, per_epoch: int = 3
                 lr=model.lrate, device=model.device, generator=gen,
                 examples_per_epoch=model.train_size, quick_eval=quick,
                 tracker=T.BestTracker() if evaluate is not None else None, chunk=chunk,
-                eval_vector=evaluate, capturable=True)
+                eval_vector=evaluate)
             if chunk > 1:
                 out["auto"].append(float(np.mean(timer.times)) * 1e3)
                 out["capture_s"].append(timer.captures[0])
@@ -4109,6 +4460,7 @@ def family_chunk_phases(torch, K, QRec, conf_of, tmp, runs, neumf) -> dict:
                   epoch=lambda: eval_epoch(torch, mhcn))
     lap("profiles")
     print(f"[chunk family phases] seconds {json.dumps(laps)}", flush=True)
+    out["dmf losses"] = list(runs["dmf"][1]["losses"])
     return out
 
 
@@ -4133,7 +4485,7 @@ def main() -> None:
     # 2. build
     t0 = time.perf_counter()
     K.build()
-    print(f"[build] {time.perf_counter() - t0:.2f} s for {len(K.KERNELS)} kernels "
+    print(f"[build] {time.perf_counter() - t0:.2f} s for {len(K.ALL_KERNELS)} kernels "
           f"into {K.BUILD_DIR}", flush=True)
     from qrec_tpu_torch import native
 
@@ -4161,9 +4513,22 @@ def main() -> None:
 
         # 3. LightGCN main path
         model, counts, _ = drive(torch, K, QRec, conf_of("LightGCN", 5), "main")
+        # the Adam kernel: one launch a parameter a step, replays counted
+        adam_launches = K.ADAM.launches
+        adam_expect = (math.ceil(model.train_size / model.batch_size) * model.max_epoch
+                       * len(list(model.parameters())))
+        print(f"[main] adam_update launches {adam_launches} expected {adam_expect}", flush=True)
+        if adam_launches != adam_expect:
+            fail(f"main: adam_update launched {adam_launches} times, expected {adam_expect}")
         chunked = {"main": (conf_of("LightGCN", 5), chunk_record(model), 5, "LightGCN")}
         # the unbroken run the slice-6 resume is held against
         unbroken = {"U": model.U.clone(), "V": model.V.clone(), "losses": list(model.epoch_losses)}
+        # the parameter shapes phase 13e steps the one Adam on: LightGCN's,
+        # and DMF's (towers 256 and 512 wide over the I and U rating rows)
+        n_users, n_items = model.user_emb.shape[0], model.item_emb.shape[0]
+        adam_shapes = {"lightgcn": [tuple(p.shape) for p in model.parameters()],
+                       "dmf": [(n_items, 256), (256, 512), (512,), (n_users, 256), (256, 512),
+                               (512,)]}
         # the final ranking against the plain versions on the CPU
         ranker = CatalogRanker(model.data, k=10, device="cuda", bitmask=model.rated_bitmask)
         ids, scores = ranker.topk(ScoreForm(model.U, model.V))
@@ -4202,6 +4567,7 @@ def main() -> None:
         k1d = dual_phase(torch, K, timer, "lastfm d=1", adj.r, xu[:, :1].contiguous(),
                          xi[:, :1].contiguous(), n_items)
         kf = factored_phase(torch, K, timer, adj, x)
+        kadam = adam_kernel_phase(torch, K, timer, model)
         k5l = lastfm_segment_line(torch, K, timer, model, k1["ms"], l2_rate)
         k2 = scores_phase(torch, K, timer, model.U[uids], model.V, model.rated_bitmask[uids])
         k2t = {"lastfm": topk_timing(torch, K, timer, model, 10, "lastfm")}
@@ -4313,7 +4679,8 @@ def main() -> None:
         # 10b. train.chunk for the social-graph and deep families: the
         # chunked runs of phases 9 and 10 against train.chunk=1, NeuMF and
         # APR on the FilmTrust-shaped file, DMF's 578-step graph
-        family_chunk_phases(torch, K, QRec, conf_of, tmp, family, ones["neumf"].pop("model"))
+        family_out = family_chunk_phases(torch, K, QRec, conf_of, tmp, family,
+                                         ones["neumf"].pop("model"))
         del family
 
         lap("10b train.chunk, slice 9")
@@ -4359,6 +4726,19 @@ def main() -> None:
 
         lap("13c own loops")
 
+        # 13d. slice 12: the ALS loops as one captured graph an epoch,
+        # each against its per-step twin
+        mf_launches.update(als_loop_phases(torch, K, QRec, conf_of, trust))
+
+        lap("13d ALS loops")
+
+        # 13e. the one Adam against torch.optim.Adam(foreach=True), eager and
+        # replayed, and one step of it timed
+        adam = adam_phase(torch, Timer(torch), adam_shapes)
+        adam_main_path(torch, K, QRec, conf_of)
+
+        lap("13e Adam")
+
         # 14. the lifecycle slice: the host library, resume, save/load and the trace
         k1_life, life_launches = host_and_lifecycle_phases(
             torch, K, QRec, conf_of, tmp, card, unbroken)
@@ -4371,6 +4751,15 @@ def main() -> None:
         # the sparse and the dense forms, and the one-rank NCCL group
         par, par_launches, par_biased = parallel_phases(torch, K, QRec, conf_of, tmp, trust,
                                                         ones)
+        # phase 13e's mesh bound: DMF's first 4-rank loss against a one-process
+        # run of two epochs (phase 10b's chunked run), both on the one Adam
+        dmf_mesh, dmf_one = par["first_losses"]["dmf"], family_out["dmf losses"][0]
+        dmf_gap = abs(dmf_mesh - dmf_one) / abs(dmf_one)
+        print(f"[adam dmf mesh] first-epoch loss 4 ranks {dmf_mesh} one process of "
+              f"{len(family_out['dmf losses'])} epochs {dmf_one}: relative gap {dmf_gap:.3e} "
+              f"(bound 1e-4)", flush=True)
+        if not dmf_gap <= 1e-4:
+            fail(f"adam dmf mesh: DMF's 4-rank first loss is {dmf_gap} from a two-epoch run's")
 
         lap("15 multi-GPU")
 
@@ -4454,6 +4843,10 @@ def main() -> None:
         row("weighted_segment_matmul", "qrec_tpu_torch/csrc/segment_matmul.cu",
             "qrec_tpu/ops/pallas_kernels.py:478",
             yelp_counts["weighted_segment_matmul"] + own["launches"]["weighted_segment_matmul"], k5),
+        # the port's own kernel: Adam's update (the JAX package's optax.adam
+        # is XLA's, no Pallas kernel); launches of the main path
+        row("adam_update", "qrec_tpu_torch/csrc/adam.cu", "qrec_tpu/models/base.py:514",
+            adam_launches, kadam),
         # the mesh routes: launches summed over the four ranks, ms on one
         # rank's share (K3 + K4 for the InfoNCE)
         row("sharded_infonce_loss", "qrec_tpu_torch/csrc/infonce.cu",

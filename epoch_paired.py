@@ -22,8 +22,10 @@ median of 20, CUDA events), and where the trainer has ``run_epoch``, the
 per-epoch loop's epochs (``run_epoch``, then the host's read of the loss)
 against the JAX package's lag-1 form (epoch e's loss read after epoch
 e+1 is enqueued, no synchronisation but those reads, the time from one
-read to the next), each with Adam capturable and plain, in ``--rounds``
-rounds.
+read to the next), each with the tree's chunked-phase Adam (capturable
+``torch.optim.Adam`` in a tree with ``trainer.make_capturable``, else the
+one Adam that ``trainer.make_optimizer`` makes) and with
+``torch.optim.Adam(foreach=True)``, in ``--rounds`` rounds.
 """
 
 from __future__ import annotations
@@ -137,13 +139,17 @@ def main() -> None:
     if own_loops:
         loops = {}
         for _ in range(args.rounds):
-            for capturable in (True, False):
+            for tree_adam in (True, False):
                 for lagged in (True, False):
-                    optimizer = T.make_optimizer(spec.params, "adam", model.lrate)
-                    if capturable:
-                        T.make_capturable(optimizer)
+                    if tree_adam:
+                        optimizer = T.make_optimizer(spec.params, "adam", model.lrate)
+                        if hasattr(T, "make_capturable"):
+                            T.make_capturable(optimizer)
+                    else:
+                        optimizer = torch.optim.Adam(spec.params, lr=model.lrate,
+                                                     betas=(0.9, 0.999), eps=1e-8, foreach=True)
                     key = (f"{'lag-1' if lagged else 'read every epoch'}, "
-                           f"{'capturable' if capturable else 'plain'} Adam")
+                           f"{'the tree' if tree_adam else 'torch.optim'}'s Adam")
                     loops.setdefault(key, []).append(steady(epochs(optimizer, lagged)))
         out["LightGCN per-epoch loop steady ms"] = loops
     print(json.dumps(out), flush=True)

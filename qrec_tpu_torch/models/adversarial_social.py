@@ -285,21 +285,16 @@ class ESRF(SocialRecommender, GraphRecommender):
         """The three phases of ``max(1, max_epoch // 3)`` epochs under the
         two Adams. Where a phase runs more than one epoch
         (``own_loop_form``), off a mesh, each phase's epoch is one CUDA
-        graph on a card, as the
-        JAX package runs one jitted scan an epoch; both Adams are then
-        capturable, in the per-step loop too, so that both forms step the
-        same arithmetic. On a mesh, whose steps hold collectives, every
-        phase runs per step under plain Adam."""
+        graph on a card, as the JAX package runs one jitted scan an epoch.
+        On a mesh, whose steps hold collectives, every phase runs per
+        step."""
         self.prepare_graph()
         gen = torch.Generator(device=self.device).manual_seed(self.seed + 1)
         d_opt, g_opt = self.optimizers()
         sampler = self.pairwise_sampler()
         epochs = max(1, self.max_epoch // 3)
-        graphs, capturable = self.own_loop_form(epochs, collectives=True)
+        graphs = self.own_loop_form(epochs, collectives=True)
         state = None
-        if capturable:
-            for opt in (d_opt, g_opt):
-                T.make_capturable(opt)
         if graphs:
             for opt in (d_opt, g_opt):
                 T.init_adam_state(opt)
@@ -475,20 +470,15 @@ class RSGAN(SocialRecommender):
         pretraining step is one CUDA graph on a card, replayed
         ``pretrain_steps`` times, and a GAN epoch another, replayed once an
         epoch, as the JAX package runs a jitted step and one jitted scan an
-        epoch; both Adams are then capturable (the generator's from its
-        first pretraining step), in the per-step loop too. The epochs'
-        losses are read on the host at the epochs printed, every 5th and
-        the last; f32 products are in force over the captures and the
-        replays."""
+        epoch. The epochs' losses are read on the host at the epochs
+        printed, every 5th and the last; f32 products are in force over the
+        captures and the replays."""
         self.prepare_graph()
         g_opt, d_opt = self.optimizers()
         gen = torch.Generator(device=self.device).manual_seed(self.seed + 1)
-        graphs, capturable = self.own_loop_form(self.max_epoch)
+        graphs = self.own_loop_form(self.max_epoch)
         self.pretrain_timer = StepTimer(self.num_users, self.device)
         pre = None
-        if capturable:
-            for opt in (g_opt, d_opt):
-                T.make_capturable(opt)
         if graphs:
             T.init_adam_state(g_opt)
             pre = T.EpochProgram(T.LoopState(0, list(self.g.values()), g_opt, None), None, None,

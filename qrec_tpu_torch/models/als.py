@@ -20,7 +20,15 @@ CoFactor's ``g``, ``w``, ``c``): numpy's ``RandomState(seed)`` draws equal
 the JAX package's bit for bit, the ``U(0, 1)·10/3`` tables of WRMF and
 CoFactor come from a ``torch.Generator`` seeded with ``seed`` (the JAX
 package draws them with ``jax.random``). The first solve overwrites ``x``,
-so only ``y`` reaches a result. Each epoch runs inside the synchronised
+so only ``y`` reaches a result. The tables live in fixed buffers, which
+each epoch overwrites; on a CUDA device an epoch of more than one is one
+CUDA graph (``runtime/trainer.run_own_epochs``), captured before the first
+and replayed, as the JAX package runs one jitted function an epoch, and
+its per-step twin (``epoch_graphs=False``, the CPU's default) steps the
+same arithmetic. The host reads an epoch's result only where the loop
+prints: WRMF's loss every epoch, the others at every 5th epoch and the
+last. Both forms solve through cuSOLVER and cuBLAS on a card
+(``ops/als.linalg_library``). The epochs run inside the synchronised
 ``StepTimer`` in ``self.timer``; the final tables rank as ``ScoreForm(U,
 V)``, K2's fused top-k.
 """
@@ -34,18 +42,27 @@ import scipy.sparse as sp
 import torch
 
 from ..device import f32_products
-from ..ops.als import exposure_posterior, solve_factors
+from ..ops.als import exposure_posterior, linalg_library, solve_factors
 from ..ops.spmm import segment_sum
+from ..runtime import trainer as T
 from ..runtime.profiling import StepTimer
 from .base import IterativeRecommender, SocialRecommender
 
 
 class _ALS(IterativeRecommender):
     """The epoch loop: the initial tables, the device constants
-    (``prepare``), one timed ``epoch`` at a time, the progress line, and
-    the final factors from the tables named in ``factors``."""
+    (``prepare``), ``epoch`` after ``epoch`` over the tables' buffers, the
+    progress line at the epochs read, and the final factors from the
+    tables named in ``factors``."""
 
     factors = ("x", "y")
+    # epochs between host reads: the progress line every 5th epoch and at
+    # the last (ExpoMF.py's)
+    read_every = 5
+    # the library ``torch.linalg.solve_ex`` runs on over the epochs on a
+    # card (``ops/als.linalg_library``): cuSOLVER's batched LU captures,
+    # the default route's does not
+    solver = "cusolver"
 
     def init_tables(self) -> Dict[str, torch.Tensor]:
         raise NotImplementedError
@@ -57,33 +74,52 @@ class _ALS(IterativeRecommender):
     def epoch(self, t: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         raise NotImplementedError
 
-    def report(self, epoch: int) -> None:
-        """Every fifth epoch and the last (ExpoMF.py's progress line)."""
-        if (epoch + 1) % 5 == 0 or epoch == self.max_epoch - 1:
-            print(f"{self.model_name} {self.fold} epoch {epoch + 1}")
+    def epoch_loss(self, t: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """The (1,) value the host reads after an epoch: a zero, for a
+        loop that prints no loss."""
+        return t[self.factors[0]].new_zeros(1)
+
+    def report(self, epoch: int, row) -> None:
+        print(f"{self.model_name} {self.fold} epoch {epoch + 1}")
 
     def _uniform_tables(self, gen: torch.Generator) -> Dict[str, torch.Tensor]:
         """``x`` (U, d) and ``y`` (I, d), U(0, 1)·10/3 (WRMF.py:14-15)."""
         shapes = (("x", self.num_users), ("y", self.num_items))
         return {k: torch.rand((n, self.emb_size), generator=gen) * 10 / 3 for k, n in shapes}
 
+    def _step(self, t: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """One epoch written into the tables' buffers ``t``, in both forms;
+        the epoch's :meth:`epoch_loss`."""
+        new = self.epoch(t)
+        for k, v in new.items():
+            t[k].copy_(v)
+        return self.epoch_loss(t)
+
     def fit(self) -> None:
+        """``num.max.epoch`` epochs through ``run_own_epochs``, with no
+        optimizer and no generator; the tables are the loop's state."""
         self.prepare()
         t = {k: v.to(self.device) for k, v in self.init_tables().items()}
         self.timer = StepTimer(self.train_size, self.device)
-        self.epoch_losses = []
-        for epoch in range(self.max_epoch):
-            with self.timer:
-                t = self.epoch(t)
-            self.report(epoch)
+        rows = T.run_own_epochs(
+            list(t.values()), [], None, lambda *_: self._step(t), epochs=self.max_epoch,
+            every=self.read_every, device=self.device, timer=self.timer,
+            graphs=self.own_loop_form(self.max_epoch), emit=self.report,
+            context=lambda: linalg_library(self.device, self.solver))
+        self.epoch_losses = self.printed_losses(rows)
         self.tables = t
         self.U, self.V = (t[k].contiguous() for k in self.factors)
+
+    def printed_losses(self, rows) -> list:
+        return []
 
 
 class WRMF(_ALS):
     """Implicit ALS with confidence ``1 + 10r`` (WRMF.py:17-67); each epoch
     prints the squared error over the rated entries. On a mesh its training
     is replicated: every rank solves the whole tables from the same seed."""
+
+    read_every = 1  # the loss line of every epoch
 
     def init_tables(self) -> Dict[str, torch.Tensor]:
         return self._uniform_tables(torch.Generator().manual_seed(self.seed))
@@ -95,13 +131,19 @@ class WRMF(_ALS):
     def epoch(self, t):
         x = solve_factors(t["y"], self.conf, self.rated, self.reg_u)
         y = solve_factors(x, self.conf.T, self.rated.T, self.reg_u)
-        with f32_products():
-            loss = float(torch.sum(self.rated * (self.rated - x @ y.T) ** 2))
-        self.epoch_losses.append(loss)
         return {"x": x, "y": y}
 
-    def report(self, epoch: int) -> None:
-        print(f"{self.model_name} {self.fold} epoch {epoch + 1}: loss = {self.epoch_losses[-1]:.4f}")
+    def epoch_loss(self, t) -> torch.Tensor:
+        """The squared error over the rated entries, read every epoch."""
+        x, y = t["x"], t["y"]
+        with f32_products():
+            return torch.sum(self.rated * (self.rated - x @ y.T) ** 2).view(1)
+
+    def report(self, epoch: int, row) -> None:
+        print(f"{self.model_name} {self.fold} epoch {epoch + 1}: loss = {row[0]:.4f}")
+
+    def printed_losses(self, rows) -> list:
+        return [r[0] for r in rows]
 
 
 class ExpoMF(_ALS):

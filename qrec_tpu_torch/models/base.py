@@ -89,9 +89,10 @@ class Recommender(nn.Module):
     # the form of the training epochs, which no conf reads: None, one CUDA
     # graph an epoch on a CUDA device and the per-step loop elsewhere; True,
     # the captured form (run as written off a card); False, the per-step
-    # loop. The own loops (ESRF, RSGAN, IRGAN, CFGAN, IF_BPR) read it
-    # through ``own_loop_form``; a ``run_training`` phase runs per epoch under
-    # False, and under None or True as ``train.chunk`` says (BUIR's)
+    # loop. The own loops (ESRF, RSGAN, IRGAN, CFGAN, IF_BPR and the ALS
+    # models) read it through ``own_loop_form``; a ``run_training`` phase
+    # runs per epoch under False, and under None or True as ``train.chunk``
+    # says (BUIR's)
     epoch_graphs: Optional[bool] = None
     # a model that needs the trust relation (SocialRecommender) gets it as
     # ``social``; the session refuses to run it without one
@@ -147,21 +148,17 @@ class Recommender(nn.Module):
     def fit(self) -> None:
         pass
 
-    def own_loop_form(self, epochs: int, collectives: bool = False) -> Tuple[bool, bool]:
-        """(captured form, capturable Adam) of an own loop of ``epochs``
-        epochs a phase. The captured form where ``epoch_graphs`` says so,
-        or with it None on a CUDA device where the loop runs more than one
-        epoch (a run of one keeps the per-step loop and plain Adam);
-        capturable Adam (on a CUDA device) wherever the loop captures or
-        runs more than one epoch, so that its per-step twin steps the same
-        arithmetic. A loop whose steps hold ``collectives`` (ESRF's) runs
-        per step on plain Adam on a mesh."""
+    def own_loop_form(self, epochs: int, collectives: bool = False) -> bool:
+        """Whether an own loop of ``epochs`` epochs a phase runs in its
+        captured form: where ``epoch_graphs`` says so, or with it None on
+        a CUDA device where the loop runs more than one epoch. A loop whose
+        steps hold ``collectives`` (ESRF's) runs per step on a mesh. Adam's
+        arithmetic is the same in both forms (``runtime/adam.Adam``)."""
         if collectives and self.mesh is not None:
-            return False, False
-        graphs = self.epoch_graphs
-        if graphs is None:
-            graphs = self.device.type == "cuda" and epochs > 1
-        return graphs, graphs or epochs > 1
+            return False
+        if self.epoch_graphs is not None:
+            return self.epoch_graphs
+        return self.device.type == "cuda" and epochs > 1
 
     @property
     def mesh(self):
@@ -678,21 +675,6 @@ class IterativeRecommender(Recommender):
                   f"epoch: {why}")
         return 1
 
-    def _capturable(self, mode: str, chunkable: bool, max_epoch: int, chunk_eval: bool) -> bool:
-        """Whether a phase of ``max_epoch`` epochs takes capturable Adam (on
-        a CUDA device): one that may run chunked, whatever ``train.chunk``
-        is, so that ``1`` and ``auto`` step the same arithmetic, and so does
-        a run resumed from a checkpoint. Not on a mesh, not in a phase of
-        one epoch, and not where a per-epoch measure is read on the host
-        (``chunk_eval`` false: a ``-tf`` rating run printing MAE/RMSE), none
-        of which ever chunks: there Adam keeps its plain arithmetic, which
-        the mesh runs are held to one process by (on an H100, DMF's first
-        4-rank loss parted from one process's by 8.0e-5 where neither side
-        was capturable, by 1.057e-4 where one process was and by 1.07e-4
-        where both were: Adam turns f32 noise into moves)."""
-        return (chunkable and chunk_eval and mode == "adam" and self.mesh is None
-                and max_epoch > 1)
-
     def run_training(
         self,
         params: Sequence[torch.Tensor],
@@ -752,7 +734,6 @@ class IterativeRecommender(Recommender):
             quick_eval=quick_eval, tracker=tracker, after_step=after_step,
             start_epoch=start_epoch, resume=resume, checkpoint=self._make_checkpoint_cb(),
             mesh=self.mesh, chunk=chunk, eval_vector=eval_vector,
-            capturable=self._capturable(mode, chunkable, max_epoch, chunk_eval),
             extra=list(self.buffers()),
         )
         self._epochs_done += start_epoch + len(losses)

@@ -431,19 +431,15 @@ class CFGAN(_RatingRows):
         """``num.max.epoch`` epochs under the two Adams. Where the run has
         more than one epoch (``own_loop_form``) an epoch is one CUDA graph on a
         card, captured before the first and replayed once an epoch, as the
-        JAX package runs one jitted epoch; both Adams are then capturable,
-        in the per-step loop too. The losses are read on the host at the
-        epochs printed, every 20th and the last, as the JAX package reads
-        them."""
+        JAX package runs one jitted epoch. The losses are read on the host
+        at the epochs printed, every 20th and the last, as the JAX package
+        reads them."""
         gen = torch.Generator(device=self.device).manual_seed(self.seed + 1)
         g_opt = T.make_optimizer(list(self.g.values()), "adam", self.lrate)
         d_opt = T.make_optimizer(list(self.d.values()), "adam", self.lrate)
         # the rating rows and their mask, on the device before a capture
         self.rated
-        graphs, capturable = self.own_loop_form(self.max_epoch)
-        if capturable:
-            for opt in (g_opt, d_opt):
-                T.make_capturable(opt)
+        graphs = self.own_loop_form(self.max_epoch)
 
         def emit(epoch, row):
             print(f"{self.model_name} {self.fold} epoch {epoch + 1}: "

@@ -160,17 +160,13 @@ class IRGAN(IterativeRecommender):
         """``num.max.epoch`` epochs under the two Adams. Where the run has
         more than one epoch (``own_loop_form``) an epoch is one CUDA graph on a
         card, captured before the first and replayed once an epoch, as the
-        JAX package runs jitted steps; both Adams are then capturable, in
-        the per-step loop too. The losses are read on the host at the
-        epochs printed, every 5th and the last, as the JAX package reads
-        them."""
+        JAX package runs jitted steps. The losses are read on the host at
+        the epochs printed, every 5th and the last, as the JAX package
+        reads them."""
         rng = torch.Generator(device=self.device).manual_seed(self.seed + 1)
         d_opt = T.make_optimizer(list(self.dis.values()), "adam", self.lrate)
         g_opt = T.make_optimizer(list(self.gen.values()), "adam", self.lrate)
-        graphs, capturable = self.own_loop_form(self.max_epoch)
-        if capturable:
-            for opt in (d_opt, g_opt):
-                T.make_capturable(opt)
+        graphs = self.own_loop_form(self.max_epoch)
 
         def emit(epoch, row):
             print(f"{self.model_name} {self.fold} epoch {epoch + 1}: "

@@ -428,15 +428,13 @@ class IF_BPR(SocialRecommender):
         (``own_loop_form``) an epoch (the sampler, the steps with their
         threshold sums, the threshold update and the summed loss) is one
         CUDA graph on a card (:class:`_EpochGraph`), captured before the
-        first epoch and replayed once an epoch, and Adam is capturable in
-        both forms. Each epoch's loss waits in a device buffer; the
-        host reads the losses at the epochs it prints, every 5th and the
-        last, as the JAX package does, each checked for NaN there."""
+        first epoch and replayed once an epoch. Each epoch's loss waits in
+        a device buffer; the host reads the losses at the epochs it prints,
+        every 5th and the last, as the JAX package does, each checked for
+        NaN there."""
         self.prepare_graph()
         optimizer = T.make_optimizer([self.user_emb, self.item_emb], "adam", self.lrate)
-        graphs, capturable = self.own_loop_form(self.max_epoch)
-        if capturable:
-            T.make_capturable(optimizer)
+        graphs = self.own_loop_form(self.max_epoch)
         gen = torch.Generator(device=self.device).manual_seed(self.seed + 1)
         thr, avg = (torch.tensor(a, dtype=torch.float32, device=self.device)
                     for a in (self.friends.threshold, self.friends.avg_sim))

@@ -16,10 +16,18 @@ reads the LU status back to the host. Rows are independent, so the chunk
 the rounding of its sums; the JAX package's 256-row chunks and their
 padding rows are a TPU memory choice that the port does not copy. Every
 product is f32.
+
+On a CUDA device the ALS epochs run under :func:`linalg_library`
+("cusolver"): the default route of a batched ``solve_ex`` copies to the
+host inside the solve (it passes CUDA's sync-debug check but breaks a
+graph's capture), cuSOLVER's route (cuBLAS's batched LU and triangular
+solves at these sizes) captures, and gave the default route's bits on an
+H100 at d=20 and 1,892 and 17,632 rows.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import numpy as np
@@ -29,6 +37,22 @@ from ..device import f32_products
 
 # device memory that one chunk's temporaries may take
 CHUNK_BYTES = 256 << 20
+
+
+@contextlib.contextmanager
+def linalg_library(device, name: Optional[str]):
+    """``torch.backends.cuda.preferred_linalg_library(name)`` over the
+    block on a CUDA ``device`` (the one before it put back after); nothing
+    elsewhere or with ``name`` None."""
+    if name is None or torch.device(device).type != "cuda":
+        yield
+        return
+    before = torch.backends.cuda.preferred_linalg_library()
+    torch.backends.cuda.preferred_linalg_library(name)
+    try:
+        yield
+    finally:
+        torch.backends.cuda.preferred_linalg_library(before)
 
 
 def chunk_rows(n_cols: int, d: int) -> int:

@@ -22,6 +22,13 @@ launch counters and the build step (counterpart of the JAX package's
   values and the gather of x fused (``csrc/segment_matmul.cu``; replaces
   ``_segmm_kernel``).
 
+The port's own kernel, with no TPU counterpart (``OWN_KERNELS``):
+
+* :func:`adam_update` — Adam's parameter update with the rounding of
+  ``torch.optim.Adam``'s foreach path, its step's scalars read on the
+  device, so that a CUDA graph can hold it (``csrc/adam.cu``; the
+  optimizer is ``runtime/adam.Adam``).
+
 Dispatch rule: a CPU tensor goes to the plain version; a CUDA tensor goes
 to the kernel, which raises if it cannot be built or launched. There is no
 fallback from one to the other.
@@ -144,7 +151,14 @@ SEGMM = Kernel(
     "weighted_segment_matmul", "segment_matmul.cu", "qrec_segment_matmul",
     [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P],
 )
+# the counterparts of the JAX package's Pallas kernels
 KERNELS: Tuple[Kernel, ...] = (DUAL, SCORES, TOPK, INFONCE_FWD, INFONCE_BWD, SEGMM)
+ADAM = Kernel(
+    "adam_update", "adam.cu", "qrec_adam_update", [_P, _P, _P, _P, _P, _I, _F, _LL, _I, _P],
+)
+# the port's own kernels, with no TPU counterpart
+OWN_KERNELS: Tuple[Kernel, ...] = (ADAM,)
+ALL_KERNELS: Tuple[Kernel, ...] = KERNELS + OWN_KERNELS
 
 _build_lock = threading.Lock()
 
@@ -159,7 +173,7 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
-def build(kernels: Sequence[Kernel] = KERNELS) -> Dict[str, Path]:
+def build(kernels: Sequence[Kernel] = ALL_KERNELS) -> Dict[str, Path]:
     """Compile every source whose library is missing, one ``nvcc`` process per
     source, all started together. Each writes a temporary file that is
     renamed into place, so a concurrent build never loads half a library;
@@ -195,19 +209,22 @@ def build(kernels: Sequence[Kernel] = KERNELS) -> Dict[str, Path]:
 
 
 def reset_launch_counts() -> None:
-    for k in KERNELS:
+    for k in ALL_KERNELS:
         k.launches = 0
 
 
-def launch_counts() -> Dict[str, int]:
-    return {k.name: k.launches for k in KERNELS}
+def launch_counts(kernels: Sequence[Kernel] = KERNELS) -> Dict[str, int]:
+    """The launches of ``kernels``, by default the TPU kernels'
+    counterparts (the Adam kernel's are ``ADAM.launches``)."""
+    return {k.name: k.launches for k in kernels}
 
 
 def set_launch_counts(counts: Dict[str, int]) -> None:
     """Put back counts read by :func:`launch_counts` (a warm-up's launches
     are no launches of the run)."""
-    for k in KERNELS:
-        k.launches = counts[k.name]
+    for k in ALL_KERNELS:
+        if k.name in counts:
+            k.launches = counts[k.name]
 
 
 # the tally of the capture under way (GraphLaunches.record), else None
@@ -235,7 +252,7 @@ class GraphLaunches:
             _recording = None
 
     def add(self) -> None:
-        for k in KERNELS:
+        for k in ALL_KERNELS:
             k.launches += self.counts.get(k.name, 0)
 
 
@@ -1054,3 +1071,49 @@ def weighted_segment_matmul(
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     return out
+
+
+# ---------------------------------------------------------------------------
+# Adam's parameter update
+# ---------------------------------------------------------------------------
+
+
+def adam_update_plain(p, m, v, step, table, eps: float) -> None:
+    """Plain version of :func:`adam_update`: the update sequence of
+    ``torch.optim.Adam(foreach=True, capturable=False)``
+    (``_multi_tensor_adam``: ``_foreach_sqrt``, ``_foreach_div_``,
+    ``_foreach_add_``, ``_foreach_addcdiv_``) with the step's scalars
+    ``s_t``, ``c_t`` read on the host from ``table``'s row of ``step``. On
+    a CUDA tensor it is plain Adam's update bit for bit."""
+    rows = table.shape[0]
+    t = min(max(int(step), 1), rows)
+    s, c = table[t - 1].tolist()
+    denom = torch._foreach_sqrt([v])
+    torch._foreach_div_(denom, [c])
+    torch._foreach_add_(denom, eps)
+    torch._foreach_addcdiv_([p], [m], denom, [s])
+
+
+def adam_update(p: torch.Tensor, m: torch.Tensor, v: torch.Tensor, step: torch.Tensor,
+                table: torch.Tensor, eps: float) -> None:
+    """``p ← p + s_t·(m / (√v / c_t + eps))`` in place, for f32 ``p`` and
+    its Adam moments ``m``, ``v`` (updated for step t), ``step`` the 0-d f32
+    step count t and ``table`` (rows, 2) f32 the scalars ``(s_t, c_t)`` of
+    steps 1..rows (a step past the last row reads the last). The kernel
+    reads t on the device, so a CUDA graph holding it reads each replay's
+    step, and rounds as :func:`adam_update_plain` does on a CUDA device.
+    One launch a tensor."""
+    if _route(p, m, v, step, table) == "cpu":
+        adam_update_plain(p, m, v, step, table, eps)
+        return
+    for name, t in (("p", p), ("m", m), ("v", v)):
+        if t.dtype != torch.float32 or not t.is_contiguous() or t.numel() != p.numel():
+            raise ValueError(f"adam_update: {name} must be contiguous f32 of p's size")
+    if step.dtype != torch.float32 or step.numel() != 1:
+        raise ValueError("adam_update: step must be one f32")
+    _check(table, "table", (torch.float32,), 2)
+    if table.shape[1] != 2 or table.shape[0] < 1:
+        raise ValueError(f"adam_update: table must be (rows, 2), got {tuple(table.shape)}")
+    ADAM.call(p.data_ptr(), m.data_ptr(), v.data_ptr(), step.data_ptr(), table.data_ptr(),
+              table.shape[0], eps, p.numel(), _num_sms(p.device),
+              torch.cuda.current_stream(p.device).cuda_stream)

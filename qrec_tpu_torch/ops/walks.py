@@ -200,7 +200,7 @@ def train_skipgram(
     """SGNS over the (center, context) pairs; returns the ``in`` table
     (num_nodes, dim) on ``device``. Both tables are dense parameters with
     dense gradients under one Adam (optax.adam's moves every row whose
-    moments are non-zero), capturable on a CUDA device; ``out`` starts at
+    moments are non-zero); ``out`` starts at
     zero. Each epoch shuffles the pairs and pads them to whole batches with
     pair 0 (not the permutation's first), unmasked, as the JAX package
     does; negatives are uniform over ``active_nodes``. ``draws(seed,
@@ -223,7 +223,6 @@ def train_skipgram(
     t_in = source.initial_table(num_nodes, dim).to(device).requires_grad_()
     t_out = torch.zeros((num_nodes, dim), device=device, requires_grad=True)
     optimizer = T.make_optimizer([t_in, t_out], "adam", lr)
-    T.make_capturable(optimizer)
     num_batches = max(1, (n + batch_size - 1) // batch_size)
     padded = num_batches * batch_size
     as_long = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.int64, device=device)  # noqa: E731

@@ -19,7 +19,7 @@ shards one longer.
 
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -75,7 +75,12 @@ def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
     return x
 
 
-def reduce_gradients(params: Sequence[torch.Tensor], mesh) -> None:
+# host reads of the summed gradient flags in :func:`reduce_gradients`
+flag_reads = 0
+
+
+def reduce_gradients(params: Sequence[torch.Tensor], mesh,
+                     reached: Optional[Dict[Tuple[bool, ...], Tuple[bool, ...]]] = None) -> None:
     """The step's one reduction: the gradients of ``params`` summed over the
     mesh's ``data`` group in one flattened buffer. A rank may hold no
     gradient for a parameter that only a term of another rank reaches (a
@@ -83,10 +88,19 @@ def reduce_gradients(params: Sequence[torch.Tensor], mesh) -> None:
     travels as zeros, so that the buffer has one layout on every rank, and
     one flag a parameter, summed with it, tells whether any rank held a
     gradient. A parameter that no rank reached keeps ``grad`` None, as in
-    one process, where the optimizer then skips it."""
+    one process, where the optimizer then skips it.
+
+    Which parameters a loss reaches is a property of its graph, not of the
+    batch: the flags reach the host (``flag_reads``) only where this rank
+    lacks a gradient, and with ``reached`` (a dict the caller keeps beside
+    its optimizer, one a phase) once for each pattern of gradients this
+    rank holds: the answer is kept under the pattern and read again only
+    when the pattern changes. Without ``reached`` they are read at every
+    such step."""
+    global flag_reads
     if not params:
         return
-    held_here = [p.grad is not None for p in params]
+    held_here = tuple(p.grad is not None for p in params)
     # the flags are filled on the device: a tensor built from a host list
     # would copy, and a blocking copy waits for the step's backward
     flags = params[0].new_ones(len(params))
@@ -96,19 +110,21 @@ def reduce_gradients(params: Sequence[torch.Tensor], mesh) -> None:
     flat = torch.cat([p.grad.reshape(-1) if held else p.new_zeros(p.numel())
                       for p, held in zip(params, held_here)] + [flags])
     all_reduce_sum(flat, mesh.data_group)
-    # the flags reach the host only where this rank lacks a gradient: a
-    # rank that holds every one needs no sync
     any_rank = None
+    if not all(held_here):
+        any_rank = None if reached is None else reached.get(held_here)
+        if any_rank is None:
+            flag_reads += 1
+            any_rank = tuple(f > 0 for f in flat[-len(params):].tolist())
+            if reached is not None:
+                reached[held_here] = any_rank
     offset = 0
     for k, (p, held) in enumerate(zip(params, held_here)):
         g = flat[offset: offset + p.numel()].view_as(p)
         offset += p.numel()
         if held:
             p.grad.copy_(g)
-            continue
-        if any_rank is None:
-            any_rank = flat[-len(params):].tolist()
-        if any_rank[k] > 0:
+        elif any_rank[k]:
             p.grad = g.clone()
 
 

@@ -40,10 +40,11 @@ rolled back, then the graph) is :class:`GraphProgram`'s, which
 :class:`EpochProgram` extends and the loops of their own share: SGNS's
 replayed steps (``ops/walks.py``), IF_BPR's epoch (``models/ifbpr.py``),
 ESRF's phases and RSGAN's pretraining step and epoch
-(``models/adversarial_social.py``), IRGAN's epoch (``models/gan.py``) and
-CFGAN's (``models/deep.py``). An own loop's :class:`EpochProgram` runs its
-epoch function (``epoch_fn``) in place of :func:`run_epoch`'s steps, over
-both players' optimizers in one :class:`LoopState`; ESRF runs it through
+(``models/adversarial_social.py``), IRGAN's epoch (``models/gan.py``),
+CFGAN's (``models/deep.py``) and the ALS models' (``models/als.py``). An
+own loop's :class:`EpochProgram` runs its epoch function (``epoch_fn``) in
+place of :func:`run_epoch`'s steps, over both players' optimizers (or none)
+in one :class:`LoopState`; ESRF runs it through
 :class:`ChunkedLoop`, the others through :func:`run_own_epochs`, which
 reads the losses on the host only at the epochs they print
 (:class:`PrintedLosses`).
@@ -52,9 +53,10 @@ Losses, parameters, the best epoch, its measures and its parameters are
 the same bits whatever ``chunk`` is: every strategy runs one epoch through
 :func:`run_epoch`, the generator draws the same stream (a CUDA graph
 replays its draws from the generator's running state), and on a CUDA
-device a phase that may run chunked takes capturable Adam in every loop,
-so that its step count and bias corrections are device arithmetic in
-all of them.
+device every loop steps one Adam (``runtime/adam.Adam``): plain
+``torch.optim.Adam``'s arithmetic with its step count on the device, which
+a CUDA graph can hold, in the per-epoch loop, a chunk, an own loop and on
+a mesh alike.
 
 Resume: after every epoch (and after the bold driver's update) ``train``
 hands a ``checkpoint`` callback the loop's state (:func:`loop_state`: the
@@ -72,6 +74,7 @@ from __future__ import annotations
 import contextlib
 import gc
 import math
+import weakref
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -80,6 +83,7 @@ import torch
 from ..errors import ConvergenceError
 from ..ops import kernels as K
 from ..parallel.collectives import all_reduce_sum, reduce_gradients
+from .adam import Adam
 from .profiling import StepTimer
 
 # fixed metric order of the device-side quick evaluation (the JAX
@@ -132,40 +136,33 @@ class ConvergenceMonitor:
 
 
 def make_optimizer(params: Sequence[torch.Tensor], mode: str, lr: float) -> torch.optim.Optimizer:
-    """``adam``: optax.adam's defaults; ``bold``: plain SGD, whose rate the
-    bold driver sets after every epoch."""
+    """``adam``: optax.adam's defaults, as :class:`~.adam.Adam` (one
+    arithmetic on a CUDA device, capturable); ``bold``: plain SGD, whose
+    rate the bold driver sets after every epoch."""
     if mode == "adam":
-        return torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8)
+        return Adam(params, lr=lr)
     if mode == "bold":
         return torch.optim.SGD(params, lr=lr)
     raise ValueError(f"unknown training mode {mode!r} (expected adam|bold)")
 
 
-def make_capturable(optimizer: torch.optim.Optimizer) -> None:
-    """Adam, before its first step, made capturable on a CUDA device (as if
-    built with ``capturable=True``): its step count and bias corrections
-    become device arithmetic, which a CUDA graph can hold. A phase that may
-    run chunked takes it in the per-epoch loop too, so that
-    ``train.chunk=1`` and ``auto`` step the same arithmetic."""
-    if isinstance(optimizer, torch.optim.Adam):
-        for group in optimizer.param_groups:
-            group["capturable"] = any(p.is_cuda for p in group["params"])
+def init_adam_state(optimizer: Adam) -> None:
+    """Adam's state and step scalars made before its first step, as that
+    step makes them (:meth:`~.adam.Adam.prepare`): a CUDA graph's capture
+    must not allocate them, and a chunk's snapshot needs the tensors."""
+    optimizer.prepare()
 
 
-def init_adam_state(optimizer: torch.optim.Adam) -> None:
-    """Adam's state made before its first step, as that step makes it (a
-    zero f32 step count, on the device when capturable, and zero moments):
-    a CUDA graph's capture must not allocate it, and a chunk's snapshot
-    needs its tensors."""
-    for group in optimizer.param_groups:
-        for p in group["params"]:
-            if not optimizer.state[p]:
-                step_device = p.device if group["capturable"] else "cpu"
-                optimizer.state[p] = {
-                    "step": torch.zeros((), dtype=torch.float32, device=step_device),
-                    "exp_avg": torch.zeros_like(p, memory_format=torch.preserve_format),
-                    "exp_avg_sq": torch.zeros_like(p, memory_format=torch.preserve_format),
-                }
+# each optimizer's answers of the summed gradient flags on a mesh, by this
+# rank's pattern of held gradients (``collectives.reduce_gradients``)
+_REACHED: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+
+def reached_flags(optimizer: torch.optim.Optimizer) -> dict:
+    """The dict that :func:`~..parallel.collectives.reduce_gradients` keeps
+    its flag answers in for ``optimizer``'s steps: a fresh optimizer (a
+    phase) starts without any."""
+    return _REACHED.setdefault(optimizer, {})
 
 
 def step(optimizer: torch.optim.Optimizer, loss: torch.Tensor, params: Sequence[torch.Tensor],
@@ -178,7 +175,7 @@ def step(optimizer: torch.optim.Optimizer, loss: torch.Tensor, params: Sequence[
     for p, g in zip(params, torch.autograd.grad(loss, params)):
         p.grad = g
     if mesh is not None:
-        reduce_gradients(params, mesh)
+        reduce_gradients(params, mesh, reached_flags(optimizer))
     optimizer.step()
 
 
@@ -290,7 +287,7 @@ def run_epoch(params, optimizer, loss_fn: Callable, batches, generator: torch.Ge
         optimizer.zero_grad(set_to_none=True)
         loss.backward()
         if mesh is not None:
-            reduce_gradients(params, mesh)
+            reduce_gradients(params, mesh, reached_flags(optimizer))
         optimizer.step()
         if after_step is not None:
             after_step()
@@ -357,7 +354,7 @@ class LoopState:
     ``extra`` tensors (BUIR's momentum target, SGNS's step counter, IF_BPR's
     thresholds); a loop that draws nothing inside its graph has no
     ``generator``. ``optimizer`` is the first optimizer, ``optimizers``
-    all of them.
+    all of them (none for the ALS loops, whose tables are ``params``).
     INVARIANT: ``commit`` runs only after the host has read a chunk's
     losses, which proves its dispatches ran; a chunk that fails calls
     ``rollback``, which puts the copy back in place, so the state is the
@@ -368,7 +365,7 @@ class LoopState:
                  extra: Sequence[torch.Tensor] = ()):
         self.params = list(params)
         self.optimizers = list(optimizer) if isinstance(optimizer, (list, tuple)) else [optimizer]
-        self.optimizer = self.optimizers[0]
+        self.optimizer = self.optimizers[0] if self.optimizers else None
         self.generator = generator
         self.vote = vote
         self.extra = list(extra)
@@ -430,7 +427,7 @@ class GraphProgram:
 
     def capture(self) -> None:
         """Warm up and capture at the state's committed boundary."""
-        counts = K.launch_counts()
+        counts = K.launch_counts(K.ALL_KERNELS)
         stream = torch.cuda.Stream(self.device)
         stream.wait_stream(torch.cuda.current_stream(self.device))
         try:
@@ -590,11 +587,11 @@ def run_own_epochs(params: Sequence[torch.Tensor], optimizers: Sequence, generat
                    sampler: Optional[Callable] = None, epoch_batches: Optional[Sequence] = None,
                    width: int = 1, context: Callable = contextlib.nullcontext) -> List[List[float]]:
     """``epochs`` epochs of an own loop (IRGAN's, CFGAN's, RSGAN's GAN
-    epochs): ``epoch_fn(batches, generator) -> losses`` (``width`` of them)
+    epochs, the ALS models' epochs with no optimizer and no generator):
+    ``epoch_fn(batches, generator) -> losses`` (``width`` of them)
     an epoch, on the sampler's batches, the injected ``epoch_batches`` or
     None. With ``graphs`` the epoch is an :class:`EpochProgram` over a
-    :class:`LoopState` of ``params``, the ``optimizers`` (made capturable by
-    the caller before their first step) and ``generator``, captured before
+    :class:`LoopState` of ``params``, the ``optimizers`` and ``generator``, captured before
     the first epoch on a CUDA device (into ``timer.captures``) and replayed
     once an epoch; else the epochs run step by step. The losses wait in
     :class:`PrintedLosses`, read at every ``every``-th epoch and the last,
@@ -711,7 +708,6 @@ def train(
     mesh=None,
     chunk: int = 1,
     eval_vector: Optional[Callable] = None,
-    capturable: bool = False,
     extra: Sequence[torch.Tensor] = (),
 ) -> Tuple[List[float], StepTimer]:
     """Train ``params`` in place; return the per-epoch summed losses of the
@@ -745,12 +741,11 @@ def train(
     ``adam`` mode and no checkpoint, resume or mesh, as the JAX package
     chunks. With a ``tracker`` it takes ``eval_vector() -> (4,) f32``, the
     quick evaluation in ``METRIC_KEYS`` order, in place of ``quick_eval``,
-    and votes on the device. ``capturable`` (:func:`make_capturable`) is
-    on for a phase that may run chunked, whatever ``chunk`` is. Without a
-    chunk and without a ``quick_eval``, an ``adam`` run reads epoch e's
-    loss after it has enqueued epoch e+1 (lag-1: its line and its NaN abort
-    come one epoch later). Its timer then does not synchronise, so the
-    host enqueues epoch e+1 while the device finishes epoch e: epoch e's
+    and votes on the device. Without a chunk and without a ``quick_eval``,
+    an ``adam`` run reads epoch e's loss after it has enqueued epoch e+1
+    (lag-1: its line and its NaN abort come one epoch later). Its timer
+    then does not synchronise, so the host enqueues epoch e+1 while the
+    device finishes epoch e: epoch e's
     interval holds its enqueue and the wait for epoch e-1's loss, the last
     one also the wait for its own.
 
@@ -762,8 +757,6 @@ def train(
     one-process loss, the same bits on every rank.
     """
     optimizer = make_optimizer(params, mode, lr)
-    if capturable:
-        make_capturable(optimizer)
     bold = BoldDriver(lr, max_lr) if mode == "bold" else None
     conv = ConvergenceMonitor() if mode == "bold" else None
     if resume is not None:

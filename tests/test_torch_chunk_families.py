@@ -10,6 +10,7 @@ under ``train.chunk=auto`` stays within the bounds of
 On the CPU a chunk runs its epochs as written; the CUDA graphs are checked
 on a card (``chip_smoke.py`` and ``tests/test_torch_kernels_cuda.py``)."""
 
+import inspect
 import random
 from types import SimpleNamespace
 
@@ -25,6 +26,7 @@ from qrec_tpu_torch.data.dataset import Interactions
 from qrec_tpu_torch.data.social import SocialGraph
 from qrec_tpu_torch.models import MODELS
 from qrec_tpu_torch.runtime import trainer as T
+from qrec_tpu_torch.runtime.adam import Adam
 from tests import test_torch_deep as deep_tests
 from tests import test_torch_social_graph as social_tests
 
@@ -225,43 +227,51 @@ def test_dense_row_caches_are_made_by_build(name):
     assert all(hasattr(model, k) for k in made)
 
 
-def test_capturable_adam_where_a_phase_may_chunk():
-    """Capturable Adam follows the spec, the mode, the phase's length and
-    whether a per-epoch measure is read on the host, not ``train.chunk``
-    (so ``1`` and ``auto`` step the same arithmetic, and a checkpointed
-    run the unbroken one's); a phase of one epoch, a phase whose measures
-    the host reads every epoch (a ``-tf`` rating run) and a mesh, where no
-    phase chunks, keep plain Adam."""
-    for chunk, extra in (("1", None), ("auto", None),
-                         ("auto", {"checkpoint.setup": "on -dir ckpt -every 1"})):
-        model = _model("DMF", chunk, extra=extra)
-        assert model._capturable("adam", True, 2, True)
-        assert not model._capturable("adam", True, 1, True)
-        assert not model._capturable("adam", True, 2, False)
-        assert not model._capturable("adam", False, 2, True)
-        assert not model._capturable("bold", True, 2, True)
+def _made_optimizers(monkeypatch, fit) -> list:
+    """The optimizers that ``trainer.make_optimizer`` made during ``fit()``."""
+    made, real = [], T.make_optimizer
+    monkeypatch.setattr(T, "make_optimizer", lambda *a: made.append(real(*a)) or made[-1])
+    fit()
+    monkeypatch.undo()
+    return made
+
+
+def test_capturable_adam_where_a_phase_may_chunk(monkeypatch, tmp_path):
+    """One Adam in every phase (``runtime/adam.Adam``), capturable on a
+    card by itself, whatever the phase's length, ``train.chunk``, a
+    checkpoint or a mesh says: ``train`` takes no ``capturable``, and each
+    optimizer's form follows its parameters' device alone (the device form
+    on a card, ``torch.optim.Adam``'s own step on the CPU), so ``1`` and
+    ``auto``, a checkpointed run and the unbroken one, and a mesh and one
+    process step the same arithmetic."""
+    assert "capturable" not in inspect.signature(T.train).parameters
+    for chunk, ckpt in (("1", False), ("auto", False), ("auto", True)):
+        for epochs in (1, 2):
+            setup = f"on -dir {tmp_path / str(epochs)} -every 1"
+            model = _model("DMF", chunk, epochs=epochs,
+                           extra={"checkpoint.setup": setup} if ckpt else None)
+            made = _made_optimizers(monkeypatch, model.fit)
+            assert [type(o) for o in made] == [Adam]
+            assert made[0].device_scalars is None and not made[0]._device_form()
+            assert not made[0].param_groups[0]["capturable"]
     model._mesh = SimpleNamespace(data=2, data_index=0, model=1)
-    assert not model._capturable("adam", True, 2, True)
+    assert model._chunk_for("adam", True, True) == 1
+    assert type(T.make_optimizer(list(model.parameters()), "adam", 0.01)) is Adam
 
 
-@pytest.mark.parametrize("epochs,capturable", [(1, [False] * 3), (2, [True, False, False]),
-                                                (10, [True] * 3)])
+@pytest.mark.parametrize("epochs,capturable", [(1, [False] * 3), (2, [False] * 3),
+                                                (10, [False] * 3)])
 def test_each_phase_asks_for_capturable_adam_by_its_length(monkeypatch, epochs, capturable):
     """NeuMF's phases of ``epochs``, ``epochs // 2`` and ``epochs // 5``
-    (at least 1): ``train`` gets ``capturable`` for the phases that may
-    chunk, under ``train.chunk=1`` as under ``auto``."""
+    (at least 1), under ``train.chunk=1`` as under ``auto``: whatever a
+    phase's length, it asks for nothing, its optimizer is the one Adam, and
+    torch's own ``capturable`` flag stays off in every phase (the one
+    Adam's device form is capturable with plain Adam's arithmetic)."""
     for chunk in ("1", "auto"):
-        seen = []
-        real = T.train
-
-        def spy(*a, **k):
-            seen.append(k["capturable"])
-            return real(*a, **k)
-
-        monkeypatch.setattr(T, "train", spy)
-        _model("NeuMF", chunk, epochs=epochs).fit()
-        monkeypatch.undo()
-        assert seen == capturable
+        made = _made_optimizers(monkeypatch, _model("NeuMF", chunk, epochs=epochs).fit)
+        assert [type(o) for o in made] == [Adam] * 3
+        assert [o.param_groups[0]["capturable"] for o in made] == capturable
+        assert all(o.device_scalars is None for o in made)
 
 
 # ---------------------------------------------------------------------------

@@ -33,6 +33,7 @@ from qrec_tpu_torch import ModelConf
 from qrec_tpu_torch.data.dataset import Interactions
 from qrec_tpu_torch.models import MODELS
 from qrec_tpu_torch.runtime import trainer as T
+from qrec_tpu_torch.runtime.adam import Adam
 from tests import test_torch_chunk_families as families
 from tests import test_torch_deep as deep_tests
 from tests import test_torch_ifbpr as ifbpr_tests
@@ -184,7 +185,8 @@ def test_buir_emit_takes_eval_fused(capsys):
 
 def test_a_mesh_keeps_esrf_and_buir_per_step_on_plain_adam():
     """On a mesh ESRF and BUIR step with collectives, so they run per step
-    on plain Adam whatever ``epoch_graphs`` says; IRGAN, RSGAN and CFGAN,
+    whatever ``epoch_graphs`` says, on the one Adam of every loop (plain
+    Adam's arithmetic, ``runtime/adam.Adam``); IRGAN, RSGAN and CFGAN,
     which train whole on every rank, keep their programs there."""
     from types import SimpleNamespace
 
@@ -192,30 +194,31 @@ def test_a_mesh_keeps_esrf_and_buir_per_step_on_plain_adam():
     buir = families._model("BUIR", "auto", epochs=4)
     buir._mesh = mesh
     assert buir._chunk_for("adam", True, True) == 1
-    assert not buir._capturable("adam", True, 4, True)
+    opt = T.make_optimizer(list(buir.parameters()), "adam", buir.lrate)
+    assert type(opt) is Adam and opt.device_scalars is None
     esrf = _model("ESRF", None, 6)
     esrf.epoch_graphs = True
-    assert esrf.own_loop_form(2, collectives=True) == (True, True)
+    assert esrf.own_loop_form(2, collectives=True) is True
     esrf._mesh = mesh
-    assert esrf.own_loop_form(2, collectives=True) == (False, False)
+    assert esrf.own_loop_form(2, collectives=True) is False
     irgan = _model("IRGAN", None, 3)
     irgan._mesh, irgan.epoch_graphs = mesh, True
-    assert irgan.own_loop_form(3) == (True, True)
+    assert irgan.own_loop_form(3) is True
 
 
 def test_own_loop_form_by_device_and_epochs():
     """With ``epoch_graphs`` None, the captured form on a card where the
     loop runs more than one epoch and the per-step loop elsewhere; True
-    and False as set. Capturable Adam wherever the loop captures or runs
-    more than one epoch."""
+    and False as set. The form alone: Adam's arithmetic is the same in
+    both."""
     model = _model("IRGAN", None, 3)
-    assert model.own_loop_form(3) == (False, True) and model.own_loop_form(1) == (False, False)
+    assert model.own_loop_form(3) is False and model.own_loop_form(1) is False
     model.device = torch.device("cuda")
-    assert model.own_loop_form(3) == (True, True) and model.own_loop_form(1) == (False, False)
+    assert model.own_loop_form(3) is True and model.own_loop_form(1) is False
     model.epoch_graphs = True
-    assert model.own_loop_form(1) == (True, True)
+    assert model.own_loop_form(1) is True
     model.epoch_graphs = False
-    assert model.own_loop_form(3) == (False, True) and model.own_loop_form(1) == (False, False)
+    assert model.own_loop_form(3) is False and model.own_loop_form(1) is False
 
 
 # ---------------------------------------------------------------------------

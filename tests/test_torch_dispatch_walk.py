@@ -137,14 +137,15 @@ def test_tf_ranking_run_chunks_bit_for_bit(name, chunk, capsys):
 @pytest.mark.parametrize("name", RATING)
 def test_tf_rating_run_stays_per_epoch_on_plain_adam(name, monkeypatch, capsys):
     """A ``-tf`` rating run prints MAE/RMSE every epoch, so it runs per
-    epoch, as in the JAX package, with plain Adam (``capturable`` off: no
-    ``train.chunk`` can chunk it); its note under ``train.chunk=4`` gives
-    that reason, not ``-tf``."""
+    epoch, as in the JAX package, with plain Adam's arithmetic, the one
+    Adam's of every loop (``train`` takes no ``capturable``: no loop picks
+    an Adam); its note under ``train.chunk=4`` gives that reason, not
+    ``-tf``."""
     seen = []
     real = T.train
 
     def spy(*a, **k):
-        seen.append((k["chunk"], k["capturable"], k["mode"]))
+        seen.append((k["chunk"], "capturable" in k, k["mode"]))
         return real(*a, **k)
 
     monkeypatch.setattr(T, "train", spy)

@@ -1480,7 +1480,6 @@ def test_a_host_read_in_a_chunked_epoch_raises(cuda_device):
         return loss
 
     opt = T.make_optimizer([w], "adam", 0.1)
-    T.make_capturable(opt)
     T.init_adam_state(opt)
     st = T.LoopState(0, [w], opt, torch.Generator(device="cuda").manual_seed(0))
     prog = T.EpochProgram(st, loss_fn, lambda gen: batches, "cuda")
@@ -1628,7 +1627,6 @@ def test_tf_chunk_reads_the_host_once(cuda_device, tmp_path, name, args):
     model = rec.model
     spec = model.build()
     opt = T.make_optimizer(spec.params, "adam", model.lrate)
-    T.make_capturable(opt)
     T.init_adam_state(opt)
     st = T.LoopState(0, spec.params, opt, torch.Generator(device="cuda").manual_seed(0))
     prog = T.EpochProgram(st, spec.loss_fn, spec.sampler, "cuda")
@@ -1652,7 +1650,7 @@ def test_skipgram_graphs_equal_eager_steps_on_card(cuda_device, graph_steps):
     """SGNS at batch 8,192 on 4 batches an epoch (the last padded with
     pair 0): replayed CUDA graphs of ``SGNS_GRAPH_STEPS`` (one program of
     all 4) or of 3 steps (3 + a tail of 1), captured once, give the ``in``
-    table of the per-step loop bit for bit, both on capturable Adam."""
+    table of the per-step loop bit for bit, both on the one Adam."""
     from qrec_tpu_torch.ops import walks as W
     from qrec_tpu_torch.runtime.profiling import StepTimer
 
@@ -1711,7 +1709,7 @@ def test_own_loop_graphs_equal_per_step_loop_on_card(cuda_device, tmp_path, name
     form (ESRF's three phase graphs, BUIR's epoch graph under
     ``train.chunk`` auto, RSGAN's pretraining step and epoch graphs,
     IRGAN's and CFGAN's epoch graphs) against its per-step loop
-    (``epoch_graphs=False``), both on capturable Adam: every loss, table,
+    (``epoch_graphs=False``), both on the one Adam: every loss, table,
     buffer and factor the same bits."""
     runs = {}
     for graphs in (None, False):
@@ -1762,3 +1760,107 @@ def test_a_host_read_in_an_own_loop_raises(cuda_device, tmp_path, monkeypatch, n
     assert torch.cuda.get_sync_debug_mode() == mode
     after = [t.detach() for t in (*model.parameters(), *model.buffers())]
     assert all(torch.equal(a, b) for a, b in zip(after, before))
+
+
+# ---------------------------------------------------------------------------
+# slice 12: the ALS loops as one CUDA graph an epoch, and the one Adam
+# ---------------------------------------------------------------------------
+
+ALS_LOOPS = ("WRMF", "ExpoMF", "CoFactor", "SERec")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ALS_LOOPS)
+def test_als_graphs_equal_per_step_loop_on_card(cuda_device, tmp_path, name):
+    """Seven epochs of each ALS loop: one CUDA graph an epoch (captured
+    once, the solves pinned to cuSOLVER) against the per-step loop
+    (``epoch_graphs=False``, pinned too): every table, U, V and WRMF's
+    losses the same bits."""
+    runs = {}
+    for graphs in (None, False):
+        model = _own_model(name, tmp_path, 7)
+        model.epoch_graphs = graphs
+        model.fit()
+        runs[graphs] = model
+    g, e = runs[None], runs[False]
+    assert len(g.timer.captures) == 1 and e.timer.captures == []
+    assert g.tables.keys() == e.tables.keys()
+    assert all(torch.equal(g.tables[k], e.tables[k]) for k in g.tables)
+    assert torch.equal(g.U, e.U) and torch.equal(g.V, e.V)
+    assert g.epoch_losses == e.epoch_losses
+    assert (len(g.epoch_losses) == 7) == (name == "WRMF")
+    assert torch.isfinite(g.U).all() and torch.isfinite(g.V).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("graph", [False, True])
+@pytest.mark.parametrize("lr", [0.001, 0.01])
+def test_one_adam_equals_foreach_adam_on_card(cuda_device, lr, graph):
+    """The one Adam (``runtime/adam.Adam``) against
+    ``torch.optim.Adam(foreach=True)`` with the same gradients: 100 eager
+    steps (the second parameter without a gradient at every third step, so
+    its step count lags), or 30 replays of its step captured once through
+    ``trainer.GraphProgram`` (that parameter without a gradient
+    throughout): parameters, moments and step counts bit for bit."""
+    from qrec_tpu_torch.runtime import trainer as T
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    shapes = [(300, 50), (1000, 50), (512,)]
+    ps = [torch.randn(s, generator=gen, device="cuda").requires_grad_() for s in shapes]
+    qs = [p.detach().clone().requires_grad_() for p in ps]
+    ours = T.make_optimizer(ps, "adam", lr)
+    plain = torch.optim.Adam(qs, lr=lr, betas=(0.9, 0.999), eps=1e-8, foreach=True)
+    grads = [torch.zeros_like(p) for p in ps]
+    T.init_adam_state(ours)
+    prog = None
+    if graph:
+        for k, (p, g) in enumerate(zip(ps, grads)):
+            p.grad = None if k == 1 else g
+        prog = T.GraphProgram(T.LoopState(0, ps, ours, None), "cuda", body=ours.step)
+        prog.capture()
+    for step in range(30 if graph else 100):
+        for g in grads:
+            g.copy_(torch.randn(g.shape, generator=gen, device="cuda"))
+        skip = graph or step % 3 == 2
+        for k, (p, q, g) in enumerate(zip(ps, qs, grads)):
+            q.grad = None if k == 1 and skip else g.clone()
+            if not graph:
+                p.grad = None if k == 1 and skip else g.clone()
+        if graph:
+            prog.run()
+        else:
+            ours.step()
+        plain.step()
+    assert all(torch.equal(p, q) for p, q in zip(ps, qs))
+    for p, q in zip(ps, qs):
+        if q not in plain.state:
+            assert float(ours.state[p]["step"]) == 0.0
+            continue
+        for key in ("exp_avg", "exp_avg_sq"):
+            assert torch.equal(ours.state[p][key], plain.state[q][key])
+        assert float(ours.state[p]["step"]) == float(plain.state[q]["step"])
+        assert ours.state[p]["step"].is_cuda
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,offset", [(1, 0), (37, 0), (1024, 0), (16591 * 50, 0), (1001, 1)])
+def test_adam_kernel_matches_plain(cuda_device, n, offset):
+    """The Adam update kernel against its plain version (plain Adam's
+    foreach update with the table's scalars) at steps 1 and 7 and past the
+    table, bit for bit, one launch a call; a table at offset 1 (not 16-byte
+    aligned) takes the kernel's scalar path."""
+    from qrec_tpu_torch.runtime.adam import adam_scalars
+
+    g = torch.Generator(device="cuda").manual_seed(n)
+    table = torch.tensor(adam_scalars(0.01, 0.9, 0.999), device="cuda")
+    for t in (1.0, 7.0, float(table.shape[0] + 3)):
+        p = torch.randn(n + offset, generator=g, device="cuda")[offset:]
+        m = torch.randn(n, generator=g, device="cuda")
+        v = torch.rand(n, generator=g, device="cuda")
+        q = p.clone()
+        step = torch.tensor(t, device="cuda")
+        before = K.ADAM.launches
+        K.adam_update(p, m, v, step, table, 1e-8)
+        assert K.ADAM.launches == before + 1
+        K.adam_update_plain(q, m, v, step, table, 1e-8)
+        assert torch.equal(p, q), t

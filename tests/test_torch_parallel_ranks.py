@@ -1,8 +1,9 @@
 """Rank workers of ``tests/test_torch_parallel.py``,
 ``tests/test_torch_parallel_social.py``,
 ``tests/test_torch_parallel_models.py``,
-``tests/test_torch_parallel_bold.py`` and
-``tests/test_torch_parallel_deep.py``. Each runs in a spawned
+``tests/test_torch_parallel_bold.py``,
+``tests/test_torch_parallel_deep.py`` and ``tests/test_torch_dispatch_als.py``.
+Each runs in a spawned
 process of a gloo group on the CPU and returns what the test holds against
 the JAX package and against one process. This module holds no test: a
 spawned rank imports it, and it imports no JAX, as the port imports none.
@@ -33,9 +34,11 @@ from qrec_tpu_torch.ops.spmm import (
     factored_node_drop_view,
     spmm,
 )
+from qrec_tpu_torch.parallel import collectives
 from qrec_tpu_torch.parallel.collectives import all_reduce_sum, reduce_gradients, split_range
 from qrec_tpu_torch.parallel.mesh import make_mesh
 from qrec_tpu_torch.runtime import checkpoint as C
+from qrec_tpu_torch.runtime import trainer as T
 
 
 def spawn(target, world: int, store_dir, *args) -> list:
@@ -492,4 +495,85 @@ def fits_and_runs(rank, cases, runs):
     :func:`replicated_run`, each rank writing under its own ``-dir``."""
     out = {"fits": {name: fit_case(case) for name, case in cases.items()}}
     out.update(replicated(rank, runs, {}))
+    return out
+
+
+def als_forms(rank, runs):
+    """Each ALS run of ``runs`` (label -> conf) through :func:`replicated_run`
+    in its captured form (``epoch_graphs`` True, the program run as written
+    on the CPU) and its per-step form (False), each rank and form writing
+    under its own ``-dir``; keyed (label, form)."""
+    out = {}
+    for label, conf in runs.items():
+        cls = get_model(conf["model.name"])
+        for graphs in (True, False):
+            run = {k: v for k, v in conf.items() if k != "out_dir"}
+            run["output.setup"] = f"on -dir {conf['out_dir']}/{label}-{graphs}/rank{rank}"
+            cls.epoch_graphs = graphs
+            try:
+                out[(label, graphs)] = replicated_run(run)
+            finally:
+                del cls.epoch_graphs
+    return out
+
+
+def flag_read_fits(rank, cases):
+    """Each fit of ``cases`` (label -> (conf, train, test)) twice on the mesh
+    its conf asks for: with the summed gradient flags' answers kept a phase
+    (``trainer.reached_flags``) and with none kept, the flags read at
+    every step where this rank lacks a gradient, as before they were kept;
+    keyed (label, kept): the flag reads of each phase (``T.train`` call),
+    the losses and the parameters. Then :func:`flag_patterns`."""
+    out = {}
+    real_train, real_reached = T.train, T.reached_flags
+    for label, (conf, train, test) in cases.items():
+        for kept in (True, False):
+            reads = []
+
+            def counted(*a, **k):
+                before = collectives.flag_reads
+                try:
+                    return real_train(*a, **k)
+                finally:
+                    reads.append(collectives.flag_reads - before)
+
+            T.train = counted
+            if not kept:
+                T.reached_flags = lambda optimizer: None
+            try:
+                mconf = ModelConf(conf)
+                model = get_model(conf["model.name"])(mconf, Interactions(mconf, train, test),
+                                                      device="cpu")
+                losses = model.fit()
+            finally:
+                T.train, T.reached_flags = real_train, real_reached
+            out[(label, kept)] = {"reads": reads, "losses": losses, "params": {
+                n: p.detach().numpy().copy() for n, p in model.named_parameters()}}
+    out["patterns"] = flag_patterns(make_mesh(1))
+    return out
+
+
+def flag_patterns(mesh) -> list:
+    """:func:`reduce_gradients` over five steps with one kept dict of
+    answers: every step's loss reaches ``a`` on every rank and ``c`` on
+    none; ``b`` on data rank 0 alone at steps 1, 2 and 5 (a table's
+    regulariser) and on every rank at steps 3 and 4, so that data rank 1's
+    pattern of held gradients changes at step 3 and back at step 5. Each
+    step's flag reads on this rank and its gradients after the reduction."""
+    a = torch.arange(6.0).view(2, 3).requires_grad_(True)
+    b = torch.linspace(-1.0, 1.0, 4).requires_grad_(True)
+    c = torch.ones(2, requires_grad=True)
+    reached, out = {}, []
+    for everywhere in (False, False, True, True, False):
+        for p in (a, b, c):
+            p.grad = None
+        loss = (a * (mesh.data_index + 1)).sum()
+        if mesh.data_index == 0 or everywhere:
+            loss = loss + (b**2).sum()
+        loss.backward()
+        before = collectives.flag_reads
+        reduce_gradients([a, b, c], mesh, reached)
+        out.append({"reads": collectives.flag_reads - before, "a": a.grad.numpy().copy(),
+                    "b": None if b.grad is None else b.grad.numpy().copy(),
+                    "c": None if c.grad is None else c.grad.numpy().copy()})
     return out

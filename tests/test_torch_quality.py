@@ -12,8 +12,13 @@ trains three epochs in both packages the same way: the port is handed the
 JAX model's friends (or seeded profile and initial tables), batches and
 Gumbel draws.
 
-Marked ``slow`` (about 30 minutes on the CPU, RSGAN 22 of them): the
-tier-1 run leaves it out. Run it with
+The ALS family (WRMF, ExpoMF, CoFactor and SERec, the last with
+``chip_smoke.lastfm_trust``) trains three epochs in both packages at the
+lastfm shape from the same initial tables (the JAX fit's, handed to the
+port as ``tests/test_torch_als.py`` hands them).
+
+Marked ``slow`` (about 32 minutes on the CPU, RSGAN 22 of them, the ALS
+family 2.3 at four threads): the tier-1 run leaves it out. Run it with
 
     JAX_PLATFORMS=cpu python -m pytest tests/test_torch_quality.py -m slow -s -q
 """
@@ -355,5 +360,55 @@ def test_rsgan_quality_matches_jax():
     print(f"[quality RSGAN] losses jax={jlosses} port={losses}")
     want, got = _measures("RSGAN", jmodel, jd, jconf, tmodel, td, tconf)
     np.testing.assert_allclose(losses, jlosses, rtol=LOSS_RTOL)
+    for key in ("Recall", "NDCG"):
+        assert abs(got[key] - want[key]) <= ATOL, (key, got[key], want[key])
+
+
+# ---------------------------------------------------------------------------
+# the ALS family at the lastfm shape, three epochs each
+# ---------------------------------------------------------------------------
+
+ALS_EPOCHS = 3
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("name", ["WRMF", "ExpoMF", "CoFactor", "SERec"])
+def test_als_quality_matches_jax(name, monkeypatch):
+    """The published conf at full width (d=20), three epochs in each package
+    from the JAX fit's initial tables (read from its jitted epoch; WRMF's
+    and CoFactor's ``jax.random`` tables drawn as its fit draws them);
+    Recall@10 and NDCG@10 within one hit."""
+    from qrec_tpu.data.social import SocialGraph as JSocialGraph
+    from qrec_tpu.models import als as jals
+    from qrec_tpu_torch.data.social import SocialGraph
+    from qrec_tpu_torch.models import als as tals
+    from test_torch_als import _inject, _jax_fit, _jax_uniform_tables
+
+    torch.set_num_threads(4)
+    t0 = time.perf_counter()
+    published = ModelConf(os.path.join(REPO, "config", f"{name}.conf"))
+    conf = {key: published[key] for key in published}
+    conf.update({"num.max.epoch": str(ALS_EPOCHS), "output.setup": "off -dir ./results/"})
+    train, test = _split()
+    jconf, tconf = jconfig.ModelConf(conf), ModelConf(conf)
+    jd, td = JInteractions(jconf, train, test), Interactions(tconf, train, test)
+    jkw = {"social": JSocialGraph(_trust(), jd)} if name == "SERec" else {}
+    tkw = {"social": SocialGraph(_trust(), td)} if name == "SERec" else {}
+    jmodel = getattr(jals, name)(jconf, jd, **jkw)
+    tmodel = getattr(tals, name)(tconf, td, device="cpu", **tkw)
+    calls = _jax_fit(jmodel, monkeypatch)
+    t_jax = time.perf_counter() - t0
+    if name == "WRMF":
+        _inject(tmodel, _jax_uniform_tables(jmodel, 2))
+    elif name == "CoFactor":
+        _inject(tmodel, dict(zip(["x", "y", "g", "w", "c"], calls[0][0])))
+    else:
+        _inject(tmodel, dict(zip(["theta", "beta", "mu"], calls[0][0])))
+    tmodel.fit()
+    t_port = time.perf_counter() - t0 - t_jax
+    print(f"\n[quality {name}] users={tmodel.num_users} items={tmodel.num_items} "
+          f"test_users={len(td.test_set_u)} epochs={ALS_EPOCHS}")
+    want, got = _measures(name, jmodel, jd, jconf, tmodel, td, tconf)
+    print(f"[quality {name}] seconds jax={t_jax:.1f} port={t_port:.1f}")
     for key in ("Recall", "NDCG"):
         assert abs(got[key] - want[key]) <= ATOL, (key, got[key], want[key])
