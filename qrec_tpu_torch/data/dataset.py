@@ -28,11 +28,13 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 
 from ..config import ModelConf, OptionConf
+from ..runtime.profiling import spanned
 
 
 class Interactions:
     """Central data object every model sees (reference ``Rating``)."""
 
+    @spanned("data.interactions")
     def __init__(
         self,
         config: ModelConf,

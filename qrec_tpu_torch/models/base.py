@@ -47,7 +47,7 @@ from ..parallel.collectives import barrier, broadcast_int, split_range
 from ..parallel.mesh import is_writer, mesh_from_config
 from ..runtime import checkpoint as C
 from ..runtime import trainer as T
-from ..runtime.profiling import StepTimer
+from ..runtime.profiling import StepTimer, recorder, spanned
 
 DEFAULT_SEED = 2026
 
@@ -98,6 +98,16 @@ class Recommender(nn.Module):
     # ``social``; the session refuses to run it without one
     requires_social = False
 
+    def __init_subclass__(cls, **kwargs):
+        """A model's construction is a ``model.init`` span and its
+        ``finalize`` a ``model.finalize`` span, in whichever class they
+        are defined (a call of the parent class's folds into it)."""
+        super().__init_subclass__(**kwargs)
+        for attr, name in (("__init__", "model.init"), ("finalize", "model.finalize")):
+            if attr in cls.__dict__:
+                setattr(cls, attr, spanned(name)(cls.__dict__[attr]))
+
+    @spanned("model.init")
     def __init__(self, conf: ModelConf, data: Interactions, fold: str = "[1]", device=None,
                  social=None):
         super().__init__()
@@ -505,7 +515,8 @@ class IterativeRecommender(Recommender):
         seconds in ``graph_seconds``."""
         if not hasattr(self, "graph_seconds"):
             t0 = time.perf_counter()
-            self.build_graph()
+            with recorder().span("graph.adjacency"):
+                self.build_graph()
             self.graph_seconds = time.perf_counter() - t0
 
     def build_graph(self) -> None:
@@ -596,12 +607,19 @@ class IterativeRecommender(Recommender):
         after the epochs already run (``_epochs_done``). Returns the
         per-epoch losses of all phases, in order."""
         self.begin_fit(epoch_batches)
-        self.fit_phases()
+        try:
+            with recorder().span("fit"):
+                self.fit_phases()
+        finally:
+            recorder().end_fit()
         return self.epoch_losses
 
     def begin_fit(self, epoch_batches: Optional[Sequence] = None) -> None:
         """Reset the state that the phases of one fit share: the injected
-        batches, the epochs run so far, the losses and the epoch timers."""
+        batches, the epochs run so far, the losses and the epoch timers;
+        the recorder's spans from here to the fit's end belong to a new fit
+        (``fit_id``)."""
+        self.fit_id = recorder().begin_fit()
         self._epoch_batches = epoch_batches
         # cumulative over the phases of this fit (the JAX package's
         # ``_epochs_done``, models/base.py:525-535,597)
@@ -622,7 +640,8 @@ class IterativeRecommender(Recommender):
         (base/recommender.py:194-201). When the spec tracks the best epoch,
         a quick evaluation follows every epoch; a rating run with test
         records prints their MAE/RMSE every epoch."""
-        spec = self.build()
+        with recorder().span("fit.spec"):
+            spec = self.build()
         quick_eval = eval_vector = None
         if spec.track_best and self._quick_ranker() is not None:
             quick_eval = lambda: self.quick_eval(spec)  # noqa: E731
@@ -875,54 +894,58 @@ class GraphRecommender(IterativeRecommender):
     @property
     def joint_adj(self):
         if not hasattr(self, "_joint_adj"):
-            from ..data.graph import joint_normalized_adjacency
-            from ..ops.spmm import (
-                DENSE_JOINT_LIMIT,
-                DenseJoint,
-                DeviceCOO,
-                ShardedDenseJoint,
-                ShardedSparseJoint,
-                SparseJoint,
-            )
-
-            check_graph_settings(self.config)
-            try:
-                limit = int(self.config.get("graph.dense.limit", DENSE_JOINT_LIMIT))
-            except ValueError:
-                raise ConfigError(
-                    "graph.dense.limit must be an integer entry budget, got "
-                    f"{self.config.get('graph.dense.limit')!r}"
-                ) from None
-            backend = self.config.get("graph.backend", "auto")
-            dense = backend == "dense" or (
-                backend == "auto" and self.num_users * self.num_items <= limit
-            )
-            mesh = self.mesh
-            if dense:
-                quant = self.config.get("graph.dense.quant", "auto")
-                quant = "factored" if quant == "auto" else quant
-                self._joint_adj = DenseJoint.from_interactions(self.data, self.device, quant)
-                built = _DENSE_BUILT[quant]
-                if mesh is not None:
-                    self._joint_adj = ShardedDenseJoint.from_joint(self._joint_adj, mesh)
-                    built = f"ShardedDenseJoint item-column blocks over data, {built}"
-            elif backend == "coo":
-                self._joint_adj = DeviceCOO.from_host(
-                    joint_normalized_adjacency(self.data), self.device
-                )
-                built = "DeviceCOO f32 gather and segment sum"
-            elif mesh is not None:
-                self._joint_adj = ShardedSparseJoint.from_host(
-                    joint_normalized_adjacency(self.data), self.device, mesh
-                )
-                built = "ShardedSparseJoint CSR row blocks over data, segment kernel"
-            else:
-                self._joint_adj = SparseJoint.from_host(
-                    joint_normalized_adjacency(self.data), self.device, check_symmetric=False
-                )
-                built = "SparseJoint CSR, segment kernel"
-            print(f"Graph backend: {built} (graph.backend={backend})")
+            with recorder().span("graph.adjacency"):
+                self._build_joint_adj()
         return self._joint_adj
+
+    def _build_joint_adj(self) -> None:
+        from ..data.graph import joint_normalized_adjacency
+        from ..ops.spmm import (
+            DENSE_JOINT_LIMIT,
+            DenseJoint,
+            DeviceCOO,
+            ShardedDenseJoint,
+            ShardedSparseJoint,
+            SparseJoint,
+        )
+
+        check_graph_settings(self.config)
+        try:
+            limit = int(self.config.get("graph.dense.limit", DENSE_JOINT_LIMIT))
+        except ValueError:
+            raise ConfigError(
+                "graph.dense.limit must be an integer entry budget, got "
+                f"{self.config.get('graph.dense.limit')!r}"
+            ) from None
+        backend = self.config.get("graph.backend", "auto")
+        dense = backend == "dense" or (
+            backend == "auto" and self.num_users * self.num_items <= limit
+        )
+        mesh = self.mesh
+        if dense:
+            quant = self.config.get("graph.dense.quant", "auto")
+            quant = "factored" if quant == "auto" else quant
+            self._joint_adj = DenseJoint.from_interactions(self.data, self.device, quant)
+            built = _DENSE_BUILT[quant]
+            if mesh is not None:
+                self._joint_adj = ShardedDenseJoint.from_joint(self._joint_adj, mesh)
+                built = f"ShardedDenseJoint item-column blocks over data, {built}"
+        elif backend == "coo":
+            self._joint_adj = DeviceCOO.from_host(
+                joint_normalized_adjacency(self.data), self.device
+            )
+            built = "DeviceCOO f32 gather and segment sum"
+        elif mesh is not None:
+            self._joint_adj = ShardedSparseJoint.from_host(
+                joint_normalized_adjacency(self.data), self.device, mesh
+            )
+            built = "ShardedSparseJoint CSR row blocks over data, segment kernel"
+        else:
+            self._joint_adj = SparseJoint.from_host(
+                joint_normalized_adjacency(self.data), self.device, check_symmetric=False
+            )
+            built = "SparseJoint CSR, segment kernel"
+        print(f"Graph backend: {built} (graph.backend={backend})")
 
 
 class SocialRecommender(IterativeRecommender):

@@ -44,6 +44,7 @@ import torch
 import torch.distributed as dist
 
 from ..parallel.collectives import gather_shards, split_range, split_sizes
+from ..runtime.profiling import recorder, spanned
 from .kernels import expand_bitmask, masked_catalog_topk
 from .metrics import idcg_table
 
@@ -119,11 +120,14 @@ class CatalogRanker:
         # float32 like the JAX ranker's global-mean constant
         self.global_mean = float(np.float32(data.global_mean))
 
+    @spanned("ranker.topk")
     def topk(self, form: Union[ScoreForm, ScoreBlock, RandomScores]) -> Tuple[np.ndarray, np.ndarray]:
         """(ids int32, scores f32) numpy arrays of shape (num_test_users, k)."""
         ids, scores = self.topk_device(form)
-        return ids.cpu().numpy().astype(np.int32), scores.cpu().numpy()
+        with recorder().span("ranker.host_copy"):
+            return ids.cpu().numpy().astype(np.int32), scores.cpu().numpy()
 
+    @spanned("ranker.enqueue")
     def topk_device(self, form: Union[ScoreForm, ScoreBlock, RandomScores]) -> Tuple[torch.Tensor, torch.Tensor]:
         """(ids int64, scores f32) tensors of shape (num_test_users, k) on
         ``self.device``, with no host copy; the form's tensors lie there."""

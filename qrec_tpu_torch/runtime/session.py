@@ -52,6 +52,7 @@ from ..models import get_model
 from ..models.base import check_graph_settings
 from ..parallel.mesh import is_writer, maybe_initialize_distributed, mesh_wanted
 from . import evaluator
+from .profiling import spanned
 
 
 def run_fold(config: ModelConf, train, test, relation, fold: str, seed: int, device):
@@ -103,6 +104,7 @@ def run_fold(config: ModelConf, train, test, relation, fold: str, seed: int, dev
 
 
 class QRec:
+    @spanned("session.load")
     def __init__(self, config: ModelConf, seed: int = 0, device=None):
         self.config = config
         self.seed = seed

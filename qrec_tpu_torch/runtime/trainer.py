@@ -84,7 +84,7 @@ from ..errors import ConvergenceError
 from ..ops import kernels as K
 from ..parallel.collectives import all_reduce_sum, reduce_gradients
 from .adam import Adam
-from .profiling import StepTimer
+from .profiling import DeviceMarks, StepTimer, recorder, step_marks
 
 # fixed metric order of the device-side quick evaluation (the JAX
 # package's METRIC_KEYS, trainer.py:135): device_ranking_metrics' order
@@ -139,10 +139,12 @@ def make_optimizer(params: Sequence[torch.Tensor], mode: str, lr: float) -> torc
     """``adam``: optax.adam's defaults, as :class:`~.adam.Adam` (one
     arithmetic on a CUDA device, capturable); ``bold``: plain SGD, whose
     rate the bold driver sets after every epoch."""
-    if mode == "adam":
-        return Adam(params, lr=lr)
-    if mode == "bold":
-        return torch.optim.SGD(params, lr=lr)
+    # the first torch.optim optimizer of a process imports torch._dynamo
+    with recorder().span("trainer.optimizer"):
+        if mode == "adam":
+            return Adam(params, lr=lr)
+        if mode == "bold":
+            return torch.optim.SGD(params, lr=lr)
     raise ValueError(f"unknown training mode {mode!r} (expected adam|bold)")
 
 
@@ -280,17 +282,30 @@ def run_epoch(params, optimizer, loss_fn: Callable, batches, generator: torch.Ge
               after_step: Optional[Callable] = None, mesh=None) -> torch.Tensor:
     """One epoch of steps over ``batches`` (each tensor (num_batches, ...)):
     the epoch's summed loss as a 0-d device tensor (summed over ``data`` on
-    a mesh). Every strategy runs its epochs through this function."""
+    a mesh). Every strategy runs its epochs through this function. Under
+    a program's :func:`~.profiling.step_marks` the middle step is marked
+    at its start, after the forward, after the backward and after the
+    optimizer's step (with ``after_step``)."""
     total = torch.zeros((), dtype=torch.float32, device=batches[0].device)
+    marks = step_marks()
+    marked = batches[0].shape[0] // 2 if marks is not None else -1
     for k in range(batches[0].shape[0]):
+        if k == marked:
+            marks.mark("step")
         loss = loss_fn(tuple(t[k] for t in batches), generator)
+        if k == marked:
+            marks.mark("forward")
         optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        if k == marked:
+            marks.mark("backward")
         if mesh is not None:
             reduce_gradients(params, mesh, reached_flags(optimizer))
         optimizer.step()
         if after_step is not None:
             after_step()
+        if k == marked:
+            marks.mark("optimized")
         total = total + loss.detach()
     if mesh is not None:
         all_reduce_sum(total, mesh.data_group)
@@ -413,7 +428,9 @@ class GraphProgram:
     launches (``ops/kernels.GraphLaunches``). On the CPU :meth:`run` runs
     the body as written. A capture or a replay that fails raises, the
     state rolled back to its committed boundary: nothing falls back to the
-    eager loop."""
+    eager loop. Spans: ``graph.warmup`` (to one synchronise after the
+    warm-up), ``graph.capture`` (the recording) and ``graph.replay`` (the
+    host's launch of one replay)."""
 
     def __init__(self, state: LoopState, device, body: Optional[Callable[[], None]] = None):
         self.state = state
@@ -427,22 +444,26 @@ class GraphProgram:
 
     def capture(self) -> None:
         """Warm up and capture at the state's committed boundary."""
+        rec = recorder()
         counts = K.launch_counts(K.ALL_KERNELS)
         stream = torch.cuda.Stream(self.device)
         stream.wait_stream(torch.cuda.current_stream(self.device))
         try:
-            try:
-                with torch.cuda.stream(stream), _host_reads_refused():
-                    self.body()
-            finally:
-                torch.cuda.current_stream(self.device).wait_stream(stream)
-                K.set_launch_counts(counts)
+            with rec.span("graph.warmup"):
+                try:
+                    with torch.cuda.stream(stream), _host_reads_refused():
+                        self.body()
+                finally:
+                    torch.cuda.current_stream(self.device).wait_stream(stream)
+                    K.set_launch_counts(counts)
+                torch.cuda.synchronize(self.device)
             self.state.rollback()
             graph = torch.cuda.CUDAGraph()
             if self.state.generator is not None:
                 graph.register_generator_state(self.state.generator)
             launches = K.GraphLaunches()
-            with launches.record(), _collector_paused(), torch.cuda.graph(graph, stream=stream):
+            with rec.span("graph.capture"), launches.record(), _collector_paused(), \
+                    torch.cuda.graph(graph, stream=stream):
                 self.body()
         except BaseException:
             self.state.rollback()
@@ -456,7 +477,8 @@ class GraphProgram:
         if self.graph is None:
             raise RuntimeError("GraphProgram.run before capture")
         try:
-            self.graph.replay()
+            with recorder().span("graph.replay"):
+                self.graph.replay()
         except BaseException:
             self.state.rollback()
             raise
@@ -472,7 +494,10 @@ class EpochProgram(GraphProgram):
     ``loss_shape``) into ``loss``, and with a ``vote`` the quick evaluation
     (``evaluate() -> (4,) f32`` in ``METRIC_KEYS`` order) into ``vec`` and
     the vote. ``capture`` and ``run`` take the epoch, whose injected arrays
-    they load first."""
+    they load first. Its :class:`~.profiling.DeviceMarks` (``marks``) mark
+    the epoch's start, the end of its sampler, of its steps and of its
+    evaluation, and one step (:func:`run_epoch`'s middle one): on a CUDA
+    device timing events inside the graph, read after a host read."""
 
     def __init__(self, state: LoopState, loss_fn: Optional[Callable], sampler: Optional[Callable],
                  device, *, epoch_batches: Optional[Sequence] = None,
@@ -487,6 +512,7 @@ class EpochProgram(GraphProgram):
         self.epoch_fn = epoch_fn
         self.loss = torch.zeros(loss_shape, dtype=torch.float32, device=self.device)
         self.vec = torch.zeros(len(METRIC_KEYS), dtype=torch.float32, device=self.device)
+        self.marks = DeviceMarks(self.device)
         self._batches = None
 
     def _load(self, epoch: int) -> None:
@@ -496,21 +522,26 @@ class EpochProgram(GraphProgram):
         self._batches = load_batches(self.epoch_batches[epoch], self._batches, self.device)
 
     def body(self) -> None:
-        st = self.state
+        st, marks = self.state, self.marks
+        marks.mark("start")
         if self.epoch_batches is not None:
             batches = self._batches
         else:
             batches = None if self.sampler is None else self.sampler(st.generator)
+        marks.mark("sampled")
         if self.epoch_fn is not None:
             self.loss.copy_(self.epoch_fn(batches, st.generator))
         else:
-            self.loss.copy_(run_epoch(st.params, st.optimizer, self.loss_fn, batches,
-                                      st.generator, self.after_step))
+            with marks.steps():
+                self.loss.copy_(run_epoch(st.params, st.optimizer, self.loss_fn, batches,
+                                          st.generator, self.after_step))
+        marks.mark("stepped")
         if self.evaluate is not None:
             with torch.no_grad():
                 vec = self.evaluate()
                 self.vec.copy_(vec)
                 st.vote.vote(vec, st.params)
+            marks.mark("evaluated")
 
     def capture(self, epoch: int) -> None:
         """Warm up and capture at the committed boundary ``epoch``."""
@@ -595,7 +626,8 @@ def run_own_epochs(params: Sequence[torch.Tensor], optimizers: Sequence, generat
     the first epoch on a CUDA device (into ``timer.captures``) and replayed
     once an epoch; else the epochs run step by step. The losses wait in
     :class:`PrintedLosses`, read at every ``every``-th epoch and the last,
-    where ``emit(epoch, row)`` prints the epoch's. ``context()`` is in
+    where ``emit(epoch, row)`` prints the epoch's; each read takes a
+    reading of the program's marks (its last epoch). ``context()`` is in
     force over the capture and every epoch. Returns every epoch's losses."""
     program = None
     if graphs:
@@ -620,8 +652,12 @@ def run_own_epochs(params: Sequence[torch.Tensor], optimizers: Sequence, generat
                 else:
                     batches = None if sampler is None else sampler(generator)
                 losses.put(epoch, epoch_fn(batches, generator))
+        before = len(losses.rows)
         row = losses.read(epoch)
         if row is not None:
+            if program is not None:
+                recorder().reading(epoch=epoch, epochs=len(losses.rows) - before,
+                                   **program.marks.read())
             emit(epoch, row)
     return losses.rows
 
@@ -636,7 +672,10 @@ class ChunkedLoop:
     the state back to the chunk's start and propagates. ``program`` is an
     :class:`EpochProgram` or any program with its ``loss``, ``device``,
     ``graph``, ``capture(epoch)`` and ``run(epoch)`` (an ``evaluate``, if
-    it has one, then fills ``vec``)."""
+    it has one, then fills ``vec``). Spans: ``loop.chunk``, made of the
+    program's ``graph.replay`` spans, ``loop.read``, ``loop.commit`` and
+    ``loop.emit``; after the read the recorder takes one reading of the
+    program's ``marks``, where it has them (the chunk's last epoch)."""
 
     def __init__(self, program: EpochProgram, chunk: int, *, timer: StepTimer,
                  emit: Optional[Callable], lr: float):
@@ -659,29 +698,37 @@ class ChunkedLoop:
                 st.rollback()
                 raise
         fused = getattr(prog, "evaluate", None) is not None
+        marks = getattr(prog, "marks", None)
+        rec = recorder()
         while st.epoch < max_epoch:
             e = min(self.chunk, max_epoch - st.epoch)
-            try:
-                with self.timer.chunk(e):
-                    for k in range(e):
-                        prog.run(st.epoch + k)
-                        self.out[k, 0].copy_(prog.loss)
-                        if fused:
-                            self.out[k, 1:].copy_(prog.vec)
-                    # the chunk's one host read: it proves the chunk ran
-                    rows = self.out[:e].tolist()
-            except BaseException:
-                st.rollback()
-                raise
-            base = st.epoch
-            st.commit(base + e)
-            wall = self.timer.last
-            for k, row in enumerate(rows):
-                check_finite(row[0])
-                losses.append(row[0])
-                if self.emit is not None:
-                    metrics = dict(zip(METRIC_KEYS, row[1:])) if fused else None
-                    self.emit(base + k, row[0], self.lr, wall, metrics, eval_fused=fused)
+            with rec.span("loop.chunk", epoch=st.epoch, epochs=e):
+                try:
+                    with self.timer.chunk(e):
+                        for k in range(e):
+                            prog.run(st.epoch + k)
+                            self.out[k, 0].copy_(prog.loss)
+                            if fused:
+                                self.out[k, 1:].copy_(prog.vec)
+                        # the chunk's one host read: it proves the chunk ran
+                        with rec.span("loop.read"):
+                            rows = self.out[:e].tolist()
+                except BaseException:
+                    st.rollback()
+                    raise
+                base = st.epoch
+                with rec.span("loop.commit"):
+                    st.commit(base + e)
+                if marks is not None:
+                    rec.reading(epoch=base + e - 1, epochs=e, **marks.read())
+                wall = self.timer.last
+                with rec.span("loop.emit"):
+                    for k, row in enumerate(rows):
+                        check_finite(row[0])
+                        losses.append(row[0])
+                        if self.emit is not None:
+                            metrics = dict(zip(METRIC_KEYS, row[1:])) if fused else None
+                            self.emit(base + k, row[0], self.lr, wall, metrics, eval_fused=fused)
         return losses
 
 

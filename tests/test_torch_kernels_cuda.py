@@ -6,6 +6,7 @@ installed:
     python -m pytest tests/test_torch_kernels_cuda.py --noconftest -m cuda -q
 """
 
+import time
 from pathlib import Path
 
 import numpy as np
@@ -1864,3 +1865,126 @@ def test_adam_kernel_matches_plain(cuda_device, n, offset):
         assert K.ADAM.launches == before + 1
         K.adam_update_plain(q, m, v, step, table, 1e-8)
         assert torch.equal(p, q), t
+
+
+# ---------------------------------------------------------------------------
+# spans and device marks (runtime/profiling.py) on the card
+# ---------------------------------------------------------------------------
+
+
+def _lastfm_shaped(tmp_path, seed=0):
+    """A rating file at lastfm's counts (1,892 users, 17,632 items, about
+    92,800 records, each user 49 items of a zipf-like popularity)."""
+    rng = np.random.RandomState(seed)
+    pop = 1.0 / np.arange(1, 17633) ** 0.8
+    pop /= pop.sum()
+    path = tmp_path / "lastfm.txt"
+    path.write_text("".join(f"u{u} i{i} 1\n" for u in range(1892)
+                            for i in rng.choice(17632, size=49, replace=False, p=pop)))
+    return path
+
+
+def _lightgcn(ratings, chunk, epochs, seed="7"):
+    conf = ModelConf({
+        "ratings": str(ratings), "ratings.setup": "-columns 0 1 2", "model.name": "LightGCN",
+        "evaluation.setup": "-ap 0.2", "item.ranking": "on -topN 10", "num.factors": "50",
+        "num.max.epoch": str(epochs), "batch_size": "2000", "learnRate": "-init 0.001 -max 1",
+        "reg.lambda": "-u 0.001 -i 0.001 -b 0.1 -s 0.1", "LightGCN": "-n_layer 2",
+        "output.setup": "off -dir ./results/", "seed": seed, "train.chunk": chunk,
+    })
+    from qrec_tpu_torch.data.dataset import Interactions
+    from qrec_tpu_torch.models.graph import LightGCN
+
+    session = QRec(conf, seed=3)
+    data = Interactions(conf, session.training_data, session.test_data, seed=3)
+    return LightGCN(conf, data, device="cuda")
+
+
+@pytest.mark.cuda
+def test_marks_of_a_captured_epoch_sum_to_its_replay(cuda_device, tmp_path):
+    """The marks of a captured LightGCN epoch at the lastfm shape (timing
+    events inside the graph) sum to its replay's time as events around it
+    read it, within 2%, the device kept busy while the host launches."""
+    from qrec_tpu_torch.runtime import trainer as T
+
+    model = _lightgcn(_lastfm_shaped(tmp_path), "8", 8)
+    spec = model.build()
+    opt = T.make_optimizer(spec.params, "adam", model.lrate)
+    T.init_adam_state(opt)
+    st = T.LoopState(0, spec.params, opt, torch.Generator(device="cuda").manual_seed(1))
+    prog = T.EpochProgram(st, spec.loss_fn, spec.sampler, "cuda")
+    prog.capture(0)
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    for k in range(3):
+        prog.run(k)
+        a.record()
+        prog.run(k)
+        b.record()
+        torch.cuda.synchronize()
+        replay = a.elapsed_time(b)
+        r = prog.marks.read()
+        assert set(r) == {"sampler_ms", "steps_ms", "step_ms", "forward_ms", "backward_ms",
+                          "optimizer_ms"}
+        assert all(v > 0 for v in r.values()), r
+        assert abs(r["sampler_ms"] + r["steps_ms"] - replay) <= 0.02 * replay, (r, replay)
+        assert r["step_ms"] < r["steps_ms"]
+        assert r["forward_ms"] + r["backward_ms"] + r["optimizer_ms"] == pytest.approx(
+            r["step_ms"], rel=1e-3)
+
+
+@pytest.mark.cuda
+def test_a_capture_with_marks_replays_the_per_epoch_bits(cuda_device, tmp_path):
+    """The chunked fit (its epochs' graphs holding the marks) against the
+    per-epoch loop (no marks): the same loss bits and tables; the chunked
+    fit's spans and one mark reading a chunk."""
+    from qrec_tpu_torch.runtime.profiling import recorder
+
+    ratings = _lastfm_shaped(tmp_path, seed=1)
+    runs = {}
+    for chunk in ("1", "3"):
+        model = _lightgcn(ratings, chunk, 5)
+        model.fit()
+        runs[chunk] = model
+    a, b = runs["3"], runs["1"]
+    assert a.epoch_losses == b.epoch_losses
+    assert torch.equal(a.user_emb, b.user_emb) and torch.equal(a.item_emb, b.item_emb)
+    spans = [s for s in recorder().spans if s.fit == a.fit_id]
+    names = [s.name for s in spans]
+    for name in ("graph.build", "graph.warmup", "graph.capture"):
+        assert names.count(name) == 1, name
+    assert names.count("graph.replay") == 5 and names.count("loop.chunk") == 2
+    by_id = {s.id: s for s in spans}
+    assert {by_id[s.parent].name for s in spans if s.name == "graph.replay"} == {"loop.chunk"}
+    assert {by_id[s.parent].name for s in spans
+            if s.name in ("graph.warmup", "graph.capture")} == {"graph.build"}
+    readings = [r for r in recorder().readings if r["fit"] == a.fit_id]
+    assert [(r["epoch"], r["epochs"]) for r in readings] == [(2, 3), (4, 2)]
+    assert not [r for r in recorder().readings if r["fit"] == b.fit_id]
+
+
+@pytest.mark.cuda
+def test_set_up_spans_fit_inside_the_fits_lead(cuda_device, tmp_path):
+    """The first optimizer, the warm-up and the capture lie inside what
+    ``fit`` spends before its first chunk: their spans sum to at most the
+    time from the call to the first chunk's boundary, less that chunk."""
+    from qrec_tpu_torch.runtime.profiling import recorder
+
+    model = _lightgcn(_lastfm_shaped(tmp_path, seed=2), "8", 16)
+    arrivals = []
+    emit = model._emit
+
+    def hook(epoch, loss, lr, wall, metrics=None, eval_fused=False):
+        arrivals.append((time.perf_counter(), wall))
+        emit(epoch, loss, lr, wall, metrics, eval_fused=eval_fused)
+
+    model._emit = hook
+    start = time.perf_counter()
+    model.fit()
+    first, wall = arrivals[0]
+    lead = first - start - wall * 8
+    spans = [s for s in recorder().spans if s.fit == model.fit_id]
+    warmup, capture = ([s.seconds for s in spans if s.name == n]
+                       for n in ("graph.warmup", "graph.capture"))
+    optimizer = next(s.seconds for s in spans if s.name == "trainer.optimizer")
+    assert len(warmup) == len(capture) == 1
+    assert 0 < warmup[0] + capture[0] + optimizer <= lead
